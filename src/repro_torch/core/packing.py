@@ -1,0 +1,137 @@
+"""Weight packing: 8 uint4 codes per int32 word, ``[K // 8, N]``.
+
+Nibble ``j`` of word ``w`` holds row ``w * 8 + j`` (little-endian
+nibbles), the layout the reference package and its TPU kernel use, so
+packed words are bit-identical across the two. torch's uint32 support is
+thin (above all on CUDA), so the port never uses it: words are built in
+int64 and wrapped to int32 explicitly, and unpacking shifts the int32
+word arithmetically and masks with ``& 0xF``, which is exact for
+negative words too (the mask drops the sign extension).
+
+Scales and zeros stay as ``[K // GS, N]`` tensors beside the words. The
+byte-exact AWQ_MACRO serializer of the reference is not ported yet;
+`packed_linear_nbytes` gives its size analytically.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.quantize import QuantConfig
+
+PACK = 8  # int4 values per int32 word
+
+
+def _shifts(device) -> torch.Tensor:
+    return 4 * torch.arange(PACK, dtype=torch.int64, device=device)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack uint4-coded ``[K, N]`` integers → ``[K // 8, N] int32``."""
+    k, n = q.shape
+    if k % PACK != 0:
+        raise ValueError(f"K={k} not divisible by {PACK}")
+    qq = q.to(torch.int64).reshape(k // PACK, PACK, n)
+    word = (qq << _shifts(q.device)[None, :, None]).sum(dim=1)  # [0, 2^32)
+    word = torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+    return word.to(torch.int32)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_int4` → ``[K, N] int32`` in [0, 15]."""
+    kp, n = packed.shape
+    shifts = _shifts(packed.device).to(torch.int32)[None, :, None]
+    nib = (packed[:, None, :] >> shifts) & 0xF
+    return nib.reshape(kp * PACK, n)
+
+
+@dataclasses.dataclass
+class PackedLinear:
+    """A quantized linear layer's tensors.
+
+    Attributes:
+      qweight:     [K//8, N] int32 — packed uint4 codes.
+      scales:      [K//GS, N] float32 — per-(group, out-chan) scale.
+      zeros:       [K//GS, N] int8 — asymmetric zero-points (uint4 codes).
+      input_scale: [K] float32 — AWQ inverse activation scale (ones for RTN).
+      bias:        [N] or None.
+      group_size:  rows of W per (scale, zero) pair.
+    """
+
+    qweight: torch.Tensor
+    scales: torch.Tensor
+    zeros: torch.Tensor
+    input_scale: torch.Tensor
+    bias: torch.Tensor | None
+    group_size: int
+
+    @property
+    def k(self) -> int:
+        return self.qweight.shape[-2] * PACK
+
+    @property
+    def n(self) -> int:
+        return self.qweight.shape[-1]
+
+    def to(self, device) -> "PackedLinear":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in ("qweight", "scales", "zeros", "input_scale")},
+            bias=None if self.bias is None else self.bias.to(device))
+
+
+def pack_linear(q: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+                input_scale: torch.Tensor | None, bias: torch.Tensor | None,
+                cfg: QuantConfig) -> PackedLinear:
+    k = q.shape[0]
+    if input_scale is None:
+        input_scale = torch.ones(k, dtype=torch.float32, device=q.device)
+    return PackedLinear(
+        qweight=pack_int4(q),
+        scales=scales.to(torch.float32),
+        zeros=zeros.to(torch.int8),
+        input_scale=input_scale.to(torch.float32),
+        bias=bias,
+        group_size=cfg.group_size,
+    )
+
+
+def dequantize_int4(qweight: torch.Tensor, scales: torch.Tensor,
+                    zeros: torch.Tensor, group_size: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Unpack + dequantize packed words → float ``[K, N]``: f32
+    ``(q - zero) * scale``, then rounded to ``dtype``."""
+    q = unpack_int4(qweight)
+    k, n = q.shape
+    qg = q.reshape(k // group_size, group_size, n).to(torch.float32)
+    w = (qg - zeros[:, None, :].to(torch.float32)) * \
+        scales[:, None, :].to(torch.float32)
+    return w.reshape(k, n).to(dtype)
+
+
+def dequantize_packed(p: PackedLinear,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Materialize the float weight ``[K, N]`` (the generic path)."""
+    return dequantize_int4(p.qweight, p.scales, p.zeros, p.group_size, dtype)
+
+
+# ---------------------------------------------------------------------------
+# AWQ_MACRO size (paper Fig. 3): GS×8 int4 qweights + 8 fp16 scales + a
+# 128-bit zeros strip per macro. The serializer itself is not ported yet.
+# ---------------------------------------------------------------------------
+
+def awq_macro_nbytes(group_size: int) -> int:
+    return group_size * 4 + 16 + 16
+
+
+def macro_count(k: int, n: int, group_size: int) -> int:
+    """#macros for a [K, N] linear: one per (K-group, 8 output channels)."""
+    if k % group_size or n % 8:
+        raise ValueError(f"[{k},{n}] not tileable by GS={group_size}x8")
+    return (k // group_size) * (n // 8)
+
+
+def packed_linear_nbytes(k: int, n: int, group_size: int) -> int:
+    """Exact serialized size of one quantized linear in AWQ_MACRO format."""
+    return macro_count(k, n, group_size) * awq_macro_nbytes(group_size)

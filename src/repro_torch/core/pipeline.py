@@ -1,0 +1,141 @@
+"""Whole-model post-training quantization (PTQ), round-to-nearest branch.
+
+Model params are nested dicts; linears are sub-dicts ``{"w": [K, N]}``
+(plus optional ``"b"``); the port keeps one tensor per layer (lists under
+``segments/seg_i``), so every linear is 2-D. Each quantizable linear
+becomes a `PackedLinear` with ``input_scale`` = 1 — the reference's
+``calib=None`` path. AWQ's activation-aware scale search (``calib``)
+is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.packing import (PACK, PackedLinear, pack_linear,
+                                      packed_linear_nbytes)
+from repro_torch.core.quantize import QuantConfig, quantize_groupwise
+
+# Param-path substrings never quantized (AWQ convention: embeddings, norms,
+# tiny routers and positional tables stay in high precision).
+DEFAULT_EXCLUDE = ("embed", "norm", "router", "lm_head", "conv", "a_log",
+                   "dt_bias", "ssm_d", "pos_", "scale", "patch_proj")
+
+
+@dataclasses.dataclass
+class PTQReport:
+    """Bookkeeping from one `quantize_params` run."""
+
+    quantized: list[str] = dataclasses.field(default_factory=list)
+    skipped: list[str] = dataclasses.field(default_factory=list)
+    calibrated: list[str] = dataclasses.field(default_factory=list)
+    packed_bytes: int = 0          # byte-exact AWQ_MACRO size of quantized linears
+    dense_bytes_fp16: int = 0      # fp16 size of the same linears
+
+    @property
+    def compression_ratio(self) -> float:
+        if self.dense_bytes_fp16 == 0:
+            return 1.0
+        return self.packed_bytes / self.dense_bytes_fp16
+
+
+def _is_linear(node: Any) -> bool:
+    return (isinstance(node, dict) and "w" in node
+            and isinstance(node["w"], torch.Tensor) and node["w"].dim() >= 2
+            and all(k in ("w", "b") for k in node))
+
+
+def _quantizable(path: str, node: dict, qcfg: QuantConfig,
+                 exclude: tuple[str, ...]) -> bool:
+    w = node["w"]
+    k, n = w.shape[-2], w.shape[-1]
+    if any(e in path.lower() for e in exclude):
+        return False
+    # N must tile into AWQ macros, whose channel width equals the int4
+    # pack width along K (core/packing.PACK) — one source of truth.
+    if k % qcfg.group_size or n % PACK:
+        return False
+    return k * n >= 16384  # skip tiny projections (paper keeps them on CPU)
+
+
+def quantize_params(params: Any, calib: dict | None = None,
+                    cfg: QuantConfig | None = None,
+                    exclude: tuple[str, ...] = DEFAULT_EXCLUDE,
+                    select: Callable[[str], bool] | None = None,
+                    ) -> tuple[Any, PTQReport]:
+    """Replace every quantizable linear in ``params`` with a `PackedLinear`
+    (RTN: int4 asymmetric, ``cfg.group_size`` rows per group, GS 64 by
+    default). Runs on whatever device the weights are on."""
+    if calib is not None:
+        raise NotImplementedError(
+            "quantize_params: AWQ calibration (calib=...) is not ported "
+            "yet; the port quantizes with round-to-nearest (calib=None)")
+    cfg = cfg or QuantConfig()
+    report = PTQReport()
+
+    def visit(node: Any, path_parts: list[str]) -> Any:
+        path = "/".join(path_parts)
+        if _is_linear(node):
+            if not _quantizable(path, node, cfg, exclude) or (
+                    select is not None and not select(path)):
+                report.skipped.append(path)
+                return node
+            w = node["w"]
+            k, n = w.shape
+            q, scales, zeros = quantize_groupwise(w.to(torch.float32), cfg)
+            report.quantized.append(path)
+            report.packed_bytes += packed_linear_nbytes(k, n, cfg.group_size)
+            report.dense_bytes_fp16 += k * n * 2
+            return pack_linear(q, scales, zeros, None, node.get("b"), cfg)
+        if isinstance(node, dict):
+            return {k2: visit(v, path_parts + [k2]) for k2, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, path_parts + [str(i)])
+                    for i, v in enumerate(node)]
+        return node
+
+    return visit(params, []), report
+
+
+def model_size_bytes(params: Any, quantized: bool,
+                     cfg: QuantConfig | None = None,
+                     exclude: tuple[str, ...] = DEFAULT_EXCLUDE) -> int:
+    """Serialized model size: fp16 baseline vs AWQ_MACRO-packed (paper
+    Table III). Baseline = every param in fp16; quantized = quantizable
+    linears in byte-exact AWQ_MACRO format, everything else fp16."""
+    cfg = cfg or QuantConfig()
+    total = 0
+
+    def visit(node: Any, path_parts: list[str]) -> None:
+        nonlocal total
+        path = "/".join(path_parts)
+        if isinstance(node, PackedLinear):
+            total += packed_linear_nbytes(node.k, node.n, node.group_size)
+            if node.bias is not None:
+                total += node.bias.numel() * 2
+            return
+        if _is_linear(node):
+            w = node["w"]
+            k, n = w.shape[-2], w.shape[-1]
+            if quantized and _quantizable(path, node, cfg, exclude):
+                total += packed_linear_nbytes(k, n, cfg.group_size)
+            else:
+                total += k * n * 2
+            if node.get("b") is not None:
+                total += node["b"].numel() * 2
+            return
+        if isinstance(node, dict):
+            for k2, v in node.items():
+                visit(v, path_parts + [k2])
+            return
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                visit(v, path_parts + [str(i)])
+            return
+        if isinstance(node, torch.Tensor):
+            total += node.numel() * 2
+
+    visit(params, [])
+    return total

@@ -1,0 +1,102 @@
+"""Quantized-linear application — the runtime half of the paper's technique.
+
+``qlinear_apply`` is the single dispatch point between:
+
+  * ``ref``    — unpack → dequant → ``torch.matmul`` (the generic path),
+  * ``kernel`` — the fused unpack + dequant + MAC kernel K1
+                 (`kernels.awq_matmul`), the analogue of the paper's
+                 MACRO_MAC units. For CPU tensors its wrapper runs the
+                 kernel's plain version.
+
+``impl="auto"`` resolves to the kernel for CUDA tensors and to ``ref``
+elsewhere. The paper's hybrid split (§III) is kept as the reference has
+it: matmuls below ``offload_min_flops`` stay on the generic path even
+when the kernel is selected — at Qwen2.5 width that is the k / v
+projections at M <= 4 (2·M·896·128 < 2^20).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+from repro_torch.core.packing import PackedLinear, dequantize_packed
+from repro_torch.kernels import awq_matmul as k1
+from repro_torch.numerics import matmul_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionConfig:
+    """Runtime knobs for the quantized path."""
+
+    impl: str = "auto"                   # "auto" | "ref" | "kernel"
+    compute_dtype: torch.dtype = torch.bfloat16
+    offload_min_flops: float = 2 ** 20   # hybrid threshold (paper §III)
+
+
+@dataclasses.dataclass
+class PathCounts:
+    """Calls of `qlinear_apply` by the path they took."""
+    kernel: int = 0
+    generic: int = 0
+
+
+_EXEC = ExecutionConfig()
+COUNTS = PathCounts()
+
+
+@contextlib.contextmanager
+def execution_config(cfg: ExecutionConfig):
+    """Pin the ambient execution config for the duration of the block."""
+    global _EXEC
+    prev, _EXEC = _EXEC, cfg
+    try:
+        yield cfg
+    finally:
+        _EXEC = prev
+
+
+def _resolve_impl(impl: str, x: torch.Tensor) -> str:
+    if impl not in ("auto", "ref", "kernel"):
+        raise ValueError(f"unknown qlinear impl {impl!r}")
+    if impl != "auto":
+        return impl
+    return "kernel" if x.device.type == "cuda" else "ref"
+
+
+def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
+                  cfg: ExecutionConfig | None = None) -> torch.Tensor:
+    """``y = (x * input_scale) @ dequant(qweight) + bias``.
+
+    ``x`` [..., K]; returns [..., N] in x.dtype. The casts follow the
+    reference: x → f32, times ``input_scale``, → ``compute_dtype``; the
+    product comes out in f32, is cast to x.dtype, and the bias is added
+    in that dtype.
+    """
+    cfg = cfg if cfg is not None else _EXEC
+    impl = _resolve_impl(impl or cfg.impl, x)
+    orig_dtype = x.dtype
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    x2 = (x2.to(torch.float32) * p.input_scale[None, :]).to(cfg.compute_dtype)
+
+    m = x2.shape[0]
+    flops = 2.0 * m * k * p.n
+    if impl == "kernel" and flops < cfg.offload_min_flops:
+        impl = "ref"  # hybrid threshold: tiny GEMV stays on the generic path
+
+    if impl == "kernel":
+        COUNTS.kernel += 1
+        y = k1.awq_matmul(x2.contiguous(), p.qweight, p.scales, p.zeros,
+                          p.group_size, compute_dtype=cfg.compute_dtype)
+    else:
+        COUNTS.generic += 1
+        w = dequantize_packed(p, cfg.compute_dtype)
+        y = matmul_f32(x2, w)
+
+    y = y.to(orig_dtype)
+    if p.bias is not None:
+        y = y + p.bias.to(orig_dtype)
+    return y.reshape(*lead, p.n)

@@ -1,0 +1,317 @@
+"""Attention: GQA, train/prefill, the dense decode cache, the paged chunk.
+
+Execution regimes (as in the reference):
+
+  * train/prefill — q-chunked attention (``attn_chunk`` queries at a time,
+    full key rows per chunk); softmax rows are complete per chunk.
+  * decode (dense cache) — single-token attention against a
+    ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`).
+  * paged chunk (serving) — `attention_chunk_paged`: the engine's unified
+    prefill/decode step over the page pools (scatter the block's K/V,
+    then attend per token under the three-part visibility rule).
+
+Pools and caches are updated **in place** (``index_put_``), where the
+reference returns new arrays: a serving step would otherwise copy every
+layer's pool. Functions still return the (same) cache objects so their
+signatures match the reference's.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import torch_dtype
+from repro_torch.kernels import paged_attention as k2
+from repro_torch.models import layers
+from repro_torch.models.layers import apply_rope, linear, rmsnorm, rope_cos_sin
+from repro_torch.numerics import einsum_f32
+
+
+def attn_init(gen, cfg, dtype=torch.float32, device=None):
+    d = cfg.d_model
+    p = {
+        "wq": layers.linear_init(gen, d, cfg.q_dim, bias=cfg.qkv_bias,
+                                 dtype=dtype, device=device),
+        "wk": layers.linear_init(gen, d, cfg.kv_dim, bias=cfg.qkv_bias,
+                                 dtype=dtype, device=device),
+        "wv": layers.linear_init(gen, d, cfg.kv_dim, bias=cfg.qkv_bias,
+                                 dtype=dtype, device=device),
+        "wo": layers.linear_init(gen, cfg.q_dim, d, dtype=dtype,
+                                 device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.norm_init(cfg.head_dim, dtype=dtype,
+                                       plus_one=cfg.rms_plus_one,
+                                       device=device)
+        p["k_norm"] = layers.norm_init(cfg.head_dim, dtype=dtype,
+                                       plus_one=cfg.rms_plus_one,
+                                       device=device)
+    return p
+
+
+def _rope_theta(cfg, window: int) -> float:
+    if window > 0 and cfg.local_rope_theta:
+        return cfg.local_rope_theta
+    return cfg.rope_theta
+
+
+def _rot_dim(cfg) -> int:
+    rd = int(cfg.head_dim * cfg.rope_fraction)
+    return rd - rd % 2
+
+
+def _project_qkv(p, x, cfg, positions, window):
+    """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd], rope'd + qk-norm'd."""
+    lead = x.shape[:-1]
+    q = linear(p["wq"], x).reshape(*lead, cfg.num_heads, cfg.head_dim)
+    k = linear(p["wk"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(p["wv"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, eps=cfg.norm_eps,
+                    plus_one=cfg.rms_plus_one)
+        k = rmsnorm(p["k_norm"], k, eps=cfg.norm_eps,
+                    plus_one=cfg.rms_plus_one)
+    rd = _rot_dim(cfg)
+    if rd:
+        cos, sin = rope_cos_sin(positions, rd, _rope_theta(cfg, window))
+        q = apply_rope(q, cos, sin, rd)
+        k = apply_rope(k, cos, sin, rd)
+    return q, k, v
+
+
+def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
+          scale: float, vis: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped scaled-dot-product attention over full key rows.
+
+    q [B, C, Hkv, G, hd]; k/v [B, S, Hkv, hd]; *_pos [B, C]/[B, S] absolute
+    positions (k_pos < 0 ⇒ invalid slot). Returns [B, C, Hkv, G, hd] in
+    v's dtype. Scores are f32; probabilities are rounded to v's dtype
+    before the value product, as in the reference. An explicit
+    ``vis [B, C, S]`` mask overrides the positional mask; rows whose mask
+    is empty then give exactly 0.
+    """
+    scores = einsum_f32("bqkgd,bskd->bkgqs", q, k) * scale
+    neg = torch.full_like(scores, -1e30)
+    if vis is not None:
+        vism = vis[:, None, None, :, :]
+        scores = torch.where(vism, scores, neg)
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.where(vism, torch.exp(scores - m), torch.zeros_like(scores))
+        l = p.sum(dim=-1, keepdim=True)
+        probs = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    else:
+        mask = k_pos[:, None, :] >= 0
+        if causal:
+            mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+        if window:
+            mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+        scores = torch.where(mask[:, None, None, :, :], scores, neg)
+        probs = torch.softmax(scores, dim=-1)
+    out = einsum_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.to(v.dtype)
+
+
+def attention(p, x, cfg, *, positions, window: int = 0,
+              causal: bool = True) -> torch.Tensor:
+    """Train/prefill attention. x [B, S, D] -> [B, S, D]."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions, window)
+    g = cfg.num_heads // cfg.num_kv_heads
+    q = q.reshape(b, s, cfg.num_kv_heads, g, cfg.head_dim)
+    scale = cfg.head_dim ** -0.5
+    chunk = cfg.attn_chunk
+    if s > chunk and s % chunk == 0:
+        outs = [_sdpa(q[:, i:i + chunk], k, v, positions[:, i:i + chunk],
+                      positions, causal=causal, window=window, scale=scale)
+                for i in range(0, s, chunk)]
+        out = torch.cat(outs, dim=1)
+    else:
+        out = _sdpa(q, k, v, positions, positions, causal=causal,
+                    window=window, scale=scale)
+    return linear(p["wo"], out.reshape(b, s, cfg.q_dim))
+
+
+# ---------------------------------------------------------------------------
+# Dense decode cache (GenerationEngine.generate)
+# ---------------------------------------------------------------------------
+
+def _no_window(window: int) -> None:
+    if window:
+        raise NotImplementedError(
+            "the sliding-window ring decode cache is not ported yet")
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, window: int,
+                  dtype=torch.bfloat16, device=None):
+    _no_window(window)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        sshape = (batch, max_seq, cfg.num_kv_heads)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., hd] → (int8 codes, per-[...] absmax scale)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    q = torch.clip(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
+
+
+def fill_cache_from_prefill(cache, k, v, positions, window: int):
+    """Write prefill keys/values [B, S, ...] into a fresh decode cache."""
+    _no_window(window)
+    s = k.shape[1]
+    if "ks" in cache:
+        k, ks = _kv_quantize(k)
+        v, vs = _kv_quantize(v)
+        cache["ks"][:, :s] = ks
+        cache["vs"][:, :s] = vs
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    return cache
+
+
+def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
+    """Single-token decode. x [B, D], pos [B] -> (y [B, D], cache)."""
+    _no_window(window)
+    b = x.shape[0]
+    q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
+    bidx = torch.arange(b, device=x.device)
+    slot = pos.long()
+    if "ks" in cache:
+        k1, ks1 = _kv_quantize(k1)
+        v1, vs1 = _kv_quantize(v1)
+        cache["ks"][bidx, slot] = ks1
+        cache["vs"][bidx, slot] = vs1
+    cache["k"][bidx, slot] = k1.to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v1.to(cache["v"].dtype)
+    ck, cv = cache["k"], cache["v"]
+    adt = torch_dtype(cfg.activation_dtype)
+    if "ks" in cache:
+        ck = _kv_dequant(ck, cache["ks"], adt)
+        cv = _kv_dequant(cv, cache["vs"], adt)
+    s_max = ck.shape[1]
+    ar = torch.arange(s_max, device=x.device)[None, :]
+    k_pos = torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
+    out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=False, window=0,
+                scale=cfg.head_dim ** -0.5)
+    return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged pools (serving)
+# ---------------------------------------------------------------------------
+
+def init_paged_kv_cache(cfg, num_pages: int, page_size: int,
+                        dtype=torch.bfloat16, kv_quant: str | None = None,
+                        device=None):
+    """Page pool for one layer: ``[num_pages, page_size, Hkv, hd]``; int8
+    pools add f32 per-(position, head) scale strips ``ks``/``vs``. Page 0
+    is the pager's scratch page."""
+    kv_quant = cfg.kv_quant if kv_quant is None else kv_quant
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quant == "int8":
+        sshape = (num_pages, page_size, cfg.num_kv_heads)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+                "vs": torch.zeros(sshape, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_chunk_paged(p, pool, page_table, x, cfg, *, pos, rpos=None,
+                          amask=None, window: int = 0):
+    """Token-budget chunk step against a paged KV pool — the unified
+    prefill/decode execution path.
+
+    x ``[B, C, D]``; pos ``[B, C]`` int32 absolute KV slot positions
+    (``-1`` = padding); page_table ``[B, pages_per_slot]`` int32.
+    ``rpos`` (logical positions) and ``amask`` (``[B, C, C]`` in-span
+    ancestor mask) default to plain linear-chunk causality. Returns
+    (y [B, C, D], pool), the pool updated in place.
+
+    Scatter first: every valid token's K/V goes to
+    ``pool[table[b, pos // P], pos % P]``, padding to scratch page 0,
+    offset 0 (many padding writes hit that one index, in no defined
+    order on CUDA; harmless because page 0 is never visible). Int8 pools
+    quantize each written token with `_kv_quantize`, so chunked commits
+    are bit-identical to one-shot ones. Then read: int8 pools on CUDA go
+    through kernel K2, which dequantizes in f32 and whose output is cast
+    to the activation dtype; everything else takes the gather path, which
+    dequantizes to the activation dtype before attending (the reference's
+    off-TPU semantics, mirrored exactly).
+    """
+    b, c, _ = x.shape
+    page_size = pool["k"].shape[1]
+    valid = pos >= 0
+    logical = pos if rpos is None else rpos
+    rope_pos = torch.where(valid, logical, torch.zeros_like(logical))
+    if amask is not None and window:
+        # a supplied ancestor mask is authoritative for in-span keys (the
+        # kernel applies ``window`` only to committed pages), so fold the
+        # in-span locality bound in here, once, above both read paths
+        amask = (amask.to(torch.bool)
+                 & (rope_pos[:, None, :] > rope_pos[:, :, None] - window))
+    q, k1, v1 = _project_qkv(p, x, cfg, rope_pos, window)  # [B, C, H(kv), hd]
+    slot_pos = torch.where(valid, pos, torch.zeros_like(pos)).long()
+    phys = torch.gather(page_table.long(), 1, slot_pos // page_size)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))  # → scratch page 0
+    offset = torch.where(valid, slot_pos % page_size,
+                         torch.zeros_like(slot_pos))
+    fp, fo = phys.reshape(-1), offset.reshape(-1)
+    quant = "ks" in pool
+    kv_shape = (b * c, cfg.num_kv_heads, cfg.head_dim)
+    if quant:
+        k1, ks1 = _kv_quantize(k1)
+        v1, vs1 = _kv_quantize(v1)
+        pool["ks"].index_put_((fp, fo), ks1.reshape(b * c, cfg.num_kv_heads))
+        pool["vs"].index_put_((fp, fo), vs1.reshape(b * c, cfg.num_kv_heads))
+    pool["k"].index_put_((fp, fo), k1.reshape(kv_shape).to(pool["k"].dtype))
+    pool["v"].index_put_((fp, fo), v1.reshape(kv_shape).to(pool["v"].dtype))
+
+    g = cfg.num_heads // cfg.num_kv_heads
+    adt = torch_dtype(cfg.activation_dtype)
+    qg = q.reshape(b, c, cfg.num_kv_heads, g, cfg.head_dim)
+    if quant and x.device.type == "cuda":
+        out = k2.paged_attention_chunk(
+            qg.to(torch.float32).contiguous(), pool["k"], pool["ks"],
+            pool["v"], pool["vs"], page_table.contiguous(),
+            pos.to(torch.int32).contiguous(),
+            rpos=None if rpos is None else rpos.to(torch.int32).contiguous(),
+            amask=None if amask is None else amask.contiguous(),
+            window=window, scale=cfg.head_dim ** -0.5)
+        return linear(p["wo"], out.reshape(b, c, cfg.q_dim).to(adt)), pool
+
+    # gather-based read: page table → logical [B, S_slot, Hkv, hd] view
+    s_slot = page_table.shape[1] * page_size
+    tbl = page_table.long()
+    ck = pool["k"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
+    cv = pool["v"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
+    if quant:
+        ks = pool["ks"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
+        vs = pool["vs"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
+        ck = _kv_dequant(ck, ks, adt)
+        cv = _kv_dequant(cv, vs, adt)
+    k_pos = torch.arange(s_slot, device=x.device)[None, :].expand(b, s_slot)
+    if rpos is None and amask is None and not window:
+        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
+                    scale=cfg.head_dim ** -0.5)
+    else:
+        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, rpos=rpos,
+                                      amask=amask, window=window)
+        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
+                    scale=cfg.head_dim ** -0.5, vis=vis)
+    return linear(p["wo"], out.reshape(b, c, cfg.q_dim)), pool

@@ -1,0 +1,138 @@
+"""Primitive modules (plain functions: init → nested dict, apply → tensor).
+
+`linear` is the single matmul entry point: float weights or a
+`PackedLinear` (AWQ-quantized), which dispatches through `qlinear_apply`.
+Calibration capture is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.packing import PackedLinear
+from repro_torch.core.qlinear import qlinear_apply
+from repro_torch.numerics import matmul_f32
+
+
+# ---------------------------------------------------------------------- init
+# Same distributions as the reference: N(0, 1/K) linears with zero bias,
+# unit RMSNorm gains, N(0, 0.02²) embeddings. Draws come from an explicit
+# torch.Generator on the target device, so they differ from jax.random.
+
+def linear_init(gen: torch.Generator, k: int, n: int, *, bias: bool = False,
+                dtype=torch.float32, scale: float | None = None,
+                device=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(k)
+    w = torch.randn((k, n), generator=gen, device=device) * scale
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def norm_init(d: int, *, norm_type: str = "rmsnorm", dtype=torch.float32,
+              plus_one: bool = False, device=None):
+    gamma = (torch.zeros if plus_one else torch.ones)((d,), dtype=dtype,
+                                                      device=device)
+    p = {"gamma": gamma}
+    if norm_type == "layernorm":
+        p["beta"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
+               device=None):
+    t = torch.randn((vocab, d), generator=gen, device=device) * 0.02
+    return {"table": t.to(dtype)}
+
+
+# --------------------------------------------------------------------- apply
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """``y = x @ w (+ b)``: float weights in x's dtype with f32
+    accumulation, or the quantized dispatch for a `PackedLinear`."""
+    if isinstance(p, PackedLinear):
+        return qlinear_apply(p, x)
+    w = p["w"]
+    y = matmul_f32(x, w.to(x.dtype)).to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in f32 (the paper's PS-side non-linear op)."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g = p["gamma"].to(torch.float32)
+    if plus_one:
+        g = 1.0 + g
+    return (xf * g).to(dt)
+
+
+def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["gamma"].to(torch.float32)
+            + p["beta"].to(torch.float32)).to(dt)
+
+
+def norm(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layernorm(p, x, eps=cfg.norm_eps)
+    return rmsnorm(p, x, eps=cfg.norm_eps, plus_one=cfg.rms_plus_one)
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {name}")
+
+
+def embed_lookup(p, tokens: torch.Tensor, *, scale: bool = False
+                 ) -> torch.Tensor:
+    table = p["table"]
+    x = table[tokens.long()]
+    if scale:
+        x = x * math.sqrt(table.shape[-1])
+    return x
+
+
+# ---------------------------------------------------------------------- RoPE
+
+def rope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float,
+                 dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[..., rot_dim/2]`` for integer positions."""
+    half = rot_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs   # [..., half]
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dim: int) -> torch.Tensor:
+    """Rotate the first ``rot_dim`` channels of ``x [..., H, hd]``; cos/sin
+    ``[..., rot_dim/2]`` broadcast over the head axis."""
+    half = rot_dim // 2
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = xr[..., :half], xr[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    if rot_dim < x.shape[-1]:
+        out = torch.cat([out, xp], dim=-1)
+    return out

@@ -1,0 +1,154 @@
+"""Top-level decoder model: token embedding → stack → (tied) f32 head.
+
+Serving entry points mirror the reference's `Model`: `prefill` +
+`decode_step` over the dense cache (`GenerationEngine.generate`),
+`chunk_step` over the paged pools (the serving engine), and
+`forward_logits`. The audio / vision frontends and the training loss are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import layers, stack
+from repro_torch.models.layers import embed_lookup, linear, norm
+from repro_torch.numerics import matmul_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.frontend != "none" or self.cfg.is_encoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: encoder and frontend models are not "
+                f"ported yet")
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator | None = None, device=None) -> dict:
+        """Random params (the reference's distributions). ``gen`` must live
+        on ``device`` (cuda unless the caller asks for the CPU)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        if gen is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+        dtype = torch_dtype(cfg.param_dtype)
+        params: dict = {
+            "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, device=device),
+            "segments": stack.stack_init(gen, cfg, dtype, device),
+            "final_norm": layers.norm_init(cfg.d_model,
+                                           norm_type=cfg.norm_type,
+                                           dtype=dtype,
+                                           plus_one=cfg.rms_plus_one,
+                                           device=device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.linear_init(
+                gen, cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
+        return params
+
+    # ------------------------------------------------------------ embeddings
+    def _embed(self, params, batch: dict):
+        """→ (x [B, S, D], positions [B, S])."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], batch["tokens"],
+                         scale=cfg.scale_embed).to(
+                             torch_dtype(cfg.activation_dtype))
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        return x, positions
+
+    def _head_logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits; the tied head is a plain f32 ``[.., D] × [D, V]``
+        product (the largest read of a decode step, outside any kernel)."""
+        if self.cfg.tie_embeddings:
+            return matmul_f32(x, params["embed"]["table"].t())
+        return linear(params["lm_head"], x.to(torch.float32))
+
+    # ---------------------------------------------------------------- serve
+    def init_cache(self, batch: int, max_seq: int | None = None,
+                   dtype=torch.bfloat16, device=None) -> Any:
+        return stack.stack_init_cache(self.cfg, batch,
+                                      max_seq or self.cfg.max_seq_len,
+                                      dtype, resolve_device(device))
+
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         dtype=torch.bfloat16, kv_quant: str | None = None,
+                         device=None) -> Any:
+        """Page pools for the serving engine; ``kv_quant`` ("none" |
+        "int8" | None = follow ``cfg.kv_quant``) picks their storage."""
+        return stack.stack_init_paged_cache(self.cfg, num_pages, page_size,
+                                            dtype, kv_quant,
+                                            resolve_device(device))
+
+    def prefill(self, params, batch: dict, cache: Any):
+        """Full-sequence prefill → (cache, last-token logits, next pos [B])."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch)
+        x, cache = stack.stack_apply(params["segments"], x, cfg,
+                                     mode="prefill", positions=positions,
+                                     cache=cache)
+        x = norm(params["final_norm"], x, cfg)
+        return cache, self._head_logits(params, x[:, -1]), positions[:, -1] + 1
+
+    def decode_step(self, params, cache: Any, token: torch.Tensor,
+                    pos: torch.Tensor):
+        """One token: token [B], pos [B] → (logits [B, V], cache)."""
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], token, scale=cfg.scale_embed).to(
+            torch_dtype(cfg.activation_dtype))
+        x, cache = stack.stack_apply(params["segments"], x, cfg,
+                                     mode="decode", positions=pos,
+                                     cache=cache)
+        x = norm(params["final_norm"], x, cfg)
+        return self._head_logits(params, x), cache
+
+    def chunk_step(self, params, cache: Any, tokens: torch.Tensor,
+                   pos: torch.Tensor, sample_idx: torch.Tensor,
+                   page_table: torch.Tensor, num_logits: int = 1,
+                   rpos: torch.Tensor | None = None,
+                   amask: torch.Tensor | None = None):
+        """One token-budget step of the serving engine.
+
+        tokens / pos ``[B, C]`` (``-1`` = padding), sample_idx ``[B]`` (the
+        in-row index whose logits feed sampling), page_table
+        ``[B, pages_per_slot]``. Returns (logits [B, V] for ``num_logits ==
+        1``, else [B, num_logits, V]; cache) — the full ``[B, C, V]``
+        logits are never materialized.
+        """
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens, scale=cfg.scale_embed).to(
+            torch_dtype(cfg.activation_dtype))
+        x, cache = stack.stack_apply(params["segments"], x, cfg,
+                                     mode="chunk", positions=pos,
+                                     cache=cache, page_table=page_table,
+                                     rpos=rpos, amask=amask)
+        x = norm(params["final_norm"], x, cfg)
+        c = x.shape[1]
+        idx = (sample_idx.long()[:, None]
+               + torch.arange(num_logits, device=x.device)[None, :])
+        idx = torch.clip(idx, 0, c - 1)
+        x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+        logits = self._head_logits(params, x)               # [B, R, V]
+        return (logits[:, 0] if num_logits == 1 else logits), cache
+
+    def forward_logits(self, params, batch: dict) -> torch.Tensor:
+        """Full logits [B, S, V] (small models / eval only)."""
+        cfg = self.cfg
+        x, positions = self._embed(params, batch)
+        x, _ = stack.stack_apply(params["segments"], x, cfg, mode="train",
+                                 positions=positions)
+        x = norm(params["final_norm"], x, cfg)
+        return self._head_logits(params, x)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

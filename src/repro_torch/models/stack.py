@@ -1,0 +1,55 @@
+"""Layer stack: a plain per-layer loop over segments of identical kinds.
+
+The reference scans each segment over scan-stacked params; the port keeps
+one parameter dict per layer (``params[seg_i]`` is a list) and one cache
+entry per layer, and loops.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import blocks
+
+
+def seg_name(si: int) -> str:
+    return f"seg_{si}"
+
+
+def stack_init(gen, cfg, dtype=torch.float32, device=None):
+    """Params: {"seg_0": [layer params, ...], ...}."""
+    return {seg_name(si): [blocks.block_init(gen, cfg, kind, dtype, device)
+                           for _ in range(n)]
+            for si, (kind, n) in enumerate(cfg.segments())}
+
+
+def stack_init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+                     device=None):
+    return {seg_name(si): [blocks.init_block_cache(cfg, kind, batch, max_seq,
+                                                   dtype, device)
+                           for _ in range(n)]
+            for si, (kind, n) in enumerate(cfg.segments())}
+
+
+def stack_init_paged_cache(cfg, num_pages: int, page_size: int,
+                           dtype=torch.bfloat16, kv_quant: str | None = None,
+                           device=None):
+    return {seg_name(si): [blocks.init_block_cache_paged(
+                cfg, kind, num_pages, page_size, dtype, kv_quant, device)
+                           for _ in range(n)]
+            for si, (kind, n) in enumerate(cfg.segments())}
+
+
+def stack_apply(params, x, cfg, *, mode: str, positions, cache=None,
+                page_table=None, rpos=None, amask=None):
+    """Run all layers. Returns (x, cache); caches update in place."""
+    for si, (kind, n) in enumerate(cfg.segments()):
+        p_seg = params[seg_name(si)]
+        c_seg = cache[seg_name(si)] if cache is not None else None
+        for i in range(n):
+            x, c_new = blocks.block_apply(
+                p_seg[i], x, cfg, kind, mode=mode, positions=positions,
+                cache=None if c_seg is None else c_seg[i],
+                page_table=page_table, rpos=rpos, amask=amask)
+            if c_seg is not None:
+                c_seg[i] = c_new
+    return x, cache

@@ -1,0 +1,56 @@
+"""Import hygiene of the port: no JAX, nothing of the reference package."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.M)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = list(_modules())
+    assert len(mods) > 15
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k, v in sys.modules.items() if v is not None)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_names_no_jax_or_reference_package(path):
+    hit = FORBIDDEN.search((ROOT / path).read_text())
+    assert hit is None, hit.group(0)
+
+
+def test_pattern_catches_reference_imports():
+    for bad in ("import jax", "from jax import numpy", "import repro.core",
+                "from repro.models import x", "from repro import y",
+                "  import jax.numpy as jnp"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.core import x",
+               "# jax is the reference", "import jaxlib_free"):
+        assert not FORBIDDEN.search(ok), ok

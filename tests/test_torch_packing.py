@@ -1,0 +1,69 @@
+"""Port parity: int4 packing and group quantization vs the JAX package.
+
+Packed words, unpacked codes, dequantized weights and quantized codes
+must equal the reference bit for bit; scales and zeros are compared at
+f32 rtol 2e-5 (they equal in practice; the bound allows for a different
+division routine).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packing as jpack
+from repro.core import quantize as jquant
+from repro_torch.core import packing as tpack
+from repro_torch.core import quantize as tquant
+
+
+@pytest.mark.parametrize("k,n", [(64, 8), (128, 136), (896, 128)])
+def test_pack_unpack_bit_exact(k, n):
+    rng = np.random.default_rng(k + n)
+    q = rng.integers(0, 16, (k, n)).astype(np.int32)
+    q[:8, :4] = 15                      # all-ones nibbles: negative int32 words
+    jw = np.asarray(jpack.pack_int4(jnp.asarray(q)))
+    tw = tpack.pack_int4(torch.from_numpy(q))
+    assert tw.dtype == torch.int32
+    np.testing.assert_array_equal(tw.numpy(), jw)
+    assert (jw < 0).any()
+    np.testing.assert_array_equal(tpack.unpack_int4(tw).numpy(), q)
+    np.testing.assert_array_equal(
+        tpack.unpack_int4(tw).numpy(),
+        np.asarray(jpack.unpack_int4(jnp.asarray(jw))))
+
+
+@pytest.mark.parametrize("gs,sym", [(64, False), (128, False), (64, True)])
+def test_quantize_and_dequantize_match_jax(gs, sym):
+    rng = np.random.default_rng(gs)
+    w = (rng.standard_normal((256, 96)) * 0.05).astype(np.float32)
+    w[:, 3] = 0.25                      # constant columns: scale falls back to 1
+    cfg_j = jquant.QuantConfig(group_size=gs, sym=sym)
+    cfg_t = tquant.QuantConfig(group_size=gs, sym=sym)
+    jq, js, jz = (np.asarray(a) for a in
+                  jquant.quantize_groupwise(jnp.asarray(w), cfg_j))
+    tq, ts, tz = tquant.quantize_groupwise(torch.from_numpy(w), cfg_t)
+    np.testing.assert_array_equal(tq.numpy(), jq)
+    np.testing.assert_allclose(ts.numpy(), js, rtol=2e-5)
+    np.testing.assert_array_equal(tz.numpy(), jz)
+
+    jp = jpack.pack_linear(jnp.asarray(jq), jnp.asarray(js), jnp.asarray(jz),
+                           None, None, cfg_j)
+    tp = tpack.pack_linear(tq, ts, tz, None, None, cfg_t)
+    np.testing.assert_array_equal(tp.qweight.numpy(), np.asarray(jp.qweight))
+    np.testing.assert_array_equal(tp.zeros.numpy(), np.asarray(jp.zeros))
+    for dt_j, dt_t in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        jd = np.asarray(jpack.dequantize_packed(jp, dt_j).astype(jnp.float32))
+        td = tpack.dequantize_packed(tp, dt_t).float().numpy()
+        np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(
+        tquant.dequantize_groupwise(tq, ts, tz, cfg_t).numpy(),
+        np.asarray(jquant.dequantize_groupwise(jnp.asarray(jq),
+                                               jnp.asarray(js),
+                                               jnp.asarray(jz), cfg_j)))
+
+
+def test_packed_nbytes_match_jax():
+    for k, n, gs in ((896, 896, 64), (4864, 896, 64), (896, 128, 128)):
+        assert tpack.packed_linear_nbytes(k, n, gs) == \
+            jpack.packed_linear_nbytes(k, n, gs)
