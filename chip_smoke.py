@@ -8,8 +8,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
                M ∈ {1, 4, 16, 64}, GS 64; K2 (paged_attention_chunk) at
                Hkv 2, G 7, hd 64, page 16, B 4, C ∈ {1, 16}, contexts up to
-               512 with padding rows; each held against its plain version,
-               and timed beside it and a library yardstick;
+               512 with padding rows, and C = 8 with a token tree's
+               ancestor mask, logical positions and a sliding window; each
+               held against its plain version, and timed beside it and a
+               library yardstick;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; both
@@ -19,11 +21,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   6. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions).
 
-The last line is ``{"ok": true, "device": {...}}``; any failure raises
-and exits non-zero before it. Without CUDA the script exits 1 at once.
+Each phase prints one JSON line. The end-to-end numbers are repeated on
+a short ``summary`` line, followed by the ``kernels`` line (what each
+kernel's numbers cover, its tolerances and the per-shape results are on
+the ``kernel_shapes`` line before them) and, last,
+``{"ok": true, "device": {...}}``; any failure raises and exits non-zero
+before it. Without CUDA the script exits 1 at once. ``--out PATH`` also
+writes every phase line to PATH as one JSON object.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import pathlib
@@ -61,7 +69,11 @@ QWEN_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
 LAYER_K1 = [(896, 896), (896, 896), (896, 4864), (896, 4864), (4864, 896)]
 
 
+PHASES: dict[str, dict] = {}
+
+
 def phase(phase_name: str, **fields) -> None:
+    PHASES[phase_name] = fields
     print(json.dumps({"phase": phase_name, **fields}), flush=True)
 
 
@@ -98,7 +110,7 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 # ------------------------------------------------------------------ phase 3
-def check_k1(gen) -> dict:
+def check_k1(gen) -> tuple[dict, dict]:
     cfg = QuantConfig(group_size=GS)
     shapes = []
     for k, n in QWEN_KN:
@@ -138,22 +150,52 @@ def check_k1(gen) -> dict:
         name="awq_matmul", route="cuda",
         source="src/repro_torch/csrc/awq_matmul.cu",
         replaces="src/repro/kernels/awq_matmul.py:80",
-        at="one decode layer at M=4: q, o, gate, up, down (sums)",
         max_abs_err=max(s["max_abs_err"] for s in shapes),
-        tolerance="per shape: 1e-4 x max|plain| (shapes[].tol)",
         ms=sum(s["ms"] for s in layer),
         plain_ms=sum(s["plain_ms"] for s in layer),
         bound_ms=sum(s["bound_ms"] for s in layer), bound_by="bytes",
-        library_ms=sum(s["library_ms"] for s in layer),
+        library_ms=sum(s["library_ms"] for s in layer))
+    detail = dict(
+        at="one decode layer at M=4: q, o, gate, up, down (sums)",
+        tolerance="per shape: 1e-4 x max|plain| (shapes[].tol)",
         library_call="torch.matmul on the pre-dequantized bf16 weight "
                      "(not the same function: it skips the int4 unpack)",
         shapes=shapes)
-    return entry
+    return entry, detail
 
 
-def _k2_inputs(gen, c: int):
+# K2's tree case: in-row parent of each node of an 8-node token tree (node
+# 0 is the root, the slot's last sampled token), as tree speculation lays
+# a verify row out
+TREE_PARENTS = [-1, 0, 1, 2, 0, 4, 1, 6]
+
+
+def _tree_mask(pos: torch.Tensor, window: int):
+    """rpos (logical positions: base + depth) and amask (ancestor closure)
+    for every row of ``pos`` holding TREE_PARENTS; row 0's node 5 is given
+    an empty ancestor row and no committed keys, so it must come out 0."""
+    c = len(TREE_PARENTS)
+    anc = torch.zeros(c, c, dtype=torch.bool)
+    depth = [0] * c
+    for j, par in enumerate(TREE_PARENTS):
+        if par >= 0:
+            anc[j] = anc[par]
+            depth[j] = depth[par] + 1
+        anc[j, j] = True
+    b = pos.shape[0]
+    amask = (anc[None].expand(b, c, c).to(pos.device)
+             & (pos >= 0)[:, None, :]).contiguous()
+    amask[0, 5] = False
+    rpos = torch.where(pos >= 0, pos[:, :1] + torch.tensor(
+        depth, dtype=torch.int32, device=pos.device)[None], pos)
+    return dict(rpos=rpos.to(torch.int32).contiguous(), amask=amask,
+                window=window)
+
+
+def _k2_inputs(gen, c: int, tree: bool = False):
     """q, pool copies (int8 codes + f32 strips, enough to pass the L2),
-    page table and positions for B 4 slots of 32 pages of 16 tokens."""
+    page table, positions and visibility options (rpos / amask / window)
+    for B 4 slots of 32 pages of 16 tokens."""
     b, hkv, g, hd, page, nblk = 4, 2, 7, 64, 16, 32
     npages = b * nblk + 1
     copies = max(1, COLD_BYTES // (2 * npages * page * hkv * (hd + 4)))
@@ -171,6 +213,12 @@ def _k2_inputs(gen, c: int):
     if c == 1:
         pos = torch.tensor([[-1], [137], [300], [511]], dtype=torch.int32,
                            device="cuda")                 # row 0: padding
+    elif tree:
+        base = torch.tensor([0, 137, 300, 0], dtype=torch.int32,
+                            device="cuda")
+        pos = base[:, None] + torch.arange(c, dtype=torch.int32,
+                                           device="cuda")[None]
+        pos[3] = -1                                       # padding row
     else:
         base = torch.tensor([0, 137, 300, 512 - c], dtype=torch.int32,
                             device="cuda")
@@ -178,19 +226,20 @@ def _k2_inputs(gen, c: int):
                                            device="cuda")[None]
         pos[2, c // 2:] = -1                              # padded tail
     q = torch.randn(b, c, hkv, g, hd, generator=gen, device="cuda")
-    return q, pools, table, pos
+    kw = _tree_mask(pos, window=128) if tree else {}
+    return q, pools, table, pos, kw
 
 
-def check_k2(gen) -> dict:
+def check_k2(gen) -> tuple[dict, dict]:
     per_c = []
-    for c in (1, 16):
-        q, pools, table, pos = _k2_inputs(gen, c)
+    for case, c in (("decode", 1), ("chunk", 16), ("tree", 8)):
+        q, pools, table, pos, kw = _k2_inputs(gen, c, tree=case == "tree")
         b, _, hkv, g, hd = q.shape
         copies = len(pools)
 
         def run(i, fn):
             kp, ks, vp, vs = pools[i]
-            return fn(q, kp, ks, vp, vs, table, pos)
+            return fn(q, kp, ks, vp, vs, table, pos, **kw)
 
         out = run(0, k2.paged_attention_chunk)
         ref = run(0, k2.paged_attention_chunk_ref)
@@ -198,16 +247,20 @@ def check_k2(gen) -> dict:
         err = float((out - ref).abs().max())
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
         if not err <= tol:
-            raise AssertionError(f"K2 C={c}: err {err} > {tol}")
-        if out[pos < 0].abs().max() != 0:
-            raise AssertionError("K2: padding queries must give exact 0")
+            raise AssertionError(f"K2 {case} C={c}: err {err} > {tol}")
+        s_slot = table.shape[1] * 16
+        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, **kw)
+        empty = ~vis.any(dim=-1)                     # padding + empty rows
+        if case == "tree" and not bool(empty[0, 5]):
+            raise AssertionError("K2 tree: row 0 node 5 should see nothing")
+        if out[empty].abs().max() != 0:
+            raise AssertionError(f"K2 {case}: rows that see nothing must "
+                                 f"give exact 0")
         ms = time_ms(lambda i: run(i, k2.paged_attention_chunk), copies)
         plain = time_ms(lambda i: run(i, k2.paged_attention_chunk_ref),
                         copies, iters=10)
         # yardstick: SDPA over K/V already gathered and dequantized (bf16),
         # with the visibility as a boolean mask — not the same function
-        s_slot = table.shape[1] * 16
-        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot)
         mask = vis[:, None].expand(b, hkv * g, c, s_slot)
         kv = []
         for kp, ks, vp, vs in pools:
@@ -222,28 +275,31 @@ def check_k2(gen) -> dict:
             qs, *kv[i], attn_mask=mask, enable_gqa=True), copies)
         # bytes this data needs: q, out, and for every row the int8 codes
         # + f32 scales of the keys its queries can see, per kv head
-        keys = [0 if int(pos[r, 0]) < 0 else
-                int(pos[r, 0]) + int((pos[r] >= 0).sum()) for r in range(b)]
+        keys = int(vis.any(dim=1).sum())             # (row, key) pairs
         visible = int(vis.sum())                     # (query, key) pairs
-        nbytes = (2 * q.nbytes + sum(keys) * hkv * (2 * hd + 8)
-                  + table.nbytes + pos.nbytes)
+        nbytes = (2 * q.nbytes + keys * hkv * (2 * hd + 8)
+                  + table.nbytes + pos.nbytes
+                  + sum(t.nbytes for t in kw.values()
+                        if isinstance(t, torch.Tensor)))
         b_ms, b_by = bound(nbytes, 4 * visible * hkv * g * hd, F32_OPS_PER_S)
-        per_c.append(dict(c=c, max_abs_err=err, tol=tol, ms=ms,
+        per_c.append(dict(case=case, c=c, max_abs_err=err, tol=tol, ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
     dec = per_c[0]
-    return dict(
+    entry = dict(
         name="paged_attention_chunk", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:153",
-        at="decode, C=1, B=4, contexts 137/300/511 + a padding row",
         max_abs_err=max(s["max_abs_err"] for s in per_c),
-        tolerance="per shape: 1e-5 x max(1, max|plain|) (shapes[].tol)",
         ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-        bound_by=dec["bound_by"], library_ms=dec["library_ms"],
+        bound_by=dec["bound_by"], library_ms=dec["library_ms"])
+    detail = dict(
+        at="decode, C=1, B=4, contexts 137/300/511 + a padding row",
+        tolerance="per shape: 1e-5 x max(1, max|plain|) (shapes[].tol)",
         library_call="torch SDPA over gathered, dequantized bf16 K/V with "
                      "a boolean mask (not the same function)",
         shapes=per_c)
+    return entry, detail
 
 
 # ------------------------------------------------------------------ phase 4
@@ -398,6 +454,10 @@ def cross_check(model, params) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every phase line to this "
+                                  "JSON file")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -422,7 +482,10 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln])
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [check_k1(gen), check_k2(gen)]
+    (k1_entry, k1_detail), (k2_entry, k2_detail) = check_k1(gen), check_k2(gen)
+    kernels = [k1_entry, k2_entry]
+    phase("kernel_shapes", awq_matmul=k1_detail,
+          paged_attention_chunk=k2_detail)
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -435,12 +498,24 @@ def main() -> None:
           group_size=GS, init_quantize_s=time.perf_counter() - t)
     served = serve(model, params)
     phase("serve", **served)
-    phase("profile", **profile_decode(model, params))
+    prof = profile_decode(model, params)
+    phase("profile", **prof)
     for k in kernels:
         k["launches"] = served["launches"][k["name"]]
-    phase("check", **cross_check(model, params))
+    checked = cross_check(model, params)
+    phase("check", **checked)
 
+    phase("summary", gpu=smi, **{k: served[k] for k in (
+        "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
+        "serve_s", "peak_mem_bytes", "launches", "qlinear_calls")},
+        profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
+                                      "device_busy_ms", "device_idle_share")},
+        check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(json.dumps(
+            {**PHASES, "kernels": kernels}, indent=1))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

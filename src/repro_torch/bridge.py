@@ -13,6 +13,10 @@ nothing of the reference package). A quantized linear is any object with
     strips, or float pools), unstacked the same way.
   * `tree_to_torch` — any subtree as it is (one linear, a config of
     tensors); `to_tensor` — any one array (page tables, positions).
+
+Like every entry point of the port, these put their tensors on ``cuda``
+unless the caller passes ``device="cpu"``; asking for CUDA without a
+card raises.
 """
 from __future__ import annotations
 
@@ -22,12 +26,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import PackedLinear
+from repro_torch.device import resolve_device
 
 _PACKED_FIELDS = ("qweight", "scales", "zeros", "input_scale", "bias")
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device=None) -> torch.Tensor:
     """numpy (incl. ml_dtypes bfloat16) → torch tensor with the same bits."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -39,9 +45,10 @@ def _is_packed(node: Any) -> bool:
     return all(hasattr(node, f) for f in _PACKED_FIELDS + ("group_size",))
 
 
-def tree_to_torch(node: Any, device="cpu") -> Any:
+def tree_to_torch(node: Any, device=None) -> Any:
     """Any reference subtree (dicts, quantized linears, numpy leaves) →
     the same structure of torch tensors / `PackedLinear`s."""
+    device = resolve_device(device)
     if _is_packed(node):
         return PackedLinear(
             qweight=to_tensor(node.qweight, device),
@@ -81,14 +88,14 @@ def _unstack_segments(segments: dict) -> dict:
             for name, seg in segments.items()}
 
 
-def params_to_torch(params: dict, device="cpu") -> dict:
+def params_to_torch(params: dict, device=None) -> dict:
     """Reference params (numpy leaves) → port params on ``device``."""
     out = tree_to_torch(params, device)
     out["segments"] = _unstack_segments(out["segments"])
     return out
 
 
-def paged_cache_to_torch(cache: dict, device="cpu") -> dict:
+def paged_cache_to_torch(cache: dict, device=None) -> dict:
     """Reference paged cache ``{seg_i: {"kv_pool": {k, v[, ks, vs]}}}`` with
     ``[L, N, P, Hkv, hd]`` leaves → ``{seg_i: [{"kv_pool": ...}, ...]}``."""
     return _unstack_segments(tree_to_torch(cache, device))

@@ -40,7 +40,8 @@ def test_plain_matches_jax_kernel_and_ref(m, k, n, gs):
                                     interpret=True))
     jr = np.asarray(jref.awq_matmul_ref(jnp.asarray(x), p.qweight, p.scales,
                                         p.zeros, gs))
-    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p))
+    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p),
+                              device="cpu")
     out = k1.awq_matmul(torch.from_numpy(x), tp.qweight, tp.scales, tp.zeros,
                         gs, compute_dtype=torch.float32)
     assert out.dtype == torch.float32 and out.shape == (m, n)
@@ -54,7 +55,8 @@ def test_plain_bf16_matches_jax():
     jr = np.asarray(jref.awq_matmul_ref(jnp.asarray(x), p.qweight, p.scales,
                                         p.zeros, 64,
                                         compute_dtype=jnp.bfloat16))
-    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p))
+    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p),
+                              device="cpu")
     out = k1.awq_matmul(torch.from_numpy(x), tp.qweight, tp.scales, tp.zeros,
                         64)                  # default compute dtype: bf16
     np.testing.assert_allclose(out.numpy(), jr, rtol=2e-2, atol=2e-2)
@@ -92,7 +94,8 @@ def test_qlinear_apply_matches_jax(calibrated_linear, m, path, dtype):
     jy = jql.qlinear_apply(p, jnp.asarray(x).astype(jdt), impl=jimpl,
                            cfg=jql.ExecutionConfig(compute_dtype=jdt))
     jy = np.asarray(jy.astype(jnp.float32))
-    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p))
+    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p),
+                              device="cpu")
     before = tql.PathCounts(**vars(tql.COUNTS))
     ty = tql.qlinear_apply(tp, torch.from_numpy(x).to(tdt), impl="kernel",
                            cfg=tql.ExecutionConfig(compute_dtype=tdt))
@@ -106,7 +109,8 @@ def test_cpu_tensors_take_plain_version_uncounted():
     """On CPU the wrapper takes the plain version for any dtype; launch
     counters move only for kernel launches."""
     p = _packed(128, 128, 64, seed=1)
-    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p))
+    tp = bridge.tree_to_torch(jax.tree_util.tree_map(np.asarray, p),
+                              device="cpu")
     n0 = k1.COUNTER.count
     k1.awq_matmul(torch.ones(3, 128, dtype=torch.float64), tp.qweight,
                   tp.scales, tp.zeros, 64, compute_dtype=torch.float32)

@@ -1,7 +1,8 @@
 """Card-only tests: kernels K1 and K2 against their plain versions on an
 NVIDIA GPU (Hopper, sm_90a). They skip where torch sees no CUDA device;
-run them on the card with ``PYTHONPATH=src python -m pytest -q -m cuda
-tests/test_torch_cuda.py``.
+run them on the card with ``PYTHONPATH=src python -m pytest -q
+--noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
+imports JAX, which this file does not need).
 
 Tolerances: K1 sums exact bf16 × bf16 products in f32 in another order
 than the plain version (rtol/atol 1e-4 of the output scale); K2 runs the
@@ -87,3 +88,41 @@ def test_paged_attention_kernel_matches_plain(cuda, c):
         assert k2.COUNTER.count == before + 1
         assert float((out - ref).abs().max()) <= 1e-5
         assert not out[0].any()                 # all-padding row: exact 0
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_paged_attention_kernel_tree_rows(cuda, window):
+    """A token-tree verify row, as tree speculation lays it out: logical
+    positions ``rpos`` = base + depth, the ancestor closure as ``amask``;
+    one node with an empty ancestor row and no committed keys gives 0."""
+    parents = [-1, 0, 1, 2, 0, 4, 1, 6]
+    c, b, hkv, g, hd, page, nblk = len(parents), 3, 2, 7, 64, 16, 32
+    anc = torch.zeros(c, c, dtype=torch.bool)
+    depth = [0] * c
+    for j, par in enumerate(parents):
+        if par >= 0:
+            anc[j], depth[j] = anc[par], depth[par] + 1
+        anc[j, j] = True
+    npages = b * nblk + 1
+    kp, vp = (torch.randint(-127, 128, (npages, page, hkv, hd),
+                            generator=cuda, device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(npages, page, hkv, generator=cuda, device="cuda")
+              / 50 for _ in range(2))
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 137, 300], dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    rpos = (base[:, None] + torch.tensor(depth, dtype=torch.int32,
+                                         device="cuda")[None]).contiguous()
+    amask = anc[None].repeat(b, 1, 1).cuda()
+    amask[0, 5] = False
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    kw = dict(rpos=rpos, amask=amask, window=window)
+    out = k2.paged_attention_chunk(q, kp, ks, vp, vs, table, pos, **kw)
+    ref = k2.paged_attention_chunk_ref(q, kp, ks, vp, vs, table, pos, **kw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert not out[0, 5].any()
+    assert out[1].abs().sum() > 0

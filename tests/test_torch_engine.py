@@ -114,7 +114,12 @@ def _pager_state(p):
                 slot_len=p.slot_len.tolist(),
                 reserved=dict(p.slot_reserved),
                 committed=dict(p.slot_committed), version=p.version,
-                stats=dataclasses.asdict(p.stats()))
+                stats=dataclasses.asdict(p.stats()),
+                spills={i: (r.layout, r.spilled_pages, r.slot_len,
+                            r.committed, r.reserved)
+                        for i, r in p.spill_records.items()},
+                pins={k: sorted(v) for k, v in p._pin_pages.items()},
+                index=dict(p.prefix_index))
 
 
 def test_pager_replay_matches_jax():
@@ -123,9 +128,10 @@ def test_pager_replay_matches_jax():
               tkv.KVPager(tkv.PagerConfig(**cfg))]
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, 50, 8).astype(np.int32)
-    n_ops = 0
-    for _ in range(300):
-        op = rng.integers(0, 4)
+    done = np.zeros(8, int)           # successful ops by kind (7: restore)
+    parked: list[tuple] = []          # (jax record, port record) pairs
+    for _ in range(400):
+        op = rng.integers(0, 7)
         active = sorted(pagers[0].slot_pages)
         if op == 0:
             plen = int(rng.integers(1, 14))
@@ -158,16 +164,51 @@ def test_pager_replay_matches_jax():
                        - int(rng.integers(0, 4)))
             assert pagers[0].truncate(slot, back) == \
                 pagers[1].truncate(slot, back)
-        elif active:
+        elif active and op == 3:
             slot = active[int(rng.integers(len(active)))]
             for p in pagers:
                 p.free_slot(slot)
+        elif op == 4 and (active or parked):
+            # preemption tier: spill an active slot, or restore one
+            if parked and (not active or rng.integers(2)):
+                recs = parked[int(rng.integers(len(parked)))]
+                if not pagers[0].can_restore(recs[0]):
+                    assert not pagers[1].can_restore(recs[1])
+                    continue
+                parked.remove(recs)
+                res = [p.restore(r) for p, r in zip(pagers, recs)]
+                assert res[0] == res[1]
+                op = 7
+            else:
+                slot = active[int(rng.integers(len(active)))]
+                assert pagers[0].peek_spill(slot) == \
+                    pagers[1].peek_spill(slot)
+                parked.append(tuple(p.spill(slot) for p in pagers))
+        elif op == 5:
+            pin = bool(rng.integers(2))
+            assert len({p.pin_prefix("sys") if pin else p.unpin_prefix("sys")
+                        for p in pagers}) == 1
+        elif active:
+            # handoff tier: export a slot, release it, adopt it back
+            slot = active[int(rng.integers(len(active)))]
+            new = int(rng.integers(1, 4))
+            recs = []
+            for p in pagers:
+                rec, ids = p.export_slot(slot)
+                assert ids == p.slot_pages[slot]
+                p.free_slot(slot)
+                recs.append(rec)
+            if not pagers[0].can_adopt(recs[0], new):
+                assert not pagers[1].can_adopt(recs[1], new)
+            else:
+                res = [p.adopt(r, new) for p, r in zip(pagers, recs)]
+                assert res[0] == res[1]
         else:
             continue
-        n_ops += 1
+        done[op] += 1
         assert _pager_state(pagers[1]) == _pager_state(pagers[0])
         pagers[1].verify_invariants()
-    assert n_ops > 100
+    assert (done >= 5).all(), done
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -55,7 +55,8 @@ def models():
     jq, jreport = jpipe.quantize_params(jp)
     out = {"jax_report": jreport}
     for name, p in (("float", jp), ("awq", jq)):
-        tp = bridge.params_to_torch(jax.tree_util.tree_map(np.asarray, p))
+        tp = bridge.params_to_torch(
+            jax.tree_util.tree_map(np.asarray, p), device="cpu")
         out[name] = (jm, p, tm, tp)
     return out
 
@@ -104,6 +105,21 @@ def test_bridge_round_trip_bit_exact(models, kind):
     assert n > 0
     if kind == "awq":
         assert isinstance(seg[0]["attn"]["wq"], PackedLinear)
+
+
+def test_bridge_defaults_to_cuda(models):
+    """Without ``device`` the bridge targets the card, and raises where
+    there is none rather than leaving the weights on the CPU."""
+    table = np.arange(6, dtype=np.int32).reshape(2, 3)
+    if torch.cuda.is_available():
+        assert bridge.to_tensor(table).device.type == "cuda"
+        return
+    jp = jax.tree_util.tree_map(np.asarray, models["awq"][1])
+    for fn, arg in ((bridge.to_tensor, table), (bridge.tree_to_torch, jp),
+                    (bridge.params_to_torch, jp),
+                    (bridge.paged_cache_to_torch, {"seg_0": {}})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(arg)
 
 
 def test_port_quantize_params_matches_jax_on_bridged_floats(models):
@@ -157,7 +173,8 @@ def test_forward_logits_other_branches():
     jp = jax.tree_util.tree_map_with_path(
         lambda path, a: a + 0.1 * rng.standard_normal(a.shape).astype(
             np.float32) if "norm" in jax.tree_util.keystr(path) else a, jp)
-    tp = bridge.params_to_torch(jax.tree_util.tree_map(np.asarray, jp))
+    tp = bridge.params_to_torch(jax.tree_util.tree_map(np.asarray, jp),
+                                device="cpu")
     assert "lm_head" in tp
     toks = np.random.default_rng(5).integers(0, 512, (2, 8)).astype(np.int32)
     jl = np.asarray(jm.forward_logits(jp, {"tokens": jnp.asarray(toks)}))
@@ -209,7 +226,7 @@ def test_chunk_step_logits_and_pools(models, kind, kv_quant):
     table = np.array([[3, 5, 0, 0], [1, 2, 0, 0], [0, 0, 0, 0]], np.int32)
     jcache = jm.init_paged_cache(3, 9, 8, 32, kv_quant=kv_quant)
     tcache = bridge.paged_cache_to_torch(
-        jax.tree_util.tree_map(np.asarray, jcache))
+        jax.tree_util.tree_map(np.asarray, jcache), device="cpu")
     for toks, pos, sidx in _chunk_steps():
         jl, jcache = jm.chunk_step(jp, jcache, jnp.asarray(toks),
                                    jnp.asarray(pos), jnp.asarray(sidx),
