@@ -12,14 +12,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                ancestor mask, logical positions and a sliding window; each
                held against its plain version, and timed beside it and a
                library yardstick;
+               K4 (flash_attention) at Qwen2.5's 14 q / 2 kv heads, hd 64,
+               bf16: the calibration forward (B 2, S 64), the launcher's
+               prefill (B 4, S 256), a ragged S 1000, a 128-token window
+               and a bidirectional case;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
-               through `GenerationEngine.submit` / `step` / `drain`; both
-               launch counters must grow during this run;
+               through `GenerationEngine.submit` / `step` / `drain`; the
+               K1 and K2 launch counters must grow during this run;
   5. profile — decode steps of 4 slots timed bare and under
                torch.profiler: device busy time, idle share, top kernels;
   6. check   — one unified `chunk_step` on the card (K1 + K2) against the
-               same step on CPU copies (plain versions).
+               same step on CPU copies (plain versions);
+  7. launch  — the launcher's AWQ path at full width,
+               `repro_torch.launch.serve.main` with ``--arch qwen25-05b
+               --quant awq --batch 4 --prompt-len 256 --max-new 32``:
+               calibration forward (K4 in every layer), AWQ search + pack
+               of all 168 linears, `generate()` (K4 prefill, K1 decode);
+               K4 must launch in both the calibration forward and
+               `generate()`, K1 in `generate()`;
+  8. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
+               AWQ-packed weights on the card (K4 + K1) against the same
+               prefill on CPU copies (plain versions).
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -53,7 +67,9 @@ from repro_torch.core.pipeline import quantize_params  # noqa: E402
 from repro_torch.core.quantize import QuantConfig, quantize_groupwise  # noqa: E402
 from repro_torch.kernels import awq_matmul as k1  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import paged_attention as k2  # noqa: E402
+from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 
@@ -103,8 +119,11 @@ def time_ms(fn, n_inputs: int, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+def bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """The least time for moving ``nbytes`` and doing each ``(ops, peak
+    rate)`` part of the work on the units its types allow, in ms."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(ops / peak for ops, peak in work)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -140,7 +159,7 @@ def check_k1(gen) -> tuple[dict, dict]:
                 x, *packs[i], GS, torch.bfloat16), copies)
             lib = time_ms(lambda i: torch.matmul(x, lib_w[i]), len(lib_w))
             nbytes = x.nbytes + wbytes + m * n * 4
-            b_ms, b_by = bound(nbytes, 2 * m * k * n, BF16_OPS_PER_S)
+            b_ms, b_by = bound(nbytes, (2 * m * k * n, BF16_OPS_PER_S))
             shapes.append(dict(k=k, n=n, m=m, max_abs_err=err, tol=tol,
                                ms=ms, plain_ms=plain, library_ms=lib,
                                bound_ms=b_ms, bound_by=b_by))
@@ -281,7 +300,8 @@ def check_k2(gen) -> tuple[dict, dict]:
                   + table.nbytes + pos.nbytes
                   + sum(t.nbytes for t in kw.values()
                         if isinstance(t, torch.Tensor)))
-        b_ms, b_by = bound(nbytes, 4 * visible * hkv * g * hd, F32_OPS_PER_S)
+        b_ms, b_by = bound(nbytes,
+                           (4 * visible * hkv * g * hd, F32_OPS_PER_S))
         per_c.append(dict(case=case, c=c, max_abs_err=err, tol=tol, ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
@@ -299,6 +319,72 @@ def check_k2(gen) -> tuple[dict, dict]:
         library_call="torch SDPA over gathered, dequantized bf16 K/V with "
                      "a boolean mask (not the same function)",
         shapes=per_c)
+    return entry, detail
+
+
+# K4 cases: name, B, S, causal, window (H 14, Hkv 2, hd 64, bf16)
+K4_CASES = [("calibration", 2, 64, True, 0), ("prefill", 4, 256, True, 0),
+            ("ragged", 1, 1000, True, 0), ("window", 1, 1000, True, 128),
+            ("bidirectional", 4, 256, False, 0)]
+
+
+def check_k4(gen) -> tuple[dict, dict]:
+    """K4 at the shapes the launcher gives it. q, k and v are the
+    [B, S, H, hd] projections passed as ``transpose(1, 2)`` views, as
+    `attention()` passes them, and sit in L2 as the prefill leaves them."""
+    h, hkv, hd, dt = 14, 2, 64, torch.bfloat16
+    per_case = []
+    for case, b, s, causal, window in K4_CASES:
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+                   .to(dt).transpose(1, 2) for n in (h, hkv, hkv))
+        kw = dict(causal=causal, window=window)
+        out = k4.flash_attention(q, k, v, **kw)
+        ref = k4.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        lim = 1e-5 + torch.finfo(dt).eps * ref.float().abs()
+        if not bool((err <= lim).all()):
+            raise AssertionError(f"K4 {case}: err exceeds 1e-5 + eps|ref| by "
+                                 f"{float((err - lim).max())}")
+        ms = time_ms(lambda i: k4.flash_attention(q, k, v, **kw), 1)
+        plain = time_ms(lambda i: k4.flash_attention_ref(q, k, v, **kw), 1,
+                        iters=10)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        mask = k4.visibility(s, causal=causal, window=window, device="cuda")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_kw = (dict(attn_mask=mask) if window
+                  else dict(is_causal=causal))
+        lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1)
+        nbytes = q.nbytes + k.nbytes + v.nbytes + out.nbytes
+        # per visible pair and head: QK^T's 2*hd flops on bf16 operands
+        # (exact on tensor cores, f32 sums), PV's 2*hd on f32 probabilities
+        pair_flops = 2 * hd * h * b * int(mask.sum())
+        b_ms, b_by = bound(nbytes, (pair_flops, BF16_OPS_PER_S),
+                           (pair_flops, F32_OPS_PER_S))
+        per_case.append(dict(case=case, b=b, s=s, causal=causal,
+                             window=window, max_abs_err=float(err.max()),
+                             ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=b_ms, bound_by=b_by))
+    pre = next(c for c in per_case if c["case"] == "prefill")
+    entry = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:83",
+        max_abs_err=max(c["max_abs_err"] for c in per_case),
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"])
+    detail = dict(
+        at="the launcher's prefill: B 4, S 256, H 14 / Hkv 2, hd 64, bf16, "
+           "causal",
+        tolerance="per element: 1e-5 + bf16 eps (2^-7) x |plain|",
+        bound="the larger of: bytes of Q, K, V, O at 3.35 TB/s; per "
+              "visible (query, key) pair and head, QK^T's 2*hd flops at "
+              "989 TFLOP/s (bf16 x bf16 is exact on tensor cores with f32 "
+              "sums) plus PV's 2*hd at 67 TFLOP/s (f32 probabilities need "
+              "f32 units); the kernel itself runs both on f32 CUDA cores",
+        library_call="torch SDPA (is_causal / boolean mask, enable_gqa) on "
+                     "the same bf16 tensors, made contiguous",
+        shapes=per_case)
     return entry, detail
 
 
@@ -453,6 +539,86 @@ def cross_check(model, params) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 7
+LAUNCH_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--batch", "4",
+               "--prompt-len", "256", "--max-new", "32"]
+
+
+def launch() -> tuple[dict, dict]:
+    """The launcher's AWQ path at full width; returns (phase fields, the
+    served AWQ params)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launcher's path: counts start at 0 here and are read right after
+    k1.COUNTER.count = k2.COUNTER.count = k4.COUNTER.count = 0
+    t0 = time.perf_counter()
+    out = launcher.main(LAUNCH_ARGS)
+    total_s = time.perf_counter() - t0
+    totals = {"flash_attention": k4.COUNTER.count,
+              "awq_matmul": k1.COUNTER.count,
+              "paged_attention_chunk": k2.COUNTER.count}
+    rep, by_step = out["report"], out["launches"]
+    toks = out["tokens"]
+    if out["shape"] != [4, 32] or not ((toks >= 0) & (toks < 151936)).all():
+        raise AssertionError(f"launch: bad tokens {out['shape']}")
+    if not len(rep.calibrated) == len(rep.quantized) == 168:
+        raise AssertionError(f"launch: {len(rep.calibrated)} of "
+                             f"{len(rep.quantized)} linears calibrated, "
+                             f"want all 168")
+    if not (by_step["calibrate"]["flash_attention"] >= 24
+            and by_step["generate"]["flash_attention"] >= 24
+            and by_step["generate"]["awq_matmul"] > 0):
+        raise AssertionError(f"launch: a kernel of the path never ran: "
+                             f"{by_step}")
+    fields = dict(
+        args=" ".join(LAUNCH_ARGS), total_s=total_s,
+        calibrate_s=out["calib_s"], awq_s=out["awq_s"],
+        quantized=len(rep.quantized), calibrated=len(rep.calibrated),
+        skipped=len(rep.skipped), compression_ratio=rep.compression_ratio,
+        fp16_bytes=out["fp16_bytes"], awq_macro_bytes=out["macro_bytes"],
+        generate_s=out["generate_s"], tokens_per_s=out["tokens_per_s"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=totals, launches_by_step=by_step,
+        sample=toks[0][:8].tolist())
+    return fields, out["params"]
+
+
+# ------------------------------------------------------------------ phase 8
+def check_prefill(model, params) -> dict:
+    """One full-sequence prefill (B 1, S 64) on the launcher's AWQ-packed
+    weights, on the card (K4 attention, K1 projections) and on CPU copies
+    (plain versions). The bf16 activations round differently once the
+    sums run in another order, and the differences grow over 24 layers,
+    so the last position's logits are held at 5% of their largest
+    magnitude, as `cross_check` holds a chunk step, and the argmax must
+    agree if the top-2 margin clears that tolerance."""
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 64))
+                            .astype(np.int32))
+    prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
+    before = k4.COUNTER.count
+    logits = {}
+    for d in ("cuda", "cpu"):
+        with torch.no_grad():
+            cache = model.init_cache(1, 64, device=d)
+            _, lg, _ = model.prefill(prm[d], {"tokens": toks.to(d)}, cache)
+        logits[d] = lg.float().cpu()
+    ref, got = logits["cpu"], logits["cuda"]
+    err = float((got - ref).abs().max())
+    tol = 0.05 * float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values[0]
+    clear = bool(top2[0] - top2[1] > 2 * tol)
+    agree = bool(got.argmax() == ref.argmax())
+    if not err <= tol or (clear and not agree):
+        raise AssertionError(f"check_prefill: err {err} > {tol} or argmax "
+                             f"differs on a clear row")
+    if k4.COUNTER.count - before != model.cfg.num_layers:
+        raise AssertionError("check_prefill: the card's prefill did not run "
+                             "K4 once per layer")
+    return dict(max_abs_err=err, tol=tol, argmax_agree=agree,
+                margin_clear=clear)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -483,9 +649,10 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     (k1_entry, k1_detail), (k2_entry, k2_detail) = check_k1(gen), check_k2(gen)
-    kernels = [k1_entry, k2_entry]
+    k4_entry, k4_detail = check_k4(gen)
+    kernels = [k1_entry, k2_entry, k4_entry]
     phase("kernel_shapes", awq_matmul=k1_detail,
-          paged_attention_chunk=k2_detail)
+          paged_attention_chunk=k2_detail, flash_attention=k4_detail)
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -500,17 +667,32 @@ def main() -> None:
     phase("serve", **served)
     prof = profile_decode(model, params)
     phase("profile", **prof)
-    for k in kernels:
-        k["launches"] = served["launches"][k["name"]]
     checked = cross_check(model, params)
     phase("check", **checked)
+    del params
+    torch.cuda.empty_cache()
+
+    launched, awq_params = launch()
+    phase("launch", **launched)
+    # each kernel's launches on the path that carries it: K1 and K2 while
+    # the engine serves, K4 in the launcher's calibration and generate()
+    k1_entry["launches"] = served["launches"]["awq_matmul"]
+    k2_entry["launches"] = served["launches"]["paged_attention_chunk"]
+    k4_entry["launches"] = launched["launches"]["flash_attention"]
+    prefilled = check_prefill(model, awq_params)
+    phase("check_prefill", **prefilled)
 
     phase("summary", gpu=smi, **{k: served[k] for k in (
         "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
         "serve_s", "peak_mem_bytes", "launches", "qlinear_calls")},
         profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
                                       "device_busy_ms", "device_idle_share")},
-        check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()})
+        check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()},
+        launch={k: launched[k] for k in (
+            "calibrate_s", "awq_s", "calibrated", "compression_ratio",
+            "awq_macro_bytes", "tokens_per_s", "peak_mem_bytes",
+            "launches_by_step")},
+        check_prefill=[prefilled["max_abs_err"], prefilled["tol"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

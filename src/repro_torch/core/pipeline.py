@@ -1,11 +1,18 @@
-"""Whole-model post-training quantization (PTQ), round-to-nearest branch.
+"""Whole-model post-training quantization (PTQ) pipeline.
+
+The paper's automated flow (§III-A), as the reference runs it:
+
+    1. a calibration forward under `CalibrationCapture` (`Model.loss`),
+    2. per linear: the AWQ scale search on its captured rows (`core.awq`),
+    3. group-quantize the scaled weight, pack it (`PackedLinear`), keep
+       the inverse activation scale as ``input_scale``.
 
 Model params are nested dicts; linears are sub-dicts ``{"w": [K, N]}``
-(plus optional ``"b"``); the port keeps one tensor per layer (lists under
-``segments/seg_i``), so every linear is 2-D. Each quantizable linear
-becomes a `PackedLinear` with ``input_scale`` = 1 — the reference's
-``calib=None`` path. AWQ's activation-aware scale search (``calib``)
-is not ported yet.
+(plus optional ``"b"``). The port keeps one tensor per layer (lists under
+``segments/seg_i``), so every linear is 2-D and a layer's linear sits at
+``segments/seg_i/<layer>/<path>``; its capture name is the reference's
+``segments/seg_i/<path>@<layer>``. Linears without captured stats (or
+with ``calib=None``) fall back to plain round-to-nearest (scale = 1).
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.awq import AWQConfig, search_awq_scale
+from repro_torch.core.calibration import LinearStats
 from repro_torch.core.packing import (PACK, PackedLinear, pack_linear,
                                       packed_linear_nbytes)
 from repro_torch.core.quantize import QuantConfig, quantize_groupwise
@@ -60,35 +69,71 @@ def _quantizable(path: str, node: dict, qcfg: QuantConfig,
     return k * n >= 16384  # skip tiny projections (paper keeps them on CPU)
 
 
-def quantize_params(params: Any, calib: dict | None = None,
-                    cfg: QuantConfig | None = None,
+def _quantize_2d(w: torch.Tensor, stats: LinearStats | None,
+                 cfg: AWQConfig):
+    """Returns (q, scales, zeros, input_scale [K]) for one [K, N] weight;
+    the search and the quantization run on w's device."""
+    k = w.shape[0]
+    if stats is not None and stats.rows.shape[0] >= 8:
+        s, _ = search_awq_scale(stats.rows, w, cfg)
+    else:
+        s = torch.ones(k, dtype=torch.float32, device=w.device)
+    w_scaled = w.to(torch.float32) * s[:, None]
+    q, scales, zeros = quantize_groupwise(w_scaled, cfg.quant)
+    return q, scales, zeros, 1.0 / s
+
+
+def capture_name(path_parts: list[str]) -> str:
+    """Param path → the reference's capture name: a layer's linear
+    ``segments/seg_0/3/attn/wq`` is ``segments/seg_0/attn/wq@3``."""
+    if (len(path_parts) > 3 and path_parts[0] == "segments"
+            and path_parts[2].isdigit()):
+        return "/".join(path_parts[:2] + path_parts[3:]) + f"@{path_parts[2]}"
+    return "/".join(path_parts)
+
+
+def quantize_params(params: Any,
+                    calib: dict[str, LinearStats] | None = None,
+                    cfg: AWQConfig | QuantConfig | None = None,
                     exclude: tuple[str, ...] = DEFAULT_EXCLUDE,
                     select: Callable[[str], bool] | None = None,
                     ) -> tuple[Any, PTQReport]:
-    """Replace every quantizable linear in ``params`` with a `PackedLinear`
-    (RTN: int4 asymmetric, ``cfg.group_size`` rows per group, GS 64 by
-    default). Runs on whatever device the weights are on."""
-    if calib is not None:
-        raise NotImplementedError(
-            "quantize_params: AWQ calibration (calib=...) is not ported "
-            "yet; the port quantizes with round-to-nearest (calib=None)")
-    cfg = cfg or QuantConfig()
+    """Replace every quantizable linear in ``params`` with a `PackedLinear`.
+
+    Args:
+      params: nested-dict model params (float), on any device.
+      calib:  capture stats from `CalibrationCapture.stats` (None → RTN).
+      cfg:    AWQ search + quant config (GS 64 int4 asymmetric by
+              default); a bare `QuantConfig` means the default search.
+      select: optional extra predicate on the linear's path.
+
+    Returns (new_params, PTQReport); the report lists one path per layer.
+    """
+    if isinstance(cfg, QuantConfig):
+        cfg = AWQConfig(quant=cfg)
+    cfg = cfg or AWQConfig()
+    calib = calib or {}
     report = PTQReport()
 
     def visit(node: Any, path_parts: list[str]) -> Any:
         path = "/".join(path_parts)
         if _is_linear(node):
-            if not _quantizable(path, node, cfg, exclude) or (
+            if not _quantizable(path, node, cfg.quant, exclude) or (
                     select is not None and not select(path)):
                 report.skipped.append(path)
                 return node
             w = node["w"]
             k, n = w.shape
-            q, scales, zeros = quantize_groupwise(w.to(torch.float32), cfg)
+            st = calib.get(capture_name(path_parts))
+            q, scales, zeros, isc = _quantize_2d(w, st, cfg)
+            if st is not None:
+                report.calibrated.append(path)
             report.quantized.append(path)
-            report.packed_bytes += packed_linear_nbytes(k, n, cfg.group_size)
+            report.packed_bytes += packed_linear_nbytes(k, n,
+                                                        cfg.quant.group_size)
             report.dense_bytes_fp16 += k * n * 2
-            return pack_linear(q, scales, zeros, None, node.get("b"), cfg)
+            return pack_linear(q, scales, zeros, isc, node.get("b"),
+                               cfg.quant)
         if isinstance(node, dict):
             return {k2: visit(v, path_parts + [k2]) for k2, v in node.items()}
         if isinstance(node, list):

@@ -37,37 +37,43 @@ class QuantConfig:
 
 
 def quantize_groupwise(w: torch.Tensor, cfg: QuantConfig):
-    """Quantize ``w [K, N]`` → (q int32 [K, N] in [0, qmax], scales f32
-    [K//GS, N], zeros int32 [K//GS, N])."""
-    k, n = w.shape
+    """Quantize ``w [..., K, N]`` → (q int32 [..., K, N] in [0, qmax],
+    scales f32 [..., K//GS, N], zeros int32 [..., K//GS, N]); leading dims
+    (AWQ's candidate grid) are independent weights."""
+    *lead, k, n = w.shape
     cfg.validate_k(k)
     g = k // cfg.group_size
-    wg = w.reshape(g, cfg.group_size, n).to(torch.float32)
+    wg = w.reshape(*lead, g, cfg.group_size, n).to(torch.float32)
     if cfg.sym:
-        amax = wg.abs().amax(dim=1)
+        amax = wg.abs().amax(dim=-2)
         qhalf = cfg.qmax // 2
         scales = amax / qhalf
         scales = torch.where(scales == 0, torch.ones_like(scales), scales)
-        zeros = torch.full((g, n), qhalf + 1, dtype=torch.int32,
+        zeros = torch.full((*lead, g, n), qhalf + 1, dtype=torch.int32,
                            device=w.device)
-        q = torch.round(wg / scales[:, None, :]) + (qhalf + 1)
+        q = torch.round(wg / scales[..., None, :]) + (qhalf + 1)
     else:
-        wmax = wg.amax(dim=1)
-        wmin = wg.amin(dim=1)
+        wmax = wg.amax(dim=-2)
+        wmin = wg.amin(dim=-2)
         scales = (wmax - wmin) / cfg.qmax
         scales = torch.where(scales == 0, torch.ones_like(scales), scales)
         zeros = torch.clip(torch.round(-wmin / scales), 0,
                            cfg.qmax).to(torch.int32)
-        q = torch.round(wg / scales[:, None, :]) + zeros[:, None, :]
+        q = torch.round(wg / scales[..., None, :]) + zeros[..., None, :]
     q = torch.clip(q, 0, cfg.qmax).to(torch.int32)
-    return q.reshape(k, n), scales, zeros
+    return q.reshape(*lead, k, n), scales, zeros
 
 
 def dequantize_groupwise(q: torch.Tensor, scales: torch.Tensor,
                          zeros: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     """Inverse of `quantize_groupwise`: ``w = (q - zero) * scale``."""
-    k, n = q.shape
+    *lead, k, n = q.shape
     g = k // cfg.group_size
-    qg = q.reshape(g, cfg.group_size, n).to(torch.float32)
-    w = (qg - zeros[:, None, :].to(torch.float32)) * scales[:, None, :]
-    return w.reshape(k, n).to(cfg.compute_dtype)
+    qg = q.reshape(*lead, g, cfg.group_size, n).to(torch.float32)
+    w = (qg - zeros[..., None, :].to(torch.float32)) * scales[..., None, :]
+    return w.reshape(*lead, k, n).to(cfg.compute_dtype)
+
+
+def fake_quantize(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Quantize-dequantize roundtrip (the operator AWQ's search minimizes)."""
+    return dequantize_groupwise(*quantize_groupwise(w, cfg), cfg).to(w.dtype)

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry point of each source: (function name, argtypes). Every pointer
 # and the stream are c_void_p; each function returns cudaGetLastError().
@@ -35,6 +36,8 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     "awq_matmul": ("awq_matmul_bf16", [_P] * 5 + [_I] * 5 + [_P]),
     "paged_attention": ("paged_attention_chunk_f32",
                         [_P] * 10 + [_I] * 9 + [_F, _I, _P]),
+    "flash_attention": ("flash_attention_fwd",
+                        [_P] * 4 + [_L] * 12 + [_I] * 8 + [_F, _I, _P]),
 }
 
 

@@ -2,8 +2,10 @@
 
 Execution regimes (as in the reference):
 
-  * train/prefill — q-chunked attention (``attn_chunk`` queries at a time,
-    full key rows per chunk); softmax rows are complete per chunk.
+  * train/prefill — full-sequence attention through kernel K4
+    (`kernels.flash_attention`: tiled online softmax, so no S × S score
+    matrix is formed on the card; the reference chunks queries by
+    ``attn_chunk`` for the same reason).
   * decode (dense cache) — single-token attention against a
     ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`).
   * paged chunk (serving) — `attention_chunk_paged`: the engine's unified
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import torch_dtype
+from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, linear, rmsnorm, rope_cos_sin
@@ -59,12 +62,18 @@ def _rot_dim(cfg) -> int:
     return rd - rd % 2
 
 
-def _project_qkv(p, x, cfg, positions, window):
-    """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd], rope'd + qk-norm'd."""
+def _project_qkv(p, x, cfg, positions, window, name=None):
+    """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd], rope'd + qk-norm'd.
+    ``name`` (local → capture name, or None) labels the projections for
+    calibration."""
+    nm = (lambda s: None) if name is None else name
     lead = x.shape[:-1]
-    q = linear(p["wq"], x).reshape(*lead, cfg.num_heads, cfg.head_dim)
-    k = linear(p["wk"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(p["wv"], x).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+    q = linear(p["wq"], x, nm("wq")).reshape(*lead, cfg.num_heads,
+                                             cfg.head_dim)
+    k = linear(p["wk"], x, nm("wk")).reshape(*lead, cfg.num_kv_heads,
+                                             cfg.head_dim)
+    v = linear(p["wv"], x, nm("wv")).reshape(*lead, cfg.num_kv_heads,
+                                             cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, eps=cfg.norm_eps,
                     plus_one=cfg.rms_plus_one)
@@ -78,16 +87,33 @@ def _project_qkv(p, x, cfg, positions, window):
     return q, k, v
 
 
+def _cache_probs_dtype(v_dtype: torch.dtype, adt: torch.dtype) -> torch.dtype:
+    """The type a cache read's probabilities take into the value product.
+
+    f32, as K2 and K4 keep them, while the cache holds the activations'
+    own type: then the engine's reads and `generate`'s K4 prefill compute
+    one function (under bf16 the reference's rounding of the
+    probabilities, which K4 does not make, flipped a near-tied greedy
+    token between them). A cache stored narrower than the activations (a
+    bf16 pool or cache under f32 activations) keeps the reference's
+    rounding to its storage type, and with it the reference's numerics:
+    without that rounding the port's chunk step over a bf16 pool leaves
+    the reference's logits by more than the bf16-cache tolerance.
+    """
+    return v_dtype if v_dtype.itemsize < adt.itemsize else torch.float32
+
+
 def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
-          scale: float, vis: torch.Tensor | None = None) -> torch.Tensor:
+          scale: float, vis: torch.Tensor | None = None,
+          probs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Grouped scaled-dot-product attention over full key rows.
 
     q [B, C, Hkv, G, hd]; k/v [B, S, Hkv, hd]; *_pos [B, C]/[B, S] absolute
     positions (k_pos < 0 ⇒ invalid slot). Returns [B, C, Hkv, G, hd] in
-    v's dtype. Scores are f32; probabilities are rounded to v's dtype
-    before the value product, as in the reference. An explicit
-    ``vis [B, C, S]`` mask overrides the positional mask; rows whose mask
-    is empty then give exactly 0.
+    v's dtype. Scores are f32; probabilities are rounded to
+    ``probs_dtype`` (the caller's choice, `_cache_probs_dtype`) before the
+    value product. An explicit ``vis [B, C, S]`` mask overrides the
+    positional mask; rows whose mask is empty then give exactly 0.
     """
     scores = einsum_f32("bqkgd,bskd->bkgqs", q, k) * scale
     neg = torch.full_like(scores, -1e30)
@@ -106,28 +132,31 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
             mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
         scores = torch.where(mask[:, None, None, :, :], scores, neg)
         probs = torch.softmax(scores, dim=-1)
-    out = einsum_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    out = einsum_f32("bkgqs,bskd->bqkgd", probs.to(probs_dtype), v)
     return out.to(v.dtype)
 
 
 def attention(p, x, cfg, *, positions, window: int = 0,
-              causal: bool = True) -> torch.Tensor:
-    """Train/prefill attention. x [B, S, D] -> [B, S, D]."""
+              causal: bool = True, name=None) -> torch.Tensor:
+    """Train/prefill attention. x [B, S, D] -> [B, S, D].
+
+    Positions are ``arange(S)`` on this path (`Model._embed`), so the
+    mask is K4's: query i sees key j iff ``j <= i`` (causal) and
+    ``j > i - window`` (windowed); ``positions`` feeds RoPE. The kernel
+    reads the [B, S, H, hd] projections through ``transpose(1, 2)`` views
+    and writes its output in the same layout, so no copy is made on
+    either side. Probabilities stay f32 up to the output, where the
+    reference's `_sdpa` rounds them to v's dtype before the value
+    product: under bf16 activations the two agree to bf16 precision.
+    """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions, window)
-    g = cfg.num_heads // cfg.num_kv_heads
-    q = q.reshape(b, s, cfg.num_kv_heads, g, cfg.head_dim)
-    scale = cfg.head_dim ** -0.5
-    chunk = cfg.attn_chunk
-    if s > chunk and s % chunk == 0:
-        outs = [_sdpa(q[:, i:i + chunk], k, v, positions[:, i:i + chunk],
-                      positions, causal=causal, window=window, scale=scale)
-                for i in range(0, s, chunk)]
-        out = torch.cat(outs, dim=1)
-    else:
-        out = _sdpa(q, k, v, positions, positions, causal=causal,
-                    window=window, scale=scale)
-    return linear(p["wo"], out.reshape(b, s, cfg.q_dim))
+    q, k, v = _project_qkv(p, x, cfg, positions, window, name)
+    out = k4.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), scale=cfg.head_dim ** -0.5,
+                             causal=causal, window=window)
+    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    nm = (lambda s_: None) if name is None else name
+    return linear(p["wo"], out, nm("wo"))
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +235,8 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
     out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=False, window=0,
-                scale=cfg.head_dim ** -0.5)
+                scale=cfg.head_dim ** -0.5,
+                probs_dtype=_cache_probs_dtype(cv.dtype, adt))
     return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
 
 
@@ -306,12 +336,14 @@ def attention_chunk_paged(p, pool, page_table, x, cfg, *, pos, rpos=None,
         ck = _kv_dequant(ck, ks, adt)
         cv = _kv_dequant(cv, vs, adt)
     k_pos = torch.arange(s_slot, device=x.device)[None, :].expand(b, s_slot)
+    probs_dtype = _cache_probs_dtype(cv.dtype, adt)
     if rpos is None and amask is None and not window:
         out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
-                    scale=cfg.head_dim ** -0.5)
+                    scale=cfg.head_dim ** -0.5, probs_dtype=probs_dtype)
     else:
         vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, rpos=rpos,
                                       amask=amask, window=window)
         out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
-                    scale=cfg.head_dim ** -0.5, vis=vis)
+                    scale=cfg.head_dim ** -0.5, vis=vis,
+                    probs_dtype=probs_dtype)
     return linear(p["wo"], out.reshape(b, c, cfg.q_dim)), pool

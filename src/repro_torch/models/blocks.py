@@ -62,18 +62,22 @@ def init_block_cache_paged(cfg, kind: LayerKind, num_pages: int,
         cfg, num_pages, page_size, dtype, kv_quant=kv_quant, device=device)}
 
 
-def _mlp_apply(p, x, cfg, kind: LayerKind):
+def _mlp_apply(p, x, cfg, kind: LayerKind, name=None):
     mp = p["mlp"]
+    nm = (lambda s: name(f"mlp/{s}")) if name else (lambda s: None)
     if kind.mlp == "glu":
-        h = activation(cfg.act, linear(mp["gate"], x)) * linear(mp["up"], x)
+        h = activation(cfg.act, linear(mp["gate"], x, nm("gate"))) \
+            * linear(mp["up"], x, nm("up"))
     else:
-        h = activation(cfg.act, linear(mp["up"], x))
-    return linear(mp["down"], h)
+        h = activation(cfg.act, linear(mp["up"], x, nm("up")))
+    return linear(mp["down"], h, nm("down"))
 
 
 def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
-                cache=None, page_table=None, rpos=None, amask=None):
-    """Returns (x_out, cache_out)."""
+                cache=None, name=None, page_table=None, rpos=None,
+                amask=None):
+    """Returns (x_out, cache_out). ``name`` (local path → capture name, or
+    None) labels the block's linears for calibration."""
     h = norm(p["pre_norm"], x, cfg)
     if mode == "decode":
         y, kv = attn_mod.attention_decode(p["attn"], cache["kv"], h, cfg,
@@ -87,9 +91,10 @@ def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
             rpos=rpos, amask=amask, window=kind.window)
         cache = {"kv_pool": pool}
     else:
+        sub = (lambda s: name(f"attn/{s}")) if name else None
         y = attn_mod.attention(p["attn"], h, cfg, positions=positions,
                                window=kind.window,
-                               causal=not cfg.is_encoder)
+                               causal=not cfg.is_encoder, name=sub)
         if mode == "prefill":
             _, k, v = attn_mod._project_qkv(p["attn"], h, cfg, positions,
                                             kind.window)
@@ -97,4 +102,4 @@ def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
                 cache["kv"], k, v, positions, kind.window)}
     x = x + y
     h2 = norm(p["mlp_norm"], x, cfg)
-    return x + _mlp_apply(p, h2, cfg, kind), cache
+    return x + _mlp_apply(p, h2, cfg, kind, name), cache

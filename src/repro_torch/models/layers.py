@@ -2,7 +2,8 @@
 
 `linear` is the single matmul entry point: float weights or a
 `PackedLinear` (AWQ-quantized), which dispatches through `qlinear_apply`.
-Calibration capture is not ported yet.
+Float linears record their input when a `CalibrationCapture` is active
+(the AWQ pipeline's hook into every projection).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import calibration
 from repro_torch.core.packing import PackedLinear
 from repro_torch.core.qlinear import qlinear_apply
 from repro_torch.numerics import matmul_f32
@@ -50,11 +52,13 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 
 # --------------------------------------------------------------------- apply
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
+def linear(p, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     """``y = x @ w (+ b)``: float weights in x's dtype with f32
-    accumulation, or the quantized dispatch for a `PackedLinear`."""
+    accumulation (recording x under ``name`` during calibration), or the
+    quantized dispatch for a `PackedLinear`."""
     if isinstance(p, PackedLinear):
         return qlinear_apply(p, x)
+    calibration.record_linear_input(name, x)
     w = p["w"]
     y = matmul_f32(x, w.to(x.dtype)).to(x.dtype)
     if "b" in p:

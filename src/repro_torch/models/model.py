@@ -1,10 +1,11 @@
 """Top-level decoder model: token embedding → stack → (tied) f32 head.
 
-Serving entry points mirror the reference's `Model`: `prefill` +
-`decode_step` over the dense cache (`GenerationEngine.generate`),
-`chunk_step` over the paged pools (the serving engine), and
-`forward_logits`. The audio / vision frontends and the training loss are
-not ported yet.
+Entry points mirror the reference's `Model`: `prefill` + `decode_step`
+over the dense cache (`GenerationEngine.generate`), `chunk_step` over the
+paged pools (the serving engine), `forward_logits`, and `loss`, the
+chunked-vocab causal-LM loss, forward only (AWQ's calibration forward).
+The audio / vision frontends and training (the backward pass) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -72,6 +73,38 @@ class Model:
         if self.cfg.tie_embeddings:
             return matmul_f32(x, params["embed"]["table"].t())
         return linear(params["lm_head"], x.to(torch.float32))
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Chunked-vocab causal-LM loss (forward only): tokens / labels
+        ``[B, S]``, labels < 0 ignored. The f32 logits are formed
+        ``logits_chunk`` positions at a time, never as one [B, S, V]."""
+        cfg = self.cfg
+        labels = batch.get("labels")
+        if labels is None:
+            raise ValueError("training batch needs labels")
+        x, positions = self._embed(params, batch)
+        x, _ = stack.stack_apply(params["segments"], x, cfg, mode="train",
+                                 positions=positions)
+        x = norm(params["final_norm"], x, cfg)
+        labels = torch.as_tensor(labels, device=x.device).long()
+        s = x.shape[1]
+        chunk = min(cfg.logits_chunk, s)
+        if s % chunk:
+            chunk = s
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            logits = self._head_logits(params, x[:, c0:c0 + chunk])
+            li = labels[:, c0:c0 + chunk]
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]
+            valid = (li >= 0).to(torch.float32)
+            tot = tot + ((logz - ll) * valid).sum()
+            cnt = cnt + valid.sum()
+        ce = tot / torch.clamp(cnt, min=1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     # ---------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int | None = None,

@@ -2,12 +2,15 @@
 
 The reference scans each segment over scan-stacked params; the port keeps
 one parameter dict per layer (``params[seg_i]`` is a list) and one cache
-entry per layer, and loops.
+entry per layer, and loops. While a `CalibrationCapture` is active the
+loop names every linear ``segments/seg_{si}/<path>@<i>``, the reference's
+capture names letter for letter, which `core.pipeline` reads back.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import calibration
 from repro_torch.models import blocks
 
 
@@ -42,13 +45,17 @@ def stack_init_paged_cache(cfg, num_pages: int, page_size: int,
 def stack_apply(params, x, cfg, *, mode: str, positions, cache=None,
                 page_table=None, rpos=None, amask=None):
     """Run all layers. Returns (x, cache); caches update in place."""
+    capture = calibration.capture_active()
     for si, (kind, n) in enumerate(cfg.segments()):
         p_seg = params[seg_name(si)]
         c_seg = cache[seg_name(si)] if cache is not None else None
         for i in range(n):
+            nm = ((lambda local, _si=si, _i=i:
+                   f"segments/{seg_name(_si)}/{local}@{_i}")
+                  if capture else None)
             x, c_new = blocks.block_apply(
                 p_seg[i], x, cfg, kind, mode=mode, positions=positions,
-                cache=None if c_seg is None else c_seg[i],
+                cache=None if c_seg is None else c_seg[i], name=nm,
                 page_table=page_table, rpos=rpos, amask=amask)
             if c_seg is not None:
                 c_seg[i] = c_new

@@ -1,12 +1,16 @@
-"""Card-only tests: kernels K1 and K2 against their plain versions on an
-NVIDIA GPU (Hopper, sm_90a). They skip where torch sees no CUDA device;
+"""Card-only tests: kernels K1, K2 and K4 against their plain versions on
+an NVIDIA GPU (Hopper, sm_90a). They skip where torch sees no CUDA device;
 run them on the card with ``PYTHONPATH=src python -m pytest -q
 --noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
 imports JAX, which this file does not need).
 
 Tolerances: K1 sums exact bf16 × bf16 products in f32 in another order
 than the plain version (rtol/atol 1e-4 of the output scale); K2 runs the
-same f32 math with an online softmax (atol 1e-5).
+same f32 math with an online softmax (atol 1e-5). K4 runs f32 math with
+an online softmax too and rounds once to the input type, so two results
+a few f32 ulps apart may round to neighbouring values: atol 1e-5 plus
+one unit of the type's precision relative to the value
+(`torch.finfo(dtype).eps`).
 """
 import pytest
 import torch
@@ -14,6 +18,7 @@ import torch
 from repro_torch.core.packing import pack_linear
 from repro_torch.core.quantize import QuantConfig, quantize_groupwise
 from repro_torch.kernels import awq_matmul as k1
+from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 
 pytestmark = pytest.mark.cuda
@@ -126,3 +131,72 @@ def test_paged_attention_kernel_tree_rows(cuda, window):
     assert float((out - ref).abs().max()) <= 1e-5
     assert not out[0, 5].any()
     assert out[1].abs().sum() > 0
+
+
+def _k4_check(out, ref, dtype):
+    assert out.dtype == ref.dtype == dtype
+    err = (out.float() - ref.float()).abs()
+    lim = 1e-5 + torch.finfo(dtype).eps * ref.float().abs()
+    assert bool((err <= lim).all()), float((err - lim).max())
+
+
+def _k4_inputs(gen, b, h, hkv, s, hd, dtype):
+    q = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, hkv, s, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, hkv, s, hd, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+# b, h, hkv, s, causal, window: the shapes of chip_smoke.py's kernels line
+# (Qwen2.5: 14 q heads over 2 kv heads), then GQA g = 1, 2, 7
+K4_CASES = [
+    (2, 14, 2, 64, True, 0),        # calibration forward
+    (4, 14, 2, 256, True, 0),       # launcher prefill
+    (1, 14, 2, 1000, True, 0),      # ragged tail (not a tile multiple)
+    (1, 14, 2, 1000, True, 128),    # sliding window
+    (1, 14, 2, 300, False, 0),      # bidirectional
+    (2, 4, 4, 77, True, 0),         # g = 1
+    (1, 4, 2, 129, True, 33),       # g = 2, window
+    (1, 7, 1, 40, False, 16),       # g = 7, window without causality
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,causal,window", K4_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, s, causal,
+                                              window, dtype):
+    q, k, v = _k4_inputs(cuda, b, h, hkv, s, 64, dtype)
+    before = k4.COUNTER.count
+    out = k4.flash_attention(q, k, v, causal=causal, window=window)
+    ref = k4.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k4.COUNTER.count == before + 1
+    _k4_check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_flash_attention_kernel_hd128_and_strided_views(cuda, dtype):
+    """hd 128, and inputs passed as ``transpose(1, 2)`` views of
+    [B, S, H, hd] projections (the layout `attention()` hands over): the
+    output takes q's layout."""
+    b, s, h, hkv, hd = 2, 50, 6, 3, 128
+    qs = torch.randn(b, s, h, hd, generator=cuda, device="cuda").to(dtype)
+    ks = torch.randn(b, s, hkv, hd, generator=cuda, device="cuda").to(dtype)
+    vs = torch.randn(b, s, hkv, hd, generator=cuda, device="cuda").to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in (qs, ks, vs))
+    out = k4.flash_attention(q, k, v, scale=0.1)
+    ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), scale=0.1)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    _k4_check(out, ref, dtype)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _k4_inputs(cuda, 1, 4, 2, 16, 64, torch.bfloat16)
+    with pytest.raises(ValueError):
+        k4.flash_attention(q, k.float(), v)                  # mixed types
+    with pytest.raises(ValueError):
+        k4.flash_attention(q[..., :32], k[..., :32], v[..., :32])  # hd 32
+    with pytest.raises(ValueError):
+        k4.flash_attention(q[:, :3], k, v)                   # H % Hkv

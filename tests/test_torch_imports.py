@@ -24,6 +24,9 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert len(mods) > 15
+    assert {"repro_torch.core.awq", "repro_torch.core.calibration",
+            "repro_torch.data.pipeline", "repro_torch.launch.serve",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
