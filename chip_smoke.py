@@ -6,7 +6,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together);
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
-               M ∈ {1, 4, 16, 64}, GS 64; K2 (paged_attention_chunk) at
+               M ∈ {1, 4, 16, 64}, GS 64; K3 (awq_gateup) at the gate/up
+               pair 896→4864, GS 64, M ∈ {1, 4, 16, 64, 1024}, with and
+               without AWQ input scales, in both output modes (f32, the
+               TPU function; bf16, the model's rounding); K2 (paged_attention_chunk) at
                Hkv 2, G 7, hd 64, page 16, B 4, C ∈ {1, 16}, contexts up to
                512 with padding rows, and C = 8 with a token tree's
                ancestor mask, logical positions and a sliding window; each
@@ -19,7 +22,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
-               K1 and K2 launch counters must grow during this run;
+               K1, K2 and K3 launch counters must grow during this run,
+               and their launches per decode-only step are reported;
   5. profile — decode steps of 4 slots timed bare and under
                torch.profiler: device busy time, idle share, top kernels;
   6. check   — one unified `chunk_step` on the card (K1 + K2) against the
@@ -32,8 +36,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                K4 must launch in both the calibration forward and
                `generate()`, K1 in `generate()`;
   8. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
-               AWQ-packed weights on the card (K4 + K1) against the same
-               prefill on CPU copies (plain versions).
+               AWQ-packed weights on the card (K4 + K1 + K3) against the
+               same prefill on CPU copies (plain versions);
+  9. fleet   — the launcher's fleet path at full width,
+               `repro_torch.launch.serve.main` with ``--arch qwen25-05b
+               --quant awq --replicas 2 --mesh-axis 1 --batch 4
+               --prompt-len 256 --max-new 32``: AWQ calibrate + pack, two
+               paged replicas behind the prefix-affinity Router, pinned
+               cluster prefixes, 8 greedy requests; it must skip prefill
+               tokens, place by affinity and launch K1 and K3.
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -80,12 +91,24 @@ F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 COLD_BYTES = 64 << 20          # rotate copies past the 50 MB L2
 GS = 64
 QWEN_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
-# one decode layer's K1 calls at M = num_slots = 4: q, o, gate, up, down
-# (k and v, 2·4·896·128 < 2^20 flops, stay on the generic path)
-LAYER_K1 = [(896, 896), (896, 896), (896, 4864), (896, 4864), (4864, 896)]
+# one decode layer's K1 calls at M = num_slots = 4: q, o, down (k and v,
+# 2·4·896·128 < 2^20 flops, stay on the generic path; gate and up are K3)
+LAYER_K1 = [(896, 896), (896, 896), (4864, 896)]
 
 
 PHASES: dict[str, dict] = {}
+# each kernel wrapper's launch count (one per launch of its kernel)
+COUNTERS = {"awq_matmul": k1.COUNTER, "paged_attention_chunk": k2.COUNTER,
+            "awq_gateup": k1.GATEUP_COUNTER, "flash_attention": k4.COUNTER}
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.count = 0
+
+
+def read_counts(names=COUNTERS) -> dict:
+    return {n: COUNTERS[n].count for n in names}
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -168,17 +191,109 @@ def check_k1(gen) -> tuple[dict, dict]:
     entry = dict(
         name="awq_matmul", route="cuda",
         source="src/repro_torch/csrc/awq_matmul.cu",
-        replaces="src/repro/kernels/awq_matmul.py:80",
+        replaces="src/repro/kernels/awq_matmul.py:99",
         max_abs_err=max(s["max_abs_err"] for s in shapes),
         ms=sum(s["ms"] for s in layer),
         plain_ms=sum(s["plain_ms"] for s in layer),
         bound_ms=sum(s["bound_ms"] for s in layer), bound_by="bytes",
         library_ms=sum(s["library_ms"] for s in layer))
     detail = dict(
-        at="one decode layer at M=4: q, o, gate, up, down (sums)",
+        at="one decode layer at M=4: q, o, down (sums; gate and up run "
+           "in K3)",
         tolerance="per shape: 1e-4 x max|plain| (shapes[].tol)",
         library_call="torch.matmul on the pre-dequantized bf16 weight "
                      "(not the same function: it skips the int4 unpack)",
+        shapes=shapes)
+    return entry, detail
+
+
+def k3_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """Per-element tolerance of K3 against its plain version: the f32
+    output (the TPU function) differs only by the order of sums (1e-4 of
+    the output scale, as K1); the bf16 output rounds g, u, silu(g) and the
+    product as the two-linear MLP does, and a sum a few f32 ulps off may
+    round to a neighbouring value at each step (1e-5 of the output scale
+    plus 2^-6 of the value: four bf16 ulps)."""
+    scale = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        return torch.full_like(ref, 1e-4 * scale)
+    return 1e-5 * scale + 2 ** -6 * ref.float().abs()
+
+
+def check_k3(gen) -> tuple[dict, dict]:
+    """K3 at the gate/up pair of every Qwen2.5 layer (896 → 4864, GS 64):
+    each M with and without AWQ input scales, held against the plain
+    version in both output modes; timed in the mode its caller uses
+    (scaled: the model's bf16 output; unscaled: the TPU function's f32)."""
+    cfg = QuantConfig(group_size=GS)
+    k, n = 896, 4864
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k), cfg),
+        None, None, cfg) for _ in range(2))
+    wbytes = sum(t.nbytes for p in (g, u)
+                 for t in (p.qweight, p.scales, p.zeros))
+    copies = max(1, COLD_BYTES // wbytes)
+    packs = [tuple(t.clone() for p in (g, u)
+                   for t in (p.qweight, p.scales, p.zeros))
+             for _ in range(copies)]
+    wg, wu = (dequantize_int4(p.qweight, p.scales, p.zeros, GS,
+                              torch.bfloat16) for p in (g, u))
+    lib_w = [(wg.clone(), wu.clone())
+             for _ in range(max(1, COLD_BYTES // (2 * wg.nbytes)))]
+    iscales = (torch.rand(k, generator=gen, device="cuda") + 0.5,
+               torch.rand(k, generator=gen, device="cuda") + 0.5)
+    shapes = []
+    for m in (1, 4, 16, 64, 1024):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for scaled in (False, True):
+            sc = iscales if scaled else None
+            errs = {}
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(input_scales=sc, out_dtype=out_dtype)
+                out = k1.awq_gateup(x, *packs[0], GS, **kw)
+                ref = k1.awq_gateup_ref(x, *packs[0], GS, torch.bfloat16, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                lim = k3_tolerance(ref)
+                if not bool((err <= lim).all()):
+                    raise AssertionError(
+                        f"K3 M={m} scaled={scaled} {out_dtype}: err exceeds "
+                        f"its tolerance by {float((err - lim).max())}")
+                errs[str(out_dtype).split(".")[-1]] = [
+                    float(err.max()), float(lim.min())]
+            kw = dict(input_scales=sc, out_dtype=(torch.bfloat16 if scaled
+                                                  else torch.float32))
+            ms = time_ms(lambda i: k1.awq_gateup(x, *packs[i], GS, **kw),
+                         copies)
+            plain = time_ms(lambda i: k1.awq_gateup_ref(
+                x, *packs[i], GS, torch.bfloat16, **kw), copies, iters=10)
+            lib = time_ms(lambda i: torch.nn.functional.silu(
+                x @ lib_w[i][0]) * (x @ lib_w[i][1]), len(lib_w))
+            out_bytes = m * n * (2 if scaled else 4)
+            nbytes = (x.nbytes + wbytes + out_bytes
+                      + (2 * k * 4 if scaled else 0))
+            b_ms, b_by = bound(nbytes, (2 * 2 * m * k * n, BF16_OPS_PER_S))
+            shapes.append(dict(m=m, input_scales=scaled, max_abs_err=errs,
+                               ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by))
+    dec = next(s for s in shapes if s["m"] == 4 and s["input_scales"])
+    entry = dict(
+        name="awq_gateup", route="cuda",
+        source="src/repro_torch/csrc/awq_gateup.cu",
+        replaces="src/repro/kernels/awq_matmul.py:171",
+        max_abs_err=max(e[0] for s in shapes
+                        for e in s["max_abs_err"].values()),
+        ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+        bound_by=dec["bound_by"], library_ms=dec["library_ms"])
+    detail = dict(
+        at="one decode layer's gate/up pair at M=4 with AWQ input scales, "
+           "bf16 output (the model path)",
+        tolerance="f32 output: 1e-4 x max|plain|; bf16 output: 1e-5 x "
+                  "max|plain| + 2^-6 x |plain| per element "
+                  "(shapes[].max_abs_err: [max error, least tolerance])",
+        library_call="silu(x @ Wg) * (x @ Wu) with torch.matmul on the "
+                     "pre-dequantized bf16 weights (not the same function: "
+                     "it skips the int4 unpack and the input scales)",
         shapes=shapes)
     return entry, detail
 
@@ -309,7 +424,7 @@ def check_k2(gen) -> tuple[dict, dict]:
     entry = dict(
         name="paged_attention_chunk", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:153",
+        replaces="src/repro/kernels/paged_attention.py:240",
         max_abs_err=max(s["max_abs_err"] for s in per_c),
         ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
         bound_by=dec["bound_by"], library_ms=dec["library_ms"])
@@ -369,7 +484,7 @@ def check_k4(gen) -> tuple[dict, dict]:
     entry = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:83",
+        replaces="src/repro/kernels/flash_attention.py:108",
         max_abs_err=max(c["max_abs_err"] for c in per_case),
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by=pre["bound_by"], library_ms=pre["library_ms"])
@@ -398,13 +513,17 @@ def serve(model, params) -> dict:
                for n in lens]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the serve path's kernels (K4 is not on it)
+    names = ("awq_matmul", "awq_gateup", "paged_attention_chunk")
     # the main path: counts start at 0 here and are read right after
-    k1.COUNTER.count = k2.COUNTER.count = 0
+    reset_counts()
     qlinear.COUNTS.kernel = qlinear.COUNTS.generic = 0
     t0 = time.perf_counter()
     rids = [eng.submit(p, 32) for p in prompts]
     decode_s, decode_tokens, decode_steps, steps, prefilled = 0.0, 0, 0, 0, 0
+    decode_launches = dict.fromkeys(names, 0)
     while not eng.idle:
+        before = read_counts(names)
         ts = time.perf_counter()
         events = eng.step()                 # ends in a device→host copy
         dt = time.perf_counter() - ts
@@ -414,11 +533,12 @@ def serve(model, params) -> dict:
             decode_s += dt
             decode_tokens += len(events)
             decode_steps += 1
+            for n, v in read_counts(names).items():
+                decode_launches[n] += v - before[n]
         prefilled = now
     out = eng.drain()
     total_s = time.perf_counter() - t0
-    launches = {"awq_matmul": k1.COUNTER.count,
-                "paged_attention_chunk": k2.COUNTER.count}
+    launches = read_counts(names)
     paths = {"kernel": qlinear.COUNTS.kernel,
              "generic": qlinear.COUNTS.generic}
     for rid in rids:
@@ -437,7 +557,10 @@ def serve(model, params) -> dict:
                 decode_step_ms=1e3 * decode_s / max(1, decode_steps),
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
                 kv_pool_bytes=st.kv_pool_bytes, weight_bytes=st.weight_bytes,
-                launches=launches, qlinear_calls=paths)
+                launches=launches,
+                launches_per_decode_step={n: v / max(1, decode_steps)
+                                          for n, v in decode_launches.items()},
+                qlinear_calls=paths)
 
 
 def profile_decode(model, params, steps: int = 6) -> dict:
@@ -550,13 +673,11 @@ def launch() -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the launcher's path: counts start at 0 here and are read right after
-    k1.COUNTER.count = k2.COUNTER.count = k4.COUNTER.count = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = launcher.main(LAUNCH_ARGS)
     total_s = time.perf_counter() - t0
-    totals = {"flash_attention": k4.COUNTER.count,
-              "awq_matmul": k1.COUNTER.count,
-              "paged_attention_chunk": k2.COUNTER.count}
+    totals = read_counts()
     rep, by_step = out["report"], out["launches"]
     toks = out["tokens"]
     if out["shape"] != [4, 32] or not ((toks >= 0) & (toks < 151936)).all():
@@ -567,7 +688,8 @@ def launch() -> tuple[dict, dict]:
                              f"want all 168")
     if not (by_step["calibrate"]["flash_attention"] >= 24
             and by_step["generate"]["flash_attention"] >= 24
-            and by_step["generate"]["awq_matmul"] > 0):
+            and by_step["generate"]["awq_matmul"] > 0
+            and by_step["generate"]["awq_gateup"] > 0):
         raise AssertionError(f"launch: a kernel of the path never ran: "
                              f"{by_step}")
     fields = dict(
@@ -619,6 +741,51 @@ def check_prefill(model, params) -> dict:
                 margin_clear=clear)
 
 
+# ------------------------------------------------------------------ phase 9
+FLEET_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--replicas", "2",
+              "--mesh-axis", "1", "--batch", "4", "--prompt-len", "256",
+              "--max-new", "32"]
+
+
+def fleet() -> dict:
+    """The launcher's fleet path at full width: AWQ calibrate + pack, two
+    paged replicas (bf16 pools) sharing the params behind the Router."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the fleet path: counts start at 0 here and are read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    out = launcher.main(FLEET_ARGS)
+    total_s = time.perf_counter() - t0
+    totals = read_counts()
+    streams = out["streams"]
+    if out["requests"] != 8 or len(streams) != 8:
+        raise AssertionError(f"fleet: {out['requests']} requests, want 8")
+    for toks in streams:
+        if toks.shape != (32,) or not ((toks >= 0) & (toks < 151936)).all():
+            raise AssertionError(f"fleet: bad stream {toks}")
+    if not (out["prefill_tokens_skipped"] > 0 and out["affinity_hits"] > 0):
+        raise AssertionError(f"fleet: no prefix reuse: "
+                             f"{out['prefill_tokens_skipped']} tokens "
+                             f"skipped, {out['affinity_hits']} affinity hits")
+    fleet_launches = out["launches"]["fleet"]
+    if not (fleet_launches["awq_matmul"] > 0
+            and fleet_launches["awq_gateup"] > 0):
+        raise AssertionError(f"fleet: a kernel of the path never ran: "
+                             f"{fleet_launches}")
+    return dict(
+        args=" ".join(FLEET_ARGS), total_s=total_s, fleet_s=out["fleet_s"],
+        tokens_per_s=out["tokens_per_s"], requests=out["requests"],
+        generated=int(sum(len(t) for t in streams)),
+        prefill_tokens_skipped=out["prefill_tokens_skipped"],
+        placements=out["placements"], affinity_hits=out["affinity_hits"],
+        session_hits=out["session_hits"],
+        calibrated=len(out["report"].calibrated),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=totals, launches_by_step=out["launches"],
+        sample=streams[0][:8].tolist())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -649,10 +816,12 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     (k1_entry, k1_detail), (k2_entry, k2_detail) = check_k1(gen), check_k2(gen)
+    k3_entry, k3_detail = check_k3(gen)
     k4_entry, k4_detail = check_k4(gen)
-    kernels = [k1_entry, k2_entry, k4_entry]
+    kernels = [k1_entry, k2_entry, k3_entry, k4_entry]
     phase("kernel_shapes", awq_matmul=k1_detail,
-          paged_attention_chunk=k2_detail, flash_attention=k4_detail)
+          paged_attention_chunk=k2_detail, awq_gateup=k3_detail,
+          flash_attention=k4_detail)
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -674,17 +843,24 @@ def main() -> None:
 
     launched, awq_params = launch()
     phase("launch", **launched)
-    # each kernel's launches on the path that carries it: K1 and K2 while
-    # the engine serves, K4 in the launcher's calibration and generate()
+    # each kernel's launches on the path that carries it: K1, K2 and K3
+    # while the engine serves, K4 in the launcher's calibration and
+    # generate()
     k1_entry["launches"] = served["launches"]["awq_matmul"]
     k2_entry["launches"] = served["launches"]["paged_attention_chunk"]
+    k3_entry["launches"] = served["launches"]["awq_gateup"]
     k4_entry["launches"] = launched["launches"]["flash_attention"]
     prefilled = check_prefill(model, awq_params)
     phase("check_prefill", **prefilled)
+    del awq_params
+    torch.cuda.empty_cache()
+    served_fleet = fleet()
+    phase("fleet", **served_fleet)
 
     phase("summary", gpu=smi, **{k: served[k] for k in (
         "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
-        "serve_s", "peak_mem_bytes", "launches", "qlinear_calls")},
+        "serve_s", "peak_mem_bytes", "launches", "launches_per_decode_step",
+        "qlinear_calls")},
         profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
                                       "device_busy_ms", "device_idle_share")},
         check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()},
@@ -692,7 +868,11 @@ def main() -> None:
             "calibrate_s", "awq_s", "calibrated", "compression_ratio",
             "awq_macro_bytes", "tokens_per_s", "peak_mem_bytes",
             "launches_by_step")},
-        check_prefill=[prefilled["max_abs_err"], prefilled["tol"]])
+        check_prefill=[prefilled["max_abs_err"], prefilled["tol"]],
+        fleet={k: served_fleet[k] for k in (
+            "fleet_s", "tokens_per_s", "requests", "generated",
+            "prefill_tokens_skipped", "placements", "affinity_hits",
+            "peak_mem_bytes", "launches")})
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,6 +1,8 @@
 """Quantized-linear application — the runtime half of the paper's technique.
 
-``qlinear_apply`` is the single dispatch point between:
+``qlinear_apply`` is the dispatch point of one linear, and
+``qgateup_apply`` of a GLU's gate/up pair (kernel K3,
+`kernels.awq_matmul.awq_gateup`, where the kernel is selected), between:
 
   * ``ref``    — unpack → dequant → ``torch.matmul`` (the generic path),
   * ``kernel`` — the fused unpack + dequant + MAC kernel K1
@@ -12,7 +14,8 @@
 elsewhere. The paper's hybrid split (§III) is kept as the reference has
 it: matmuls below ``offload_min_flops`` stay on the generic path even
 when the kernel is selected — at Qwen2.5 width that is the k / v
-projections at M <= 4 (2·M·896·128 < 2^20).
+projections at M <= 4 (2·M·896·128 < 2^20). The gate/up pair counts
+both products' flops, 2·M·K·2N.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ class ExecutionConfig:
 
 @dataclasses.dataclass
 class PathCounts:
-    """Calls of `qlinear_apply` by the path they took."""
+    """Calls of `qlinear_apply` and `qgateup_apply` by the path they
+    took."""
     kernel: int = 0
     generic: int = 0
 
@@ -100,3 +104,33 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
     if p.bias is not None:
         y = y + p.bias.to(orig_dtype)
     return y.reshape(*lead, p.n)
+
+
+def qgateup_apply(gate: PackedLinear, up: PackedLinear, x: torch.Tensor,
+                  impl: str | None = None,
+                  cfg: ExecutionConfig | None = None) -> torch.Tensor:
+    """``silu(qlinear_apply(gate, x)) * qlinear_apply(up, x)`` in one
+    pass over x, for two bias-free linears of equal K, N and group size.
+
+    Returns [..., N] in x.dtype, rounded as the two calls round it (see
+    `kernels.awq_matmul.awq_gateup`), so on the plain path the result is
+    bit-identical to theirs.
+    """
+    cfg = cfg if cfg is not None else _EXEC
+    impl = _resolve_impl(impl or cfg.impl, x)
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    if impl == "kernel" and 2.0 * x2.shape[0] * k * 2 * gate.n \
+            < cfg.offload_min_flops:
+        impl = "ref"
+    if impl == "kernel":
+        COUNTS.kernel += 1
+        fn = k1.awq_gateup
+    else:
+        COUNTS.generic += 1
+        fn = k1.awq_gateup_ref
+    h = fn(x2.contiguous(), gate.qweight, gate.scales, gate.zeros,
+           up.qweight, up.scales, up.zeros, gate.group_size,
+           cfg.compute_dtype, input_scales=(gate.input_scale, up.input_scale),
+           out_dtype=x.dtype)
+    return h.reshape(*lead, gate.n)

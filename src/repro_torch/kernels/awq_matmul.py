@@ -1,19 +1,25 @@
-"""K1: fused int4 unpack + dequantize + matmul (`csrc/awq_matmul.cu`).
+"""K1: fused int4 unpack + dequantize + matmul (`csrc/awq_matmul.cu`), and
+K3: the fused gate/up GLU front over two packed weights
+(`csrc/awq_gateup.cu`).
 
-Port of the reference's Pallas kernel `awq_matmul_pallas` and its oracle
-`ref.awq_matmul_ref`. `awq_matmul` launches the hand-written CUDA kernel
-for CUDA tensors and takes the plain version, `awq_matmul_ref`, only for
-CPU tensors. There is no row padding: any M works.
+Ports of the reference's Pallas kernels `awq_matmul_pallas` and
+`awq_gateup_pallas` and their oracles `ref.awq_matmul_ref` and
+`ref.awq_gateup_ref`. `awq_matmul` and `awq_gateup` launch the
+hand-written CUDA kernels for CUDA tensors and take the plain versions
+(`awq_matmul_ref`, `awq_gateup_ref`) only for CPU tensors. There is no
+row padding: any M works.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.packing import PACK, dequantize_int4
 from repro_torch.kernels.build import LaunchCounter, check, load
 from repro_torch.numerics import matmul_f32
 
 COUNTER = LaunchCounter()
+GATEUP_COUNTER = LaunchCounter()
 
 
 def awq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
@@ -30,9 +36,14 @@ def awq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
     return matmul_f32(x.to(compute_dtype), w)
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"awq_matmul: {msg}")
+def _checker(kernel: str):
+    def chk(cond: bool, msg: str) -> None:
+        if not cond:
+            raise ValueError(f"{kernel}: {msg}")
+    return chk
+
+
+_check = _checker("awq_matmul")
 
 
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
@@ -77,4 +88,100 @@ def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "awq_matmul")
     COUNTER.count += 1
+    return out
+
+
+def awq_gateup_ref(x: torch.Tensor, qw_gate: torch.Tensor,
+                   s_gate: torch.Tensor, z_gate: torch.Tensor,
+                   qw_up: torch.Tensor, s_up: torch.Tensor,
+                   z_up: torch.Tensor, group_size: int,
+                   compute_dtype: torch.dtype = torch.float32, *,
+                   input_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of `awq_gateup` (the rule is stated there), built on
+    `awq_matmul_ref`: ``silu(x @ Wg) * (x @ Wu) -> [M, N]``."""
+    xg = xu = x
+    if input_scales is not None:
+        xg = x.to(torch.float32) * input_scales[0][None, :]
+        xu = x.to(torch.float32) * input_scales[1][None, :]
+    g = awq_matmul_ref(xg, qw_gate, s_gate, z_gate, group_size,
+                       compute_dtype).to(out_dtype)
+    u = awq_matmul_ref(xu, qw_up, s_up, z_up, group_size,
+                       compute_dtype).to(out_dtype)
+    return F.silu(g) * u
+
+
+def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
+               z_gate: torch.Tensor, qw_up: torch.Tensor, s_up: torch.Tensor,
+               z_up: torch.Tensor, group_size: int,
+               compute_dtype: torch.dtype = torch.bfloat16, *,
+               input_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused GLU front ``silu(x @ Wg) * (x @ Wu)``: x [M, K] -> [M, N].
+
+    Both weights are packed at the same group size and N. The rule:
+    each product is ``awq_matmul`` of ``x`` — times that linear's per-K
+    ``input_scales`` entry in f32 where they are given, as
+    `qlinear_apply` scales it — rounded to ``compute_dtype`` (f32
+    accumulation); ``g`` and ``u`` are then rounded to ``out_dtype``, and
+    ``silu(g) * u`` is taken in ``out_dtype`` (each op in f32, rounded to
+    ``out_dtype``). With ``out_dtype=float32`` and no input scales this
+    is the TPU kernel's function; with the activations' dtype and the
+    two linears' input scales it rounds exactly as the two-`linear` MLP
+    does, so fusing changes only the order of the sums.
+
+    CPU tensors take `awq_gateup_ref`; CUDA tensors launch the kernel,
+    which takes bf16 or f32 x, ``compute_dtype=bfloat16`` and an f32 or
+    bf16 output, and raises on anything else.
+    """
+    if x.device.type == "cpu":
+        return awq_gateup_ref(x, qw_gate, s_gate, z_gate, qw_up, s_up, z_up,
+                              group_size, compute_dtype,
+                              input_scales=input_scales, out_dtype=out_dtype)
+    chk = _checker("awq_gateup")
+    chk(x.device.type == "cuda", f"unsupported device {x.device}")
+    chk(compute_dtype == torch.bfloat16,
+        f"the kernel computes in bf16, got {compute_dtype}")
+    chk(x.dtype in (torch.bfloat16, torch.float32),
+        f"x must be bf16 or f32, got {x.dtype}")
+    chk(out_dtype in (torch.bfloat16, torch.float32),
+        f"out_dtype must be bf16 or f32, got {out_dtype}")
+    chk(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
+    m, k = x.shape
+    n = qw_gate.shape[-1]
+    chk(k % PACK == 0 and group_size % PACK == 0 and k % group_size == 0,
+        f"K={k} must be a multiple of group_size={group_size}, itself a "
+        f"multiple of 8")
+    chk(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    vectors = [] if input_scales is None else list(input_scales)
+    chk(len(vectors) in (0, 2), "input_scales takes (gate, up) vectors")
+    for t, name, dtype, shape in (
+            (qw_gate, "qw_gate", torch.int32, (k // PACK, n)),
+            (s_gate, "s_gate", torch.float32, (k // group_size, n)),
+            (z_gate, "z_gate", torch.int8, (k // group_size, n)),
+            (qw_up, "qw_up", torch.int32, (k // PACK, n)),
+            (s_up, "s_up", torch.float32, (k // group_size, n)),
+            (z_up, "z_up", torch.int8, (k // group_size, n)),
+            *((v, "input_scales", torch.float32, (k,)) for v in vectors)):
+        chk(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
+        chk(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        chk(tuple(t.shape) == shape,
+            f"{name} must be {shape}, got {tuple(t.shape)}")
+        chk(t.is_contiguous(), f"{name} must be contiguous")
+    for v in vectors:
+        chk(v.data_ptr() % 16 == 0, "input_scales must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = load("awq_gateup")
+    isg, isu = (v.data_ptr() for v in vectors) if vectors else (None, None)
+    err = lib.awq_gateup_f32(
+        x.data_ptr(), qw_gate.data_ptr(), s_gate.data_ptr(),
+        z_gate.data_ptr(), qw_up.data_ptr(), s_up.data_ptr(),
+        z_up.data_ptr(), isg, isu, out.data_ptr(),
+        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
+        m, k, n, group_size, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "awq_gateup")
+    GATEUP_COUNTER.count += 1
     return out

@@ -1,25 +1,38 @@
-"""Serving launcher: AWQ-quantize a model and generate for a static batch.
+"""Serving launcher: AWQ-quantize a model and serve a static batch or a fleet.
 
 The end-to-end path of the paper (§III-A "fully automated"), as the
 reference's classic launcher runs it: float init → calibration forward
 (`Model.loss` under `CalibrationCapture`; attention through kernel K4) →
 AWQ search + int4 GS-64 pack of every quantizable linear →
-`GenerationEngine.generate` (prefill through K4, decode projections
-through K1). ``--quant none`` serves the float model through the same
-`generate()`. The fleet flags (``--replicas``, ``--mesh-axis``,
-``--disagg``, ``--drain-timeout``) are not ported yet and raise.
+`GenerationEngine.generate` (prefill through K4, projections through
+K1, each GLU front through K3). ``--quant none`` serves the float model through the same
+`generate()`.
+
+With ``--replicas N`` the launcher serves a continuous-batching
+**fleet** instead (`serve_fleet`): N `GenerationEngine` replicas sharing
+the one params tree, each with its own page pools, behind the
+prefix-affinity `serving.router.Router`, built from
+`launch.specs.FleetSpec`. Tensor-parallel (``--mesh-axis`` > 1) and
+disaggregated (``--disagg``) replicas are not ported and raise; without
+``--replicas`` the fleet flags are ignored, as the reference ignores
+them.
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
 paths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen25-05b \\
       --quant awq --batch 4 --prompt-len 256 --max-new 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen25-05b \\
+      --quant awq --replicas 2 --mesh-axis 1 --batch 4 --prompt-len 256 \\
+      --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --replicas 2
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -31,16 +44,17 @@ from repro_torch.data.pipeline import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels import awq_matmul as k1
 from repro_torch.kernels import flash_attention as k4
+from repro_torch.kernels import paged_attention as k2
+from repro_torch.launch.specs import FleetSpec, ReplicaSpec
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import GenerationEngine, SamplerConfig
-
-FLEET_DEFAULTS = {"replicas": 0, "mesh_axis": 1, "disagg": False,
-                  "drain_timeout": 30.0}
 
 
 def _launches() -> dict:
     return {"flash_attention": k4.COUNTER.count,
-            "awq_matmul": k1.COUNTER.count}
+            "awq_matmul": k1.COUNTER.count,
+            "awq_gateup": k1.GATEUP_COUNTER.count,
+            "paged_attention_chunk": k2.COUNTER.count}
 
 
 def _since(before: dict) -> dict:
@@ -65,18 +79,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain paths)")
-    # the reference's fleet flags: accepted, refused until the fleet is ported
-    ap.add_argument("--replicas", type=int, default=0)
-    ap.add_argument("--mesh-axis", type=int, default=1)
-    ap.add_argument("--disagg", action="store_true")
-    ap.add_argument("--drain-timeout", type=float, default=30.0)
+    # fleet flags (scale + replica template + drain budget)
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve a Router fleet of N replicas instead of "
+                         "one static-batch engine (0 = classic path)")
+    ap.add_argument("--mesh-axis", type=int, default=1,
+                    help="per-replica tensor-parallel width (only 1 is "
+                         "ported)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="each replica a prefill/decode pair (not ported)")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="drain_replica step budget (seconds) for elastic "
+                         "scale-down")
     args = ap.parse_args(argv)
-    asked = [f for f, d in FLEET_DEFAULTS.items() if getattr(args, f) != d]
-    if asked:
+    if args.replicas > 0 and (args.mesh_axis > 1 or args.disagg):
         raise NotImplementedError(
-            f"the serving fleet ({', '.join('--' + f.replace('_', '-') for f in asked)}) "
-            f"is not ported to repro_torch yet; the launcher runs the "
-            f"classic static-batch path")
+            "fleet replicas with --mesh-axis > 1 (tensor parallelism) or "
+            "--disagg are not ported to repro_torch yet")
     device = resolve_device(args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
@@ -114,6 +133,11 @@ def main(argv=None) -> dict:
         res.update(report=report, calib_s=t1 - t0, awq_s=t2 - t1,
                    macro_bytes=macro_bytes, captured_linears=len(cap.stats))
 
+    if args.replicas > 0:
+        fleet = serve_fleet(model, params, args, device)
+        res["launches"].update(fleet.pop("launches"))
+        return {**fleet, "params": params, **res}
+
     engine = GenerationEngine(
         model, params, max_seq=args.prompt_len + args.max_new,
         sampler=SamplerConfig(temperature=args.temperature))
@@ -137,6 +161,84 @@ def main(argv=None) -> dict:
     print(f"[serve] sample: {out[0][:16].tolist()}")
     return {"tokens_per_s": tput, "shape": list(out.shape),
             "generate_s": dt, "tokens": out, "params": params, **res}
+
+
+def serve_fleet(model, params, args, device: torch.device) -> dict:
+    """Continuous-batching fleet: FleetSpec → Router → clustered burst.
+
+    The burst shares one system prefix per cluster so the router's
+    prefix-affinity scoring has something to aim at: each cluster's
+    prefix is pinned (sticky) and warmed by one request first. Returns
+    the reference's report (tokens/s, requests, prefill tokens skipped,
+    replicas) plus the placement ledger, the streams and the kernel
+    launches of the warm-up + burst.
+    """
+    cfg = model.cfg
+    max_seq = args.prompt_len + args.max_new
+    page = 8
+    spec = FleetSpec(
+        replicas=args.replicas,
+        replica=ReplicaSpec(
+            mesh_axis=args.mesh_axis, disagg=args.disagg,
+            prefill_mesh_axis=args.mesh_axis,
+            decode_mesh_axis=args.mesh_axis,
+            engine_kwargs=dict(max_seq=max_seq, num_slots=args.batch,
+                               page_size=page, prefill_chunk=page)),
+        drain_timeout_s=args.drain_timeout)
+    print(f"[serve] fleet: {spec.replicas} replica(s), mesh_axis="
+          f"{args.mesh_axis}, disagg={args.disagg}, "
+          f"drain_timeout={spec.drain_timeout_s:.0f}s")
+    _sync(device)
+    before = _launches()
+    router = spec.build(model, params)
+    router.warmup()
+
+    rng = np.random.default_rng(args.seed)
+    n_clusters = 2
+    prefixes = [rng.integers(0, cfg.vocab_size, (args.prompt_len - 4,)
+                             ).astype(np.int32) for _ in range(n_clusters)]
+    # pin first (sticky), then warm one request per cluster so the burst
+    # below has resident prefixes to route toward
+    for c in range(n_clusters):
+        router.pin_prefix(f"sys{c}")
+        router.submit(np.concatenate(
+            [prefixes[c],
+             rng.integers(0, cfg.vocab_size, (4,)).astype(np.int32)]),
+            2, prefix_id=f"sys{c}")
+    router.drain()
+    n_req = max(args.batch * args.replicas, 4)
+    rids = []
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        c = i % n_clusters
+        tail = rng.integers(0, cfg.vocab_size, (4,)).astype(np.int32)
+        rids.append(router.submit(
+            np.concatenate([prefixes[c], tail]), args.max_new,
+            sampler=SamplerConfig(temperature=args.temperature),
+            prefix_id=f"sys{c}", session_id=f"user{i % (2 * n_clusters)}"))
+    out = router.drain()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    useful = sum(len(out[r]) for r in rids)
+    tput = useful / dt
+    skipped = sum(s.prefill_tokens_skipped for s in router.stats())
+    rs = router.router_stats
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"[serve] fleet served {n_req} requests / {useful} tokens in "
+          f"{dt:.2f}s ({tput:.1f} tok/s wall on {where})")
+    print(f"[serve] placement: {rs.placements} scored, "
+          f"{rs.affinity_hits} affinity hits, "
+          f"{rs.session_hits} session hits, "
+          f"{skipped} prefill tokens skipped fleet-wide")
+    return {"tokens_per_s": tput, "requests": n_req,
+            "prefill_tokens_skipped": int(skipped),
+            "replicas": args.replicas, "fleet_s": dt,
+            "placements": rs.placements, "affinity_hits": rs.affinity_hits,
+            "session_hits": rs.session_hits,
+            "streams": [out[r] for r in rids],
+            "launches": {"fleet": _since(before)}}
 
 
 if __name__ == "__main__":

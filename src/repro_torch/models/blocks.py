@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import LayerKind
+from repro_torch.core.packing import PackedLinear
+from repro_torch.core.qlinear import qgateup_apply
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.layers import activation, linear, norm
@@ -62,10 +64,23 @@ def init_block_cache_paged(cfg, kind: LayerKind, num_pages: int,
         cfg, num_pages, page_size, dtype, kv_quant=kv_quant, device=device)}
 
 
+def _fused_gateup(mp, cfg) -> bool:
+    """Whether the GLU front runs as one K3 pair: SiLU over two packed,
+    bias-free linears of equal K, N and group size (every Qwen2.5 layer
+    once quantized; float weights, during calibration, take two linears)."""
+    g, u = mp["gate"], mp["up"]
+    return (cfg.act == "silu" and isinstance(g, PackedLinear)
+            and isinstance(u, PackedLinear) and g.bias is None
+            and u.bias is None and g.group_size == u.group_size
+            and (g.k, g.n) == (u.k, u.n))
+
+
 def _mlp_apply(p, x, cfg, kind: LayerKind, name=None):
     mp = p["mlp"]
     nm = (lambda s: name(f"mlp/{s}")) if name else (lambda s: None)
-    if kind.mlp == "glu":
+    if kind.mlp == "glu" and _fused_gateup(mp, cfg):
+        h = qgateup_apply(mp["gate"], mp["up"], x)
+    elif kind.mlp == "glu":
         h = activation(cfg.act, linear(mp["gate"], x, nm("gate"))) \
             * linear(mp["up"], x, nm("up"))
     else:

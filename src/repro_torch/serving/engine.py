@@ -12,12 +12,16 @@
     ``num_slots × c`` positions that packs prefill chunks and decode
     tokens of mixed requests (`Model.chunk_step`); ``kv_quant="int8"``
     stores the pools as int8 codes + f32 scale strips, read by kernel K2
-    on the card.
+    on the card. ``submit(..., prefix_id=...)`` aliases a shared
+    prompt prefix's full pages across requests (refcounted, copy-on-write
+    tail), and the aliased tokens are never recomputed; `pin_prefix`
+    keeps a hot prefix resident across bursts. `warmup`,
+    `prefix_reuse_pages` and `stats()` are what a fleet `Router` reads.
 
 Not ported yet (each raises `NotImplementedError`): speculative decoding,
 tree speculation, draft models, meshes, preemption, optimistic admission,
-the one-shot prefill path (``chunked_prefill=False``), prefix sharing
-(``prefix_id``) and parallel sampling (``n > 1``).
+the one-shot prefill path (``chunked_prefill=False``) and parallel
+sampling (``n > 1``).
 """
 from __future__ import annotations
 
@@ -43,10 +47,14 @@ class EngineStats:
     pager: PagerStats
     dispatches: int               # unified steps issued
     prefill_tokens: int           # prompt tokens run through the model
+    prefill_tokens_skipped: int   # aliased prompt tokens never re-run
+    prefix_shared_pages: int      # pages aliased instead of allocated
     padding_waste: float          # padding / dispatched positions
     kv_pool_bytes: int            # page-pool footprint, all layers
     kv_bytes_per_token: float
     weight_bytes: int             # resident bytes of the served params
+    # load snapshot a fleet router scores: requests waiting for a slot,
+    # and free pages an admission can still draw (free minus reservations)
     queue_depth: int
     admission_headroom: int
 
@@ -252,13 +260,35 @@ class GenerationEngine:
                 self._gen)
         return out.cpu().numpy()
 
+    def warmup(self) -> int:
+        """Run one all-padding dispatch of every width the scheduler may
+        pick (`scheduler.width_family`), so the first request pays no
+        first-launch cost (kernel loads, allocator growth). Padding only
+        touches the scratch page and no counter of `stats()`. Returns the
+        number of dispatches run."""
+        if self._scheduler is None:
+            self._scheduler = self._serving_init()
+        b = self.num_slots
+        zeros_i = np.zeros(b, np.int32)
+        for c in self._scheduler.width_buckets:
+            self._exec_run_batch(np.zeros((b, c), np.int32),
+                                 np.full((b, c), -1, np.int32), zeros_i,
+                                 zeros_i, np.zeros(b, np.float32), zeros_i)
+        return len(self._scheduler.width_buckets)
+
     def submit(self, tokens, max_new_tokens: int,
                sampler: SamplerConfig | None = None,
                eos_id: int | None = None, prefix_id: str | None = None,
                priority: int = 0, n: int = 1) -> int:
-        """Queue one request; returns its request id."""
-        if prefix_id is not None:
-            raise _not_ported("prefix sharing (submit(prefix_id=...))")
+        """Queue one request; returns its request id.
+
+        ``prefix_id`` opts the request into prefix sharing: requests
+        carrying the same id alias any already-resident full KV pages
+        whose token content matches their prompt's page-aligned prefix,
+        copy-on-write on the partial tail page. Greedy streams are
+        token-identical with or without it. ``priority`` orders
+        admission (higher first, FIFO within a class).
+        """
         if n != 1:
             raise _not_ported("parallel sampling (submit(n > 1))")
         if self._scheduler is None:
@@ -270,8 +300,26 @@ class GenerationEngine:
             rid=rid, tokens=np.asarray(tokens, np.int32).reshape(-1),
             max_new_tokens=max_new_tokens, temperature=s.temperature,
             top_k=s.top_k, eos_id=self.eos_id if eos_id is None else eos_id,
-            priority=priority))
+            prefix_id=prefix_id, priority=priority))
         return rid
+
+    def pin_prefix(self, prefix_id: str) -> int:
+        """Keep ``prefix_id``'s indexed KV pages resident across bursts.
+
+        The pin refcounts every page indexed under the namespace now, and
+        any registered under it later (sticky), so the next burst aliases
+        the prefix without recomputing it. Returns the pages pinned now;
+        pinned pages count against admission until `unpin_prefix`.
+        """
+        if self._scheduler is None:
+            self._scheduler = self._serving_init()
+        return self._scheduler.pager.pin_prefix(prefix_id)
+
+    def unpin_prefix(self, prefix_id: str) -> int:
+        """Release a `pin_prefix` hold; unowned pages free exactly once."""
+        if self._scheduler is None:
+            return 0
+        return self._scheduler.pager.unpin_prefix(prefix_id)
 
     def step(self) -> list[tuple[int, int]]:
         """One scheduler step → list of (rid, token) stream events."""
@@ -317,6 +365,8 @@ class GenerationEngine:
             pager=pager_stats,
             dispatches=st.decode_steps,
             prefill_tokens=st.prefill_tokens,
+            prefill_tokens_skipped=st.prefill_tokens_skipped,
+            prefix_shared_pages=st.prefix_shared_pages,
             padding_waste=st.padding_waste,
             kv_pool_bytes=pool_bytes,
             kv_bytes_per_token=pool_bytes / tokens,
@@ -324,3 +374,19 @@ class GenerationEngine:
             queue_depth=len(self._scheduler.queue),
             admission_headroom=max(
                 0, pager_stats.pages_free - pager_stats.pages_reserved))
+
+    def reset_stats(self) -> None:
+        """Zero the cumulative counters behind `stats()` in place
+        (`SchedulerStats.zero`): held references stay live. Occupancy is
+        live state, not a counter, and is untouched."""
+        if self._scheduler is not None:
+            self._scheduler.stats.zero()
+
+    def prefix_reuse_pages(self, tokens, prefix_id) -> int:
+        """Exact count of already-resident KV pages a request with this
+        prompt and ``prefix_id`` would alias instead of recomputing (the
+        router's affinity signal; the prefix index is content-addressed).
+        A fresh engine holds no pages and reports 0 without allocating."""
+        if prefix_id is None or self._scheduler is None:
+            return 0
+        return len(self._scheduler.pager.match_prefix(tokens, prefix_id))

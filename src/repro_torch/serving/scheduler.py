@@ -15,10 +15,17 @@ Admission is FIFO within priority when a slot is free and the pager can
 cover the request's worst-case KV footprint; EOS/budget eviction
 backfills from the queue in the same `step()`.
 
+Prefix sharing: a request with a ``prefix_id`` aliases the already
+resident full pages whose content-hash chain matches its prompt (they
+do not count against free capacity), and its chunking starts past them,
+so aliased tokens are never recomputed. The prompt registers under its
+namespace when its final chunk lands; while a slot with the same
+namespace is still prefilling, the queue head waits, so it admits
+against the full registered match.
+
 The reference's one-shot path, speculative decoding (linear and tree),
-preemption with host spill, prefix sharing and the disaggregated
-handoff are not ported yet; they come with the slices that wire them
-into the engine.
+preemption with host spill and the disaggregated handoff are not ported
+yet; they come with the slices that wire them into the engine.
 
 The scheduler is device-agnostic: it talks to the engine through the
 ``run_batch`` callable and keeps only host-side state.
@@ -55,6 +62,7 @@ class Request:
     temperature: float = 0.0      # 0 ⇒ greedy
     top_k: int = 0                # 0 ⇒ full softmax
     eos_id: int = -1              # -1 ⇒ never stops early
+    prefix_id: str | None = None  # opt into prefix sharing (namespace key)
     priority: int = 0             # higher classes admit first
 
 
@@ -88,10 +96,22 @@ class SchedulerStats:
     decode_steps: int = 0         # unified dispatches
     slot_tokens: int = 0          # useful tokens produced by decode rows
     slot_steps: int = 0           # total rows dispatched (incl. idle)
+    prefix_shared_pages: int = 0  # pages aliased instead of allocated
     prefill_chunks: int = 0       # prompt chunks dispatched
     prefill_tokens: int = 0       # prompt tokens run through the model
+    prefill_tokens_skipped: int = 0   # aliased prompt tokens never re-run
     dispatched_positions: int = 0     # num_slots × c summed over steps
     padded_positions: int = 0         # dispatched positions holding padding
+
+    def zero(self) -> None:
+        """Reset every declared counter to its default, in place: the
+        object keeps its identity (held references see the live
+        counters), and fields without a default are left untouched."""
+        for f in dataclasses.fields(self):
+            if f.default is not dataclasses.MISSING:
+                setattr(self, f.name, f.default)
+            elif f.default_factory is not dataclasses.MISSING:
+                setattr(self, f.name, f.default_factory())
 
     @property
     def padding_waste(self) -> float:
@@ -169,7 +189,13 @@ class Scheduler:
     def run(self) -> dict[int, np.ndarray]:
         """Drain queue + slots; returns {rid: tokens}."""
         while not self.idle:
-            self.step()
+            before = (len(self.slots), len(self.queue))
+            events = self.step()
+            if not self.slots and not events and before == (
+                    len(self.slots), len(self.queue)):
+                raise RuntimeError(
+                    "scheduler wedged: queued requests cannot be placed "
+                    "(pool exhausted by pins or kept shared pages)")
         out, self.finished = self.finished, {}
         return out
 
@@ -178,13 +204,36 @@ class Scheduler:
         """Place queued requests on free slots, strictly in queue order."""
         while self.queue:
             req = self.queue[0]
-            if not self.pager.can_admit(len(req.tokens), req.max_new_tokens):
+            # a prefix registers on its final chunk; while a slot with the
+            # same namespace is still prefilling, hold the queue head so it
+            # admits against the full registered match instead of racing
+            # it to zero sharing
+            if req.prefix_id is not None and any(
+                    st.prefilling and st.request.prefix_id == req.prefix_id
+                    for st in self.slots.values()):
                 return
-            self.queue.popleft()
-            slot, _ = self.pager.alloc_slot(len(req.tokens),
-                                            req.max_new_tokens)
-            self.slots[slot] = _SlotState(request=req, generated=[])
-            self.stats.admitted += 1
+            # aliased resident pages don't count against free capacity
+            shared = (self.pager.match_prefix(req.tokens, req.prefix_id)
+                      if req.prefix_id is not None else [])
+            if not self.pager.can_admit(len(req.tokens), req.max_new_tokens,
+                                        n_shared=len(shared)):
+                return
+            self._admit_head(req, shared)
+
+    def _admit_head(self, req: Request, shared: list[int]) -> None:
+        self.queue.popleft()                  # the head is ``req``
+        slot, _ = self.pager.alloc_slot(len(req.tokens), req.max_new_tokens,
+                                        shared_pages=shared)
+        self.stats.prefix_shared_pages += len(shared)
+        self.stats.admitted += 1
+        # aliased tokens are already resident: chunking starts past them
+        # (at least the final prompt token always runs, so the first-token
+        # logits exist even for a fully aliased prompt)
+        skip = min(len(shared) * self.pager.cfg.page_size,
+                   len(req.tokens) - 1)
+        self.slots[slot] = _SlotState(request=req, generated=[],
+                                      committed=skip)
+        self.stats.prefill_tokens_skipped += skip
 
     # ------------------------------------------- chunked (token-budget) step
     def _step_chunked(self, events: list[tuple[int, int]]) -> None:
@@ -266,6 +315,10 @@ class Scheduler:
             row = sample_row.get(slot)
             if row is None or st.prefilling:
                 continue                      # mid-prefill: nothing sampled
+            if slot in chunk_tok and st.request.prefix_id is not None:
+                # register on the final chunk: the whole prompt is resident
+                self.pager.register_prefix(slot, st.request.tokens,
+                                           st.request.prefix_id)
             tok = int(sampled[row])
             st.generated.append(tok)
             events.append((st.request.rid, tok))

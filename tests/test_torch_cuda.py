@@ -1,11 +1,15 @@
-"""Card-only tests: kernels K1, K2 and K4 against their plain versions on
+"""Card-only tests: kernels K1, K2, K3 and K4 against their plain versions on
 an NVIDIA GPU (Hopper, sm_90a). They skip where torch sees no CUDA device;
 run them on the card with ``PYTHONPATH=src python -m pytest -q
 --noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
 imports JAX, which this file does not need).
 
 Tolerances: K1 sums exact bf16 × bf16 products in f32 in another order
-than the plain version (rtol/atol 1e-4 of the output scale); K2 runs the
+than the plain version (rtol/atol 1e-4 of the output scale); K3 too, in
+its f32 output, while its bf16 output rounds g, u, silu(g) and the
+product to bf16 as the two-linear MLP does, so a sum a few f32 ulps off
+may round to a neighbouring bf16 value at each of those steps (1e-5 of
+the output scale plus 2^-6 of the value, four bf16 ulps); K2 runs the
 same f32 math with an online softmax (atol 1e-5). K4 runs f32 math with
 an online softmax too and rounds once to the input type, so two results
 a few f32 ulps apart may round to neighbouring values: atol 1e-5 plus
@@ -61,6 +65,84 @@ def test_awq_matmul_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k1.awq_matmul(torch.randn(2, 256, device="cuda").to(torch.bfloat16)
                       [:, ::2], p.qweight, p.scales, p.zeros, 64)
+
+
+def _k3_check(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        assert float(err.max()) <= 1e-4 * scale
+    else:
+        lim = 1e-5 * scale + 2 ** -6 * ref.float().abs()
+        assert bool((err <= lim).all()), float((err - lim).max())
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+@pytest.mark.parametrize("gs", [64, 128])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 16, 1024])
+@pytest.mark.parametrize("k,n", [(896, 4864), (4864, 896)])
+def test_awq_gateup_kernel_matches_plain(cuda, k, n, m, gs, scaled):
+    cfg = QuantConfig(group_size=gs)
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=cuda, device="cuda") / k ** 0.5, cfg),
+        None, None, cfg) for _ in range(2))
+    scales = ((torch.rand(k, generator=cuda, device="cuda") + 0.5,
+               torch.rand(k, generator=cuda, device="cuda") + 0.5)
+              if scaled else None)
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    args = (x, g.qweight, g.scales, g.zeros, u.qweight, u.scales, u.zeros,
+            gs)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        before = k1.GATEUP_COUNTER.count
+        out = k1.awq_gateup(*args, **kw)
+        ref = k1.awq_gateup_ref(*args, torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        assert k1.GATEUP_COUNTER.count == before + 1
+        _k3_check(out, ref)
+
+
+def test_awq_gateup_kernel_f32_x_and_rows_independent_of_m(cuda):
+    """f32 activations are scaled and rounded in the kernel; a row's
+    result does not depend on how many rows share the launch."""
+    cfg = QuantConfig(group_size=64)
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(896, 256, generator=cuda, device="cuda") / 30, cfg),
+        None, None, cfg) for _ in range(2))
+    x = torch.randn(13, 896, generator=cuda, device="cuda")
+    s = (torch.rand(896, generator=cuda, device="cuda") + 0.5,
+         torch.rand(896, generator=cuda, device="cuda") + 0.5)
+    args = (g.qweight, g.scales, g.zeros, u.qweight, u.scales, u.zeros, 64)
+    out = k1.awq_gateup(x, *args, input_scales=s)
+    _k3_check(out, k1.awq_gateup_ref(x, *args, torch.bfloat16,
+                                     input_scales=s))
+    for m in (1, 3, 8):
+        part = k1.awq_gateup(x[:m].contiguous(), *args, input_scales=s)
+        assert torch.equal(part, out[:m])
+
+
+def test_awq_gateup_kernel_rejects_what_it_does_not_take(cuda):
+    cfg = QuantConfig(group_size=64)
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(128, n, device="cuda"), cfg), None, None, cfg)
+        for n in (64, 72))
+    x = torch.randn(2, 128, device="cuda").to(torch.bfloat16)
+    ok = (g.qweight, g.scales, g.zeros, g.qweight, g.scales, g.zeros, 64)
+    bad_n = (g.qweight, g.scales, g.zeros, u.qweight, u.scales, u.zeros, 64)
+    ones = torch.ones(129, device="cuda")
+    for call in (
+            lambda: k1.awq_gateup(x.half(), *ok),                  # f16 x
+            lambda: k1.awq_gateup(x, *ok, torch.float32),          # f32 compute
+            lambda: k1.awq_gateup(x, *ok, out_dtype=torch.half),   # f16 out
+            lambda: k1.awq_gateup(torch.randn(2, 256, device="cuda").to(
+                torch.bfloat16)[:, ::2], *ok),                     # strided x
+            lambda: k1.awq_gateup(x, *bad_n),                      # N differs
+            lambda: k1.awq_gateup(x, *ok, input_scales=(ones[:128],)),
+            lambda: k1.awq_gateup(x, *ok, input_scales=(
+                ones[1:], ones[1:]))):                             # misaligned
+        with pytest.raises(ValueError):
+            call()
 
 
 @pytest.mark.parametrize("c", [1, 5, 16])

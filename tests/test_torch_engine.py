@@ -224,9 +224,11 @@ def test_unported_engine_options_raise(model_params, kwargs):
         GenerationEngine(m, params["float"], max_seq=32, **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(prefix_id="sys"), dict(n=2)],
+@pytest.mark.parametrize("kwargs", [dict(prefix_id="sys", n=2), dict(n=2)],
                          ids=["prefix_id", "parallel_n"])
 def test_unported_submit_options_raise(model_params, kwargs):
+    """Parallel sampling (``n > 1``) is not ported, with or without a
+    prefix namespace (prefix sharing itself is: `test_torch_prefix.py`)."""
     m, params = model_params
     eng = GenerationEngine(m, params["float"], max_seq=32)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -26,7 +26,9 @@ def test_every_module_imports_with_jax_blocked():
     assert len(mods) > 15
     assert {"repro_torch.core.awq", "repro_torch.core.calibration",
             "repro_torch.data.pipeline", "repro_torch.launch.serve",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.specs", "repro_torch.serving.router",
+            "repro_torch.kernels.awq_matmul"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -79,9 +79,9 @@ def test_awq_launch_matches_jax(jax_awq, capsys):
     assert lines[3].startswith("[serve] generated (2, 4) tokens in ")
     assert lines[4].startswith("[serve] sample: [")
     # the CPU run takes the plain versions: no kernel launched
-    assert out["launches"] == {
-        "calibrate": {"flash_attention": 0, "awq_matmul": 0},
-        "generate": {"flash_attention": 0, "awq_matmul": 0}}
+    zero = {"flash_attention": 0, "awq_matmul": 0, "awq_gateup": 0,
+            "paged_attention_chunk": 0}
+    assert out["launches"] == {"calibrate": zero, "generate": zero}
 
 
 def test_float_launch_matches_jax(capsys):
@@ -100,11 +100,60 @@ def test_launch_is_deterministic_under_sampling():
     np.testing.assert_array_equal(runs[0]["tokens"], runs[1]["tokens"])
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--mesh-axis", "2"],
-                                  ["--disagg"], ["--drain-timeout", "5"]])
+# a fleet needs max_seq = prompt + new to be a multiple of its 8-token pages
+FLEET = ["--smoke", "--batch", "2", "--prompt-len", "20", "--max-new", "4"]
+
+
+@pytest.mark.parametrize("flag", [["--replicas", "2", "--mesh-axis", "2"],
+                                  ["--replicas", "2", "--disagg"],
+                                  ["--mesh-axis", "2"], ["--replicas", "2"]])
 def test_fleet_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tserve.main(FLAGS + ["--device", "cpu"] + flag)
+    """--replicas with tensor-parallel (--mesh-axis > 1) or disaggregated
+    replicas raises (neither is ported); without --replicas the fleet
+    flags are ignored and the classic path runs, as the reference does;
+    --replicas alone serves the fleet."""
+    argv = FLEET + ["--quant", "none", "--device", "cpu"] + flag
+    if "--replicas" in flag and len(flag) > 2:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tserve.main(argv)
+        return
+    out = tserve.main(argv)
+    if "--replicas" in flag:
+        assert out["replicas"] == 2 and out["requests"] == 4
+        assert "shape" not in out
+    else:
+        assert out["shape"] == [2, 4] and "replicas" not in out
+
+
+def test_awq_fleet_matches_jax(capsys):
+    """The fleet path on the smoke model: AWQ calibrate + pack, two
+    replicas behind the Router, pinned cluster prefixes, a clustered
+    burst. Requests, skipped prefill tokens, placements and affinity hits
+    are integers of the schedule alone and must equal the reference's."""
+    argv = FLEET + ["--quant", "awq", "--replicas", "2"]
+    jout = jserve.main(argv)
+    jlines = capsys.readouterr().out.splitlines()
+    out = tserve.main(argv + ["--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    placed = re.compile(r"\[serve\] placement: (\d+) scored, (\d+) affinity "
+                        r"hits, (\d+) session hits, (\d+) prefill tokens")
+    (jm,) = [placed.match(ln) for ln in jlines if placed.match(ln)]
+    (tm,) = [placed.match(ln) for ln in lines if placed.match(ln)]
+    assert tm.groups() == jm.groups()
+    assert [int(v) for v in jm.groups()] == [
+        out["placements"], out["affinity_hits"], out["session_hits"],
+        out["prefill_tokens_skipped"]]
+    for key in ("requests", "prefill_tokens_skipped", "replicas"):
+        assert out[key] == jout[key], key
+    assert out["prefill_tokens_skipped"] > 0 and out["affinity_hits"] > 0
+    assert len(out["streams"]) == out["requests"] == 4
+    for toks in out["streams"]:
+        assert toks.shape == (4,) and ((toks >= 0) & (toks < 512)).all()
+    assert len(out["report"].calibrated) == len(out["report"].quantized)
+    # the CPU run takes the plain versions: no kernel launched
+    assert set(out["launches"]) == {"calibrate", "fleet"}
+    assert not any(v for step in out["launches"].values()
+                   for v in step.values())
 
 
 def test_launch_defaults_to_the_card():
