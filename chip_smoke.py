@@ -4,7 +4,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
   1. device  — name, capability, ``nvidia-smi`` name and power limit;
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
-               per source, all started together);
+               per source, all started together); ptxas' registers and
+               spills, and each library's count of tensor-core (HMMA /
+               HGMMA) instructions in its SASS;
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
                M ∈ {1, 4, 16, 64}, GS 64; K3 (awq_gateup) at the gate/up
                pair 896→4864, GS 64, M ∈ {1, 4, 16, 64, 1024}, with and
@@ -23,8 +25,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
                K1, K2 and K3 launch counters must grow during this run,
-               and their launches per decode-only step are reported;
-  5. profile — decode steps of 4 slots timed bare and under
+               and their launches per decode-only step and their
+               launches in steps with prefill rows are reported;
+  5. profile — decode steps of 4 slots, then chunk steps (4 rows of 16
+               prompt tokens at contexts 64–448), timed bare and under
                torch.profiler: device busy time, idle share, top kernels;
   6. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
@@ -140,6 +144,17 @@ def time_ms(fn, n_inputs: int, iters: int = 40) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_mma_count(lib: pathlib.Path) -> dict | None:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in a built
+    library's SASS, by ``cuobjdump --dump-sass``; None without it."""
+    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: sass.count(f" {op}.") for op in ("HMMA", "HGMMA")}
 
 
 def bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
@@ -430,6 +445,11 @@ def check_k2(gen) -> tuple[dict, dict]:
         bound_by=dec["bound_by"], library_ms=dec["library_ms"])
     detail = dict(
         at="decode, C=1, B=4, contexts 137/300/511 + a padding row",
+        design=f"keys split in spans of {k2.SPAN}, a block per span, kv "
+               f"head and 8 query rows (4 warps of 32 keys; "
+               f"{k2.smem_bytes(64)} B of shared memory at hd 64), then a "
+               f"merge pass in span order: 2 kernel launches per call, "
+               f"counted as 1",
         tolerance="per shape: 1e-5 x max(1, max|plain|) (shapes[].tol)",
         library_call="torch SDPA over gathered, dequantized bf16 K/V with "
                      "a boolean mask (not the same function)",
@@ -472,10 +492,11 @@ def check_k4(gen) -> tuple[dict, dict]:
         lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1)
         nbytes = q.nbytes + k.nbytes + v.nbytes + out.nbytes
         # per visible pair and head: QK^T's 2*hd flops on bf16 operands
-        # (exact on tensor cores, f32 sums), PV's 2*hd on f32 probabilities
+        # (exact on tensor cores, f32 sums), and PV's 2*hd on f32
+        # probabilities, which tensor cores take exactly as two bf16
+        # halves (hi, lo) against the bf16 V: 2 x 2*hd
         pair_flops = 2 * hd * h * b * int(mask.sum())
-        b_ms, b_by = bound(nbytes, (pair_flops, BF16_OPS_PER_S),
-                           (pair_flops, F32_OPS_PER_S))
+        b_ms, b_by = bound(nbytes, (3 * pair_flops, BF16_OPS_PER_S))
         per_case.append(dict(case=case, b=b, s=s, causal=causal,
                              window=window, max_abs_err=float(err.max()),
                              ms=ms, plain_ms=plain, library_ms=lib,
@@ -493,10 +514,10 @@ def check_k4(gen) -> tuple[dict, dict]:
            "causal",
         tolerance="per element: 1e-5 + bf16 eps (2^-7) x |plain|",
         bound="the larger of: bytes of Q, K, V, O at 3.35 TB/s; per "
-              "visible (query, key) pair and head, QK^T's 2*hd flops at "
-              "989 TFLOP/s (bf16 x bf16 is exact on tensor cores with f32 "
-              "sums) plus PV's 2*hd at 67 TFLOP/s (f32 probabilities need "
-              "f32 units); the kernel itself runs both on f32 CUDA cores",
+              "visible (query, key) pair and head, QK^T's 2*hd flops plus "
+              "PV's 2 x 2*hd (the f32 probabilities as two bf16 halves, "
+              "exact against bf16 V) at 989 TFLOP/s; the kernel runs all "
+              "three products on tensor cores (mma.sync)",
         library_call="torch SDPA (is_causal / boolean mask, enable_gqa) on "
                      "the same bf16 tensors, made contiguous",
         shapes=per_case)
@@ -522,6 +543,7 @@ def serve(model, params) -> dict:
     rids = [eng.submit(p, 32) for p in prompts]
     decode_s, decode_tokens, decode_steps, steps, prefilled = 0.0, 0, 0, 0, 0
     decode_launches = dict.fromkeys(names, 0)
+    prefill_launches = dict.fromkeys(names, 0)
     while not eng.idle:
         before = read_counts(names)
         ts = time.perf_counter()
@@ -529,12 +551,14 @@ def serve(model, params) -> dict:
         dt = time.perf_counter() - ts
         steps += 1
         now = eng.stats().prefill_tokens
+        into = prefill_launches
         if now == prefilled:                # a step with decode rows only
             decode_s += dt
             decode_tokens += len(events)
             decode_steps += 1
-            for n, v in read_counts(names).items():
-                decode_launches[n] += v - before[n]
+            into = decode_launches
+        for n, v in read_counts(names).items():
+            into[n] += v - before[n]
         prefilled = now
     out = eng.drain()
     total_s = time.perf_counter() - t0
@@ -560,27 +584,23 @@ def serve(model, params) -> dict:
                 launches=launches,
                 launches_per_decode_step={n: v / max(1, decode_steps)
                                           for n, v in decode_launches.items()},
+                prefill_steps=steps - decode_steps,
+                launches_in_decode_steps=decode_launches,
+                launches_in_prefill_steps=prefill_launches,
                 qlinear_calls=paths)
 
 
-def profile_decode(model, params, steps: int = 6) -> dict:
-    """Where a decode step's time goes: 4 slots decoding (no prefill),
-    timed bare, then once more under torch.profiler for the device's
-    busy time and its top kernels."""
-    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
-                           max_seq=512, prefill_chunk=16, kv_quant="int8")
-    rng = np.random.default_rng(SEED + 2)
-    for _ in range(4):
-        eng.submit(rng.integers(0, model.cfg.vocab_size, 100)
-                   .astype(np.int32), 64)
-    while eng.stats().prefill_tokens < 400:     # land every prompt
-        eng.step()
-    eng.step()
+def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
+    """``steps`` engine steps timed bare, then as many again under
+    torch.profiler for the device's busy time and its top kernels;
+    ``before()`` sets up each window."""
+    before()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     bare_ms = 1e3 * (time.perf_counter() - t0) / steps
+    before()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -594,12 +614,47 @@ def profile_decode(model, params, steps: int = 6) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
-    return dict(slots=4, context=100, steps=steps, step_ms=bare_ms,
+    return dict(steps=steps, step_ms=bare_ms,
                 profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
                 device_idle_share=1 - busy_ms / prof_ms,
                 top_kernels=[dict(name=e.key[:90], count=e.count / steps,
                                   ms=e.self_device_time_total / 1e3 / steps)
                              for e in top[:10]])
+
+
+def profile(model, params, steps: int = 6) -> dict:
+    """Where a step's time goes. Decode: 4 slots decoding at contexts
+    ~100–112 (no prefill). Chunk: a step of 4 rows of 16 prompt tokens
+    (the scheduler packs one long prompt's chunks into every free row),
+    at contexts 64–448 of a 448-token prompt, a fresh prompt for the bare
+    and the profiled window; every K2 launch there reads a C = 16 chunk."""
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, prefill_chunk=16, kv_quant="int8")
+    rng = np.random.default_rng(SEED + 2)
+    for _ in range(4):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, 100)
+                   .astype(np.int32), 64)
+    while eng.stats().prefill_tokens < 400:     # land every prompt
+        eng.step()
+    eng.step()
+    dec = dict(slots=4, context=100, **_profile_steps(eng, steps))
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, prefill_chunk=16, kv_quant="int8")
+    plen = 64 * (steps + 1)
+
+    def new_prompt():                 # its first 64 tokens land unprofiled
+        if not eng.idle:
+            raise AssertionError("profile: the last prompt did not finish")
+        eng.submit(rng.integers(0, model.cfg.vocab_size, plen)
+                   .astype(np.int32), 1)
+        eng.step()
+
+    chunk = dict(rows=4, chunk=16, contexts=[64, plen],
+                 **_profile_steps(eng, steps, before=new_prompt))
+    if eng.stats().prefill_tokens != 2 * plen or not eng.idle:
+        raise AssertionError("profile: the chunk steps did not each land "
+                             "4 rows of 16 prompt tokens")
+    return dict(dec, chunk_step=chunk)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -790,6 +845,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
                                   "JSON file")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="build, then only the profile phase (decode and "
+                         "chunk steps); prints no kernels or ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -812,7 +870,16 @@ def main() -> None:
     phase("build", seconds=time.perf_counter() - t,
           per_source={n: b.seconds for n, b in built.items()},
           ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
-                 if "registers" in ln or "spill" in ln])
+                 if "registers" in ln or "spill" in ln],
+          sass_tensor_core_instructions={
+              n: sass_mma_count(b.path) for n, b in built.items()})
+
+    if args.profile_only:
+        model = Model(get_config("qwen25-05b"))
+        params, _ = quantize_params(model.init(
+            torch.Generator(device="cuda").manual_seed(SEED), device="cuda"))
+        phase("profile", **profile(model, params))
+        return
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     (k1_entry, k1_detail), (k2_entry, k2_detail) = check_k1(gen), check_k2(gen)
@@ -834,7 +901,7 @@ def main() -> None:
           group_size=GS, init_quantize_s=time.perf_counter() - t)
     served = serve(model, params)
     phase("serve", **served)
-    prof = profile_decode(model, params)
+    prof = profile(model, params)
     phase("profile", **prof)
     checked = cross_check(model, params)
     phase("check", **checked)
@@ -863,6 +930,9 @@ def main() -> None:
         "qlinear_calls")},
         profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
                                       "device_busy_ms", "device_idle_share")},
+        profile_chunk_step={k: prof["chunk_step"][k] for k in (
+            "step_ms", "profiled_step_ms", "device_busy_ms",
+            "device_idle_share")},
         check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()},
         launch={k: launched[k] for k in (
             "calibrate_s", "awq_s", "calibrated", "compression_ratio",

@@ -36,7 +36,7 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     "awq_matmul": ("awq_matmul_bf16", [_P] * 5 + [_I] * 5 + [_P]),
     "awq_gateup": ("awq_gateup_f32", [_P] * 10 + [_I] * 7 + [_P]),
     "paged_attention": ("paged_attention_chunk_f32",
-                        [_P] * 10 + [_I] * 9 + [_F, _I, _P]),
+                        [_P] * 12 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 4 + [_L] * 12 + [_I] * 8 + [_F, _I, _P]),
 }

@@ -9,9 +9,10 @@ plain version, `flash_attention_ref`, only for CPU tensors. Any S works
 (the TPU kernel needs S to be a multiple of its blocks; this one masks
 the ragged tail itself), and inputs are read through their strides, so
 a ``[B, S, H, hd]`` projection can be passed as its ``transpose(1, 2)``
-view without a copy; the output takes q's layout. Every row of this
-square attention sees at least its own key; a row that saw none would
-give exactly 0 in both versions, as in the reference.
+view without a copy; the output takes q's layout. bf16 and f16 run on
+tensor cores, f32 (which only tests pass) on the CUDA cores. Every row
+of this square attention sees at least its own key; a row that saw none
+would give exactly 0 in both versions, as in the reference.
 """
 from __future__ import annotations
 
@@ -71,7 +72,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the
     kernel (q, k and v of one type among f32 / bf16 / f16, hd 64 or 128,
-    the head dim contiguous) and raise on anything else.
+    the head dim contiguous) and raise on anything else. bf16 and f16
+    run on tensor cores, whose 16-byte copies want every row 16-byte
+    aligned (pointer and strides); f32 runs on the CUDA cores.
     """
     b, h, s, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
@@ -92,6 +95,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)             # q's layout (strides) and type
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _check(t.stride(3) == 1, f"{name}'s head dim must be contiguous")
+        if q.dtype != torch.float32:
+            step = 16 // t.element_size()
+            _check(t.data_ptr() % 16 == 0
+                   and all(st % step == 0 for st in t.stride()[:3]),
+                   f"{name}'s rows must be 16-byte aligned")
     if out.numel() == 0:
         return out
     lib = load("flash_attention")

@@ -10,11 +10,13 @@ its f32 output, while its bf16 output rounds g, u, silu(g) and the
 product to bf16 as the two-linear MLP does, so a sum a few f32 ulps off
 may round to a neighbouring bf16 value at each of those steps (1e-5 of
 the output scale plus 2^-6 of the value, four bf16 ulps); K2 runs the
-same f32 math with an online softmax (atol 1e-5). K4 runs f32 math with
-an online softmax too and rounds once to the input type, so two results
-a few f32 ulps apart may round to neighbouring values: atol 1e-5 plus
-one unit of the type's precision relative to the value
-(`torch.finfo(dtype).eps`).
+same f32 math with an online softmax over split keys, merged in span
+order (1e-5 of max(1, the output scale)). K4 computes in f32 with an
+online softmax too (bf16 / f16 products on tensor cores, exact; f32
+probabilities split into two halves of the input type for PV) and rounds
+once to the input type, so two results a few f32 ulps apart may round to
+neighbouring values: atol 1e-5 plus one unit of the type's precision
+relative to the value (`torch.finfo(dtype).eps`).
 """
 import pytest
 import torch
@@ -145,7 +147,7 @@ def test_awq_gateup_kernel_rejects_what_it_does_not_take(cuda):
             call()
 
 
-@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("c", [1, 5, 16, 32])
 def test_paged_attention_kernel_matches_plain(cuda, c):
     b, hkv, g, hd, page, nblk = 4, 2, 7, 64, 16, 32
     npages = b * nblk + 1
@@ -215,6 +217,123 @@ def test_paged_attention_kernel_tree_rows(cuda, window):
     assert out[1].abs().sum() > 0
 
 
+def _k2_pools(gen, npages, page, hkv, hd):
+    kp, vp = (torch.randint(-127, 128, (npages, page, hkv, hd),
+                            generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(npages, page, hkv, generator=gen, device="cuda")
+              / 50 for _ in range(2))
+    return kp, ks, vp, vs
+
+
+def _k2_run(q, pools, table, pos, **kw):
+    """Kernel and plain version on the same inputs; the kernel within
+    1e-5 x max(1, max|plain|), rows that see nothing exactly 0."""
+    kp, ks, vp, vs = pools
+    out = k2.paged_attention_chunk(q, kp, ks, vp, vs, table, pos, **kw)
+    ref = k2.paged_attention_chunk_ref(q, kp, ks, vp, vs, table, pos, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
+    vis = k2.chunk_visibility_ref(pos, s_slot=table.shape[1] * kp.shape[1],
+                                  rpos=kw.get("rpos"), amask=kw.get("amask"),
+                                  window=kw.get("window", 0))
+    assert not out[~vis.any(dim=-1)].any()
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 5])
+@pytest.mark.parametrize("n_keys", [1, 127, 128, 129, 511, 512])
+def test_paged_attention_kernel_span_edges(cuda, n_keys, c):
+    """Slots whose keys end at and around a 128-key span boundary
+    (pos[b, 0] + C = n_keys where C allows), beside a padding slot."""
+    b, hkv, g, hd, page, nblk = 3, 2, 7, 64, 16, 32
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([max(0, n_keys - c), max(0, n_keys - c - 1), -1],
+                        dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[2] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    out = _k2_run(q, pools, table, pos)
+    assert not out[2].any()
+
+
+@pytest.mark.parametrize("c", [1, 16])
+def test_paged_attention_kernel_long_slot(cuda, c):
+    """A 4,096-token slot of 256 pages (32 spans) beside a short one."""
+    b, hkv, g, hd, page, nblk = 2, 2, 7, 64, 16, 256
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([4096 - c, 100], dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    _k2_run(q, pools, table, pos)
+    _k2_run(q, pools, table, pos, window=128)
+
+
+@pytest.mark.parametrize("hd,c,g", [(64, 59, 7), (128, 27, 7), (128, 11, 3),
+                                    (64, 3, 1)])
+def test_paged_attention_kernel_row_counts(cuda, hd, c, g):
+    """C·G not a multiple of the 32-row group, up to the most rows the
+    single-block design took (413 at hd 64, 189 at hd 128), and hd 128."""
+    b, hkv, page, nblk = 2, 2, 16, 24
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([nblk * page - c, 40], dtype=torch.int32,
+                        device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[1, c // 2:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    _k2_run(q, pools, table, pos)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_paged_attention_kernel_default_mask_in_kernel(cuda, window):
+    """No amask: the kernel applies `default_amask`'s rule itself, bit for
+    bit what it computes from the explicit mask."""
+    b, c, hkv, g, hd, page, nblk = 3, 16, 2, 7, 64, 16, 32
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 250, 490], dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[1, 9:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    implicit = _k2_run(q, pools, table, pos, window=window)
+    explicit = _k2_run(q, pools, table, pos, window=window,
+                       amask=k2.default_amask(pos, window).contiguous())
+    assert torch.equal(implicit, explicit)
+
+
+def test_paged_attention_kernel_deterministic_and_slot_independent(cuda):
+    """Two runs give the same bits, and a slot's output does not change
+    when another slot's context grows (its split points are its own)."""
+    b, c, hkv, g, hd, page, nblk = 3, 16, 2, 7, 64, 16, 32
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    outs = []
+    for grown in (30, 30, 480):
+        base = torch.tensor([200, grown, 0], dtype=torch.int32,
+                            device="cuda")
+        pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                            device="cuda")[None]).contiguous()
+        outs.append(_k2_run(q, pools, table, pos))
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0][0], outs[2][0])
+    assert torch.equal(outs[0][2], outs[2][2])
+    assert not torch.equal(outs[0][1], outs[2][1])
+
+
 def _k4_check(out, ref, dtype):
     assert out.dtype == ref.dtype == dtype
     err = (out.float() - ref.float()).abs()
@@ -282,3 +401,65 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
         k4.flash_attention(q[..., :32], k[..., :32], v[..., :32])  # hd 32
     with pytest.raises(ValueError):
         k4.flash_attention(q[:, :3], k, v)                   # H % Hkv
+
+
+K4_MASKS = [(True, 0), (True, 128), (False, 0)]   # causal, window, bidir
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("s", [1, 15, 63, 64, 65, 1000])
+def test_flash_attention_kernel_edges(cuda, s, dtype, hd):
+    """S around the 64-row / 64-key tiles and a long ragged one, each
+    type and head dim, Qwen2.5's 14 q / 2 kv heads, every mask."""
+    q, k, v = _k4_inputs(cuda, 1, 14, 2, s, hd, dtype)
+    for causal, window in K4_MASKS:
+        out = k4.flash_attention(q, k, v, causal=causal, window=window)
+        ref = k4.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        _k4_check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("causal,window", K4_MASKS)
+@pytest.mark.parametrize("g", [1, 2, 7])
+def test_flash_attention_kernel_groups_on_strided_views(cuda, g, causal,
+                                                        window):
+    """G = H / Hkv of 1, 2 and 7 on ``transpose(1, 2)`` views of
+    [B, S, H, hd] projections, bf16 and f16."""
+    b, s, hkv, hd = 2, 300, 2, 64
+    h = g * hkv
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = (torch.randn(b, s, n, hd, generator=cuda, device="cuda")
+                   .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+        out = k4.flash_attention(q, k, v, causal=causal, window=window)
+        ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=causal,
+                                     window=window)
+        torch.cuda.synchronize()
+        assert out.stride() == q.stride()
+        _k4_check(out, ref, dtype)
+
+
+def test_flash_attention_kernel_deterministic(cuda):
+    q, k, v = _k4_inputs(cuda, 2, 14, 2, 1000, 64, torch.bfloat16)
+    runs = [k4.flash_attention(q, k, v) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    _k4_check(runs[0], k4.flash_attention_ref(q, k, v), torch.bfloat16)
+
+
+def test_flash_attention_kernel_rejects_misaligned_rows(cuda):
+    """The tensor-core body copies 16-byte rows: a bf16 view whose rows
+    start off a 16-byte boundary is refused, not read wrongly."""
+    q, k, v = _k4_inputs(cuda, 1, 4, 2, 16, 64, torch.bfloat16)
+    flat = torch.randn(q.numel() + 1, device="cuda").to(torch.bfloat16)
+    q_off = flat[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        k4.flash_attention(q_off, k, v)
+    # the f32 body reads element by element: any alignment is taken
+    q32 = torch.randn(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    out = k4.flash_attention(q32, k.float(), v.float())
+    torch.cuda.synchronize()
+    _k4_check(out, k4.flash_attention_ref(q32, k.float(), v.float()),
+              torch.float32)

@@ -102,3 +102,92 @@ def test_decode_form_matches_jax():
     tout = k2.paged_attention(
         *(torch.from_numpy(a) for a in (q1, k, ks, v, vs, table, p1)))
     np.testing.assert_allclose(tout.numpy(), jout, rtol=2e-5, atol=2e-5)
+
+
+def _torch_case(c, tree, seed):
+    q, k, ks, v, vs, table, pos, kw = _case(c, tree, seed)
+    args = tuple(torch.from_numpy(np.asarray(a))
+                 for a in (q, k, ks, v, vs, table, pos))
+    tkw = {n: (torch.from_numpy(np.asarray(a)) if n != "window" else a)
+           for n, a in kw.items()}
+    return args, tkw, pos, kw
+
+
+def _merge_tol(whole):
+    return 1e-6 * max(1.0, float(whole.abs().max()))
+
+
+# splits of the slot's NBLK * P = 32 keys: the kernel's (one span of 128
+# covers them), one span per page, one per key, uneven ones, and spans
+# past every row's last visible key (they see nothing)
+SPLITS = {
+    "kernel": None,
+    "pages": list(range(0, NBLK * P + 1, P)),
+    "keys": list(range(NBLK * P + 1)),
+    "uneven": [0, 3, 4, 17, 30, 32],
+    "empty_tail": [0, 2, 9, 24, 27, 29, 31, 32],
+}
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+@pytest.mark.parametrize("c", [1, 5, 16])
+def test_split_merge_matches_whole_plain(c, tree, split):
+    """The kernel's two passes in plain form: merging the partials of any
+    split of the keys gives the whole plain version within 1e-6 of the
+    output's scale, max(1, max|plain|) (f32: another order of sums and
+    exps, a few ulps); rows that see nothing are exactly 0 both ways, and
+    a span a row cannot see holds (NEG_INF, 0, 0)."""
+    args, tkw, pos, kw = _torch_case(c, tree, seed=20 + c + 10 * tree)
+    whole = k2.paged_attention_chunk_ref(*args, **tkw)
+    m, l, acc = k2.paged_attention_partials_ref(*args, bounds=SPLITS[split],
+                                                **tkw)
+    n = 1 if split == "kernel" else len(SPLITS[split]) - 1
+    assert m.shape == (n, B, c, HKV, G) and acc.shape == (n, B, c, HKV, G,
+                                                          HD)
+    merged = k2.paged_attention_merge_ref(m, l, acc)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=0,
+                               atol=_merge_tol(whole))
+    dead = torch.from_numpy(pos < 0)
+    if tree and c > 1:
+        dead[0, 1] = True
+    assert not merged[dead].any() and not whole[dead].any()
+    unseen = l == 0
+    assert unseen.any()
+    assert bool((m[unseen] == k2.NEG_INF).all())
+    assert not acc[unseen].any()
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_kernel_spans_over_a_long_slot(window):
+    """A 600-key slot split the kernel's way (128-key spans, the last
+    one short), decode and chunk rows, with and without a window: the
+    merged partials equal the whole plain version within 1e-6 of the
+    output's scale."""
+    rng = np.random.default_rng(5 + window)
+    b, hkv, g, hd, page, nblk = 2, 2, 7, 64, 8, 75
+    npages = b * nblk + 1
+    k, ks, v, vs = (
+        torch.from_numpy(rng.integers(-127, 128, (npages, page, hkv, hd))
+                         .astype(np.int8)),
+        torch.from_numpy((rng.random((npages, page, hkv)) / 20)
+                         .astype(np.float32)),
+        torch.from_numpy(rng.integers(-127, 128, (npages, page, hkv, hd))
+                         .astype(np.int8)),
+        torch.from_numpy((rng.random((npages, page, hkv)) / 20)
+                         .astype(np.float32)))
+    table = torch.from_numpy((rng.permutation(npages - 1)[:b * nblk] + 1)
+                             .astype(np.int32).reshape(b, nblk))
+    for c, base in ((1, [599, 255]), (16, [0, 584])):
+        pos = torch.tensor(base, dtype=torch.int32)[:, None] + torch.arange(
+            c, dtype=torch.int32)[None]
+        q = torch.from_numpy(rng.standard_normal((b, c, hkv, g, hd))
+                             .astype(np.float32))
+        args = (q, k, ks, v, vs, table, pos)
+        assert k2.kernel_bounds(nblk * page) == [0, 128, 256, 384, 512, 600]
+        m, l, acc = k2.paged_attention_partials_ref(*args, window=window)
+        assert m.shape[0] == 5
+        whole = k2.paged_attention_chunk_ref(*args, window=window)
+        np.testing.assert_allclose(
+            k2.paged_attention_merge_ref(m, l, acc).numpy(), whole.numpy(),
+            rtol=0, atol=_merge_tol(whole))
