@@ -6,12 +6,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together); ptxas' registers and
                spills, and each library's count of tensor-core (HMMA /
-               HGMMA) instructions in its SASS;
+               HGMMA) instructions in its SASS (K3's and K4's must be > 0);
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
-               M ∈ {1, 4, 16, 64}, GS 64; K3 (awq_gateup) at the gate/up
-               pair 896→4864, GS 64, M ∈ {1, 4, 16, 64, 1024}, with and
-               without AWQ input scales, in both output modes (f32, the
-               TPU function; bf16, the model's rounding); K2 (paged_attention_chunk) at
+               M ∈ {1, 4, 16, 64, 1024}, GS 64; K3 (awq_gateup) at the
+               gate/up pair 896→4864, GS 64, M ∈ {1, 4, 16, 64, 1024}, with
+               and without AWQ input scales, in both output modes (f32, the
+               TPU function; bf16, the model's rounding), and its rows at
+               M 1, 4, 7, 8, 16, 64 and 200 bit-identical to the same rows
+               of an M 1024 launch; K2 (paged_attention_chunk) at
                Hkv 2, G 7, hd 64, page 16, B 4, C ∈ {1, 16}, contexts up to
                512 with padding rows, and C = 8 with a token tree's
                ancestor mask, logical positions and a sliding window; each
@@ -169,6 +171,9 @@ def bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
 # ------------------------------------------------------------------ phase 3
 def check_k1(gen) -> tuple[dict, dict]:
     cfg = QuantConfig(group_size=GS)
+    # the launcher's prefill rows (M 1024) draw from their own generator,
+    # so every other check keeps the inputs it had before they were added
+    prefill_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shapes = []
     for k, n in QWEN_KN:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
@@ -181,8 +186,8 @@ def check_k1(gen) -> tuple[dict, dict]:
                                  torch.bfloat16)
         lib_w = [w_bf16.clone()
                  for _ in range(max(1, COLD_BYTES // w_bf16.nbytes))]
-        for m in (1, 4, 16, 64):
-            x = torch.randn(m, k, generator=gen,
+        for m in (1, 4, 16, 64, 1024):
+            x = torch.randn(m, k, generator=gen if m < 1024 else prefill_gen,
                             device="cuda").to(torch.bfloat16)
             out = k1.awq_matmul(x, p.qweight, p.scales, p.zeros, GS)
             ref = k1.awq_matmul_ref(x, p.qweight, p.scales, p.zeros, GS,
@@ -235,6 +240,14 @@ def k3_tolerance(ref: torch.Tensor) -> torch.Tensor:
     return 1e-5 * scale + 2 ** -6 * ref.float().abs()
 
 
+def _k3_f64(x, wg, wu, sc) -> torch.Tensor:
+    """K3's f32 function with every sum in f64 (products of the bf16
+    operands are exact there): the yardstick of both f32 sum orders."""
+    xg, xu = ((x.float() * s).to(torch.bfloat16) for s in sc) if sc else (x, x)
+    return (torch.nn.functional.silu(xg.double() @ wg.double())
+            * (xu.double() @ wu.double()))
+
+
 def check_k3(gen) -> tuple[dict, dict]:
     """K3 at the gate/up pair of every Qwen2.5 layer (896 → 4864, GS 64):
     each M with and without AWQ input scales, held against the plain
@@ -276,6 +289,10 @@ def check_k3(gen) -> tuple[dict, dict]:
                         f"its tolerance by {float((err - lim).max())}")
                 errs[str(out_dtype).split(".")[-1]] = [
                     float(err.max()), float(lim.min())]
+                if out_dtype == torch.float32:
+                    exact = _k3_f64(x, wg, wu, sc)
+                    vs_f64 = [float((o.double() - exact).abs().max()
+                                    / exact.abs().max()) for o in (out, ref)]
             kw = dict(input_scales=sc, out_dtype=(torch.bfloat16 if scaled
                                                   else torch.float32))
             ms = time_ms(lambda i: k1.awq_gateup(x, *packs[i], GS, **kw),
@@ -289,8 +306,27 @@ def check_k3(gen) -> tuple[dict, dict]:
                       + (2 * k * 4 if scaled else 0))
             b_ms, b_by = bound(nbytes, (2 * 2 * m * k * n, BF16_OPS_PER_S))
             shapes.append(dict(m=m, input_scales=scaled, max_abs_err=errs,
-                               ms=ms, plain_ms=plain, library_ms=lib,
+                               f32_err_vs_f64=vs_f64, ms=ms, plain_ms=plain, library_ms=lib,
                                bound_ms=b_ms, bound_by=b_by))
+    # the summation rule: a row's bits do not depend on M (rows of one x
+    # from its own generator, so the checks above keep their inputs)
+    x_full = torch.randn(1024, k, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 2)).to(torch.bfloat16)
+    identity = []
+    for scaled in (False, True):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(input_scales=iscales if scaled else None,
+                      out_dtype=out_dtype)
+            full = k1.awq_gateup(x_full, *packs[0], GS, **kw)
+            for m in (1, 4, 7, 8, 16, 64, 200):
+                part = k1.awq_gateup(x_full[:m].contiguous(), *packs[0], GS,
+                                     **kw)
+                differ = int((part != full[:m]).sum())
+                if differ:
+                    raise AssertionError(
+                        f"K3 scaled={scaled} {out_dtype}: {differ} elements "
+                        f"of rows 0..{m - 1} differ between M={m} and M=1024")
+                identity.append(m)
     dec = next(s for s in shapes if s["m"] == 4 and s["input_scales"])
     entry = dict(
         name="awq_gateup", route="cuda",
@@ -306,6 +342,13 @@ def check_k3(gen) -> tuple[dict, dict]:
         tolerance="f32 output: 1e-4 x max|plain|; bf16 output: 1e-5 x "
                   "max|plain| + 2^-6 x |plain| per element "
                   "(shapes[].max_abs_err: [max error, least tolerance])",
+        f32_err_vs_f64="shapes[].f32_err_vs_f64: [kernel, plain] max "
+                       "|f32 output - the same function summed in f64| / "
+                       "max |f64|",
+        rows_identical_to_m1024=dict(
+            m=sorted(set(identity)), checks=len(identity),
+            cases="with and without input scales x f32 and bf16 output; "
+                  "torch.equal of rows 0..M-1"),
         library_call="silu(x @ Wg) * (x @ Wu) with torch.matmul on the "
                      "pre-dequantized bf16 weights (not the same function: "
                      "it skips the int4 unpack and the input scales)",
@@ -867,12 +910,16 @@ def main() -> None:
 
     t = time.perf_counter()
     built = build.build_all()
+    mma = {n: sass_mma_count(b.path) for n, b in built.items()}
     phase("build", seconds=time.perf_counter() - t,
           per_source={n: b.seconds for n, b in built.items()},
           ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln],
-          sass_tensor_core_instructions={
-              n: sass_mma_count(b.path) for n, b in built.items()})
+          sass_tensor_core_instructions=mma)
+    for n in ("awq_gateup", "flash_attention"):
+        if not mma[n] or mma[n]["HMMA"] + mma[n]["HGMMA"] <= 0:
+            raise AssertionError(f"{n}: no tensor-core instruction in its "
+                                 f"SASS ({mma[n]})")
 
     if args.profile_only:
         model = Model(get_config("qwen25-05b"))

@@ -132,7 +132,15 @@ def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
 
     CPU tensors take `awq_gateup_ref`; CUDA tensors launch the kernel,
     which takes bf16 or f32 x, ``compute_dtype=bfloat16`` and an f32 or
-    bf16 output, and raises on anything else.
+    bf16 output, and raises on anything else. The kernel runs on tensor
+    cores under one summation rule for every M: K in spans of 128, each
+    span a chain of m16n8k16 MMAs (the dequantized weight as A, the
+    scaled x as B) from 0, the span partials added in span order. So a
+    row's bits do not depend on M or on the run. M <= 16 streams the
+    weights once (bytes bound it); larger M dequantizes a 64-column
+    weight tile once for 64 or 128 rows and scales their x once, in
+    shared memory (operations bound it). `csrc/awq_gateup.cu` states
+    the rule in full.
     """
     if x.device.type == "cpu":
         return awq_gateup_ref(x, qw_gate, s_gate, z_gate, qw_up, s_up, z_up,

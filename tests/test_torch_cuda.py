@@ -124,6 +124,63 @@ def test_awq_gateup_kernel_f32_x_and_rows_independent_of_m(cuda):
         assert torch.equal(part, out[:m])
 
 
+def _k3_pair(gen, k, n, gs, scaled):
+    cfg = QuantConfig(group_size=gs)
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5, cfg),
+        None, None, cfg) for _ in range(2))
+    scales = ((torch.rand(k, generator=gen, device="cuda") + 0.5,
+               torch.rand(k, generator=gen, device="cuda") + 0.5)
+              if scaled else None)
+    return (g.qweight, g.scales, g.zeros, u.qweight, u.scales, u.zeros,
+            gs), scales
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_out", "bf16_out"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+def test_awq_gateup_kernel_rows_equal_across_m(cuda, scaled, out_dtype):
+    """The summation rule: the rows of an M 1024 launch (the prefill
+    kernel) are bit-identical to the same rows at smaller M (the decode
+    kernel at M <= 16, the prefill kernel above)."""
+    args, scales = _k3_pair(cuda, 896, 4864, 64, scaled)
+    x = torch.randn(1024, 896, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    kw = dict(input_scales=scales, out_dtype=out_dtype)
+    full = k1.awq_gateup(x, *args, **kw)
+    for m in (1, 4, 7, 8, 16, 64, 200):
+        part = k1.awq_gateup(x[:m].contiguous(), *args, **kw)
+        assert torch.equal(part, full[:m]), m
+    # rows past the first tile of 64, launched on their own
+    tail = k1.awq_gateup(x[900:].contiguous(), *args, **kw)
+    assert torch.equal(tail, full[900:])
+
+
+@pytest.mark.parametrize("m", [4, 64, 1024])
+def test_awq_gateup_kernel_deterministic(cuda, m):
+    args, scales = _k3_pair(cuda, 896, 4864, 64, True)
+    x = torch.randn(m, 896, generator=cuda, device="cuda").to(torch.bfloat16)
+    kw = dict(input_scales=scales, out_dtype=torch.bfloat16)
+    assert torch.equal(k1.awq_gateup(x, *args, **kw),
+                       k1.awq_gateup(x, *args, **kw))
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+@pytest.mark.parametrize("m", [1, 13, 80])
+def test_awq_gateup_kernel_ragged_shapes(cuda, m, scaled):
+    """K 200 at GS 40 (a last span of 72 k: a half-empty k16 step), N 136
+    (a partial 16- and 64-column tile), f32 x; one launch per call."""
+    args, scales = _k3_pair(cuda, 200, 136, 40, scaled)
+    x = torch.randn(m, 200, generator=cuda, device="cuda")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        before = k1.GATEUP_COUNTER.count
+        out = k1.awq_gateup(x, *args, **kw)
+        torch.cuda.synchronize()
+        assert k1.GATEUP_COUNTER.count == before + 1
+        _k3_check(out, k1.awq_gateup_ref(x, *args, torch.bfloat16, **kw))
+
+
 def test_awq_gateup_kernel_rejects_what_it_does_not_take(cuda):
     cfg = QuantConfig(group_size=64)
     g, u = (pack_linear(*quantize_groupwise(
