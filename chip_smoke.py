@@ -6,14 +6,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together); ptxas' registers and
                spills, and each library's count of tensor-core (HMMA /
-               HGMMA) instructions in its SASS (K3's and K4's must be > 0);
+               HGMMA) instructions in its SASS (K1's, K3's and K4's must
+               be > 0);
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
-               M ∈ {1, 4, 16, 64, 1024}, GS 64; K3 (awq_gateup) at the
+               M ∈ {1, 4, 16, 64, 1024}, GS 64, unscaled with f32 output
+               (the TPU function) and with an AWQ input scale and bf16
+               output (the model's call), and its rows at M 1, 4, 7, 8,
+               16, 64 and 200 bit-identical to the same rows of an M 1024
+               launch; K3 (awq_gateup) at the
                gate/up pair 896→4864, GS 64, M ∈ {1, 4, 16, 64, 1024}, with
                and without AWQ input scales, in both output modes (f32, the
                TPU function; bf16, the model's rounding), and its rows at
                M 1, 4, 7, 8, 16, 64 and 200 bit-identical to the same rows
-               of an M 1024 launch; K2 (paged_attention_chunk) at
+               of an M 1024 launch, and the count of its bf16 elements
+               that differ from the unfused front (two K1 calls, silu,
+               product); K2 (paged_attention_chunk) at
                Hkv 2, G 7, hd 64, page 16, B 4, C ∈ {1, 16}, contexts up to
                512 with padding rows, and C = 8 with a token tree's
                ancestor mask, logical positions and a sliding window; each
@@ -31,7 +38,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                launches in steps with prefill rows are reported;
   5. profile — decode steps of 4 slots, then chunk steps (4 rows of 16
                prompt tokens at contexts 64–448), timed bare and under
-               torch.profiler: device busy time, idle share, top kernels;
+               torch.profiler: device busy time, idle share, top kernels,
+               each port kernel's device time and launches a step;
   6. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
   7. launch  — the launcher's AWQ path at full width,
@@ -100,6 +108,8 @@ QWEN_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
 # one decode layer's K1 calls at M = num_slots = 4: q, o, down (k and v,
 # 2·4·896·128 < 2^20 flops, stay on the generic path; gate and up are K3)
 LAYER_K1 = [(896, 896), (896, 896), (4864, 896)]
+# a chunk step's layer at M = 64 (4 rows x 16 tokens): q, k, v, o, down
+CHUNK_K1 = [(896, 896), (896, 128), (896, 128), (896, 896), (4864, 896)]
 
 
 PHASES: dict[str, dict] = {}
@@ -169,12 +179,31 @@ def bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
 
 
 # ------------------------------------------------------------------ phase 3
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v.float()), e - 8)
+
+
+def _rel_err_vs_f64(outs, exact) -> list[float]:
+    """max |output - exact| / max |exact| of each output."""
+    return [float((o.double() - exact).abs().max() / exact.abs().max())
+            for o in outs]
+
+
 def check_k1(gen) -> tuple[dict, dict]:
+    """K1 at Qwen2.5's four (K, N) pairs, GS 64: the TPU function
+    (unscaled, f32 output) and the model's call (the linear's AWQ input
+    scale, bf16 output), each held against the plain version and timed
+    beside it and a library yardstick; then the summation rule (rows of an
+    M 1024 launch equal the same rows at smaller M)."""
     cfg = QuantConfig(group_size=GS)
     # the launcher's prefill rows (M 1024) draw from their own generator,
-    # so every other check keeps the inputs it had before they were added
+    # and so do the model's input scales and the row-identity inputs, so
+    # every other check keeps the inputs it had before they were added
     prefill_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    shapes = []
+    model_gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes, identity = [], []
     for k, n in QWEN_KN:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
         p = pack_linear(*quantize_groupwise(w, cfg), None, None, cfg)
@@ -186,6 +215,8 @@ def check_k1(gen) -> tuple[dict, dict]:
                                  torch.bfloat16)
         lib_w = [w_bf16.clone()
                  for _ in range(max(1, COLD_BYTES // w_bf16.nbytes))]
+        iscale = torch.rand(k, generator=model_gen, device="cuda") + 0.5
+        model_kw = dict(input_scale=iscale, out_dtype=torch.bfloat16)
         for m in (1, 4, 16, 64, 1024):
             x = torch.randn(m, k, generator=gen if m < 1024 else prefill_gen,
                             device="cuda").to(torch.bfloat16)
@@ -197,32 +228,99 @@ def check_k1(gen) -> tuple[dict, dict]:
             tol = 1e-4 * float(ref.abs().max())
             if not err <= tol:
                 raise AssertionError(f"K1 {k}x{n} M={m}: err {err} > {tol}")
+            vs_f64 = _rel_err_vs_f64((out, ref), x.double() @ w_bf16.double())
+            # the model's call: f32 tolerance plus one bf16 ulp of |plain|
+            out_m = k1.awq_matmul(x, *packs[0], GS, **model_kw)
+            ref_m = k1.awq_matmul_ref(x, *packs[0], GS, torch.bfloat16,
+                                      **model_kw)
+            torch.cuda.synchronize()
+            err_m = (out_m.float() - ref_m.float()).abs()
+            lim_m = 1e-4 * float(ref_m.float().abs().max()) + bf16_ulp(ref_m)
+            if not bool((err_m <= lim_m).all()):
+                raise AssertionError(
+                    f"K1 {k}x{n} M={m} input scale, bf16 out: err exceeds "
+                    f"its tolerance by {float((err_m - lim_m).max())}")
             ms = time_ms(lambda i: k1.awq_matmul(x, *packs[i], GS), copies)
             plain = time_ms(lambda i: k1.awq_matmul_ref(
                 x, *packs[i], GS, torch.bfloat16), copies)
             lib = time_ms(lambda i: torch.matmul(x, lib_w[i]), len(lib_w))
+            model_ms = time_ms(lambda i: k1.awq_matmul(
+                x, *packs[i], GS, **model_kw), copies)
+            model_plain = time_ms(lambda i: k1.awq_matmul_ref(
+                x, *packs[i], GS, torch.bfloat16, **model_kw), copies)
             nbytes = x.nbytes + wbytes + m * n * 4
             b_ms, b_by = bound(nbytes, (2 * m * k * n, BF16_OPS_PER_S))
-            shapes.append(dict(k=k, n=n, m=m, max_abs_err=err, tol=tol,
-                               ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by))
-    layer = [next(s for s in shapes if (s["k"], s["n"], s["m"]) == (k, n, 4))
-             for k, n in LAYER_K1]
+            mb_ms, mb_by = bound(nbytes + iscale.nbytes - m * n * 2,
+                                 (2 * m * k * n, BF16_OPS_PER_S))
+            shapes.append(dict(
+                k=k, n=n, m=m, max_abs_err=err, tol=tol,
+                f32_err_vs_f64=vs_f64, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by,
+                span_block=k1.span_block(m, k, n),
+                model=dict(max_abs_err=float(err_m.max()),
+                           least_tol=float(lim_m.min()), ms=model_ms,
+                           plain_ms=model_plain, bound_ms=mb_ms,
+                           bound_by=mb_by)))
+        # the summation rule: a row's bits do not depend on M
+        x_full = torch.randn(1024, k, generator=model_gen,
+                             device="cuda").to(torch.bfloat16)
+        for scaled in (False, True):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(input_scale=iscale if scaled else None,
+                          out_dtype=out_dtype)
+                full = k1.awq_matmul(x_full, *packs[0], GS, **kw)
+                for m in (1, 4, 7, 8, 16, 64, 200):
+                    part = k1.awq_matmul(x_full[:m].contiguous(), *packs[0],
+                                         GS, **kw)
+                    differ = int((part != full[:m]).sum())
+                    if differ:
+                        raise AssertionError(
+                            f"K1 {k}x{n} scaled={scaled} {out_dtype}: "
+                            f"{differ} elements of rows 0..{m - 1} differ "
+                            f"between M={m} and M=1024")
+                    identity.append(m)
+
+    def at(m, pairs):
+        rows = [next(s for s in shapes if (s["k"], s["n"], s["m"]) == (k, n, m))
+                for k, n in pairs]
+        return {key: sum(r["model"][key] for r in rows)
+                for key in ("ms", "plain_ms", "bound_ms")} | dict(
+            library_ms=sum(r["library_ms"] for r in rows),
+            tpu_function_ms=sum(r["ms"] for r in rows))
+
+    layer, chunk = at(4, LAYER_K1), at(64, CHUNK_K1)
     entry = dict(
         name="awq_matmul", route="cuda",
         source="src/repro_torch/csrc/awq_matmul.cu",
         replaces="src/repro/kernels/awq_matmul.py:99",
-        max_abs_err=max(s["max_abs_err"] for s in shapes),
-        ms=sum(s["ms"] for s in layer),
-        plain_ms=sum(s["plain_ms"] for s in layer),
-        bound_ms=sum(s["bound_ms"] for s in layer), bound_by="bytes",
-        library_ms=sum(s["library_ms"] for s in layer))
+        max_abs_err=max(max(s["max_abs_err"], s["model"]["max_abs_err"])
+                        for s in shapes),
+        ms=layer["ms"], plain_ms=layer["plain_ms"],
+        bound_ms=layer["bound_ms"], bound_by="bytes",
+        library_ms=layer["library_ms"],
+        tpu_function_ms=layer["tpu_function_ms"], chunk_step_m64=chunk)
     detail = dict(
-        at="one decode layer at M=4: q, o, down (sums; gate and up run "
-           "in K3)",
-        tolerance="per shape: 1e-4 x max|plain| (shapes[].tol)",
+        at="one decode layer at M=4: q, o, down with input scales and bf16 "
+           "output, the model's call (sums; gate and up run in K3); "
+           "tpu_function_ms: the same unscaled with f32 output; "
+           "chunk_step_m64: a chunk step's layer at M=64 (q, k, v, o, down)",
+        tolerance="per shape: f32 output 1e-4 x max|plain| (shapes[].tol); "
+                  "bf16 output that plus one bf16 ulp of |plain| per "
+                  "element (shapes[].model.least_tol)",
+        f32_err_vs_f64="shapes[].f32_err_vs_f64: [kernel, plain] max "
+                       "|f32 output - the same function summed in f64| / "
+                       "max |f64|",
+        rows_identical_to_m1024=dict(
+            m=sorted(set(identity)), checks=len(identity),
+            cases="four (K, N) pairs x with and without input scale x f32 "
+                  "and bf16 output; torch.equal of rows 0..M-1"),
+        span_block="shapes[].span_block: spans a block takes (fewer than "
+                   "ceil(K/128): split over blocks, a merge launch adds "
+                   "the partials in span order; two launches, counted as "
+                   "one)",
         library_call="torch.matmul on the pre-dequantized bf16 weight "
-                     "(not the same function: it skips the int4 unpack)",
+                     "(not the same function: it skips the int4 unpack "
+                     "and the input scale)",
         shapes=shapes)
     return entry, detail
 
@@ -327,6 +425,24 @@ def check_k3(gen) -> tuple[dict, dict]:
                         f"K3 scaled={scaled} {out_dtype}: {differ} elements "
                         f"of rows 0..{m - 1} differ between M={m} and M=1024")
                 identity.append(m)
+    # K3 against the unfused front at the model's rounding: two K1 calls
+    # with bf16 output, silu, product (reported, not gated)
+    unfused = []
+    for scaled in (False, True):
+        sg, su = iscales if scaled else (None, None)
+        for m in (4, 64, 1024):
+            xm = x_full[:m].contiguous()
+            fused = k1.awq_gateup(xm, *packs[0], GS,
+                                  input_scales=iscales if scaled else None,
+                                  out_dtype=torch.bfloat16)
+            g_out = k1.awq_matmul(xm, *packs[0][:3], GS, input_scale=sg,
+                                  out_dtype=torch.bfloat16)
+            u_out = k1.awq_matmul(xm, *packs[0][3:], GS, input_scale=su,
+                                  out_dtype=torch.bfloat16)
+            front = torch.nn.functional.silu(g_out) * u_out
+            unfused.append(dict(m=m, input_scales=scaled,
+                                elements=fused.numel(),
+                                differ=int((fused != front).sum())))
     dec = next(s for s in shapes if s["m"] == 4 and s["input_scales"])
     entry = dict(
         name="awq_gateup", route="cuda",
@@ -352,6 +468,11 @@ def check_k3(gen) -> tuple[dict, dict]:
         library_call="silu(x @ Wg) * (x @ Wu) with torch.matmul on the "
                      "pre-dequantized bf16 weights (not the same function: "
                      "it skips the int4 unpack and the input scales)",
+        vs_unfused_front=dict(
+            cases=unfused,
+            what="bf16 elements where K3 differs from two K1 calls with "
+                 "bf16 output, torch silu and product on the rows of the "
+                 "row-identity input (reported, not gated)"),
         shapes=shapes)
     return entry, detail
 
@@ -633,6 +754,16 @@ def serve(model, params) -> dict:
                 qlinear_calls=paths)
 
 
+# each kernel's CUDA kernels in a profile, by name (K1 and K3 share their
+# templates and differ in the output functor; K2 and K4 run two kernels
+# each); "copy" is PyTorch's copy kernels (dtype casts among them)
+KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
+                "awq_gateup": ("GluOut",),
+                "paged_attention_chunk": ("paged_partial", "paged_merge"),
+                "flash_attention": ("flash_mma", "flash_f32"),
+                "copy": ("copy_kernel",)}
+
+
 def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
     """``steps`` engine steps timed bare, then as many again under
     torch.profiler for the device's busy time and its top kernels;
@@ -657,9 +788,15 @@ def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    by_kernel = {}
+    for group, marks in KERNEL_NAMES.items():
+        mine = [e for e in kern if any(mk in e.key for mk in marks)]
+        by_kernel[group] = dict(
+            ms=sum(e.self_device_time_total for e in mine) / 1e3 / steps,
+            launches=sum(e.count for e in mine) / steps)
     return dict(steps=steps, step_ms=bare_ms,
                 profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / prof_ms,
+                device_idle_share=1 - busy_ms / prof_ms, by_kernel=by_kernel,
                 top_kernels=[dict(name=e.key[:90], count=e.count / steps,
                                   ms=e.self_device_time_total / 1e3 / steps)
                              for e in top[:10]])
@@ -916,7 +1053,7 @@ def main() -> None:
           ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln],
           sass_tensor_core_instructions=mma)
-    for n in ("awq_gateup", "flash_attention"):
+    for n in ("awq_matmul", "awq_gateup", "flash_attention"):
         if not mma[n] or mma[n]["HMMA"] + mma[n]["HGMMA"] <= 0:
             raise AssertionError(f"{n}: no tensor-core instruction in its "
                                  f"SASS ({mma[n]})")

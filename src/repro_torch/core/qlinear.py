@@ -76,7 +76,8 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
     ``x`` [..., K]; returns [..., N] in x.dtype. The casts follow the
     reference: x → f32, times ``input_scale``, → ``compute_dtype``; the
     product comes out in f32, is cast to x.dtype, and the bias is added
-    in that dtype.
+    in that dtype. The kernel route hands x, ``input_scale`` and the
+    output dtype to K1, which makes the same roundings itself.
     """
     cfg = cfg if cfg is not None else _EXEC
     impl = _resolve_impl(impl or cfg.impl, x)
@@ -84,7 +85,6 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
-    x2 = (x2.to(torch.float32) * p.input_scale[None, :]).to(cfg.compute_dtype)
 
     m = x2.shape[0]
     flops = 2.0 * m * k * p.n
@@ -94,13 +94,15 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
     if impl == "kernel":
         COUNTS.kernel += 1
         y = k1.awq_matmul(x2.contiguous(), p.qweight, p.scales, p.zeros,
-                          p.group_size, compute_dtype=cfg.compute_dtype)
+                          p.group_size, compute_dtype=cfg.compute_dtype,
+                          input_scale=p.input_scale, out_dtype=orig_dtype)
     else:
         COUNTS.generic += 1
+        x2 = (x2.to(torch.float32) * p.input_scale[None, :]).to(
+            cfg.compute_dtype)
         w = dequantize_packed(p, cfg.compute_dtype)
-        y = matmul_f32(x2, w)
+        y = matmul_f32(x2, w).to(orig_dtype)
 
-    y = y.to(orig_dtype)
     if p.bias is not None:
         y = y + p.bias.to(orig_dtype)
     return y.reshape(*lead, p.n)

@@ -1,6 +1,7 @@
 """K1: fused int4 unpack + dequantize + matmul (`csrc/awq_matmul.cu`), and
 K3: the fused gate/up GLU front over two packed weights
-(`csrc/awq_gateup.cu`).
+(`csrc/awq_gateup.cu`); both instantiate the tensor-core kernels of
+`csrc/awq_common.cuh`, one weight or two, under one summation rule.
 
 Ports of the reference's Pallas kernels `awq_matmul_pallas` and
 `awq_gateup_pallas` and their oracles `ref.awq_matmul_ref` and
@@ -25,15 +26,21 @@ GATEUP_COUNTER = LaunchCounter()
 def awq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
                    scales: torch.Tensor, zeros: torch.Tensor,
                    group_size: int,
-                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``x [M, K] @ dequant(qweight) [K, N] -> [M, N] float32``.
+                   compute_dtype: torch.dtype = torch.float32, *,
+                   input_scale: torch.Tensor | None = None,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(x * input_scale) [M, K] @ dequant(qweight) [K, N] -> [M, N]``.
 
-    x and W are rounded to ``compute_dtype`` and every product is exact,
-    so this is the reference's ``dot(..., preferred_element_type=f32)``
-    up to the order of the sums (`numerics.matmul_f32`).
+    x (times ``input_scale`` in f32, where it is given) and W are rounded
+    to ``compute_dtype`` and every product is exact, so this is the
+    reference's ``dot(..., preferred_element_type=f32)`` up to the order
+    of the sums (`numerics.matmul_f32`); the f32 result is rounded once
+    to ``out_dtype``.
     """
     w = dequantize_int4(qweight, scales, zeros, group_size, compute_dtype)
-    return matmul_f32(x.to(compute_dtype), w)
+    if input_scale is not None:
+        x = x.to(torch.float32) * input_scale[None, :]
+    return matmul_f32(x.to(compute_dtype), w).to(out_dtype)
 
 
 def _checker(kernel: str):
@@ -45,23 +52,68 @@ def _checker(kernel: str):
 
 _check = _checker("awq_matmul")
 
+SPAN = 128      # k per span of the summation rule (csrc/awq_common.cuh)
+SMS = 132       # the H100's SMs
+SPLIT_BYTES = 48 << 20      # largest span-partial scratch worth a split
+
+
+def span_block(m: int, k: int, n: int) -> int:
+    """Spans of 128 k each block of K1's launch takes (all of them: no
+    split; fewer: the spans are split over blocks, their partials go to
+    scratch and a merge pass adds them in span order).
+
+    Up to M 16 (the decode kernel: 16 columns a block, one span per warp
+    of 8) up to 8 spans stay in one block; more go in 8 groups, each one
+    round of the block's warps. Above, the prefill kernel's 64-column x 64- or 128-row tiles
+    are split only when they fill less than half the SMs and the scratch
+    is small, into groups that give about two blocks an SM. (Measured on
+    the H100: unsplit, down's 38 spans take 4x as long at M 128; split,
+    896 -> 896 at M 1024 takes 1.6x as long.)
+    """
+    nspan = -(-k // SPAN)
+    if m <= 16:
+        return nspan if nspan <= 8 else -(-nspan // 8)
+    tiles = -(-n // 64) * -(-m // (64 if m <= 64 else 128))
+    if 2 * tiles >= SMS or nspan * m * n * 4 > SPLIT_BYTES:
+        return nspan
+    groups = min(nspan, -(-2 * SMS // tiles))
+    return -(-nspan // groups)
+
 
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                zeros: torch.Tensor, group_size: int,
-               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Fused quantized matmul ``x [M, K] -> [M, N] float32``.
+               compute_dtype: torch.dtype = torch.bfloat16, *,
+               input_scale: torch.Tensor | None = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused quantized matmul ``(x * input_scale) [M, K] -> [M, N]``.
+
+    The rule: ``x`` — times the linear's per-K ``input_scale`` in f32
+    where it is given, as `qlinear_apply` scales it — is rounded to
+    ``compute_dtype``, multiplied by the dequantized weight with f32
+    accumulation, and the f32 result is rounded once to ``out_dtype``.
+    Without ``input_scale`` and with ``out_dtype=float32`` this is the
+    TPU kernel's function.
 
     CPU tensors take `awq_matmul_ref`; CUDA tensors launch the kernel,
-    which takes bf16 x and ``compute_dtype=bfloat16`` only, and raises on
-    anything else.
+    which takes bf16 or f32 x, ``compute_dtype=bfloat16`` and an f32 or
+    bf16 output, and raises on anything else. The kernel runs on tensor
+    cores under K3's summation rule (`awq_gateup`; stated in full in
+    `csrc/awq_common.cuh`), so a row's bits do not depend on M or on the
+    run, and its total for a weight equals K3's. `span_block` picks how
+    the spans are split over blocks (a split call is two launches,
+    counted as one).
     """
     if x.device.type == "cpu":
         return awq_matmul_ref(x, qweight, scales, zeros, group_size,
-                              compute_dtype)
+                              compute_dtype, input_scale=input_scale,
+                              out_dtype=out_dtype)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    _check(compute_dtype == torch.bfloat16 and x.dtype == torch.bfloat16,
-           f"the kernel takes bf16 x and compute dtype, got {x.dtype} / "
-           f"{compute_dtype}")
+    _check(compute_dtype == torch.bfloat16,
+           f"the kernel computes in bf16, got {compute_dtype}")
+    _check(x.dtype in (torch.bfloat16, torch.float32),
+           f"x must be bf16 or f32, got {x.dtype}")
+    _check(out_dtype in (torch.bfloat16, torch.float32),
+           f"out_dtype must be bf16 or f32, got {out_dtype}")
     _check(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
     m, k = x.shape
     n = qweight.shape[-1]
@@ -69,22 +121,33 @@ def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
            f"K={k} must be a multiple of group_size={group_size}, itself a "
            f"multiple of 8")
     _check(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    vectors = [] if input_scale is None else [input_scale]
     for t, name, dtype, shape in (
             (qweight, "qweight", torch.int32, (k // PACK, n)),
             (scales, "scales", torch.float32, (k // group_size, n)),
-            (zeros, "zeros", torch.int8, (k // group_size, n))):
+            (zeros, "zeros", torch.int8, (k // group_size, n)),
+            *((v, "input_scale", torch.float32, (k,)) for v in vectors)):
         _check(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
         _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _check(tuple(t.shape) == shape,
                f"{name} must be {shape}, got {tuple(t.shape)}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    for v in vectors:
+        _check(v.data_ptr() % 16 == 0, "input_scale must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    sb = span_block(m, k, n)
+    nspan = -(-k // SPAN)
+    part = (torch.empty(nspan * m * n, dtype=torch.float32, device=x.device)
+            if sb < nspan else None)
     lib = load("awq_matmul")
-    err = lib.awq_matmul_bf16(
+    err = lib.awq_matmul(
         x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        out.data_ptr(), m, k, n, group_size, x.device.index or 0,
+        None if input_scale is None else input_scale.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
+        m, k, n, group_size, sb, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "awq_matmul")
     COUNTER.count += 1
@@ -100,14 +163,11 @@ def awq_gateup_ref(x: torch.Tensor, qw_gate: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of `awq_gateup` (the rule is stated there), built on
     `awq_matmul_ref`: ``silu(x @ Wg) * (x @ Wu) -> [M, N]``."""
-    xg = xu = x
-    if input_scales is not None:
-        xg = x.to(torch.float32) * input_scales[0][None, :]
-        xu = x.to(torch.float32) * input_scales[1][None, :]
-    g = awq_matmul_ref(xg, qw_gate, s_gate, z_gate, group_size,
-                       compute_dtype).to(out_dtype)
-    u = awq_matmul_ref(xu, qw_up, s_up, z_up, group_size,
-                       compute_dtype).to(out_dtype)
+    sg, su = input_scales if input_scales is not None else (None, None)
+    g = awq_matmul_ref(x, qw_gate, s_gate, z_gate, group_size,
+                       compute_dtype, input_scale=sg, out_dtype=out_dtype)
+    u = awq_matmul_ref(x, qw_up, s_up, z_up, group_size,
+                       compute_dtype, input_scale=su, out_dtype=out_dtype)
     return F.silu(g) * u
 
 
@@ -136,11 +196,11 @@ def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
     cores under one summation rule for every M: K in spans of 128, each
     span a chain of m16n8k16 MMAs (the dequantized weight as A, the
     scaled x as B) from 0, the span partials added in span order. So a
-    row's bits do not depend on M or on the run. M <= 16 streams the
-    weights once (bytes bound it); larger M dequantizes a 64-column
-    weight tile once for 64 or 128 rows and scales their x once, in
-    shared memory (operations bound it). `csrc/awq_gateup.cu` states
-    the rule in full.
+    row's bits do not depend on M or on the run, and g and u are K1's
+    totals for the two weights. M <= 16 streams the weights once (bytes
+    bound it); larger M dequantizes a 64-column weight tile once for 64
+    or 128 rows and scales their x once, in shared memory (operations
+    bound it). `csrc/awq_common.cuh` states the rule in full.
     """
     if x.device.type == "cpu":
         return awq_gateup_ref(x, qw_gate, s_gate, z_gate, qw_up, s_up, z_up,

@@ -5,7 +5,8 @@ plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``), which takes seconds where a source that
 includes PyTorch's headers takes minutes. Libraries go to
 ``build/repro_torch/`` at the checkout's root (git-ignored), named by a
-hash of their source, so an edited source rebuilds and an unchanged one
+hash of their source and of the shared headers (``csrc/*.cuh``), so an
+edited source or header rebuilds and an unchanged one
 loads as built. Nothing is built when a module is imported: the first
 launch builds what it needs, and `build_all` builds every source at
 once, one ``nvcc`` process each, all started together.
@@ -33,7 +34,7 @@ _L = ctypes.c_longlong
 # C entry point of each source: (function name, argtypes). Every pointer
 # and the stream are c_void_p; each function returns cudaGetLastError().
 SIGNATURES: dict[str, tuple[str, list]] = {
-    "awq_matmul": ("awq_matmul_bf16", [_P] * 5 + [_I] * 5 + [_P]),
+    "awq_matmul": ("awq_matmul", [_P] * 7 + [_I] * 8 + [_P]),
     "awq_gateup": ("awq_gateup_f32", [_P] * 10 + [_I] * 7 + [_P]),
     "paged_attention": ("paged_attention_chunk_f32",
                         [_P] * 12 + [_I] * 9 + [_F, _I, _P]),
@@ -65,8 +66,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: a hash of its source, every header under
+    ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -5,7 +5,8 @@ run them on the card with ``PYTHONPATH=src python -m pytest -q
 imports JAX, which this file does not need).
 
 Tolerances: K1 sums exact bf16 × bf16 products in f32 in another order
-than the plain version (rtol/atol 1e-4 of the output scale); K3 too, in
+than the plain version (rtol/atol 1e-4 of the output scale; with a bf16
+output, plus one bf16 ulp of the plain value); K3 too, in
 its f32 output, while its bf16 output rounds g, u, silu(g) and the
 product to bf16 as the two-linear MLP does, so a sum a few f32 ulps off
 may round to a neighbouring bf16 value at each of those steps (1e-5 of
@@ -61,12 +62,127 @@ def test_awq_matmul_kernel_rejects_what_it_does_not_take(cuda):
     cfg = QuantConfig(group_size=64)
     p = pack_linear(*quantize_groupwise(
         torch.randn(128, 64, device="cuda"), cfg), None, None, cfg)
-    with pytest.raises(ValueError):
-        k1.awq_matmul(torch.randn(2, 128, device="cuda"), p.qweight,
-                      p.scales, p.zeros, 64)            # f32 x
-    with pytest.raises(ValueError):
-        k1.awq_matmul(torch.randn(2, 256, device="cuda").to(torch.bfloat16)
-                      [:, ::2], p.qweight, p.scales, p.zeros, 64)
+    w = (p.qweight, p.scales, p.zeros, 64)
+    x = torch.randn(2, 128, device="cuda").to(torch.bfloat16)
+    ones = torch.ones(129, device="cuda")
+    for call in (
+            lambda: k1.awq_matmul(x.half(), *w),                   # f16 x
+            lambda: k1.awq_matmul(x, *w, torch.float32),           # f32 compute
+            lambda: k1.awq_matmul(x, *w, out_dtype=torch.half),    # f16 out
+            lambda: k1.awq_matmul(torch.randn(2, 256, device="cuda").to(
+                torch.bfloat16)[:, ::2], *w),                      # strided x
+            lambda: k1.awq_matmul(x, *w, input_scale=ones),        # K + 1
+            lambda: k1.awq_matmul(x, *w, input_scale=ones[1:])):   # misaligned
+        with pytest.raises(ValueError):
+            call()
+
+
+def _k1_linear(gen, k, n, gs, scaled):
+    cfg = QuantConfig(group_size=gs)
+    p = pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5, cfg),
+        None, None, cfg)
+    scale = (torch.rand(k, generator=gen, device="cuda") + 0.5
+             if scaled else None)
+    return (p.qweight, p.scales, p.zeros, gs), scale
+
+
+def _bf16_ulp(v):
+    """One bf16 unit in the last place of each |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float().abs())
+    return torch.ldexp(torch.ones_like(v.float()), e - 8)
+
+
+def _k1_check(out, ref):
+    """f32 output: 1e-4 of the output scale (only the order of the sums
+    differs); bf16 output: that plus one bf16 ulp of |plain| (the f32
+    totals may round to neighbouring bf16 values)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs()
+    lim = 1e-4 * float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        lim = lim + _bf16_ulp(ref)
+    assert bool((err <= lim).all()), float((err - lim).max())
+
+
+def _k1_run(x, w, scale, out_dtype):
+    """One kernel call and its plain version; the call is one launch."""
+    kw = dict(input_scale=scale, out_dtype=out_dtype)
+    before = k1.COUNTER.count
+    out = k1.awq_matmul(x, *w, **kw)
+    torch.cuda.synchronize()
+    assert k1.COUNTER.count == before + 1
+    return out, k1.awq_matmul_ref(x, *w, torch.bfloat16, **kw)
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+@pytest.mark.parametrize("m", [1, 4, 16, 64, 1024])
+@pytest.mark.parametrize("k,n", [(896, 896), (896, 128), (896, 4864),
+                                 (4864, 896)])
+def test_awq_matmul_kernel_input_scale_and_bf16_out(cuda, k, n, m, scaled):
+    """Qwen2.5's four (K, N) pairs with the model's arguments (input
+    scale, bf16 output) and the TPU function's (f32 output)."""
+    w, scale = _k1_linear(cuda, k, n, 64, scaled)
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        _k1_check(*_k1_run(x, w, scale, out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_out", "bf16_out"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+@pytest.mark.parametrize("k,n", [(896, 896), (4864, 896)])
+def test_awq_matmul_kernel_rows_equal_across_m(cuda, k, n, scaled,
+                                               out_dtype):
+    """The summation rule: the rows of an M 1024 launch are bit-identical
+    to the same rows at smaller M (the decode kernel at M <= 16, the
+    prefill kernel above, with and without the spans split over
+    blocks)."""
+    w, scale = _k1_linear(cuda, k, n, 64, scaled)
+    x = torch.randn(1024, k, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    kw = dict(input_scale=scale, out_dtype=out_dtype)
+    full = k1.awq_matmul(x, *w, **kw)
+    for m in (1, 4, 7, 8, 16, 64, 200):
+        part = k1.awq_matmul(x[:m].contiguous(), *w, **kw)
+        assert torch.equal(part, full[:m]), m
+    tail = k1.awq_matmul(x[900:].contiguous(), *w, **kw)
+    assert torch.equal(tail, full[900:])
+
+
+@pytest.mark.parametrize("m", [4, 64, 1024])
+def test_awq_matmul_kernel_deterministic(cuda, m):
+    w, scale = _k1_linear(cuda, 4864, 896, 64, True)
+    x = torch.randn(m, 4864, generator=cuda, device="cuda").to(torch.bfloat16)
+    kw = dict(input_scale=scale, out_dtype=torch.bfloat16)
+    assert torch.equal(k1.awq_matmul(x, *w, **kw), k1.awq_matmul(x, *w, **kw))
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain_x", "awq_x"])
+@pytest.mark.parametrize("m", [1, 13, 80])
+def test_awq_matmul_kernel_ragged_shapes(cuda, m, scaled):
+    """K 200 at GS 40 (a last span of 72 k: a half-empty k16 step), N 136
+    (a partial 16- and 64-column tile), f32 x; one launch per call."""
+    w, scale = _k1_linear(cuda, 200, 136, 40, scaled)
+    x = torch.randn(m, 200, generator=cuda, device="cuda")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        _k1_check(*_k1_run(x, w, scale, out_dtype))
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_awq_matmul_kernel_split_spans_fewest_columns(cuda, m):
+    """K 4864, N 128 (the fewest columns at down's depth): the 38 spans
+    split over blocks and merged in span order; the rows equal the same
+    rows of an M 1024 launch."""
+    w, scale = _k1_linear(cuda, 4864, 128, 64, True)
+    assert k1.span_block(m, 4864, 128) < 38
+    x = torch.randn(1024, 4864, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out, ref = _k1_run(x[:m].contiguous(), w, scale, out_dtype)
+        _k1_check(out, ref)
+        full = k1.awq_matmul(x, *w, input_scale=scale, out_dtype=out_dtype)
+        assert torch.equal(out, full[:m])
 
 
 def _k3_check(out, ref):
