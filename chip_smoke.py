@@ -28,7 +28,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                library yardstick;
                K4 (flash_attention) at Qwen2.5's 14 q / 2 kv heads, hd 64,
                bf16: the calibration forward (B 2, S 64), the launcher's
-               prefill (B 4, S 256), a ragged S 1000, a 128-token window
+               prefill (B 4, S 256), the one-shot engine's longest
+               prefill (B 1, S 200), a ragged S 1000, a 128-token window
                and a bidirectional case;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
@@ -36,23 +37,49 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                K1, K2 and K3 launch counters must grow during this run,
                and their launches per decode-only step and their
                launches in steps with prefill rows are reported;
-  5. profile — decode steps of 4 slots, then chunk steps (4 rows of 16
+  5. serve_oneshot — the same requests on the one-shot path
+               (``chunked_prefill=False``, int8 pages): each admission a
+               dense prefill (K4, K1, K3 at M = the prompt's length), a
+               commit into the pages and the first token; then decode
+               steps over all 4 slots (K2, K1, K3 at M = 4). All four
+               counters must grow, K4 once per layer per request (192);
+               8 admitted and finished, no page in use after `drain()`,
+               ``prefill_tokens`` 0 (counted on the chunked path only);
+               decode tokens/s, decode step ms, host ms per
+               prefill-commit and the `stats()` byte fields are reported;
+  6. oneshot_identity — the same requests one-shot over bf16 pages,
+               each stream against `generate()` at B 1: the first tokens
+               must be equal; identical streams are counted, and each
+               other stream's first differing position and generate()'s
+               logit margin there are reported;
+  7. parallel — greedy ``submit(prompt, 32, n=4)`` on the chunked int8
+               engine with the 200-token prompt, under the default
+               hybrid threshold (the streams are compared and reported)
+               and with every quantized linear on K1 / K3 (all four must
+               be identical);
+               the followers must alias 3 × 12 pages and skip 3 × 192
+               prompt tokens, and no page may stay in use;
+  8. profile — decode steps of 4 slots (chunked, then one-shot over the
+               same pages' layout), then chunk steps (4 rows of 16
                prompt tokens at contexts 64–448), timed bare and under
                torch.profiler: device busy time, idle share, top kernels,
                each port kernel's device time and launches a step;
-  6. check   — one unified `chunk_step` on the card (K1 + K2) against the
+  9. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
-  7. launch  — the launcher's AWQ path at full width,
+ 10. launch  — the launcher's AWQ path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --batch 4 --prompt-len 256 --max-new 32``:
                calibration forward (K4 in every layer), AWQ search + pack
                of all 168 linears, `generate()` (K4 prefill, K1 decode);
                K4 must launch in both the calibration forward and
-               `generate()`, K1 in `generate()`;
-  8. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
+               `generate()`, K1 in `generate()`; all 168 linears are
+               serialized into AWQ_MACRO bytes, which must total the
+               report's packed size, and one of each (K, N) must parse
+               back bit for bit;
+ 11. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
                AWQ-packed weights on the card (K4 + K1 + K3) against the
                same prefill on CPU copies (plain versions);
-  9. fleet   — the launcher's fleet path at full width,
+ 12. fleet   — the launcher's fleet path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --replicas 2 --mesh-axis 1 --batch 4
                --prompt-len 256 --max-new 32``: AWQ calibrate + pack, two
@@ -87,7 +114,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import qlinear  # noqa: E402
 from repro_torch.core.packing import (PackedLinear, dequantize_int4,  # noqa: E402
-                                      pack_linear)
+                                      pack_linear, packed_linear_macro_bytes,
+                                      parse_awq_macro_bytes, unpack_int4)
 from repro_torch.core.pipeline import quantize_params  # noqa: E402
 from repro_torch.core.quantize import QuantConfig, quantize_groupwise  # noqa: E402
 from repro_torch.kernels import awq_matmul as k1  # noqa: E402
@@ -623,6 +651,7 @@ def check_k2(gen) -> tuple[dict, dict]:
 
 # K4 cases: name, B, S, causal, window (H 14, Hkv 2, hd 64, bf16)
 K4_CASES = [("calibration", 2, 64, True, 0), ("prefill", 4, 256, True, 0),
+            ("oneshot_prefill", 1, 200, True, 0),
             ("ragged", 1, 1000, True, 0), ("window", 1, 1000, True, 128),
             ("bidirectional", 4, 256, False, 0)]
 
@@ -689,13 +718,27 @@ def check_k4(gen) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------------ phase 4
+SERVE_LENS = [16, 200, 45, 120, 77, 190, 33, 150]
+
+
+def serve_prompts(vocab: int) -> list[np.ndarray]:
+    """The serving phases' 8 seeded prompts."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in SERVE_LENS]
+
+
+def check_streams(label: str, out: dict, rids, vocab: int,
+                  n: int = 32) -> None:
+    for rid in rids:
+        toks = out[rid]
+        if toks.shape != (n,) or not ((toks >= 0) & (toks < vocab)).all():
+            raise AssertionError(f"{label}: request {rid}: bad stream {toks}")
+
+
 def serve(model, params) -> dict:
     eng = GenerationEngine(model, params, num_slots=4, page_size=16,
                            max_seq=512, prefill_chunk=16, kv_quant="int8")
-    rng = np.random.default_rng(SEED)
-    lens = [16, 200, 45, 120, 77, 190, 33, 150]
-    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    prompts = serve_prompts(model.cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the serve path's kernels (K4 is not on it)
@@ -729,11 +772,7 @@ def serve(model, params) -> dict:
     launches = read_counts(names)
     paths = {"kernel": qlinear.COUNTS.kernel,
              "generic": qlinear.COUNTS.generic}
-    for rid in rids:
-        toks = out[rid]
-        if toks.shape != (32,) or not ((toks >= 0)
-                                       & (toks < model.cfg.vocab_size)).all():
-            raise AssertionError(f"request {rid}: bad stream {toks}")
+    check_streams("serve", out, rids, model.cfg.vocab_size)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: "
                              f"{launches}")
@@ -752,6 +791,193 @@ def serve(model, params) -> dict:
                 launches_in_decode_steps=decode_launches,
                 launches_in_prefill_steps=prefill_launches,
                 qlinear_calls=paths)
+
+
+# -------------------------------------------------------------- phases 5-7
+def serve_oneshot(model, params) -> dict:
+    """The one-shot path on the serve phase's requests: each admission
+    runs a dense prefill of the whole prompt (K4, K1, K3 at M = its
+    length), commits its KV into int8 pages and samples the first token;
+    every step then decodes one token for all 4 slots over the pages (K2,
+    K1, K3 at M = 4). A step that admitted nobody is a decode-only step;
+    each prefill-commit ends in a device→host copy of its first token,
+    so the host clock around it covers its device work."""
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, kv_quant="int8",
+                           chunked_prefill=False)
+    prompts = serve_prompts(model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the one-shot path: counts start at 0 here and are read right after
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, 32) for p in prompts]
+    sched = eng._scheduler
+    commit_s = []
+    prefill_commit = sched._prefill_commit
+
+    def timed_commit(*args):
+        t = time.perf_counter()
+        tok = prefill_commit(*args)
+        commit_s.append(time.perf_counter() - t)
+        return tok
+
+    sched._prefill_commit = timed_commit
+    decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
+    while not eng.idle:
+        admitted = sched.stats.admitted
+        ts = time.perf_counter()
+        events = eng.step()                 # ends in a device→host copy
+        dt = time.perf_counter() - ts
+        steps += 1
+        if sched.stats.admitted == admitted:
+            decode_s += dt
+            decode_tokens += len(events)
+            decode_steps += 1
+    out = eng.drain()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_streams("serve_oneshot", out, rids, model.cfg.vocab_size)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"serve_oneshot: a kernel of the path never "
+                             f"ran: {launches}")
+    k4_want = model.cfg.num_layers * len(prompts)
+    if launches["flash_attention"] != k4_want:
+        raise AssertionError(f"serve_oneshot: K4 launched "
+                             f"{launches['flash_attention']} times, want one "
+                             f"per layer per request ({k4_want})")
+    st, sst = eng.stats(), eng.scheduler_stats
+    if not (sst.admitted == sst.finished == len(prompts)
+            and sched.pager.pages_in_use == 0 and st.prefill_tokens == 0):
+        raise AssertionError(
+            f"serve_oneshot: admitted {sst.admitted}, finished "
+            f"{sst.finished}, pages in use {sched.pager.pages_in_use}, "
+            f"prefill_tokens {st.prefill_tokens} (want 8, 8, 0, 0: the "
+            f"reference counts prompt tokens on the chunked path only)")
+    return dict(requests=len(rids), generated=32 * len(rids), steps=steps,
+                serve_s=total_s, decode_tokens_per_s=decode_tokens / decode_s,
+                decode_steps=decode_steps,
+                decode_step_ms=1e3 * decode_s / max(1, decode_steps),
+                prefill_commits=len(commit_s),
+                prefill_commit_ms=1e3 * sum(commit_s) / len(commit_s),
+                prefill_commit_ms_by_prompt=[1e3 * t for t in commit_s],
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, admitted=sst.admitted,
+                finished=sst.finished,
+                pages_in_use=sched.pager.pages_in_use,
+                **{k: getattr(st, k) for k in (
+                    "dispatches", "prefill_tokens", "kv_pool_bytes",
+                    "kv_bytes_per_token", "weight_bytes",
+                    "weight_bytes_per_token", "padding_waste",
+                    "padding_waste_fixed")})
+
+
+@torch.no_grad()
+def _logit_margin(model, params, prompt, ref, i: int, other: int) -> float:
+    """generate()'s logit of its own token ``ref[i]`` minus its logit of
+    ``other`` at position i: the prefill, then i decode steps fed ref's
+    tokens (generate()'s own computation up to that position)."""
+    cache = model.init_cache(1, 512, device="cuda")
+    cache, logits, pos = model.prefill(
+        params, {"tokens": torch.as_tensor(prompt, device="cuda")[None]},
+        cache)
+    for t in ref[:i]:
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([int(t)], dtype=torch.int32,
+                                        device="cuda"), pos)
+        pos = pos + 1
+    lg = logits[0].float()
+    return float(lg[int(ref[i])] - lg[int(other)])
+
+
+def oneshot_identity(model, params) -> dict:
+    """The same requests one-shot over bf16 pools, each stream against the
+    port's own `generate()` at B = 1. The first token comes from the same
+    `Model.prefill` on the same input and must be equal; later tokens are
+    reported, not gated: decode rows meet the generic matmul path at
+    M = 4 where generate() has M = 1 (`core/qlinear.py`,
+    `offload_min_flops`), so near-tied logits may part."""
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, kv_quant="none",
+                           chunked_prefill=False)
+    prompts = serve_prompts(model.cfg.vocab_size)
+    rids = [eng.submit(p, 32) for p in prompts]
+    out = eng.drain()
+    check_streams("oneshot_identity", out, rids, model.cfg.vocab_size)
+    identical, mismatches = 0, []
+    for rid, p in zip(rids, prompts):
+        ref = eng.generate({"tokens": p[None]}, 32)[0]
+        got = out[rid]
+        if got[0] != ref[0]:
+            raise AssertionError(f"oneshot_identity: request {rid}: first "
+                                 f"token {got[0]} != generate()'s {ref[0]}")
+        if np.array_equal(got, ref):
+            identical += 1
+            continue
+        i = int(np.argmax(got != ref))
+        mismatches.append(dict(
+            request=rid, prompt_len=len(p), first_diff=i,
+            generate_token=int(ref[i]), oneshot_token=int(got[i]),
+            logit_margin=_logit_margin(model, params, p, ref, i,
+                                       int(got[i]))))
+    return dict(requests=len(rids), identical_streams=identical,
+                mismatches=mismatches)
+
+
+PARALLEL_N = 4
+
+
+def parallel(model, params) -> dict:
+    """Greedy parallel sampling on the chunked int8 engine: the 200-token
+    prompt, ``submit(..., n=4)``. The siblings share one prefix namespace:
+    the first prefills all 200 tokens, and each of the three followers
+    aliases its 12 full pages of 16 and skips their 192 tokens.
+
+    A follower waits while another sibling still prefills, so each
+    sibling's rows share their steps with other rows at another M: under
+    the default hybrid threshold a row's k / v projections take K1 in one
+    step and the generic path in another (`offload_min_flops`), so the
+    streams are compared and reported, not gated. With every quantized
+    linear on K1 / K3 (``offload_min_flops=0``), whose rows do not depend
+    on the rows beside them, all four must be identical."""
+    prompt = serve_prompts(model.cfg.vocab_size)[1]
+    followers, full = PARALLEL_N - 1, len(prompt) // 16
+    want = (followers * full, followers * full * 16)
+    runs = {}
+    for name, ecfg in (("default", qlinear.ExecutionConfig()),
+                       ("all_kernel", qlinear.ExecutionConfig(
+                           offload_min_flops=0))):
+        eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                               max_seq=512, prefill_chunk=16,
+                               kv_quant="int8")
+        reset_counts()
+        t0 = time.perf_counter()
+        with qlinear.execution_config(ecfg):
+            rids = eng.submit(prompt, 32, n=PARALLEL_N)
+            out = eng.drain()
+        total_s = time.perf_counter() - t0
+        launches = read_counts()
+        check_streams(f"parallel {name}", out, rids, model.cfg.vocab_size)
+        streams = [out[r] for r in rids]
+        same = [bool(np.array_equal(t, streams[0])) for t in streams]
+        if name == "all_kernel" and not all(same):
+            raise AssertionError(f"parallel {name}: greedy siblings differ: "
+                                 f"{[t.tolist() for t in streams]}")
+        st = eng.stats()
+        got = (st.prefix_shared_pages, st.prefill_tokens_skipped)
+        pages = eng._scheduler.pager.pages_in_use
+        if got != want or pages != 0:
+            raise AssertionError(f"parallel {name}: (prefix_shared_pages, "
+                                 f"prefill_tokens_skipped) {got}, want "
+                                 f"{want}; {pages} pages in use after drain")
+        runs[name] = dict(
+            serve_s=total_s, identical_to_first=same,
+            first_diff=[None if ok else int(np.flatnonzero(t != streams[0])[0])
+                        for ok, t in zip(same, streams)],
+            prefix_shared_pages=got[0], prefill_tokens_skipped=got[1],
+            prefill_tokens=st.prefill_tokens, pages_in_use=pages,
+            launches=launches, sample=streams[0][:8].tolist())
+    return dict(n=PARALLEL_N, prompt_len=len(prompt), **runs)
 
 
 # each kernel's CUDA kernels in a profile, by name (K1 and K3 share their
@@ -804,20 +1030,31 @@ def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
 
 def profile(model, params, steps: int = 6) -> dict:
     """Where a step's time goes. Decode: 4 slots decoding at contexts
-    ~100–112 (no prefill). Chunk: a step of 4 rows of 16 prompt tokens
+    ~100–112 (no prefill), on the chunked path and then on the one-shot
+    path (`decode_step` over the same pages, the same four prompts).
+    Chunk: a step of 4 rows of 16 prompt tokens
     (the scheduler packs one long prompt's chunks into every free row),
     at contexts 64–448 of a 448-token prompt, a fresh prompt for the bare
     and the profiled window; every K2 launch there reads a C = 16 chunk."""
     eng = GenerationEngine(model, params, num_slots=4, page_size=16,
                            max_seq=512, prefill_chunk=16, kv_quant="int8")
     rng = np.random.default_rng(SEED + 2)
-    for _ in range(4):
-        eng.submit(rng.integers(0, model.cfg.vocab_size, 100)
-                   .astype(np.int32), 64)
+    prompts = [rng.integers(0, model.cfg.vocab_size, 100).astype(np.int32)
+               for _ in range(4)]
+    for p in prompts:
+        eng.submit(p, 64)
     while eng.stats().prefill_tokens < 400:     # land every prompt
         eng.step()
     eng.step()
     dec = dict(slots=4, context=100, **_profile_steps(eng, steps))
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, kv_quant="int8",
+                           chunked_prefill=False)
+    for p in prompts:
+        eng.submit(p, 64)
+    eng.step()                                  # admits all four, decodes
+    eng.step()
+    oneshot = dict(slots=4, context=101, **_profile_steps(eng, steps))
     eng = GenerationEngine(model, params, num_slots=4, page_size=16,
                            max_seq=512, prefill_chunk=16, kv_quant="int8")
     plen = 64 * (steps + 1)
@@ -834,10 +1071,10 @@ def profile(model, params, steps: int = 6) -> dict:
     if eng.stats().prefill_tokens != 2 * plen or not eng.idle:
         raise AssertionError("profile: the chunk steps did not each land "
                              "4 rows of 16 prompt tokens")
-    return dict(dec, chunk_step=chunk)
+    return dict(dec, oneshot_decode_step=oneshot, chunk_step=chunk)
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 9
 def tree_to(tree, device):
     if isinstance(tree, PackedLinear):
         return tree.to(device)
@@ -897,7 +1134,7 @@ def cross_check(model, params) -> dict:
     return res
 
 
-# ------------------------------------------------------------------ phase 7
+# ----------------------------------------------------------------- phase 10
 LAUNCH_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--batch", "4",
                "--prompt-len", "256", "--max-new", "32"]
 
@@ -927,8 +1164,9 @@ def launch() -> tuple[dict, dict]:
             and by_step["generate"]["awq_gateup"] > 0):
         raise AssertionError(f"launch: a kernel of the path never ran: "
                              f"{by_step}")
+    macro = check_awq_macro(out["params"], rep)
     fields = dict(
-        args=" ".join(LAUNCH_ARGS), total_s=total_s,
+        args=" ".join(LAUNCH_ARGS), total_s=total_s, awq_macro=macro,
         calibrate_s=out["calib_s"], awq_s=out["awq_s"],
         quantized=len(rep.quantized), calibrated=len(rep.calibrated),
         skipped=len(rep.skipped), compression_ratio=rep.compression_ratio,
@@ -940,7 +1178,50 @@ def launch() -> tuple[dict, dict]:
     return fields, out["params"]
 
 
-# ------------------------------------------------------------------ phase 8
+def _packed_linears(tree):
+    if isinstance(tree, PackedLinear):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _packed_linears(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _packed_linears(v)
+
+
+def check_awq_macro(params, report) -> dict:
+    """Serialize every AWQ-packed linear into the paper's AWQ_MACRO bytes:
+    their total must equal the report's size from shapes, and one linear
+    of each (K, N) pair must parse back to its codes, fp16 scales and
+    zeros bit for bit."""
+    t = time.perf_counter()
+    linears = list(_packed_linears(params))
+    blobs = [packed_linear_macro_bytes(p) for p in linears]
+    seconds = time.perf_counter() - t
+    total = sum(len(b) for b in blobs)
+    if len(linears) != 168 or total != report.packed_bytes:
+        raise AssertionError(f"awq_macro: {len(linears)} linears, {total} B; "
+                             f"want 168 and {report.packed_bytes} B")
+    round_trips = {}
+    for p, blob in zip(linears, blobs):
+        if (p.k, p.n) in round_trips:
+            continue
+        q, sc, z = parse_awq_macro_bytes(blob, p.k, p.n, p.group_size)
+        ok = (np.array_equal(q, unpack_int4(p.qweight).cpu().numpy())
+              and np.array_equal(sc.view(np.uint16), p.scales.cpu().numpy()
+                                 .astype(np.float16).view(np.uint16))
+              and np.array_equal(z, p.zeros.cpu().numpy()))
+        if not ok:
+            raise AssertionError(f"awq_macro: [{p.k},{p.n}] does not round "
+                                 f"trip")
+        round_trips[(p.k, p.n)] = len(blob)
+    return dict(linears=len(linears), bytes=total,
+                report_packed_bytes=report.packed_bytes, seconds=seconds,
+                round_trips={f"{k}x{n}": b for (k, n), b in
+                             round_trips.items()})
+
+
+# ----------------------------------------------------------------- phase 11
 def check_prefill(model, params) -> dict:
     """One full-sequence prefill (B 1, S 64) on the launcher's AWQ-packed
     weights, on the card (K4 attention, K1 projections) and on CPU copies
@@ -976,7 +1257,7 @@ def check_prefill(model, params) -> dict:
                 margin_clear=clear)
 
 
-# ------------------------------------------------------------------ phase 9
+# ----------------------------------------------------------------- phase 12
 FLEET_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--replicas", "2",
               "--mesh-axis", "1", "--batch", "4", "--prompt-len", "256",
               "--max-new", "32"]
@@ -1085,6 +1366,10 @@ def main() -> None:
           group_size=GS, init_quantize_s=time.perf_counter() - t)
     served = serve(model, params)
     phase("serve", **served)
+    oneshot = serve_oneshot(model, params)
+    phase("serve_oneshot", **oneshot)
+    phase("oneshot_identity", **oneshot_identity(model, params))
+    phase("parallel", **parallel(model, params))
     prof = profile(model, params)
     phase("profile", **prof)
     checked = cross_check(model, params)
@@ -1094,13 +1379,14 @@ def main() -> None:
 
     launched, awq_params = launch()
     phase("launch", **launched)
-    # each kernel's launches on the path that carries it: K1, K2 and K3
-    # while the engine serves, K4 in the launcher's calibration and
-    # generate()
-    k1_entry["launches"] = served["launches"]["awq_matmul"]
-    k2_entry["launches"] = served["launches"]["paged_attention_chunk"]
-    k3_entry["launches"] = served["launches"]["awq_gateup"]
-    k4_entry["launches"] = launched["launches"]["flash_attention"]
+    # each kernel's launches on the paths that carry it: K1, K2 and K3
+    # while the engine serves (chunked and one-shot), K4 in the one-shot
+    # engine's prefills and the launcher's calibration and generate()
+    for entry in (k1_entry, k2_entry, k3_entry):
+        entry["launches"] = (served["launches"][entry["name"]]
+                             + oneshot["launches"][entry["name"]])
+    k4_entry["launches"] = (launched["launches"]["flash_attention"]
+                            + oneshot["launches"]["flash_attention"])
     prefilled = check_prefill(model, awq_params)
     phase("check_prefill", **prefilled)
     del awq_params
@@ -1112,8 +1398,15 @@ def main() -> None:
         "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
         "serve_s", "peak_mem_bytes", "launches", "launches_per_decode_step",
         "qlinear_calls")},
+        serve_oneshot={k: oneshot[k] for k in (
+            "decode_tokens_per_s", "decode_step_ms", "prefill_commit_ms",
+            "serve_s", "peak_mem_bytes", "launches")},
         profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
                                       "device_busy_ms", "device_idle_share")},
+        profile_oneshot_decode_step={k: prof["oneshot_decode_step"][k]
+                                     for k in ("step_ms", "profiled_step_ms",
+                                               "device_busy_ms",
+                                               "device_idle_share")},
         profile_chunk_step={k: prof["chunk_step"][k] for k in (
             "step_ms", "profiled_step_ms", "device_busy_ms",
             "device_idle_share")},
@@ -1122,6 +1415,8 @@ def main() -> None:
             "calibrate_s", "awq_s", "calibrated", "compression_ratio",
             "awq_macro_bytes", "tokens_per_s", "peak_mem_bytes",
             "launches_by_step")},
+        awq_macro={k: launched["awq_macro"][k] for k in ("bytes",
+                                                         "seconds")},
         check_prefill=[prefilled["max_abs_err"], prefilled["tol"]],
         fleet={k: served_fleet[k] for k in (
             "fleet_s", "tokens_per_s", "requests", "generated",

@@ -8,14 +8,17 @@ int64 and wrapped to int32 explicitly, and unpacking shifts the int32
 word arithmetically and masks with ``& 0xF``, which is exact for
 negative words too (the mask drops the sign extension).
 
-Scales and zeros stay as ``[K // GS, N]`` tensors beside the words. The
-byte-exact AWQ_MACRO serializer of the reference is not ported yet;
-`packed_linear_nbytes` gives its size analytically.
+Scales and zeros stay as ``[K // GS, N]`` tensors beside the words.
+`awq_macro_bytes` / `parse_awq_macro_bytes` write and read the paper's
+byte-exact AWQ_MACRO layout (the reference's bytes, built with numpy
+reshapes instead of a loop over macros); `packed_linear_nbytes` gives
+its size from the shapes alone.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantize import QuantConfig
@@ -117,11 +120,13 @@ def dequantize_packed(p: PackedLinear,
 
 
 # ---------------------------------------------------------------------------
-# AWQ_MACRO size (paper Fig. 3): GS×8 int4 qweights + 8 fp16 scales + a
-# 128-bit zeros strip per macro. The serializer itself is not ported yet.
+# Byte-exact AWQ_MACRO serialization (paper Fig. 3)
 # ---------------------------------------------------------------------------
 
 def awq_macro_nbytes(group_size: int) -> int:
+    """Bytes of one AWQ_MACRO covering GS×8 weights: GS*8 nibbles of
+    qweights (GS*4 B), 8 fp16 scales (16 B) and a 128-bit zeros strip
+    (8 int4 zeros + 96 bits of padding)."""
     return group_size * 4 + 16 + 16
 
 
@@ -135,3 +140,69 @@ def macro_count(k: int, n: int, group_size: int) -> int:
 def packed_linear_nbytes(k: int, n: int, group_size: int) -> int:
     """Exact serialized size of one quantized linear in AWQ_MACRO format."""
     return macro_count(k, n, group_size) * awq_macro_nbytes(group_size)
+
+
+def _nibbles_to_bytes(nib: np.ndarray) -> np.ndarray:
+    """[..., 2m] codes in [0, 16) → [..., m] bytes, element 2i in the low
+    nibble of byte i."""
+    return nib[..., 0::2] | (nib[..., 1::2] << 4)
+
+
+def _bytes_to_nibbles(b: np.ndarray) -> np.ndarray:
+    out = np.empty(b.shape[:-1] + (2 * b.shape[-1],), np.uint8)
+    out[..., 0::2] = b & 0xF
+    out[..., 1::2] = b >> 4
+    return out
+
+
+def awq_macro_bytes(q: np.ndarray, scales: np.ndarray, zeros: np.ndarray,
+                    group_size: int) -> bytes:
+    """Serialize a whole [K, N] quantized linear into AWQ_MACRO strips.
+
+    Macros run over K-groups, then over 8-channel column blocks; each is
+    ``[GS*8 nibbles of q][8 × fp16 scales][8 nibbles of zeros + 96-bit
+    pad]``. The q strip is the macro's (GS, 8) tile row-major, two
+    nibbles a byte, low nibble first. ``q`` [K, N] and ``zeros``
+    [K/GS, N] hold codes in [0, 16).
+    """
+    k, n = q.shape
+    macro_count(k, n, group_size)
+    g, nb = k // group_size, n // 8
+    tiles = (np.asarray(q).astype(np.uint8)
+             .reshape(g, group_size, nb, 8).transpose(0, 2, 1, 3)
+             .reshape(g, nb, group_size * 8))
+    sc = (np.asarray(scales).astype(np.float16).reshape(g, nb, 8)
+          .view(np.uint8))                                    # [g, nb, 16]
+    zb = _nibbles_to_bytes(np.asarray(zeros).astype(np.uint8)
+                           .reshape(g, nb, 8))                # [g, nb, 4]
+    out = np.zeros((g, nb, awq_macro_nbytes(group_size)), np.uint8)
+    qn = group_size * 4
+    out[..., :qn] = _nibbles_to_bytes(tiles)
+    out[..., qn:qn + 16] = sc
+    out[..., qn + 16:qn + 20] = zb
+    return out.tobytes()
+
+
+def parse_awq_macro_bytes(buf: bytes, k: int, n: int, group_size: int):
+    """Inverse of `awq_macro_bytes` → (q [K, N] uint8, scales [K/GS, N]
+    float16, zeros [K/GS, N] uint8)."""
+    g, nb = k // group_size, n // 8
+    mb = awq_macro_nbytes(group_size)
+    if len(buf) != g * nb * mb:
+        raise ValueError(f"{len(buf)} bytes, want {g * nb * mb} for "
+                         f"[{k},{n}] at GS={group_size}")
+    m = np.frombuffer(buf, np.uint8).reshape(g, nb, mb)
+    qn = group_size * 4
+    q = (_bytes_to_nibbles(m[..., :qn]).reshape(g, nb, group_size, 8)
+         .transpose(0, 2, 1, 3).reshape(k, n))
+    scales = (np.ascontiguousarray(m[..., qn:qn + 16]).view(np.float16)
+              .reshape(g, n))
+    zeros = _bytes_to_nibbles(m[..., qn + 16:qn + 20]).reshape(g, n)
+    return q, scales, zeros
+
+
+def packed_linear_macro_bytes(p: PackedLinear) -> bytes:
+    """A `PackedLinear`'s AWQ_MACRO bytes (its words unpacked on the host)."""
+    return awq_macro_bytes(unpack_int4(p.qweight.cpu()).numpy(),
+                           p.scales.cpu().numpy(), p.zeros.cpu().numpy(),
+                           p.group_size)

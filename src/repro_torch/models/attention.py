@@ -10,7 +10,9 @@ Execution regimes (as in the reference):
     ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`).
   * paged chunk (serving) — `attention_chunk_paged`: the engine's unified
     prefill/decode step over the page pools (scatter the block's K/V,
-    then attend per token under the three-part visibility rule).
+    then attend per token under the three-part visibility rule);
+    `attention_decode_paged` is its C = 1 form, the one-shot engine's
+    decode step.
 
 Pools and caches are updated **in place** (``index_put_``), where the
 reference returns new arrays: a serving step would otherwise copy every
@@ -184,10 +186,16 @@ def init_kv_cache(cfg, batch: int, max_seq: int, window: int,
 
 
 def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [..., hd] → (int8 codes, per-[...] absmax scale)."""
+    """x [..., hd] → (int8 codes, per-[...] absmax scale).
+
+    The divisor 127 is a tensor on x's device: CUDA divides by a Python
+    scalar as a multiply by its rounded reciprocal, which moves some
+    scales by an ulp and flips codes at .5, so the card's codes would
+    leave the CPU's (and the reference's) true division."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        amax / amax.new_full((), 127.0))
     q = torch.clip(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -347,3 +355,17 @@ def attention_chunk_paged(p, pool, page_table, x, cfg, *, pos, rpos=None,
                     scale=cfg.head_dim ** -0.5, vis=vis,
                     probs_dtype=probs_dtype)
     return linear(p["wo"], out.reshape(b, c, cfg.q_dim)), pool
+
+
+def attention_decode_paged(p, pool, page_table, x, cfg, *, pos,
+                           window: int = 0):
+    """Single-token decode against a paged KV pool: the C = 1 form of
+    `attention_chunk_paged` (one implementation serves both forms, so
+    int8 pools read through K2 on the card and bf16 pools take the
+    gather path). x ``[B, D]``, pos ``[B]``, page_table ``[B, pages]``
+    → (y [B, D], pool updated in place). At C = 1 the chunk's causal
+    mask is the dense decode mask ``k <= pos``.
+    """
+    y, pool = attention_chunk_paged(p, pool, page_table, x[:, None], cfg,
+                                    pos=pos[:, None], window=window)
+    return y[:, 0], pool

@@ -4,7 +4,9 @@ residual wiring, per-kind caches.
 `block_apply` is mode-polymorphic, as in the reference:
   * mode="train"   — full-sequence forward, no cache.
   * mode="prefill" — full-sequence forward, fills the dense decode cache.
-  * mode="decode"  — single token [B, D] against the dense cache.
+  * mode="decode"  — single token [B, D] against the dense cache, or
+    against the page pools when the cache holds ``kv_pool`` (the one-shot
+    engine's decode step; ``page_table`` routes its reads and writes).
   * mode="chunk"   — token-budget block [B, C, D] against the paged pools
     (serving's unified prefill/decode step).
 Only the ``attn`` mixer is ported (MLA, Mamba and Hymba blocks are not).
@@ -94,7 +96,12 @@ def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
     """Returns (x_out, cache_out). ``name`` (local path → capture name, or
     None) labels the block's linears for calibration."""
     h = norm(p["pre_norm"], x, cfg)
-    if mode == "decode":
+    if mode == "decode" and "kv_pool" in cache:
+        y, pool = attn_mod.attention_decode_paged(
+            p["attn"], cache["kv_pool"], page_table, h, cfg, pos=positions,
+            window=kind.window)
+        cache = {"kv_pool": pool}
+    elif mode == "decode":
         y, kv = attn_mod.attention_decode(p["attn"], cache["kv"], h, cfg,
                                           pos=positions, window=kind.window)
         cache = {"kv": kv}

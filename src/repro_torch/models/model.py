@@ -1,8 +1,9 @@
 """Top-level decoder model: token embedding → stack → (tied) f32 head.
 
 Entry points mirror the reference's `Model`: `prefill` + `decode_step`
-over the dense cache (`GenerationEngine.generate`), `chunk_step` over the
-paged pools (the serving engine), `forward_logits`, and `loss`, the
+over the dense cache (`GenerationEngine.generate`) or, with a page table,
+over the page pools (the one-shot serving path), `chunk_step` over the
+paged pools (the chunked serving path), `forward_logits`, and `loss`, the
 chunked-vocab causal-LM loss, forward only (AWQ's calibration forward).
 The audio / vision frontends and training (the backward pass) are not
 ported yet.
@@ -133,14 +134,19 @@ class Model:
         return cache, self._head_logits(params, x[:, -1]), positions[:, -1] + 1
 
     def decode_step(self, params, cache: Any, token: torch.Tensor,
-                    pos: torch.Tensor):
-        """One token: token [B], pos [B] → (logits [B, V], cache)."""
+                    pos: torch.Tensor,
+                    page_table: torch.Tensor | None = None):
+        """One token: token [B], pos [B] → (logits [B, V], cache).
+
+        ``page_table`` [B, pages] routes the reads and writes when
+        ``cache`` came from `init_paged_cache`.
+        """
         cfg = self.cfg
         x = embed_lookup(params["embed"], token, scale=cfg.scale_embed).to(
             torch_dtype(cfg.activation_dtype))
         x, cache = stack.stack_apply(params["segments"], x, cfg,
                                      mode="decode", positions=pos,
-                                     cache=cache)
+                                     cache=cache, page_table=page_table)
         x = norm(params["final_norm"], x, cfg)
         return self._head_logits(params, x), cache
 

@@ -5,23 +5,32 @@
     through `qlinear_apply`. The engine runs on the device its params
     live on.
   * static batch — `generate` (host loop over the dense cache, EOS early
-    exit): the in-port oracle for greedy streams.
+    exit): the in-port oracle for greedy streams; `generate_scan`
+    (fixed length, tokens kept on the device until the end: the
+    throughput path).
   * streaming — `submit()` / `step()` / `collect()` / `drain()` on top of
     `serving.scheduler` (continuous batching) and `serving.kv_pager`
-    (paged KV). Every step is ONE token-budget dispatch of
-    ``num_slots × c`` positions that packs prefill chunks and decode
-    tokens of mixed requests (`Model.chunk_step`); ``kv_quant="int8"``
-    stores the pools as int8 codes + f32 scale strips, read by kernel K2
-    on the card. ``submit(..., prefix_id=...)`` aliases a shared
-    prompt prefix's full pages across requests (refcounted, copy-on-write
-    tail), and the aliased tokens are never recomputed; `pin_prefix`
-    keeps a hot prefix resident across bursts. `warmup`,
-    `prefix_reuse_pages` and `stats()` are what a fleet `Router` reads.
+    (paged KV). On the chunked path (the default) every step is ONE
+    token-budget dispatch of ``num_slots × c`` positions that packs
+    prefill chunks and decode tokens of mixed requests
+    (`Model.chunk_step`). ``chunked_prefill=False`` selects the one-shot
+    path: each admission runs a dense `Model.prefill` of the whole prompt
+    (kernel K4 on the card), commits its KV into the pages
+    (`kv_pager.commit_prefill`) and samples the first token; every step
+    then decodes one token for all slots (`Model.decode_step` over the
+    pools). ``kv_quant="int8"`` stores the pools as int8 codes + f32
+    scale strips, read by kernel K2 on the card.
+    ``submit(..., prefix_id=...)`` aliases a shared prompt prefix's full
+    pages across requests (refcounted, copy-on-write tail; on the
+    chunked path the aliased tokens are never recomputed), `pin_prefix`
+    keeps a hot prefix resident across bursts, and ``submit(..., n=k)``
+    samples k continuations of one prompt over one prefix namespace.
+    `warmup`, `prefix_reuse_pages` and `stats()` are what a fleet
+    `Router` reads; `stats()` is the reference's full `EngineStats`.
 
 Not ported yet (each raises `NotImplementedError`): speculative decoding,
-tree speculation, draft models, meshes, preemption, optimistic admission,
-the one-shot prefill path (``chunked_prefill=False``) and parallel
-sampling (``n > 1``).
+tree speculation, draft models, meshes, preemption and optimistic
+admission; their `EngineStats` counters stay 0.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import PackedLinear
-from repro_torch.serving.kv_pager import KVPager, PagerConfig, PagerStats
-from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.kv_pager import (KVPager, PagerConfig, PagerStats,
+                                          commit_prefill)
+from repro_torch.serving.scheduler import Request, Scheduler, SchedulerStats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,28 +51,58 @@ class SamplerConfig:
     top_k: int = 0              # 0 ⇒ full softmax
 
 
+# the reference's default draft length, which its `stats()` reports as
+# ``spec_k_now`` while nothing speculates (speculation is not ported)
+_SPEC_K = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
-    """Serving snapshot (a subset of the reference's `EngineStats`)."""
+    """One structured serving snapshot: the reference's fields, in its
+    order. Pager occupancy, dispatch / packing accounting, speculative
+    acceptance and preemption (0 until ported), and the memory footprint
+    of the page pools and weights (one device: ``model_axis`` 1)."""
     pager: PagerStats
-    dispatches: int               # unified steps issued
-    prefill_tokens: int           # prompt tokens run through the model
+    # dispatch / packing
+    dispatches: int               # steps issued
+    prefill_tokens: int           # prompt tokens run through chunk steps
     prefill_tokens_skipped: int   # aliased prompt tokens never re-run
     prefix_shared_pages: int      # pages aliased instead of allocated
     padding_waste: float          # padding / dispatched positions
+    padding_waste_fixed: float    # same steps under pad-to-chunk-width
+    # speculative decoding
+    acceptance_rate: float
+    spec_tokens_per_row: float
+    draft_tokens: int
+    accepted_tokens: int
+    rollbacks: int
+    spec_k_now: int               # current draft length
+    spec_fanout_now: int          # current tree root fanout (1 = linear)
+    # SLO preemption / host KV tier
+    preemptions: int
+    pressure_spills: int
+    restores: int
+    spilled_pages: int
+    restored_pages: int
+    pages_spilled_now: int
+    restore_ms_mean: float
+    # sharding + memory
+    model_axis: int               # |model| mesh axis (1 = unsharded)
     kv_pool_bytes: int            # page-pool footprint, all layers
+    kv_pool_bytes_per_device: int
     kv_bytes_per_token: float
-    weight_bytes: int             # resident bytes of the served params
+    # weight stream: resident bytes of the served params and the bytes
+    # streamed per emitted token (one weight pass per decode step)
+    weight_bytes: int
+    weight_bytes_per_token: float
     # load snapshot a fleet router scores: requests waiting for a slot,
     # and free pages an admission can still draw (free minus reservations)
-    queue_depth: int
-    admission_headroom: int
+    queue_depth: int = 0
+    admission_headroom: int = 0
 
 
 def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (this slice serves the "
-        f"chunked token-budget path only)")
+    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 def _categorical(logits: torch.Tensor, gen: torch.Generator | None
@@ -139,9 +179,7 @@ class GenerationEngine:
                      (draft_model, draft_params, draft_fn) != (None,) * 3,
                  "mesh-sharded serving (mesh)": mesh is not None,
                  "preemption": preemption,
-                 "admission='optimistic'": admission == "optimistic",
-                 "the one-shot prefill path (chunked_prefill=False)":
-                     chunked_prefill is False}
+                 "admission='optimistic'": admission == "optimistic"}
         for what, requested in asked.items():
             if requested:
                 raise _not_ported(what)
@@ -164,6 +202,9 @@ class GenerationEngine:
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be ≥ 1")
         self.prefill_chunk = prefill_chunk
+        # None = auto (chunked whenever the paged cache is pure kv_pool),
+        # True = require the chunked path, False = one-shot
+        self.chunked_prefill = chunked_prefill
         self._next_rid = 0
         self._scheduler: Scheduler | None = None
         self._paged_cache = None
@@ -194,26 +235,71 @@ class GenerationEngine:
                 break
         return np.stack(out, axis=1)
 
+    @torch.no_grad()
+    def generate_scan(self, batch: dict, max_new_tokens: int,
+                      gen: torch.Generator | None = None) -> np.ndarray:
+        """Fixed-length generation (the throughput path): no EOS early
+        exit, and the tokens stay on the device until one copy at the end,
+        the counterpart of the reference's ``lax.scan``. Returns
+        [B, max_new]; equal to `generate` when no stream meets EOS."""
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 dtype=torch.int32, device=self.device)
+        b = tokens.shape[0]
+        cache = self.model.init_cache(b, self.max_seq, device=self.device)
+        cache, logits, pos = self.model.prefill(self.params,
+                                                {"tokens": tokens}, cache)
+        out = torch.empty((b, max_new_tokens), dtype=torch.int32,
+                          device=self.device)
+        token = sample(logits, self.sampler, gen)
+        out[:, 0] = token
+        for t in range(1, max_new_tokens):
+            logits, cache = self.model.decode_step(self.params, cache, token,
+                                                   pos)
+            token = sample(logits, self.sampler, gen)
+            pos = pos + 1
+            out[:, t] = token
+        return out.cpu().numpy()
+
     # ------------------------------------------------------------ streaming
-    def _serving_init(self) -> Scheduler:
+    def _pager_config(self) -> PagerConfig:
         if self.max_seq % self.page_size:
             raise ValueError("max_seq must be a multiple of page_size")
         pages_per_slot = self.max_seq // self.page_size
         num_pages = self._num_pages
         if num_pages is None:   # full capacity: every slot can hit max_seq
             num_pages = self.num_slots * pages_per_slot + 1
-        pager = KVPager(PagerConfig(num_pages=num_pages,
-                                    page_size=self.page_size,
-                                    num_slots=self.num_slots,
-                                    pages_per_slot=pages_per_slot))
+        return PagerConfig(num_pages=num_pages, page_size=self.page_size,
+                           num_slots=self.num_slots,
+                           pages_per_slot=pages_per_slot)
+
+    def _serving_init(self) -> Scheduler:
+        pager = KVPager(self._pager_config())
         self._paged_cache = self.model.init_paged_cache(
-            num_pages, self.page_size, kv_quant=self.kv_quant,
+            pager.cfg.num_pages, self.page_size, kv_quant=self.kv_quant,
             device=self.device)
+        chunkable = self._cache_chunkable(self._paged_cache)
+        chunked = chunkable if self.chunked_prefill is None \
+            else self.chunked_prefill
+        if chunked and not chunkable:
+            raise ValueError(
+                "chunked_prefill=True but the arch keeps bounded per-slot "
+                "sequential state (ring/SSM/MLA): only pure paged-attention "
+                "caches support the chunked path")
         self._gen = torch.Generator(device=self.device).manual_seed(self._seed)
         self._tables_version = -1
         self._tables_dev = None
-        return Scheduler(pager, run_batch=self._exec_run_batch,
-                         chunk_size=self.prefill_chunk)
+        if chunked:
+            return Scheduler(pager, run_batch=self._exec_run_batch,
+                             chunk_size=self.prefill_chunk)
+        return Scheduler(pager, prefill_commit=self._exec_prefill_commit,
+                         decode=self._exec_decode)
+
+    @staticmethod
+    def _cache_chunkable(cache) -> bool:
+        """True when every layer's cache entry is a page pool (no per-slot
+        sequential state), i.e. the arch can run the chunked path."""
+        return all(set(entry) == {"kv_pool"}
+                   for layers in cache.values() for entry in layers)
 
     def _device_tables(self, n_blocks: int) -> torch.Tensor:
         """Device copy of the pager's page tables (uploaded only when the
@@ -250,24 +336,63 @@ class GenerationEngine:
             torch.as_tensor(pos, dtype=torch.int32, device=dev),
             torch.as_tensor(sample_idx, dtype=torch.int32, device=dev),
             page_table=page_table)
-        if not temps.any() and not topks.any():
-            out = torch.argmax(logits, dim=-1).to(torch.int32)
-        else:
-            out = sample_batched(
-                logits, torch.as_tensor(temps, dtype=torch.float32,
-                                        device=dev),
-                torch.as_tensor(topks, dtype=torch.int32, device=dev),
-                self._gen)
-        return out.cpu().numpy()
+        return self._sample_rows(logits, temps, topks).cpu().numpy()
+
+    def _sample_rows(self, logits, temps, topks) -> torch.Tensor:
+        """Per-row sampling; all-greedy steps take a plain argmax."""
+        if not np.any(temps) and not np.any(topks):
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        dev = self.device
+        return sample_batched(
+            logits, torch.as_tensor(temps, dtype=torch.float32, device=dev),
+            torch.as_tensor(topks, dtype=torch.int32, device=dev), self._gen)
+
+    @torch.no_grad()
+    def _exec_prefill_commit(self, req: Request, slot: int,
+                             pages: list[int], n_shared: int = 0) -> int:
+        """One-shot admission (the Scheduler's ``prefill_commit``): a dense
+        prefill of the whole prompt, its KV committed into the slot's
+        pages past the ``n_shared`` aliased ones, the first token sampled
+        from its last logits."""
+        toks = torch.as_tensor(req.tokens, dtype=torch.int32,
+                               device=self.device)[None]
+        pre = self.model.init_cache(1, toks.shape[1], device=self.device)
+        pre, logits, _ = self.model.prefill(self.params, {"tokens": toks},
+                                            pre)
+        commit_prefill(self._paged_cache, pre, slot, pages,
+                       page_size=self.page_size, start_page=n_shared)
+        tok = self._sample_rows(logits, np.float32([req.temperature]),
+                                np.int32([req.top_k]))
+        return int(tok[0])
+
+    @torch.no_grad()
+    def _exec_decode(self, page_tables, token, pos, temps, topks
+                     ) -> np.ndarray:
+        """One-shot decode step (the Scheduler's ``decode``): one token for
+        every slot. ``page_tables`` is the pager's own array, which
+        `_device_tables` keeps on the device; like the chunk step, the
+        read covers the context bucket of the longest slot, not the whole
+        table (the pages past it are masked out either way)."""
+        dev = self.device
+        tables = self._device_tables(self._context_bucket(int(pos.max())))
+        logits, self._paged_cache = self.model.decode_step(
+            self.params, self._paged_cache,
+            torch.as_tensor(token, dtype=torch.int32, device=dev),
+            torch.as_tensor(pos, dtype=torch.int32, device=dev),
+            page_table=tables)
+        return self._sample_rows(logits, temps, topks).cpu().numpy()
 
     def warmup(self) -> int:
         """Run one all-padding dispatch of every width the scheduler may
         pick (`scheduler.width_family`), so the first request pays no
         first-launch cost (kernel loads, allocator growth). Padding only
         touches the scratch page and no counter of `stats()`. Returns the
-        number of dispatches run."""
+        number of dispatches run: 0 on the one-shot path, whose prefill
+        runs at each prompt's own length."""
         if self._scheduler is None:
             self._scheduler = self._serving_init()
+        if not self._scheduler.chunked:
+            return 0
         b = self.num_slots
         zeros_i = np.zeros(b, np.int32)
         for c in self._scheduler.width_buckets:
@@ -279,8 +404,8 @@ class GenerationEngine:
     def submit(self, tokens, max_new_tokens: int,
                sampler: SamplerConfig | None = None,
                eos_id: int | None = None, prefix_id: str | None = None,
-               priority: int = 0, n: int = 1) -> int:
-        """Queue one request; returns its request id.
+               priority: int = 0, n: int = 1) -> int | list[int]:
+        """Queue one request; returns its request id (or ``n`` ids).
 
         ``prefix_id`` opts the request into prefix sharing: requests
         carrying the same id alias any already-resident full KV pages
@@ -288,20 +413,35 @@ class GenerationEngine:
         copy-on-write on the partial tail page. Greedy streams are
         token-identical with or without it. ``priority`` orders
         admission (higher first, FIFO within a class).
+
+        ``n > 1`` requests parallel sampling: ``n`` continuations of the
+        same prompt, returned as a list of request ids. The siblings
+        share one prefix namespace (``__par{rid}`` of the first sibling
+        when ``prefix_id`` is None), so the prompt's full pages are
+        written once and aliased by the other ``n - 1`` slots. Greedy
+        siblings emit identical streams; sampled siblings draw
+        independently.
         """
-        if n != 1:
-            raise _not_ported("parallel sampling (submit(n > 1))")
         if self._scheduler is None:
             self._scheduler = self._serving_init()
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
         s = sampler or self.sampler
-        rid = self._next_rid
-        self._next_rid += 1
-        self._scheduler.submit(Request(
-            rid=rid, tokens=np.asarray(tokens, np.int32).reshape(-1),
-            max_new_tokens=max_new_tokens, temperature=s.temperature,
-            top_k=s.top_k, eos_id=self.eos_id if eos_id is None else eos_id,
-            prefix_id=prefix_id, priority=priority))
-        return rid
+        pid = prefix_id
+        if n > 1 and pid is None:
+            pid = f"__par{self._next_rid}"
+        rids = []
+        for _ in range(n):
+            rid = self._next_rid
+            self._next_rid += 1
+            self._scheduler.submit(Request(
+                rid=rid, tokens=np.asarray(tokens, np.int32).reshape(-1),
+                max_new_tokens=max_new_tokens, temperature=s.temperature,
+                top_k=s.top_k,
+                eos_id=self.eos_id if eos_id is None else eos_id,
+                prefix_id=pid, priority=priority))
+            rids.append(rid)
+        return rids if n > 1 else rids[0]
 
     def pin_prefix(self, prefix_id: str) -> int:
         """Keep ``prefix_id``'s indexed KV pages resident across bursts.
@@ -353,14 +493,22 @@ class GenerationEngine:
         """Requests currently holding a decode slot."""
         return 0 if self._scheduler is None else self._scheduler.num_active
 
+    @property
+    def scheduler_stats(self):
+        return self._scheduler.stats if self._scheduler else None
+
     def stats(self) -> EngineStats:
-        """Serving snapshot (initializes serving state lazily)."""
+        """One structured serving snapshot (see `EngineStats`). A fresh
+        engine reports its empty state without allocating the pools."""
         if self._scheduler is None:
-            self._scheduler = self._serving_init()
-        st = self._scheduler.stats
-        pager_stats = self._scheduler.pager.stats()
-        pool_bytes = _tensor_bytes(self._paged_cache)
-        tokens = pager_stats.pages_total * self.page_size
+            st, queued = SchedulerStats(), 0
+            pager_stats = KVPager(self._pager_config()).stats()
+        else:
+            st, queued = self._scheduler.stats, len(self._scheduler.queue)
+            pager_stats = self._scheduler.pager.stats()
+        pool_bytes = self.paged_kv_page_bytes() * pager_stats.pages_total
+        valid = st.dispatched_positions - st.padded_positions
+        fixed_total = valid + st.padded_positions_fixed
         return EngineStats(
             pager=pager_stats,
             dispatches=st.decode_steps,
@@ -368,10 +516,30 @@ class GenerationEngine:
             prefill_tokens_skipped=st.prefill_tokens_skipped,
             prefix_shared_pages=st.prefix_shared_pages,
             padding_waste=st.padding_waste,
+            padding_waste_fixed=(st.padded_positions_fixed
+                                 / max(fixed_total, 1)),
+            acceptance_rate=st.acceptance_rate,
+            spec_tokens_per_row=st.spec_tokens_per_row,
+            draft_tokens=st.draft_tokens,
+            accepted_tokens=st.accepted_tokens,
+            rollbacks=st.rollbacks,
+            spec_k_now=_SPEC_K,
+            spec_fanout_now=1,
+            preemptions=st.preemptions,
+            pressure_spills=st.pressure_spills,
+            restores=st.restores,
+            spilled_pages=st.spilled_pages,
+            restored_pages=st.restored_pages,
+            pages_spilled_now=pager_stats.pages_spilled,
+            restore_ms_mean=st.restore_time_s * 1e3 / max(st.restores, 1),
+            model_axis=1,
             kv_pool_bytes=pool_bytes,
-            kv_bytes_per_token=pool_bytes / tokens,
-            weight_bytes=_tensor_bytes(self.params),
-            queue_depth=len(self._scheduler.queue),
+            kv_pool_bytes_per_device=pool_bytes,
+            kv_bytes_per_token=self.paged_kv_bytes_per_token(),
+            weight_bytes=self.weight_stream_bytes(),
+            weight_bytes_per_token=self.weight_bytes_per_token(
+                st.spec_tokens_per_row),
+            queue_depth=queued,
             admission_headroom=max(
                 0, pager_stats.pages_free - pager_stats.pages_reserved))
 
@@ -390,3 +558,36 @@ class GenerationEngine:
         if prefix_id is None or self._scheduler is None:
             return 0
         return len(self._scheduler.pager.match_prefix(tokens, prefix_id))
+
+    # --------------------------------------------------- capacity accounting
+    def paged_kv_page_bytes(self) -> int:
+        """Bytes one physical page costs across all layers (codes + scale
+        strips for int8 pools): the unit of the serving memory budget.
+        Before serving starts the pools are laid out on the ``meta``
+        device, so nothing is allocated."""
+        if self._scheduler is not None:
+            cache = self._paged_cache
+            num_pages = self._scheduler.pager.cfg.num_pages
+        else:
+            num_pages = self._pager_config().num_pages
+            cache = self.model.init_paged_cache(
+                num_pages, self.page_size, kv_quant=self.kv_quant,
+                device="meta")
+        return _tensor_bytes(cache) // num_pages
+
+    def paged_kv_bytes_per_token(self) -> float:
+        """KV bytes per cached token in the page pools (all layers)."""
+        return self.paged_kv_page_bytes() / self.page_size
+
+    def weight_stream_bytes(self) -> int:
+        """Resident bytes of the served params: what one decode step
+        streams through the matmuls (`PackedLinear`s count their int4
+        words plus scales, zeros and input scales)."""
+        return _tensor_bytes(self.params)
+
+    def weight_bytes_per_token(self, spec_tokens_per_row: float = 0.0
+                               ) -> float:
+        """Weight bytes streamed per emitted token: one weight pass per
+        decode step, amortized over the tokens a row emits per step
+        (> 1 only under speculative decoding)."""
+        return self.weight_stream_bytes() / max(spec_tokens_per_row, 1.0)

@@ -134,9 +134,10 @@ Preemption spill/restore (`spill` / `restore`):
     double `spill` raises, and a `restore` of an already-restored or
     dropped record raises.
 
-The device-side commit helpers of the one-shot prefill path
-(`commit_prefill`) are not ported yet: the port serves through the
-chunked path only, whose chunk step writes pages itself.
+Device-side commit (the one-shot prefill path): `commit_prefill` writes
+one request's dense prefill cache into the page pools, quantizing on
+commit for int8 pools with the chunk step's codec. Only ``kv_pool``
+entries are ported; the sliding-window ring, MLA and SSM entries raise.
 """
 from __future__ import annotations
 
@@ -144,6 +145,9 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
+
+from repro_torch.models.attention import _kv_dequant, _kv_quantize
 
 
 class PageAllocationError(RuntimeError):
@@ -910,3 +914,79 @@ class KVPager:
         for slot in self.free_slots:
             assert not self.page_tables[slot].any()
             assert int(self.slot_len[slot]) == 0
+
+
+# ---------------------------------------------------------------------------
+# Device-side commit: dense per-request prefill cache → page pools
+# ---------------------------------------------------------------------------
+
+def _commit_paged_leaf(pool: torch.Tensor, pre: torch.Tensor,
+                       phys_pages: torch.Tensor, page_size: int,
+                       start_page: int = 0) -> None:
+    """pre [1, S, ...] → scatter into pool [num_pages, P, ...] in place.
+
+    ``start_page`` skips the leading aliased prefix pages: their content is
+    already in the pool (committed by the request that registered the
+    prefix) and they may be shared read-only with other slots.
+    """
+    s = pre.shape[1]
+    skip = start_page * page_size
+    if skip >= s:
+        return
+    pre = pre[0, skip:].to(pool.dtype)                    # [S - skip, ...]
+    n = s - skip
+    pages = phys_pages[start_page:]
+    full, rem = divmod(n, page_size)
+    if full:
+        pool[pages[:full]] = pre[:full * page_size].reshape(
+            (full, page_size) + tuple(pre.shape[1:]))
+    if rem:
+        pool[pages[full], :rem] = pre[full * page_size:]
+
+
+def _adapt_kv_quant(pre_kv: dict, pool: dict) -> dict:
+    """Bridge storage regimes between the dense prefill cache and the pool:
+    int8 pool, float prefill → quantize on commit (the chunk step's
+    per-(position, head) codec); float pool, int8 prefill → dequantize;
+    matching regimes pass through."""
+    pool_q, pre_q = "ks" in pool, "ks" in pre_kv
+    if pool_q and not pre_q:
+        k, ks = _kv_quantize(pre_kv["k"])
+        v, vs = _kv_quantize(pre_kv["v"])
+        return {"k": k, "v": v, "ks": ks, "vs": vs}
+    if pre_q and not pool_q:
+        return {"k": _kv_dequant(pre_kv["k"], pre_kv["ks"], pool["k"].dtype),
+                "v": _kv_dequant(pre_kv["v"], pre_kv["vs"], pool["v"].dtype)}
+    return pre_kv
+
+
+def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
+                   page_size: int, start_page: int = 0):
+    """Merge one request's prefill cache into the shared paged cache.
+
+    ``cache``: `Model.init_paged_cache` ({seg: [per-layer entry]});
+    ``prefill_cache``: the populated `Model.init_cache(1, prompt_len)`;
+    ``phys_pages``: the slot's first ``pages_for(prompt_len)`` pages (a
+    list or an int tensor); the first ``start_page`` of them are aliased
+    prefix pages and are not rewritten. The pools update in place; the
+    cache is returned, as the reference returns its new one. ``slot``
+    addresses per-slot state, which only the unported entry kinds have.
+    """
+    del slot
+    pages = None                      # one host→device copy per commit
+    for seg, layers in cache.items():
+        for i, entry in enumerate(layers):
+            pre_entry = prefill_cache[seg][i]
+            for kind_key, leaves in entry.items():
+                if kind_key != "kv_pool":
+                    raise NotImplementedError(
+                        f"committing a {kind_key!r} cache entry is not "
+                        f"ported to repro_torch yet")
+                pre_kv = _adapt_kv_quant(pre_entry["kv"], leaves)
+                if pages is None:
+                    pages = torch.as_tensor(phys_pages, dtype=torch.long,
+                                            device=leaves["k"].device)
+                for k, pool in leaves.items():
+                    _commit_paged_leaf(pool, pre_kv[k], pages, page_size,
+                                       start_page=start_page)
+    return cache

@@ -1,15 +1,21 @@
-"""Continuous-batching request scheduler, chunked (token-budget) path.
+"""Continuous-batching request scheduler.
 
 A numpy copy of the reference package's `serving/scheduler.py`, cut to
-the path the port runs so far: every `step()` issues ONE fixed-shape
-dispatch of ``num_slots × c`` token positions, where each row is one
-slot's **token run**: a single decode token or a prefill chunk (a lone
-long prompt drains the whole idle budget across several rows). Rows
-declare their true run length and ``c`` is the smallest width bucket
-covering the longest run this step, so steps with only decode rows
-narrow to ``c = 1``. The first token is sampled in the same dispatch
-whose chunk commits the last prompt token. The width family stays
-bounded at O(log chunk) buckets.
+the paths the port runs so far. Two execution models over the same
+admission/eviction machinery:
+
+  * chunked (token-budget) scheduling — every `step()` issues ONE
+    fixed-shape dispatch of ``num_slots × c`` token positions, where each
+    row is one slot's **token run**: a single decode token or a prefill
+    chunk (a lone long prompt drains the whole idle budget across several
+    rows). Rows declare their true run length and ``c`` is the smallest
+    width bucket covering the longest run this step, so steps with only
+    decode rows narrow to ``c = 1``. The first token is sampled in the
+    same dispatch whose chunk commits the last prompt token. The width
+    family stays bounded at O(log chunk) buckets.
+  * one-shot scheduling — per-request prefill fused with page commit and
+    first-token sampling at admission, then single-token decode over all
+    slots.
 
 Admission is FIFO within priority when a slot is free and the pager can
 cover the request's worst-case KV footprint; EOS/budget eviction
@@ -23,12 +29,14 @@ namespace when its final chunk lands; while a slot with the same
 namespace is still prefilling, the queue head waits, so it admits
 against the full registered match.
 
-The reference's one-shot path, speculative decoding (linear and tree),
-preemption with host spill and the disaggregated handoff are not ported
-yet; they come with the slices that wire them into the engine.
+Speculative decoding (linear and tree), preemption with host spill and
+the disaggregated handoff are not ported yet; they come with the slices
+that wire them into the engine. `SchedulerStats` declares their counters
+all the same (the reference's full set, in its order); they stay 0.
 
 The scheduler is device-agnostic: it talks to the engine through the
-``run_batch`` callable and keeps only host-side state.
+``run_batch`` (chunked) or ``prefill_commit`` + ``decode`` (one-shot)
+callables and keeps only host-side state.
 """
 from __future__ import annotations
 
@@ -93,15 +101,34 @@ class _SlotState:
 class SchedulerStats:
     admitted: int = 0
     finished: int = 0
-    decode_steps: int = 0         # unified dispatches
+    decode_steps: int = 0         # unified dispatches in chunked mode
     slot_tokens: int = 0          # useful tokens produced by decode rows
     slot_steps: int = 0           # total rows dispatched (incl. idle)
     prefix_shared_pages: int = 0  # pages aliased instead of allocated
-    prefill_chunks: int = 0       # prompt chunks dispatched
+    prefill_chunks: int = 0       # prompt chunks dispatched (chunked mode)
     prefill_tokens: int = 0       # prompt tokens run through the model
+    #                               (counted on the chunked path only)
     prefill_tokens_skipped: int = 0   # aliased prompt tokens never re-run
+    # --- speculative decoding (not ported: stay 0) -----------------------
+    spec_rows: int = 0            # draft/verify runs dispatched
+    draft_tokens: int = 0         # draft tokens proposed and verified
+    accepted_tokens: int = 0      # draft tokens the target accepted
+    rollbacks: int = 0            # verify runs that truncated the KV
+    rollback_pages: int = 0       # pages returned to the free list by them
+    # --- token-budget packing accounting --------------------------------
     dispatched_positions: int = 0     # num_slots × c summed over steps
     padded_positions: int = 0         # dispatched positions holding padding
+    padded_positions_fixed: int = 0   # what padding the pre-run-length
+    #                                   policy (c = chunk_size whenever
+    #                                   anything prefills) would have paid
+    # --- preemption / spill (not ported: stay 0) ------------------------
+    preemptions: int = 0          # slots spilled to the host tier
+    pressure_spills: int = 0      # of those, spills by the page-pressure
+    #                               check (optimistic admission), not SLO
+    restores: int = 0             # parked requests re-admitted
+    spilled_pages: int = 0        # page strips gathered to the host tier
+    restored_pages: int = 0       # page strips scattered back
+    restore_time_s: float = 0.0   # wall time inside restore
 
     def zero(self) -> None:
         """Reset every declared counter to its default, in place: the
@@ -114,28 +141,54 @@ class SchedulerStats:
                 setattr(self, f.name, f.default_factory())
 
     @property
+    def acceptance_rate(self) -> float:
+        return self.accepted_tokens / max(self.draft_tokens, 1)
+
+    @property
+    def spec_tokens_per_row(self) -> float:
+        """Mean tokens emitted per draft/verify run (accepted + the
+        corrected/bonus token); 0 while nothing speculated."""
+        return (self.accepted_tokens + self.spec_rows) / max(self.spec_rows,
+                                                             1)
+
+    @property
     def padding_waste(self) -> float:
         return self.padded_positions / max(self.dispatched_positions, 1)
 
 
 class Scheduler:
-    """Queue + slot bookkeeping over the engine's chunk step.
+    """Queue + slot bookkeeping over the engine's step functions.
 
-    ``run_batch(tokens [B, C], pos [B, C], row_slots [B], sample_idx [B],
-    temps [B], topks [B]) → sampled [B]`` is one fixed-shape dispatch
-    that scatters every valid token's KV into the paged cache (row b
-    reads/writes slot ``row_slots[b]``'s pages) and returns, per row, the
-    token sampled at ``sample_idx`` (consumed only for rows that finished
-    their prompt or decoded).
+    Pass ``run_batch`` for chunked (token-budget) scheduling, or both
+    ``prefill_commit`` and ``decode`` for one-shot scheduling:
+
+      * run_batch(tokens [B, C], pos [B, C], row_slots [B],
+        sample_idx [B], temps [B], topks [B]) → sampled [B] — one
+        fixed-shape dispatch that scatters every valid token's KV into
+        the paged cache (row b reads/writes slot ``row_slots[b]``'s
+        pages) and returns, per row, the token sampled at ``sample_idx``
+        (consumed only for rows that finished their prompt or decoded).
+      * prefill_commit(request, slot, pages, n_shared) → first token;
+        decode(page_tables, token, pos, temps, topks) → next tokens.
     """
 
-    def __init__(self, pager: KVPager, *, run_batch: Callable,
+    def __init__(self, pager: KVPager, *,
+                 prefill_commit: Callable | None = None,
+                 decode: Callable | None = None,
+                 run_batch: Callable | None = None,
                  chunk_size: int = 16):
-        if chunk_size < 1:
-            raise ValueError("chunk_size must be ≥ 1")
         self.pager = pager
         self.num_slots = pager.cfg.num_slots
+        self.chunked = run_batch is not None
+        if self.chunked:
+            if chunk_size < 1:
+                raise ValueError("chunk_size must be ≥ 1")
+        elif prefill_commit is None or decode is None:
+            raise ValueError("need run_batch (chunked) or "
+                             "prefill_commit + decode (one-shot)")
         self._run_batch = run_batch
+        self._prefill_commit = prefill_commit
+        self._decode = decode
         self.chunk_size = chunk_size
         self.width_buckets = width_family(chunk_size)
         self.queue: deque[Request] = deque()
@@ -180,10 +233,13 @@ class Scheduler:
         Returns ``(rid, token)`` stream events in emission order.
         """
         events: list[tuple[int, int]] = []
-        self._admit()
+        self._admit(events)
         if self.slots:
-            self._step_chunked(events)
-            self._admit()                # backfill slots freed by EOS now
+            if self.chunked:
+                self._step_chunked(events)
+            else:
+                self._decode_once(events)
+            self._admit(events)          # backfill slots freed by EOS now
         return events
 
     def run(self) -> dict[int, np.ndarray]:
@@ -200,15 +256,15 @@ class Scheduler:
         return out
 
     # ------------------------------------------------------------ admission
-    def _admit(self) -> None:
+    def _admit(self, events: list[tuple[int, int]]) -> None:
         """Place queued requests on free slots, strictly in queue order."""
         while self.queue:
             req = self.queue[0]
-            # a prefix registers on its final chunk; while a slot with the
-            # same namespace is still prefilling, hold the queue head so it
-            # admits against the full registered match instead of racing
-            # it to zero sharing
-            if req.prefix_id is not None and any(
+            # chunked mode registers a prefix on its final chunk; while a
+            # slot with the same namespace is still prefilling, hold the
+            # queue head so it admits against the full registered match
+            # instead of racing it to zero sharing
+            if self.chunked and req.prefix_id is not None and any(
                     st.prefilling and st.request.prefix_id == req.prefix_id
                     for st in self.slots.values()):
                 return
@@ -218,22 +274,36 @@ class Scheduler:
             if not self.pager.can_admit(len(req.tokens), req.max_new_tokens,
                                         n_shared=len(shared)):
                 return
-            self._admit_head(req, shared)
+            self._admit_head(req, shared, events)
 
-    def _admit_head(self, req: Request, shared: list[int]) -> None:
+    def _admit_head(self, req: Request, shared: list[int],
+                    events: list[tuple[int, int]]) -> None:
         self.queue.popleft()                  # the head is ``req``
-        slot, _ = self.pager.alloc_slot(len(req.tokens), req.max_new_tokens,
-                                        shared_pages=shared)
+        slot, pages = self.pager.alloc_slot(len(req.tokens),
+                                            req.max_new_tokens,
+                                            shared_pages=shared)
         self.stats.prefix_shared_pages += len(shared)
         self.stats.admitted += 1
-        # aliased tokens are already resident: chunking starts past them
-        # (at least the final prompt token always runs, so the first-token
-        # logits exist even for a fully aliased prompt)
-        skip = min(len(shared) * self.pager.cfg.page_size,
-                   len(req.tokens) - 1)
-        self.slots[slot] = _SlotState(request=req, generated=[],
-                                      committed=skip)
-        self.stats.prefill_tokens_skipped += skip
+        if self.chunked:
+            # aliased tokens are already resident: chunking starts past
+            # them (at least the final prompt token always runs, so the
+            # first-token logits exist even for a fully aliased prompt)
+            skip = min(len(shared) * self.pager.cfg.page_size,
+                       len(req.tokens) - 1)
+            self.slots[slot] = _SlotState(request=req, generated=[],
+                                          committed=skip)
+            self.stats.prefill_tokens_skipped += skip
+            return
+        # one-shot: fused prefill + commit + first-token sample now
+        tok = int(self._prefill_commit(req, slot, pages, len(shared)))
+        if req.prefix_id is not None:
+            self.pager.register_prefix(slot, req.tokens, req.prefix_id)
+        st = _SlotState(request=req, generated=[tok],
+                        committed=len(req.tokens))
+        self.slots[slot] = st
+        events.append((req.rid, tok))
+        if st.done:
+            self._finish(slot)
 
     # ------------------------------------------- chunked (token-budget) step
     def _step_chunked(self, events: list[tuple[int, int]]) -> None:
@@ -301,8 +371,10 @@ class Scheduler:
             self.pager.commit_chunk(slot, start, start + take)
             chunk_tok[slot] = take
         valid = int((pos >= 0).sum())
+        c_fixed = max(c, self.chunk_size) if prefilling else c
         self.stats.dispatched_positions += b * c
         self.stats.padded_positions += b * c - valid
+        self.stats.padded_positions_fixed += b * c_fixed - valid
         sampled = self._run_batch(tokens, pos, row_slots, sample_idx,
                                   temps, topks)
         self.stats.decode_steps += 1
@@ -324,6 +396,32 @@ class Scheduler:
             events.append((st.request.rid, tok))
             if slot not in chunk_tok:         # a decode row, not a first token
                 self.stats.slot_tokens += 1
+            if st.done:
+                self._finish(slot)
+
+    # ------------------------------------------------- one-shot decode step
+    def _decode_once(self, events: list[tuple[int, int]]) -> None:
+        b = self.num_slots
+        token = np.zeros(b, np.int32)
+        pos = np.zeros(b, np.int32)
+        temps = np.zeros(b, np.float32)
+        topks = np.zeros(b, np.int32)
+        for slot, st in self.slots.items():
+            token[slot] = st.generated[-1]
+            pos[slot] = st.next_pos
+            temps[slot] = st.request.temperature
+            topks[slot] = st.request.top_k
+            self.pager.extend(slot, st.next_pos + 1)
+        next_tokens = self._decode(self.pager.page_tables, token, pos,
+                                   temps, topks)
+        self.stats.decode_steps += 1
+        self.stats.slot_steps += b
+        for slot in list(self.slots):
+            st = self.slots[slot]
+            tok = int(next_tokens[slot])
+            st.generated.append(tok)
+            self.stats.slot_tokens += 1
+            events.append((st.request.rid, tok))
             if st.done:
                 self._finish(slot)
 

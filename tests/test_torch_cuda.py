@@ -18,15 +18,29 @@ probabilities split into two halves of the input type for PV) and rounds
 once to the input type, so two results a few f32 ulps apart may round to
 neighbouring values: atol 1e-5 plus one unit of the type's precision
 relative to the value (`torch.finfo(dtype).eps`).
+
+The serving cases run the smoke model (Qwen2.5's 14 q / 2 kv heads at
+d_model 128, RTN int4) through the engine on the card: a page commit
+equal to the CPU's, one-shot streams equal to chunked ones over bf16
+pools, and greedy parallel siblings equal to each other.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import qwen25_05b
 from repro_torch.core.packing import pack_linear
+from repro_torch.core.pipeline import quantize_params
+from repro_torch.core.qlinear import ExecutionConfig, execution_config
 from repro_torch.core.quantize import QuantConfig, quantize_groupwise
 from repro_torch.kernels import awq_matmul as k1
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
+from repro_torch.models.model import Model
+from repro_torch.serving import kv_pager
+from repro_torch.serving.engine import GenerationEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -636,3 +650,90 @@ def test_flash_attention_kernel_rejects_misaligned_rows(cuda):
     torch.cuda.synchronize()
     _k4_check(out, k4.flash_attention_ref(q32, k.float(), v.float()),
               torch.float32)
+
+
+# ------------------------------------------------------------- serving
+
+@pytest.fixture
+def smoke_engine(cuda):
+    """(model, RTN int4 params on the card, a maker of engines on them)."""
+    cfg = dataclasses.replace(qwen25_05b.smoke_config(), num_heads=14,
+                              num_kv_heads=2)
+    m = Model(cfg)
+    params, _ = quantize_params(m.init(cuda, device="cuda"))
+
+    def make(**kw):
+        kw = {"max_seq": 64, "num_slots": 4, "page_size": 8, **kw}
+        return GenerationEngine(m, params, **kw)
+    return m, make
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_commit_prefill_on_card_equals_cpu(cuda, kv_quant):
+    """The same dense prefill cache committed on the card and on the CPU:
+    int8 codes and bf16 pages equal, scale strips within rtol 2e-5."""
+    cfg = dataclasses.replace(qwen25_05b.smoke_config(), num_heads=14,
+                              num_kv_heads=2)
+    m = Model(cfg)
+    pre = m.init_cache(1, 21, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in pre["seg_0"]:
+        for t in layer["kv"].values():
+            t.copy_(torch.randn(t.shape, generator=g) * 3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pool = m.init_paged_cache(9, 8, kv_quant=kv_quant, device=dev)
+        dense = {"seg_0": [{"kv": {k: t.to(dev) for k, t in e["kv"].items()}}
+                           for e in pre["seg_0"]]}
+        out[dev] = kv_pager.commit_prefill(pool, dense, 0, [4, 7, 2],
+                                           page_size=8, start_page=1)
+    for a, b in zip(out["cpu"]["seg_0"], out["cuda"]["seg_0"]):
+        for key in a["kv_pool"]:
+            got, ref = b["kv_pool"][key].cpu(), a["kv_pool"][key]
+            if key in ("ks", "vs"):
+                torch.testing.assert_close(got, ref, rtol=2e-5, atol=0)
+            else:
+                assert torch.equal(got, ref), key
+        assert a["kv_pool"]["k"][4].abs().sum() == 0     # aliased: skipped
+        assert a["kv_pool"]["k"][2].float().abs().sum() > 0
+
+
+def test_oneshot_streams_equal_chunked_on_card(smoke_engine):
+    """bf16 pools: the one-shot path (K4 prefill, commit, paged decode)
+    and the chunked path emit the same greedy streams."""
+    m, make = smoke_engine
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, m.cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 9, 17, 7, 21)]
+    streams = {}
+    for name, kw in (("chunked", dict(prefill_chunk=8)),
+                     ("one_shot", dict(chunked_prefill=False))):
+        eng = make(**kw)
+        before = k4.COUNTER.count
+        rids = [eng.submit(p, 8) for p in prompts]
+        out = eng.drain()
+        assert eng._scheduler.pager.pages_in_use == 0
+        streams[name] = [out[r].tolist() for r in rids]
+        launched = k4.COUNTER.count - before
+        assert launched == (m.cfg.num_layers * len(prompts)
+                            if name == "one_shot" else 0)
+    assert streams["chunked"] == streams["one_shot"]
+
+
+@pytest.mark.parametrize("chunked", [True, False])
+def test_parallel_siblings_identical_on_card(smoke_engine, chunked):
+    """Greedy n = 3 siblings over int8 pages. Every quantized linear runs
+    K1 / K3 (``offload_min_flops=0``), whose rows do not depend on their
+    neighbours: on the chunked path the first sibling decodes a token in
+    the followers' prefill step, at another M than theirs, which the
+    default hybrid threshold would send down another path."""
+    m, make = smoke_engine
+    eng = make(kv_quant="int8", chunked_prefill=chunked)
+    prompt = np.arange(20, dtype=np.int32) * 7 % m.cfg.vocab_size
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        rids = eng.submit(prompt, 8, n=3)
+        out = eng.drain()
+    assert out[rids[0]].shape == (8,)
+    assert all(np.array_equal(out[r], out[rids[0]]) for r in rids)
+    assert eng.stats().prefix_shared_pages == 4
+    assert eng._scheduler.pager.pages_in_use == 0

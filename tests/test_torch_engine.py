@@ -1,5 +1,6 @@
 """Port serving engine: greedy streams ≡ the port's own `generate()`,
-pager state ≡ the JAX package's pager, unported options raise.
+pager state ≡ the JAX package's pager, unported options raise (the
+one-shot path and parallel sampling: `test_torch_oneshot.py`).
 
 JAX engine streams are not used as an oracle (seven JAX identity tests
 are red on this tree); the port is held against itself, as the
@@ -214,22 +215,10 @@ def test_pager_replay_matches_jax():
 @pytest.mark.parametrize("kwargs", [
     dict(spec_decode="ngram"), dict(spec_tree=True),
     dict(draft_fn=lambda reqs: {}), dict(mesh=object()),
-    dict(preemption=True), dict(admission="optimistic"),
-    dict(chunked_prefill=False)],
+    dict(preemption=True), dict(admission="optimistic")],
     ids=["spec_decode", "spec_tree", "draft", "mesh", "preemption",
-         "optimistic", "one_shot"])
+         "optimistic"])
 def test_unported_engine_options_raise(model_params, kwargs):
     m, params = model_params
     with pytest.raises(NotImplementedError, match="not ported"):
         GenerationEngine(m, params["float"], max_seq=32, **kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [dict(prefix_id="sys", n=2), dict(n=2)],
-                         ids=["prefix_id", "parallel_n"])
-def test_unported_submit_options_raise(model_params, kwargs):
-    """Parallel sampling (``n > 1``) is not ported, with or without a
-    prefix namespace (prefix sharing itself is: `test_torch_prefix.py`)."""
-    m, params = model_params
-    eng = GenerationEngine(m, params["float"], max_seq=32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.submit(np.arange(4, dtype=np.int32), 4, **kwargs)

@@ -67,3 +67,49 @@ def test_packed_nbytes_match_jax():
     for k, n, gs in ((896, 896, 64), (4864, 896, 64), (896, 128, 128)):
         assert tpack.packed_linear_nbytes(k, n, gs) == \
             jpack.packed_linear_nbytes(k, n, gs)
+
+
+@pytest.mark.parametrize("k,n,gs", [(128, 16, 64), (256, 24, 128),
+                                    (896, 128, 64), (384, 136, 128)])
+def test_awq_macro_bytes_match_jax_and_round_trip(k, n, gs):
+    """The port's vectorized AWQ_MACRO serializer writes the reference
+    loop's bytes (codes 0 and 15 at the nibble edges, negative and tiny
+    fp16 scales), its parser inverts both, and the length is
+    `packed_linear_nbytes`."""
+    rng = np.random.default_rng(k + n + gs)
+    q = rng.integers(0, 16, (k, n)).astype(np.int32)
+    q[:2, :8] = 15
+    q[2:4, :8] = 0
+    s = (rng.standard_normal((k // gs, n)) * 0.01).astype(np.float32)
+    s[0, :3] = (-0.5, 6e-8, 65504.0)
+    z = rng.integers(0, 16, (k // gs, n)).astype(np.int8)
+    ref = jpack.awq_macro_bytes(q, s, z, gs)
+    got = tpack.awq_macro_bytes(q, s, z, gs)
+    assert got == ref
+    assert len(got) == tpack.packed_linear_nbytes(k, n, gs)
+    pq, ps, pz = tpack.parse_awq_macro_bytes(got, k, n, gs)
+    jq, js, jz = jpack.parse_awq_macro_bytes(ref, k, n, gs)
+    np.testing.assert_array_equal(pq, q)
+    np.testing.assert_array_equal(pq, jq)
+    np.testing.assert_array_equal(ps.view(np.uint16), js.view(np.uint16))
+    np.testing.assert_array_equal(ps, s.astype(np.float16))
+    np.testing.assert_array_equal(pz, z.astype(np.uint8))
+    np.testing.assert_array_equal(pz, jz)
+    with pytest.raises(ValueError):
+        tpack.parse_awq_macro_bytes(got[:-1], k, n, gs)
+
+
+def test_packed_linear_macro_bytes_match_jax():
+    """A `PackedLinear`'s bytes: its words unpacked with the port's own
+    `unpack_int4`, equal to the reference serializer on the reference's
+    packed linear from the same codes."""
+    cfg_j, cfg_t = jquant.QuantConfig(group_size=64), \
+        tquant.QuantConfig(group_size=64)
+    w = (np.random.default_rng(3).standard_normal((256, 48)) * 0.05
+         ).astype(np.float32)
+    jq, js, jz = (np.asarray(a) for a in
+                  jquant.quantize_groupwise(jnp.asarray(w), cfg_j))
+    tq, ts, tz = tquant.quantize_groupwise(torch.from_numpy(w), cfg_t)
+    tp = tpack.pack_linear(tq, ts, tz, None, None, cfg_t)
+    assert tpack.packed_linear_macro_bytes(tp) == \
+        jpack.awq_macro_bytes(jq, js, jz, 64)
