@@ -59,14 +59,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                be identical);
                the followers must alias 3 × 12 pages and skip 3 × 192
                prompt tokens, and no page may stay in use;
-  8. profile — decode steps of 4 slots (chunked, then one-shot over the
+  8. preempt — SLO preemption on the serve engine (``preemption=True``,
+               full pool): the four longest prompts (200, 190, 150, 120)
+               at priority 0 with 64 new tokens, after 4 steps the four
+               shortest (16, 33, 45, 77) at priority 1 with 16; the short
+               ones spill long ones to pinned host memory (every parked
+               strip is checked to lie there), which come back at their
+               commit watermark. Gated: preemptions ≥ 1, restores equal
+               to them, spilled pages equal to restored pages, nothing
+               left spilled or in use, the spilled bytes equal to the
+               spilled pages × 104,448 B (an int8 page of 16), K1, K2 and
+               K3 launched, and, with every quantized linear on K1 / K3,
+               all 8 streams equal to the same traffic on an engine that
+               never preempts; under the default threshold the streams
+               are compared and reported;
+  9. optimistic — the same with ``admission="optimistic"`` on 48 pages,
+               which the long requests' reserved worst case (59) does not
+               fit: pressure relief must spill at least once;
+ 10. disagg  — a `DisaggController` (the serve shape on both sides, int8
+               pools, ``handoff_min_tokens=64``) serving the 8 serve
+               prompts, 32 new each: 5 hand off (48 pages, 5,013,504 wire
+               bytes), 3 go direct, no page stays in use, K1/K2/K3 launch
+               on both sides, and the streams equal a unified engine's
+               with every quantized linear on K1 / K3; ``"auto"``'s split
+               report is printed;
+ 11. profile — decode steps of 4 slots (chunked, then one-shot over the
                same pages' layout), then chunk steps (4 rows of 16
                prompt tokens at contexts 64–448), timed bare and under
                torch.profiler: device busy time, idle share, top kernels,
-               each port kernel's device time and launches a step;
-  9. check   — one unified `chunk_step` on the card (K1 + K2) against the
+               each port kernel's device time and launches a step, and
+               all device launches a step;
+ 12. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
- 10. launch  — the launcher's AWQ path at full width,
+ 13. launch  — the launcher's AWQ path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --batch 4 --prompt-len 256 --max-new 32``:
                calibration forward (K4 in every layer), AWQ search + pack
@@ -76,16 +101,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                serialized into AWQ_MACRO bytes, which must total the
                report's packed size, and one of each (K, N) must parse
                back bit for bit;
- 11. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
+ 14. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
                AWQ-packed weights on the card (K4 + K1 + K3) against the
                same prefill on CPU copies (plain versions);
- 12. fleet   — the launcher's fleet path at full width,
+ 15. fleet   — the launcher's fleet path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --replicas 2 --mesh-axis 1 --batch 4
                --prompt-len 256 --max-new 32``: AWQ calibrate + pack, two
                paged replicas behind the prefix-affinity Router, pinned
-               cluster prefixes, 8 greedy requests; it must skip prefill
-               tokens, place by affinity and launch K1 and K3.
+               cluster prefixes, 8 greedy requests; its placement
+               integers (placements, affinity and session hits, prefill
+               tokens skipped) must equal the reference launcher's for the
+               same flags, and K1 and K3 must launch;
+ 16. fleet_disagg — the same with ``--disagg``: each replica a
+               `DisaggController` (bf16 pools on both sides), which the
+               Router scores by its sides' queues and the decode side's
+               headroom; ``"auto"`` hands nothing off at this shape
+               (crossover 32, ``disaggregate`` false), so every request is
+               served direct by a decode engine. The same gates (no
+               prefill tokens skipped: a pair reports none, as the
+               reference's does), and its streams must equal the
+               unified fleet's (same placements, same steps).
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -98,6 +134,7 @@ writes every phase line to PATH as one JSON object.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -124,6 +161,7 @@ from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import paged_attention as k2  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving.disagg import DisaggController  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 
 SEED = 0
@@ -980,14 +1018,277 @@ def parallel(model, params) -> dict:
     return dict(n=PARALLEL_N, prompt_len=len(prompt), **runs)
 
 
+# ------------------------------------------------------------ phases 8-10
+# the SLO traffic: the four longest serve prompts (200, 190, 150, 120) at
+# priority 0 with 64 new tokens, then, after 4 steps, the four shortest
+# (16, 33, 45, 77) at priority 1 with 16 new tokens
+SLO_LONG, SLO_SHORT = [1, 5, 7, 3], [0, 6, 2, 4]
+# one int8 page of 16 tokens over 24 layers: k, v codes (2 x 2 heads x 64)
+# and their f32 scale strips (2 x 2 heads x 4) per token
+INT8_PAGE_BYTES = 24 * 16 * 272
+# the optimistic pool: the four long requests' reserved worst case
+# (17 + 16 + 14 + 12 = 59 pages) does not fit its 47 usable pages
+OPTIMISTIC_PAGES = 48
+SERVE_KW = dict(num_slots=4, page_size=16, max_seq=512, prefill_chunk=16,
+                kv_quant="int8")
+ALL_KERNEL = qlinear.ExecutionConfig(offload_min_flops=0)
+SLO_NAMES = ("awq_matmul", "awq_gateup", "paged_attention_chunk")
+
+
+def _reset_peak() -> None:
+    """Start a peak-memory window with only live engines allocated: an
+    engine and its scheduler hold each other (the scheduler's callbacks
+    are the engine's bound methods), so a dropped engine keeps its page
+    pools until the cyclic collector runs."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _watch_spills(eng) -> list:
+    """Wrap the scheduler's spill hook: every parked strip must lie in
+    pinned host memory (gathered on the card, never left there); returns
+    the list the spilled bytes of each spill are appended to."""
+    sched = eng._scheduler
+    spill, seen = sched._spill_fn, []
+
+    def watched(ids):
+        handle = spill(ids)
+        strips = [t for leaves in handle["strips"].values()
+                  for t in leaves.values()]
+        bad = [t.device for t in strips
+               if t.device.type != "cpu" or not t.is_pinned()]
+        if bad:
+            raise AssertionError(f"parked strips not in pinned host "
+                                 f"memory: {bad}")
+        seen.append(sum(t.numel() * t.element_size() for t in strips))
+        return handle
+
+    sched._spill_fn = watched
+    return seen
+
+
+def _slo_serve(eng, prompts) -> dict:
+    """Drive the SLO traffic through ``eng`` and time its steps; a step in
+    which no prompt token ran is a decode-only step."""
+    rids = [eng.submit(prompts[i], 64) for i in SLO_LONG]
+    spilled = _watch_spills(eng) if eng.preemption else []
+    decode_s, decode_tokens, decode_steps, steps, prefilled = 0.0, 0, 0, 0, 0
+    t0 = time.perf_counter()
+    while not eng.idle:
+        if steps == 4:
+            rids += [eng.submit(prompts[i], 16, priority=1)
+                     for i in SLO_SHORT]
+        ts = time.perf_counter()
+        events = eng.step()                 # ends in a device→host copy
+        dt = time.perf_counter() - ts
+        steps += 1
+        now = eng.stats().prefill_tokens
+        if now == prefilled:
+            decode_s += dt
+            decode_tokens += len(events)
+            decode_steps += 1
+        prefilled = now
+    out = eng.drain()
+    return dict(rids=rids, out=out, serve_s=time.perf_counter() - t0,
+                steps=steps, spilled_bytes=spilled,
+                decode_tokens_per_s=decode_tokens / decode_s,
+                decode_step_ms=1e3 * decode_s / max(1, decode_steps))
+
+
+def _first_diffs(streams, refs) -> list:
+    return [None if np.array_equal(a, b) else int(np.argmax(a != b))
+            for a, b in zip(streams, refs)]
+
+
+def _slo_phase(label, model, params, refs, **engine_kw) -> dict:
+    """The SLO traffic on a preempting engine, once with every quantized
+    linear on K1 / K3 (streams gated equal to ``refs[name]``, the same
+    traffic on an engine that never preempts) and once under the default
+    hybrid threshold (compared and reported)."""
+    prompts = serve_prompts(model.cfg.vocab_size)
+    runs = {}
+    for name, ecfg in (("all_kernel", ALL_KERNEL),
+                       ("default", qlinear.ExecutionConfig())):
+        eng = GenerationEngine(model, params, preemption=True, **SERVE_KW,
+                               **engine_kw)
+        _reset_peak()
+        # this path: counts start at 0 here and are read right after
+        reset_counts()
+        with qlinear.execution_config(ecfg):
+            run = _slo_serve(eng, prompts)
+        launches = read_counts(SLO_NAMES)
+        out, rids = run.pop("out"), run.pop("rids")
+        check_streams(f"{label} {name}", out, rids[:len(SLO_LONG)],
+                      model.cfg.vocab_size, n=64)
+        check_streams(f"{label} {name}", out, rids[len(SLO_LONG):],
+                      model.cfg.vocab_size, n=16)
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{label} {name}: a kernel of the path "
+                                 f"never ran: {launches}")
+        streams = [out[r] for r in rids]
+        diffs = _first_diffs(streams, refs[name])
+        if name == "all_kernel" and any(d is not None for d in diffs):
+            raise AssertionError(f"{label} {name}: preempted streams differ "
+                                 f"from the uninterrupted ones at {diffs}")
+        st = eng.stats()
+        page = eng.paged_kv_page_bytes()
+        spilled = run.pop("spilled_bytes")
+        if not (st.preemptions >= 1 and st.restores == st.preemptions
+                and st.spilled_pages == st.restored_pages
+                and st.pages_spilled_now == 0 and st.pager.pages_used == 0
+                and page == INT8_PAGE_BYTES
+                and sum(spilled) == st.spilled_pages * page
+                and len(spilled) == st.preemptions):
+            raise AssertionError(
+                f"{label} {name}: preemptions {st.preemptions}, restores "
+                f"{st.restores}, spilled / restored pages "
+                f"{st.spilled_pages} / {st.restored_pages}, pages spilled "
+                f"now {st.pages_spilled_now}, pages in use "
+                f"{st.pager.pages_used}, page bytes {page}, spilled bytes "
+                f"{spilled}")
+        runs[name] = dict(
+            **run, identical_streams=sum(d is None for d in diffs),
+            first_diff=diffs, launches=launches,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            spilled_bytes=sum(spilled), page_bytes=page,
+            **{k: getattr(st, k) for k in (
+                "preemptions", "pressure_spills", "restores",
+                "spilled_pages", "restored_pages", "pages_spilled_now",
+                "restore_ms_mean", "dispatches", "prefill_tokens",
+                "kv_pool_bytes")})
+    return dict(requests=len(SLO_LONG) + len(SLO_SHORT), **runs)
+
+
+def uninterrupted(model, params) -> dict:
+    """The SLO traffic on the serve engine without preemption (the short
+    requests wait for slots), under both configurations: the streams the
+    preempting engines must reproduce."""
+    prompts = serve_prompts(model.cfg.vocab_size)
+    refs = {}
+    for name, ecfg in (("all_kernel", ALL_KERNEL),
+                       ("default", qlinear.ExecutionConfig())):
+        eng = GenerationEngine(model, params, **SERVE_KW)
+        with qlinear.execution_config(ecfg):
+            run = _slo_serve(eng, prompts)
+        refs[name] = [run["out"][r] for r in run["rids"]]
+    return refs
+
+
+def preempt(model, params, refs) -> dict:
+    """SLO preemption on the serve engine (full pool): the short
+    high-priority requests find every slot held and spill low-priority
+    victims to pinned host memory; the victims come back at their commit
+    watermark."""
+    return _slo_phase("preempt", model, params, refs)
+
+
+def optimistic(model, params, refs) -> dict:
+    """Optimistic admission on a pool that the long requests' reserved
+    worst case does not fit: pressure relief must spill at least once."""
+    res = _slo_phase("optimistic", model, params, refs,
+                     admission="optimistic", num_pages=OPTIMISTIC_PAGES)
+    for name in ("all_kernel", "default"):
+        if res[name]["pressure_spills"] < 1:
+            raise AssertionError(f"optimistic {name}: pressure relief never "
+                                 f"fired ({res[name]['pressure_spills']})")
+    return dict(num_pages=OPTIMISTIC_PAGES, **res)
+
+
+DISAGG_MIN_TOKENS = 64
+
+
+def disagg(model, params) -> dict:
+    """A `DisaggController` over the same weights, the serve shape on both
+    sides: the 8 serve prompts, 32 new tokens each. Prompts of 64 tokens
+    or more (200, 120, 77, 190, 150) prefill on the prefill engine and
+    hand their int8 pages to the decode engine; 16, 45 and 33 go direct.
+    Streams are gated equal to a unified engine's with every quantized
+    linear on K1 / K3. ``"auto"`` placement's split report is printed."""
+    prompts = serve_prompts(model.cfg.vocab_size)
+    auto = DisaggController(model, params, **SERVE_KW)
+    with qlinear.execution_config(ALL_KERNEL):
+        uni = GenerationEngine(model, params, **SERVE_KW)
+        rids = [uni.submit(p, 32) for p in prompts]
+        out = uni.drain()
+        refs = [out[r] for r in rids]
+        del uni
+        ctrl = DisaggController(model, params,
+                                handoff_min_tokens=DISAGG_MIN_TOKENS,
+                                **SERVE_KW)
+        side_launches = {s: dict.fromkeys(SLO_NAMES, 0)
+                         for s in ("prefill", "decode")}
+        for side in ("prefill", "decode"):
+            eng = getattr(ctrl, side)
+            step = eng.step
+
+            def counted(step=step, into=side_launches[side]):
+                before = read_counts(SLO_NAMES)
+                events = step()
+                for n, v in read_counts(SLO_NAMES).items():
+                    into[n] += v - before[n]
+                return events
+            eng.step = counted
+        _reset_peak()
+        # this path: counts start at 0 here and are read right after
+        reset_counts()
+        t0 = time.perf_counter()
+        crids = [ctrl.submit(p, 32) for p in prompts]
+        got = ctrl.drain()
+        total_s = time.perf_counter() - t0
+        launches = read_counts(SLO_NAMES)
+    streams = [got[r] for r in crids]
+    check_streams("disagg", got, crids, model.cfg.vocab_size)
+    diffs = _first_diffs(streams, refs)
+    if any(d is not None for d in diffs):
+        raise AssertionError(f"disagg: streams differ from the unified "
+                             f"engine's at {diffs}")
+    for side in ("prefill", "decode"):
+        if min(side_launches[side].values()) <= 0:
+            raise AssertionError(f"disagg: a kernel never ran on the "
+                                 f"{side} side: {side_launches[side]}")
+    st = ctrl.stats()
+    in_use = [e.engine._scheduler.pager.pages_in_use
+              for e in (ctrl.prefill, ctrl.decode)]
+    want_pages = sum(-(-len(prompts[i]) // 16) for i in range(len(prompts))
+                     if len(prompts[i]) >= DISAGG_MIN_TOKENS)
+    want = dict(handoffs=5, direct=3, handoff_pages=want_pages,
+                aliased_pages=0, wire_bytes=want_pages * INT8_PAGE_BYTES)
+    got_ints = {k: getattr(st, k) for k in want}
+    if got_ints != want or in_use != [0, 0] or want_pages != 48:
+        raise AssertionError(f"disagg: {got_ints}, want {want} (48 pages); "
+                             f"pages in use {in_use}")
+    rep = auto.split_report
+    return dict(
+        requests=len(prompts), handoff_min_tokens=DISAGG_MIN_TOKENS,
+        **got_ints, serve_s=total_s,
+        adopt_ms_mean=1e3 * st.adopt_time_s / st.handoffs,
+        prefill_step_s=st.prefill_step_time_s,
+        decode_step_s=st.decode_step_time_s,
+        prefill_dispatches=ctrl.prefill.stats().dispatches,
+        decode_dispatches=ctrl.decode.stats().dispatches,
+        prefill_step_ms=1e3 * st.prefill_step_time_s
+        / max(1, ctrl.prefill.stats().dispatches),
+        decode_step_ms=1e3 * st.decode_step_time_s
+        / max(1, ctrl.decode.stats().dispatches),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        kv_pool_bytes_per_side=ctrl.decode.stats().kv_pool_bytes,
+        launches=launches, launches_by_side=side_launches,
+        identical_streams=len(streams),
+        auto=dict(handoff_min_tokens=auto.handoff_min_tokens,
+                  split_report=rep))
+
+
 # each kernel's CUDA kernels in a profile, by name (K1 and K3 share their
 # templates and differ in the output functor; K2 and K4 run two kernels
-# each); "copy" is PyTorch's copy kernels (dtype casts among them)
+# each); "copy" is PyTorch's copy kernels (dtype casts among them),
+# "reduce" its reductions (RMSNorm's staged means among them)
 KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
                 "awq_gateup": ("GluOut",),
                 "paged_attention_chunk": ("paged_partial", "paged_merge"),
                 "flash_attention": ("flash_mma", "flash_f32"),
-                "copy": ("copy_kernel",)}
+                "copy": ("copy_kernel",),
+                "reduce": ("reduce_kernel",)}
 
 
 def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
@@ -1022,6 +1323,7 @@ def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
             launches=sum(e.count for e in mine) / steps)
     return dict(steps=steps, step_ms=bare_ms,
                 profiled_step_ms=prof_ms, device_busy_ms=busy_ms,
+                device_launches=sum(e.count for e in kern) / steps,
                 device_idle_share=1 - busy_ms / prof_ms, by_kernel=by_kernel,
                 top_kernels=[dict(name=e.key[:90], count=e.count / steps,
                                   ms=e.self_device_time_total / 1e3 / steps)
@@ -1074,7 +1376,7 @@ def profile(model, params, steps: int = 6) -> dict:
     return dict(dec, oneshot_decode_step=oneshot, chunk_step=chunk)
 
 
-# ------------------------------------------------------------------ phase 9
+# ----------------------------------------------------------------- phase 12
 def tree_to(tree, device):
     if isinstance(tree, PackedLinear):
         return tree.to(device)
@@ -1134,7 +1436,7 @@ def cross_check(model, params) -> dict:
     return res
 
 
-# ----------------------------------------------------------------- phase 10
+# ----------------------------------------------------------------- phase 13
 LAUNCH_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--batch", "4",
                "--prompt-len", "256", "--max-new", "32"]
 
@@ -1221,7 +1523,7 @@ def check_awq_macro(params, report) -> dict:
                              round_trips.items()})
 
 
-# ----------------------------------------------------------------- phase 11
+# ----------------------------------------------------------------- phase 14
 def check_prefill(model, params) -> dict:
     """One full-sequence prefill (B 1, S 64) on the launcher's AWQ-packed
     weights, on the card (K4 attention, K1 projections) and on CPU copies
@@ -1257,49 +1559,70 @@ def check_prefill(model, params) -> dict:
                 margin_clear=clear)
 
 
-# ----------------------------------------------------------------- phase 12
+# ----------------------------------------------------------------- phase 15
 FLEET_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--replicas", "2",
               "--mesh-axis", "1", "--batch", "4", "--prompt-len", "256",
               "--max-new", "32"]
+# the fleet's placement integers: a function of the schedule alone (not
+# of widths or token values), so `repro.launch.serve` with these flags
+# and ``--smoke`` prints them; tests/test_torch_launch.py and
+# tests/test_torch_disagg.py hold the reference and the port to them
+FLEET_WANT = {
+    False: dict(placements=6, affinity_hits=4, session_hits=4,
+                prefill_tokens_skipped=1984),
+    True: dict(placements=6, affinity_hits=4, session_hits=4,
+               prefill_tokens_skipped=0)}
 
 
-def fleet() -> dict:
+def fleet(disagg: bool = False, unified_streams=None) -> dict:
     """The launcher's fleet path at full width: AWQ calibrate + pack, two
-    paged replicas (bf16 pools) sharing the params behind the Router."""
+    paged replicas (bf16 pools) sharing the params behind the Router;
+    with ``disagg`` each replica is a prefill/decode pair, and its
+    streams must equal ``unified_streams``."""
+    label = "fleet_disagg" if disagg else "fleet"
+    args = FLEET_ARGS + (["--disagg"] if disagg else [])
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the fleet path: counts start at 0 here and are read right after
     reset_counts()
     t0 = time.perf_counter()
-    out = launcher.main(FLEET_ARGS)
+    out = launcher.main(args)
     total_s = time.perf_counter() - t0
     totals = read_counts()
     streams = out["streams"]
     if out["requests"] != 8 or len(streams) != 8:
-        raise AssertionError(f"fleet: {out['requests']} requests, want 8")
+        raise AssertionError(f"{label}: {out['requests']} requests, want 8")
     for toks in streams:
         if toks.shape != (32,) or not ((toks >= 0) & (toks < 151936)).all():
-            raise AssertionError(f"fleet: bad stream {toks}")
-    if not (out["prefill_tokens_skipped"] > 0 and out["affinity_hits"] > 0):
-        raise AssertionError(f"fleet: no prefix reuse: "
-                             f"{out['prefill_tokens_skipped']} tokens "
-                             f"skipped, {out['affinity_hits']} affinity hits")
+            raise AssertionError(f"{label}: bad stream {toks}")
+    ints = {k: out[k] for k in FLEET_WANT[disagg]}
+    if ints != FLEET_WANT[disagg]:
+        raise AssertionError(f"{label}: {ints}, want the reference's "
+                             f"{FLEET_WANT[disagg]}")
     fleet_launches = out["launches"]["fleet"]
     if not (fleet_launches["awq_matmul"] > 0
             and fleet_launches["awq_gateup"] > 0):
-        raise AssertionError(f"fleet: a kernel of the path never ran: "
+        raise AssertionError(f"{label}: a kernel of the path never ran: "
                              f"{fleet_launches}")
-    return dict(
-        args=" ".join(FLEET_ARGS), total_s=total_s, fleet_s=out["fleet_s"],
+    res = dict(
+        args=" ".join(args), total_s=total_s, fleet_s=out["fleet_s"],
         tokens_per_s=out["tokens_per_s"], requests=out["requests"],
-        generated=int(sum(len(t) for t in streams)),
-        prefill_tokens_skipped=out["prefill_tokens_skipped"],
-        placements=out["placements"], affinity_hits=out["affinity_hits"],
-        session_hits=out["session_hits"],
+        generated=int(sum(len(t) for t in streams)), **ints,
         calibrated=len(out["report"].calibrated),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=totals, launches_by_step=out["launches"],
-        sample=streams[0][:8].tolist())
+        sample=streams[0][:8].tolist(), streams=streams)
+    if unified_streams is not None:
+        # nothing is handed off and the placements are the unified
+        # fleet's, so every request meets the same steps on a decode
+        # engine built as the unified replica's engine is
+        diffs = _first_diffs(streams, unified_streams)
+        if any(d is not None for d in diffs):
+            raise AssertionError(f"{label}: streams differ from the "
+                                 f"unified fleet's at {diffs}")
+        res.update(identical_to_fleet=len(streams))
+    return res
 
 
 def main() -> None:
@@ -1320,8 +1643,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    name = torch.cuda.get_device_name(0)
-    phase("device", name=name, capability=list(
+    device_name = torch.cuda.get_device_name(0)
+    phase("device", name=device_name, capability=list(
         torch.cuda.get_device_capability(0)), torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
     print(smi, flush=True)
@@ -1370,6 +1693,13 @@ def main() -> None:
     phase("serve_oneshot", **oneshot)
     phase("oneshot_identity", **oneshot_identity(model, params))
     phase("parallel", **parallel(model, params))
+    refs = uninterrupted(model, params)
+    preempted = preempt(model, params, refs)
+    phase("preempt", **preempted)
+    optimistic_run = optimistic(model, params, refs)
+    phase("optimistic", **optimistic_run)
+    disagged = disagg(model, params)
+    phase("disagg", **disagged)
     prof = profile(model, params)
     phase("profile", **prof)
     checked = cross_check(model, params)
@@ -1383,8 +1713,14 @@ def main() -> None:
     # while the engine serves (chunked and one-shot), K4 in the one-shot
     # engine's prefills and the launcher's calibration and generate()
     for entry in (k1_entry, k2_entry, k3_entry):
-        entry["launches"] = (served["launches"][entry["name"]]
-                             + oneshot["launches"][entry["name"]])
+        kernel = entry["name"]
+        entry["launches"] = (served["launches"][kernel]
+                             + oneshot["launches"][kernel]
+                             + sum(run["launches"][kernel]
+                                   for res in (preempted, optimistic_run)
+                                   for run in (res["all_kernel"],
+                                               res["default"]))
+                             + disagged["launches"][kernel])
     k4_entry["launches"] = (launched["launches"]["flash_attention"]
                             + oneshot["launches"]["flash_attention"])
     prefilled = check_prefill(model, awq_params)
@@ -1392,7 +1728,11 @@ def main() -> None:
     del awq_params
     torch.cuda.empty_cache()
     served_fleet = fleet()
+    unified = served_fleet.pop("streams")
     phase("fleet", **served_fleet)
+    disagg_fleet = fleet(disagg=True, unified_streams=unified)
+    del disagg_fleet["streams"]
+    phase("fleet_disagg", **disagg_fleet)
 
     phase("summary", gpu=smi, **{k: served[k] for k in (
         "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
@@ -1402,7 +1742,8 @@ def main() -> None:
             "decode_tokens_per_s", "decode_step_ms", "prefill_commit_ms",
             "serve_s", "peak_mem_bytes", "launches")},
         profile={k: prof[k] for k in ("step_ms", "profiled_step_ms",
-                                      "device_busy_ms", "device_idle_share")},
+                                      "device_busy_ms", "device_idle_share",
+                                      "device_launches")},
         profile_oneshot_decode_step={k: prof["oneshot_decode_step"][k]
                                      for k in ("step_ms", "profiled_step_ms",
                                                "device_busy_ms",
@@ -1421,14 +1762,29 @@ def main() -> None:
         fleet={k: served_fleet[k] for k in (
             "fleet_s", "tokens_per_s", "requests", "generated",
             "prefill_tokens_skipped", "placements", "affinity_hits",
-            "peak_mem_bytes", "launches")})
+            "peak_mem_bytes", "launches")},
+        fleet_disagg={k: disagg_fleet[k] for k in (
+            "fleet_s", "tokens_per_s", "requests", "generated",
+            "placements", "affinity_hits", "identical_to_fleet",
+            "peak_mem_bytes", "launches")},
+        **{label: {cfg_name: {k: res[cfg_name][k] for k in (
+            "preemptions", "pressure_spills", "restores", "spilled_pages",
+            "spilled_bytes", "restore_ms_mean", "identical_streams",
+            "decode_tokens_per_s", "peak_mem_bytes")}
+            for cfg_name in ("all_kernel", "default")}
+           for label, res in (("preempt", preempted),
+                              ("optimistic", optimistic_run))},
+        disagg={k: disagged[k] for k in (
+            "handoffs", "direct", "wire_bytes", "adopt_ms_mean",
+            "prefill_step_ms", "decode_step_ms", "peak_mem_bytes",
+            "launches_by_side")})
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(
             {**PHASES, "kernels": kernels}, indent=1))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

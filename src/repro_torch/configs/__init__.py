@@ -5,6 +5,7 @@ Each config module exposes ``config()`` (the published dims) and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 from repro_torch.configs import qwen25_05b
@@ -21,3 +22,12 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _REGISTRY[name][1]()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One lowered step's shape: seq_len × global_batch × step kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str  # "prefill" | "decode"

@@ -9,13 +9,13 @@ K1, each GLU front through K3). ``--quant none`` serves the float model through 
 `generate()`.
 
 With ``--replicas N`` the launcher serves a continuous-batching
-**fleet** instead (`serve_fleet`): N `GenerationEngine` replicas sharing
-the one params tree, each with its own page pools, behind the
+**fleet** instead (`serve_fleet`): N `GenerationEngine` replicas (or,
+with ``--disagg``, `DisaggController` prefill/decode pairs) sharing the
+one params tree, each engine with its own page pools, behind the
 prefix-affinity `serving.router.Router`, built from
-`launch.specs.FleetSpec`. Tensor-parallel (``--mesh-axis`` > 1) and
-disaggregated (``--disagg``) replicas are not ported and raise; without
-``--replicas`` the fleet flags are ignored, as the reference ignores
-them.
+`launch.specs.FleetSpec`. Tensor-parallel (``--mesh-axis`` > 1) replicas
+are not ported and raise; without ``--replicas`` the fleet flags are
+ignored, as the reference ignores them.
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
 paths):
@@ -25,7 +25,7 @@ paths):
       --quant awq --replicas 2 --mesh-axis 1 --batch 4 --prompt-len 256 \\
       --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
-      --replicas 2
+      --replicas 2 [--disagg]
 """
 from __future__ import annotations
 
@@ -87,15 +87,15 @@ def main(argv=None) -> dict:
                     help="per-replica tensor-parallel width (only 1 is "
                          "ported)")
     ap.add_argument("--disagg", action="store_true",
-                    help="each replica a prefill/decode pair (not ported)")
+                    help="each replica is a prefill/decode engine pair")
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     help="drain_replica step budget (seconds) for elastic "
                          "scale-down")
     args = ap.parse_args(argv)
-    if args.replicas > 0 and (args.mesh_axis > 1 or args.disagg):
+    if args.replicas > 0 and args.mesh_axis > 1:
         raise NotImplementedError(
-            "fleet replicas with --mesh-axis > 1 (tensor parallelism) or "
-            "--disagg are not ported to repro_torch yet")
+            "fleet replicas with --mesh-axis > 1 (tensor parallelism) are "
+            "not ported to repro_torch yet")
     device = resolve_device(args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
@@ -222,7 +222,10 @@ def serve_fleet(model, params, args, device: torch.device) -> dict:
     dt = time.perf_counter() - t0
     useful = sum(len(out[r]) for r in rids)
     tput = useful / dt
-    skipped = sum(s.prefill_tokens_skipped for s in router.stats())
+    # a DisaggController replica reports `DisaggStats`, which has no
+    # prefill_tokens_skipped: it counts 0, as in the reference's report
+    skipped = sum(getattr(s, "prefill_tokens_skipped", 0)
+                  for s in router.stats())
     rs = router.router_stats
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")

@@ -2,14 +2,17 @@
 
 A copy of the reference package's `ReplicaSpec` and `FleetSpec`
 (`launch/specs.py`); the ShapeDtypeStruct helpers beside them there
-belong to the JAX dry run and have no counterpart here. Tensor-parallel
-replicas (``mesh_axis > 1``) and disaggregated prefill/decode pairs
-(``disagg=True``) are not ported and raise `NotImplementedError`.
+belong to the JAX dry run and have no counterpart here. A replica is one
+`GenerationEngine` or, with ``disagg=True``, a `DisaggController`
+prefill/decode pair. Tensor-parallel widths (``mesh_axis``,
+``prefill_mesh_axis``, ``decode_mesh_axis`` > 1) are not ported and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.serving.disagg import DisaggController
 from repro_torch.serving.engine import GenerationEngine
 from repro_torch.serving.router import Router
 
@@ -19,9 +22,10 @@ class ReplicaSpec:
     """One serving replica, declaratively.
 
     ``mesh_axis`` is the replica's tensor-parallel width (1 = unsharded);
-    ``disagg=True`` would serve it as a prefill/decode pair with per-side
-    widths. ``engine_kwargs`` forward verbatim to the engine constructor
-    (shape, KV quant).
+    ``disagg=True`` serves the replica as a `DisaggController`
+    prefill/decode pair with per-side widths instead of one
+    `GenerationEngine`. ``engine_kwargs`` forward verbatim to the engine
+    constructor(s) — shape, KV quant, preemption knobs.
     """
     mesh_axis: int = 1
     disagg: bool = False
@@ -31,16 +35,16 @@ class ReplicaSpec:
 
     def build(self, model, params, **overrides):
         """Construct the replica this spec describes."""
+        kw = {**self.engine_kwargs, **overrides}
+        widths = ((self.prefill_mesh_axis, self.decode_mesh_axis)
+                  if self.disagg else (self.mesh_axis,))
+        if max(widths) > 1:
+            raise NotImplementedError(
+                f"tensor-parallel replicas (mesh axes {widths}) are not "
+                f"ported to repro_torch yet")
         if self.disagg:
-            raise NotImplementedError(
-                "disaggregated replicas (disagg=True) are not ported to "
-                "repro_torch yet")
-        if self.mesh_axis > 1:
-            raise NotImplementedError(
-                f"tensor-parallel replicas (mesh_axis={self.mesh_axis}) are "
-                f"not ported to repro_torch yet")
-        return GenerationEngine(model, params,
-                                **{**self.engine_kwargs, **overrides})
+            return DisaggController(model, params, **kw)
+        return GenerationEngine(model, params, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

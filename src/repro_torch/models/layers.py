@@ -66,12 +66,38 @@ def linear(p, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     return y
 
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of x² over the last dim (keepdim), with a row's bits the same
+    whatever the number of rows beside it.
+
+    PyTorch's CUDA reduction sizes its lanes per output from the number of
+    outputs once an output reduces more than 32 terms (`Reduce.cuh`,
+    ``set_block_dimension``), so one reduction over d_model would give a
+    row other bits in a chunk step of width 1 than of width 16. On CUDA
+    the mean is taken in stages of at most 32 terms per output, each with
+    a fixed lane layout (d_model 896 = 28 × 32: two stages). A width that
+    a stage cannot split is padded with zeros and the mean scaled back.
+    Other devices take one reduction."""
+    sq = xf * xf
+    if xf.device.type != "cuda":
+        return sq.mean(dim=-1, keepdim=True)
+    d, div = sq.shape[-1], 1
+    while sq.shape[-1] > 32:
+        if sq.shape[-1] % 32:
+            sq = F.pad(sq, (0, 32 - sq.shape[-1] % 32))
+        sq = sq.unflatten(-1, (-1, 32)).mean(-1)
+        div *= 32
+    div *= sq.shape[-1]
+    ms = sq.mean(-1, keepdim=True)
+    return ms if div == d else ms * (div / d)
+
+
 def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
             plus_one: bool = False) -> torch.Tensor:
     """RMSNorm in f32 (the paper's PS-side non-linear op)."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xf = xf * torch.rsqrt(_mean_square(xf) + eps)
     g = p["gamma"].to(torch.float32)
     if plus_one:
         g = 1.0 + g

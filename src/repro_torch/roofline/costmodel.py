@@ -1,0 +1,189 @@
+"""Analytic per-cell cost model and the disaggregated-serving split policy.
+
+The reference package's `roofline/costmodel.py` cut to the serving
+cells of the registered architectures (the port imports nothing of it):
+`cell_costs` counts the FLOPs and bytes of one prefill or decode step
+from the architecture alone, and `disagg_report` turns them into the
+prefill/decode split that `serving.disagg`'s
+``handoff_min_tokens="auto"`` reads. Training cells, the layer kinds
+no registered architecture has, `analytic_terms`, the `SHAPES`
+registry and the HLO analysis are not ported.
+
+Conventions:
+  * activations bf16 (2B), scores/softmax f32 (4B),
+  * weight-only quant: 0.5625 B/weight (INT4 + scales/zeros at GS=64,
+    byte-exact AWQ_MACRO rate) for quantizable linears, fp16 for the rest,
+
+The machine constants are the port's card, not the reference's TPU:
+one NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, dense bf16 tensor
+cores and HBM bandwidth from NVIDIA's data sheet (the figures the
+kernels' bounds use). At these constants the split report for
+Qwen2.5-0.5B at small decode batches says not to disaggregate, so
+``"auto"`` hands nothing off there.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import ShapeCell
+from repro_torch.configs.base import ModelConfig
+
+# NVIDIA H100 80GB HBM3 (SXM), 700 W: dense bf16 FLOP/s and HBM bytes/s
+PEAK_FLOPS = 989e12
+HBM_BW = 3.35e12
+
+AWQ_BYTES_PER_W = 4.5 / 8          # byte-exact AWQ_MACRO rate at GS=64
+ACT = 2                            # bf16 activations
+F32 = 4
+
+
+def _quantizable(k: int, n: int, gs: int = 64) -> bool:
+    return k % gs == 0 and n % 8 == 0 and k * n >= 16384
+
+
+@dataclasses.dataclass
+class CellCosts:
+    flops: float = 0.0             # executed matmul+attention flops, global
+    weight_bytes: float = 0.0      # weight traffic per step, global
+    act_bytes: float = 0.0         # activation/score materialization, global
+    cache_bytes: float = 0.0       # KV cache traffic per step, global
+
+    @property
+    def total_bytes(self) -> float:
+        return self.weight_bytes + self.act_bytes + self.cache_bytes
+
+
+def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
+    """Global per-step costs for one (arch × shape) serving cell: a
+    prefill or decode step of a decoder whose every layer is full
+    attention + GLU MLP (the registered architectures). Other layer
+    kinds and training steps raise `NotImplementedError`."""
+    if cell.step not in ("prefill", "decode") or cfg.is_encoder:
+        raise NotImplementedError(f"{cell.step!r} cells of {cfg.name} are "
+                                  f"not ported")
+    b, s = cell.global_batch, cell.seq_len
+    decode = cell.step == "decode"
+    toks = b if decode else b * s
+    c = CellCosts()
+    d = cfg.d_model
+    dims = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.q_dim, d),
+            (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    kv_line = 2 * cfg.kv_dim
+    # int8 KV cache: 1 B/elem + f32 scale per (pos, head)
+    kv_byte = (1.0 + F32 / cfg.head_dim) if cfg.kv_quant == "int8" else ACT
+    for kind in cfg.layer_kinds():
+        if (kind.mixer, kind.mlp, kind.window) != ("attn", "glu", 0):
+            raise NotImplementedError(f"layer kind {kind} is not ported")
+        for k, n in dims:
+            c.flops += 2.0 * k * n * toks
+            c.weight_bytes += k * n * \
+                (AWQ_BYTES_PER_W if (quant and _quantizable(k, n)) else 2)
+            c.act_bytes += toks * (k + n) * ACT
+        if decode:
+            # read the whole cache line per step + scores
+            c.cache_bytes += b * s * kv_line * kv_byte + b * kv_line * kv_byte
+            c.flops += 2.0 * b * s * (cfg.q_dim + cfg.q_dim)
+            c.act_bytes += b * cfg.num_heads * s * F32  # probs
+        else:
+            # causal S×S scores in f32 (written+read by softmax)
+            pairs = s * s / 2
+            c.flops += 2.0 * b * pairs * (cfg.q_dim + cfg.q_dim)
+            c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32
+            c.cache_bytes += b * s * kv_line * ACT  # cache write
+
+    # --- embeddings / head ---
+    v = cfg.vocab_size
+    c.weight_bytes += v * d * 2 * (1 if cfg.tie_embeddings else 2)
+    c.flops += 2.0 * v * d * b
+    c.act_bytes += b * v * F32  # logits
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated-serving split policy (serving.disagg / ROADMAP #5)
+# ---------------------------------------------------------------------------
+# Prefill is compute-bound (S×ctx score work per admitted token), decode is
+# bandwidth-bound (whole cache line + full weight stream per emitted token).
+# The policy compares each side's arithmetic intensity to the machine
+# balance point and predicts the prompt length past which one prefill's
+# wall time convoys a full decode step — the crossover where running the
+# two phases on separate engines starts to pay for the page transfer.
+
+def serving_cell(step: str, seq_len: int, batch: int = 1) -> ShapeCell:
+    """Ad-hoc shape cell for serving-side placement decisions."""
+    return ShapeCell(f"{step}_{seq_len}x{batch}", seq_len, batch, step)
+
+
+def serving_intensity(cfg: ModelConfig, *, step: str, seq_len: int,
+                      batch: int = 1, quant: bool = False) -> dict:
+    """Roofline terms for one serving-side dispatch shape.
+
+    ``intensity`` is FLOPs/byte; a dispatch is compute-bound when it
+    exceeds the machine balance (PEAK_FLOPS / HBM_BW), else memory-bound.
+    """
+    cc = cell_costs(cfg, serving_cell(step, seq_len, batch), quant)
+    t_c = cc.flops / PEAK_FLOPS
+    t_m = cc.total_bytes / HBM_BW
+    return {
+        "flops": cc.flops,
+        "bytes": cc.total_bytes,
+        "intensity": cc.flops / max(cc.total_bytes, 1.0),
+        "compute_s": t_c,
+        "memory_s": t_m,
+        "time_s": max(t_c, t_m),
+        "bound": "compute" if t_c >= t_m else "memory",
+    }
+
+
+def _prefill_time_s(cfg: ModelConfig, seq_len: int, quant: bool) -> float:
+    return serving_intensity(cfg, step="prefill", seq_len=seq_len,
+                             quant=quant)["time_s"]
+
+
+def disagg_report(cfg: ModelConfig, *, decode_batch: int = 8,
+                  context: int = 4096, quant: bool = False) -> dict:
+    """Roofline-derived prefill/decode disaggregation policy for one arch
+    with each side on one card.
+
+    Returns the two sides' arithmetic intensity vs the machine balance,
+    whether disaggregation is predicted to pay (prefill compute-bound AND
+    decode memory-bound — the phases want different hardware operating
+    points), and ``crossover_prompt_tokens``: the smallest prompt whose
+    single prefill costs more wall time than one full decode step over
+    ``decode_batch`` slots at ``context`` — past it, a unified engine
+    admitting that prompt stalls every decoding slot by more than one
+    inter-token interval, which is exactly the convoy the disagg bench
+    measures. ``None`` when no prompt up to ``context`` crosses (unified
+    stays the right default — small deployments land here).
+    """
+    pre = serving_intensity(cfg, step="prefill", seq_len=context,
+                            quant=quant)
+    dec = serving_intensity(cfg, step="decode", seq_len=context,
+                            batch=decode_batch, quant=quant)
+    # bracket the crossover by doubling, then bisect to page granularity
+    crossover = None
+    lo, s = 1, 16
+    while s <= context:
+        if _prefill_time_s(cfg, s, quant) > dec["time_s"]:
+            hi = s
+            while hi - lo > 16:
+                mid = (lo + hi) // 2
+                if _prefill_time_s(cfg, mid, quant) > dec["time_s"]:
+                    hi = mid
+                else:
+                    lo = mid
+            crossover = hi
+            break
+        lo, s = s, s * 2
+    return {
+        "machine_balance": PEAK_FLOPS / HBM_BW,
+        "prefill_intensity": pre["intensity"],
+        "decode_intensity": dec["intensity"],
+        "prefill_bound": pre["bound"],
+        "decode_bound": dec["bound"],
+        "prefill_time_s": pre["time_s"],
+        "decode_step_time_s": dec["time_s"],
+        "disaggregate": (pre["bound"] == "compute"
+                         and dec["bound"] == "memory"),
+        "crossover_prompt_tokens": crossover,
+    }

@@ -27,10 +27,21 @@
     samples k continuations of one prompt over one prefix namespace.
     `warmup`, `prefix_reuse_pages` and `stats()` are what a fleet
     `Router` reads; `stats()` is the reference's full `EngineStats`.
+  * SLO preemption — ``preemption=True`` (chunked path only) spills a
+    lower-priority slot's pages to a host-memory tier when a higher class
+    cannot be admitted, and restores them later at the commit watermark
+    with zero recompute; ``preempt(rid)`` spills one by hand.
+    ``admission="optimistic"`` admits on the prompt's pages alone and
+    spills under page pressure. The movers gather every pool leaf's pages
+    (int8 codes and their scale strips as stored) into pinned host
+    memory and scatter them back into fresh pages.
+  * disaggregated serving — `handoff_gather` / `handoff_wire` /
+    `handoff_scatter` move a slot's pages between two engines' pools
+    (`serving.disagg`).
 
 Not ported yet (each raises `NotImplementedError`): speculative decoding,
-tree speculation, draft models, meshes, preemption and optimistic
-admission; their `EngineStats` counters stay 0.
+tree speculation, draft models and meshes; their `EngineStats` counters
+stay 0.
 """
 from __future__ import annotations
 
@@ -60,8 +71,9 @@ _SPEC_K = 4
 class EngineStats:
     """One structured serving snapshot: the reference's fields, in its
     order. Pager occupancy, dispatch / packing accounting, speculative
-    acceptance and preemption (0 until ported), and the memory footprint
-    of the page pools and weights (one device: ``model_axis`` 1)."""
+    acceptance (0 until speculation is ported), preemption and the host
+    KV tier, and the memory footprint of the page pools and weights (one
+    device: ``model_axis`` 1)."""
     pager: PagerStats
     # dispatch / packing
     dispatches: int               # steps issued
@@ -95,10 +107,18 @@ class EngineStats:
     # streamed per emitted token (one weight pass per decode step)
     weight_bytes: int
     weight_bytes_per_token: float
-    # load snapshot a fleet router scores: requests waiting for a slot,
-    # and free pages an admission can still draw (free minus reservations)
+    # load snapshot a fleet router scores: requests waiting for a slot
+    # (queued + parked), and free pages an admission can still draw
+    # (free minus reservations)
     queue_depth: int = 0
     admission_headroom: int = 0
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, bf16 as its raw 16-bit words."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.contiguous().numpy()
 
 
 def _not_ported(what: str):
@@ -177,14 +197,22 @@ class GenerationEngine:
                  "tree speculation (spec_tree)": spec_tree,
                  "draft models (draft_model / draft_params / draft_fn)":
                      (draft_model, draft_params, draft_fn) != (None,) * 3,
-                 "mesh-sharded serving (mesh)": mesh is not None,
-                 "preemption": preemption,
-                 "admission='optimistic'": admission == "optimistic"}
+                 "mesh-sharded serving (mesh)": mesh is not None}
         for what, requested in asked.items():
             if requested:
                 raise _not_ported(what)
-        if admission != "reserved":
+        # SLO-aware preemption: priority classes on submit(), victim spill
+        # to a host-memory page tier, zero-recompute restore.
+        # admission="optimistic" drops the worst-case decode reservation
+        # (preemption becomes the safety valve when the pool runs dry).
+        if admission not in ("reserved", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if admission == "optimistic" and not preemption:
+            raise ValueError("admission='optimistic' requires "
+                             "preemption=True — without spill as a safety "
+                             "valve a drained pool would fail extend()")
+        self.preemption = preemption
+        self.admission = admission
         self.model = model
         self.params = params
         self.cfg = model.cfg
@@ -270,7 +298,8 @@ class GenerationEngine:
             num_pages = self.num_slots * pages_per_slot + 1
         return PagerConfig(num_pages=num_pages, page_size=self.page_size,
                            num_slots=self.num_slots,
-                           pages_per_slot=pages_per_slot)
+                           pages_per_slot=pages_per_slot,
+                           optimistic=self.admission == "optimistic")
 
     def _serving_init(self) -> Scheduler:
         pager = KVPager(self._pager_config())
@@ -285,12 +314,22 @@ class GenerationEngine:
                 "chunked_prefill=True but the arch keeps bounded per-slot "
                 "sequential state (ring/SSM/MLA): only pure paged-attention "
                 "caches support the chunked path")
+        if self.preemption and not chunked:
+            raise ValueError(
+                "preemption requires the chunked serving path: restore "
+                "re-enters the unified chunk dispatch at the commit "
+                "watermark, which one-shot prefill does not track")
         self._gen = torch.Generator(device=self.device).manual_seed(self._seed)
         self._tables_version = -1
         self._tables_dev = None
         if chunked:
             return Scheduler(pager, run_batch=self._exec_run_batch,
-                             chunk_size=self.prefill_chunk)
+                             chunk_size=self.prefill_chunk,
+                             preemption=self.preemption,
+                             spill_fn=(self._exec_spill
+                                       if self.preemption else None),
+                             restore_fn=(self._exec_restore
+                                         if self.preemption else None))
         return Scheduler(pager, prefill_commit=self._exec_prefill_commit,
                          decode=self._exec_decode)
 
@@ -382,6 +421,99 @@ class GenerationEngine:
             page_table=tables)
         return self._sample_rows(logits, temps, topks).cpu().numpy()
 
+    # --- host-memory page tier (preemption spill/restore) -----------------
+    def _pool_leaves(self):
+        """(seg, leaf name, [per-layer pool tensors]) for every pool leaf
+        of the paged cache: codes and, for int8 pools, scale strips."""
+        for seg, layers in self._paged_cache.items():
+            for leaf in layers[0]["kv_pool"]:
+                yield seg, leaf, [e["kv_pool"][leaf] for e in layers]
+
+    def _exec_spill(self, phys_ids: list[int]) -> dict:
+        """Scheduler spill hook: gather ``phys_ids``'s pool bytes BEFORE the
+        pager releases those pages. The gather is enqueued on the device's
+        stream ahead of any later write into the pages (the pools update
+        in place), and each leaf's ``[L, n, P, ...]`` strip is copied into
+        pinned host memory without blocking; ``event`` marks the copies'
+        completion for a host reader (`handoff_wire`). Int8 pools leave
+        as stored: codes plus scale strips, never re-inflated."""
+        dev = self.device
+        ids = torch.as_tensor(phys_ids, dtype=torch.long, device=dev)
+        strips: dict = {}
+        for seg, leaf, pools in self._pool_leaves():
+            g = torch.stack([pool.index_select(0, ids) for pool in pools])
+            if dev.type == "cuda":
+                host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                host.copy_(g, non_blocking=True)
+                g = host
+            strips.setdefault(seg, {})[leaf] = g
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return {"n": len(phys_ids), "strips": strips, "event": event}
+
+    def _scatter(self, strips: dict, fresh_ids: list[int]) -> None:
+        """Write host strips ``{seg: {leaf: [L, n, ...]}}`` (tensors, or a
+        wire image's numpy arrays) into pages ``fresh_ids`` of every pool
+        leaf, one host→device copy each."""
+        dev = self.device
+        ids = torch.as_tensor(fresh_ids, dtype=torch.long, device=dev)
+        for seg, leaf, pools in self._pool_leaves():
+            src = torch.as_tensor(strips[seg][leaf]).view(pools[0].dtype)
+            src = src.to(dev, non_blocking=True)
+            for layer, pool in enumerate(pools):
+                pool.index_copy_(0, ids, src[layer])
+
+    def _exec_restore(self, handle: dict, fresh_ids: list[int]) -> None:
+        """Scheduler restore hook: scatter the parked strips into the
+        freshly drawn pages (the pager already rebuilt the page table).
+        The host→device copies follow the spill's device→host copies on
+        the same stream, so nothing waits on the host."""
+        assert len(fresh_ids) == handle["n"]
+        self._scatter(handle["strips"], fresh_ids)
+
+    # --- cross-engine KV page handoff (disaggregated prefill/decode) ------
+    def handoff_gather(self, phys_ids: list[int]) -> dict:
+        """Gather ``phys_ids``'s pool bytes for a cross-engine handoff: the
+        spill tier's gather, for engines with or without preemption. The
+        device→host copy runs without blocking; `handoff_wire` waits for
+        it and materializes the wire image."""
+        if self._scheduler is None:
+            self._scheduler = self._serving_init()
+        return self._exec_spill(phys_ids)
+
+    def handoff_wire(self, handle: dict) -> tuple[dict, int]:
+        """Block on a `handoff_gather` and return ``(strips, wire_bytes)``.
+
+        Strips are host numpy ``{seg: {leaf: [L, n, P, ...]}}``, the
+        reference's wire image in layout and size: int8 pools ship codes +
+        per-position scale strips (~2× fewer bytes than bf16). numpy has
+        no bfloat16, so bf16 leaves travel as their raw 16-bit words
+        (int16).
+        """
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+        strips = {seg: {k: _host_numpy(t) for k, t in leaves.items()}
+                  for seg, leaves in handle["strips"].items()}
+        wire = sum(a.nbytes for leaves in strips.values()
+                   for a in leaves.values())
+        return strips, wire
+
+    def handoff_scatter(self, strips: dict, strip_idx: list[int],
+                        fresh_ids: list[int]) -> None:
+        """Scatter wire strips ``strip_idx`` into this engine's freshly
+        drawn pages (the pager's `adopt` already rebuilt the page table;
+        pages it aliased against the local prefix index ship nothing and
+        are absent here)."""
+        if self._scheduler is None:
+            self._scheduler = self._serving_init()
+        if not fresh_ids:
+            return
+        assert len(strip_idx) == len(fresh_ids)
+        self._scatter({seg: {k: a[:, strip_idx] for k, a in leaves.items()}
+                       for seg, leaves in strips.items()}, fresh_ids)
+
     def warmup(self) -> int:
         """Run one all-padding dispatch of every width the scheduler may
         pick (`scheduler.width_family`), so the first request pays no
@@ -442,6 +574,14 @@ class GenerationEngine:
                 prefix_id=pid, priority=priority))
             rids.append(rid)
         return rids if n > 1 else rids[0]
+
+    def preempt(self, rid: int) -> bool:
+        """Spill ``rid``'s slot to the host tier now (ops/test hook —
+        organic preemption is priority-driven). False when ``rid`` holds
+        no slot. Requires ``preemption=True``."""
+        if self._scheduler is None:
+            return False
+        return self._scheduler.preempt_request(rid)
 
     def pin_prefix(self, prefix_id: str) -> int:
         """Keep ``prefix_id``'s indexed KV pages resident across bursts.
@@ -504,7 +644,8 @@ class GenerationEngine:
             st, queued = SchedulerStats(), 0
             pager_stats = KVPager(self._pager_config()).stats()
         else:
-            st, queued = self._scheduler.stats, len(self._scheduler.queue)
+            st = self._scheduler.stats
+            queued = len(self._scheduler.queue) + len(self._scheduler.preempted)
             pager_stats = self._scheduler.pager.stats()
         pool_bytes = self.paged_kv_page_bytes() * pager_stats.pages_total
         valid = st.dispatched_positions - st.padded_positions

@@ -1,8 +1,10 @@
 """Fleet router: N engine replicas behind one engine-shaped API.
 
 A numpy copy of the reference package's `serving/router.py` (host code,
-the whole class). `Router` owns a list of `GenerationEngine` replicas and
-exposes the engine's ``submit() / step() / collect() / drain()`` surface.
+the whole class). `Router` owns a list of **replicas** — each a
+`GenerationEngine` or a `serving.disagg.DisaggController` prefill/decode
+pair — and exposes the engine's ``submit() / step() / collect() /
+drain()`` surface.
 
 Placement: within one engine, prefix sharing turns duplicate prompt
 prefixes into aliased pages and skipped prefill; across a fleet that only
@@ -26,9 +28,7 @@ toward the lowest index). ``submit(..., session_id=...)`` sticks a
 session to the replica that served its first turn. `drain_replica`
 takes a replica out of placement, re-routes its queued requests under
 their global ids and lets its in-flight ones finish in place;
-`add_replica` joins (or re-joins) one. The reference's disaggregated
-replicas (`DisaggController`) are not ported, so every replica is an
-engine.
+`add_replica` joins (or re-joins) one.
 """
 from __future__ import annotations
 
@@ -54,8 +54,8 @@ class RouterStats:
 class Router:
     """N replicas behind the `GenerationEngine` streaming API.
 
-    ``replicas`` is a non-empty list of `GenerationEngine`s (or objects
-    with the same surface). The router never builds
+    ``replicas`` is a non-empty list of engine-shaped objects
+    (`GenerationEngine` or `DisaggController`). The router never builds
     engines itself — construction stays explicit (or declarative via
     `launch.specs.FleetSpec.build`).
 
@@ -131,8 +131,16 @@ class Router:
                 continue
             reuse = rep.prefix_reuse_pages(tokens, prefix_id)
             st = rep.stats()
-            queue_depth = st.queue_depth
-            headroom = st.admission_headroom
+            if isinstance(st, list) or not hasattr(st, "queue_depth"):
+                st = None
+            if st is None:     # DisaggController: per-side engine stats
+                sides = (rep.prefill.engine.stats(),
+                         rep.decode.engine.stats())
+                queue_depth = sum(s.queue_depth for s in sides)
+                headroom = sides[1].admission_headroom
+            else:
+                queue_depth = st.queue_depth
+                headroom = st.admission_headroom
             score = 0.0
             if reuse >= self.affinity_threshold:
                 score += self.affinity_weight * reuse
@@ -277,8 +285,8 @@ class Router:
         return sum(r.unpin_prefix(prefix_id) for r in self._replicas)
 
     def stats(self) -> list:
-        """Per-replica `EngineStats`, fleet order; the placement ledger is
-        `router_stats`."""
+        """Per-replica engine snapshots, fleet order (`EngineStats` /
+        `DisaggStats`); the placement ledger is `router_stats`."""
         return [r.stats() for r in self._replicas]
 
     def reset_stats(self) -> None:
@@ -333,7 +341,7 @@ class Router:
         """Move ``rep``'s not-yet-admitted requests to live replicas."""
         sched = getattr(rep, "_scheduler", None)
         if sched is None or not sched.queue:
-            return                      # fresh replica: nothing queued
+            return                      # disagg/fresh replica: nothing queued
         queued = list(sched.queue)
         sched.queue.clear()
         fwd = self._to_global[id(rep)]

@@ -29,10 +29,32 @@ namespace when its final chunk lands; while a slot with the same
 namespace is still prefilling, the queue head waits, so it admits
 against the full registered match.
 
-Speculative decoding (linear and tree), preemption with host spill and
-the disaggregated handoff are not ported yet; they come with the slices
-that wire them into the engine. `SchedulerStats` declares their counters
-all the same (the reference's full set, in its order); they stay 0.
+SLO-aware preemption (``preemption=True``, chunked mode only):
+
+  * `Request.priority` classes order the queue (higher first, FIFO within
+    a class). When admission of a higher class would otherwise stall, the
+    scheduler picks a **victim** among strictly-lower-priority active
+    slots — lowest priority, then most pages held, then least progress —
+    and spills it through `KVPager.spill` to the host tier (the engine's
+    ``spill_fn`` gathers the evicted pages' bytes off the device first).
+  * Preempted requests park in ``self.preempted`` with their full slot
+    state (generated tokens, prefill progress). Re-admission prefers
+    parked requests over the queue at equal-or-higher priority, and
+    `restore` re-enters the chunk dispatch at the pager's commit
+    watermark with **zero recompute**.
+  * Under ``PagerConfig.optimistic`` admission the scheduler also runs a
+    pre-dispatch **pressure check**: if this step's decode extends would
+    drain the free pool, victims are spilled (same score) before packing,
+    which keeps `extend` infallible at dispatch time.
+
+Disaggregated serving (`serving.disagg`): a rid in ``handoff_rids``
+parks its slot in ``ready_handoffs`` when its first token is sampled,
+instead of decoding here, and `admit_handoff` adopts a shipped slot as an
+already-decoding one.
+
+Speculative decoding (linear and tree) is not ported yet; its
+`SchedulerStats` counters are declared all the same (the reference's
+full set, in its order) and stay 0.
 
 The scheduler is device-agnostic: it talks to the engine through the
 ``run_batch`` (chunked) or ``prefill_commit`` + ``decode`` (one-shot)
@@ -41,12 +63,13 @@ callables and keeps only host-side state.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Callable
 
 import numpy as np
 
-from repro_torch.serving.kv_pager import KVPager
+from repro_torch.serving.kv_pager import KVPager, SpillRecord
 
 
 def width_family(chunk_size: int) -> list[int]:
@@ -71,7 +94,7 @@ class Request:
     top_k: int = 0                # 0 ⇒ full softmax
     eos_id: int = -1              # -1 ⇒ never stops early
     prefix_id: str | None = None  # opt into prefix sharing (namespace key)
-    priority: int = 0             # higher classes admit first
+    priority: int = 0             # SLO class: higher admits/preempts lower
 
 
 @dataclasses.dataclass
@@ -98,6 +121,16 @@ class _SlotState:
 
 
 @dataclasses.dataclass
+class _Preempted:
+    """A spilled request parked off-device: scheduler state + the pager's
+    spill record + the engine's opaque handle onto the host-tier bytes."""
+    state: _SlotState
+    record: SpillRecord
+    handle: object
+    seq: int                      # spill order (FIFO restore within class)
+
+
+@dataclasses.dataclass
 class SchedulerStats:
     admitted: int = 0
     finished: int = 0
@@ -121,14 +154,15 @@ class SchedulerStats:
     padded_positions_fixed: int = 0   # what padding the pre-run-length
     #                                   policy (c = chunk_size whenever
     #                                   anything prefills) would have paid
-    # --- preemption / spill (not ported: stay 0) ------------------------
+    # --- preemption / spill ---------------------------------------------
     preemptions: int = 0          # slots spilled to the host tier
     pressure_spills: int = 0      # of those, spills by the page-pressure
     #                               check (optimistic admission), not SLO
     restores: int = 0             # parked requests re-admitted
     spilled_pages: int = 0        # page strips gathered to the host tier
     restored_pages: int = 0       # page strips scattered back
-    restore_time_s: float = 0.0   # wall time inside restore
+    restore_time_s: float = 0.0   # wall time inside restore (pager +
+    #                               device scatter), for restore latency
 
     def zero(self) -> None:
         """Reset every declared counter to its default, in place: the
@@ -170,13 +204,21 @@ class Scheduler:
         (consumed only for rows that finished their prompt or decoded).
       * prefill_commit(request, slot, pages, n_shared) → first token;
         decode(page_tables, token, pos, temps, topks) → next tokens.
+
+    ``preemption=True`` (chunked only) enables victim spill to the host
+    tier; ``spill_fn(phys_ids) → handle`` gathers the pages' bytes BEFORE
+    the pager releases them and ``restore_fn(handle, fresh_ids)`` scatters
+    them back (both None ⇒ host accounting only).
     """
 
     def __init__(self, pager: KVPager, *,
                  prefill_commit: Callable | None = None,
                  decode: Callable | None = None,
                  run_batch: Callable | None = None,
-                 chunk_size: int = 16):
+                 chunk_size: int = 16,
+                 preemption: bool = False,
+                 spill_fn: Callable | None = None,
+                 restore_fn: Callable | None = None):
         self.pager = pager
         self.num_slots = pager.cfg.num_slots
         self.chunked = run_batch is not None
@@ -191,10 +233,28 @@ class Scheduler:
         self._decode = decode
         self.chunk_size = chunk_size
         self.width_buckets = width_family(chunk_size)
+        if preemption and not self.chunked:
+            raise ValueError("preemption requires the chunked "
+                             "(token-budget) execution path")
+        if pager.cfg.optimistic and not preemption:
+            raise ValueError("optimistic admission needs preemption as "
+                             "its safety valve (extend can fail)")
+        self.preemption = preemption
+        self._spill_fn = spill_fn
+        self._restore_fn = restore_fn
         self.queue: deque[Request] = deque()
         self.slots: dict[int, _SlotState] = {}
+        self.preempted: list[_Preempted] = []
+        self._preempt_seq = 0
         self.finished: dict[int, np.ndarray] = {}
         self.stats = SchedulerStats()
+        # disaggregated serving: rids whose first sampled token PARKS the
+        # slot for a cross-engine KV handoff instead of decoding here.
+        # Parked slots leave `self.slots` but keep their pager pages until
+        # the controller exports + frees them; they surface in
+        # `ready_handoffs` as (state, slot).
+        self.handoff_rids: set[int] = set()
+        self.ready_handoffs: list[tuple[_SlotState, int]] = []
 
     # ------------------------------------------------------------------ api
     def submit(self, request: Request) -> None:
@@ -219,13 +279,47 @@ class Scheduler:
             i -= 1
         self.queue.insert(i, request)
 
+    def admit_handoff(self, request: Request, generated: list[int],
+                      record) -> tuple[int, list[int], list[int]]:
+        """Adopt a cross-engine KV handoff as an already-decoding slot.
+
+        The pager re-places the shipped pages in this pool (aliasing any
+        the prefix index already holds — see `KVPager.adopt`) and the
+        slot enters with the prompt fully committed and ``generated``
+        already sampled by the prefill side, so no prefill chunk is ever
+        scheduled for it. Returns ``(slot, strip_indices, fresh_pages)``;
+        the engine scatters wire strip ``strip_indices[j]`` into
+        ``fresh_pages[j]``. Raises `PageAllocationError` (no mutation)
+        when the pool is full — the caller retries on a later step.
+        """
+        if not self.chunked:
+            raise ValueError("handoff adoption requires the chunked "
+                             "(token-budget) execution path")
+        generated = [int(t) for t in generated]
+        if not generated:
+            raise ValueError("a handoff must carry the first sampled token")
+        slot, scatter = self.pager.adopt(
+            record, max_new_tokens=request.max_new_tokens)
+        st = _SlotState(request=request, generated=generated,
+                        committed=len(request.tokens))
+        if st.done:
+            # nothing left to decode: undo the placement and refuse
+            self.pager.free_slot(slot)
+            raise ValueError("handoff request is already complete — "
+                             "collect it on the prefill side")
+        self.slots[slot] = st
+        self.stats.admitted += 1
+        self.stats.prefill_tokens_skipped += len(request.tokens)
+        return slot, [i for i, _ in scatter], [pg for _, pg in scatter]
+
     @property
     def num_active(self) -> int:
         return len(self.slots)
 
     @property
     def idle(self) -> bool:
-        return not self.queue and not self.slots
+        return (not self.queue and not self.slots and not self.preempted
+                and not self.ready_handoffs)
 
     def step(self) -> list[tuple[int, int]]:
         """Admit → one dispatch over all slots → evict + backfill.
@@ -243,23 +337,45 @@ class Scheduler:
         return events
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drain queue + slots; returns {rid: tokens}."""
+        """Drain queue + slots + parked requests; returns {rid: tokens}."""
         while not self.idle:
-            before = (len(self.slots), len(self.queue))
+            before = (len(self.slots), len(self.preempted), len(self.queue))
             events = self.step()
             if not self.slots and not events and before == (
-                    len(self.slots), len(self.queue)):
+                    len(self.slots), len(self.preempted), len(self.queue)):
                 raise RuntimeError(
-                    "scheduler wedged: queued requests cannot be placed "
-                    "(pool exhausted by pins or kept shared pages)")
+                    "scheduler wedged: parked/queued requests cannot be "
+                    "placed (pool exhausted by pins or kept shared pages)")
         out, self.finished = self.finished, {}
         return out
 
     # ------------------------------------------------------------ admission
     def _admit(self, events: list[tuple[int, int]]) -> None:
-        """Place queued requests on free slots, strictly in queue order."""
-        while self.queue:
-            req = self.queue[0]
+        """Place work on free slots, strictly by priority.
+
+        Parked (preempted) requests take precedence over the queue within
+        a priority class — they hold committed KV. When the next
+        candidate cannot be placed and preemption is on, a
+        strictly-lower-priority victim is spilled and placement retried;
+        candidates of lower priority never leapfrog a stalled higher one.
+        """
+        while True:
+            cand = min(self.preempted,
+                       key=lambda p: (-p.state.request.priority, p.seq)) \
+                if self.preempted else None
+            head = self.queue[0] if self.queue else None
+            if cand is not None and (
+                    head is None
+                    or cand.state.request.priority >= head.priority):
+                if self._try_restore(cand):
+                    continue
+                if self.preemption and self._preempt_one(
+                        below=cand.state.request.priority):
+                    continue
+                return
+            if head is None:
+                return
+            req = head
             # chunked mode registers a prefix on its final chunk; while a
             # slot with the same namespace is still prefilling, hold the
             # queue head so it admits against the full registered match
@@ -273,6 +389,8 @@ class Scheduler:
                       if req.prefix_id is not None else [])
             if not self.pager.can_admit(len(req.tokens), req.max_new_tokens,
                                         n_shared=len(shared)):
+                if self.preemption and self._preempt_one(below=req.priority):
+                    continue
                 return
             self._admit_head(req, shared, events)
 
@@ -305,6 +423,111 @@ class Scheduler:
         if st.done:
             self._finish(slot)
 
+    # ------------------------------------------------- preemption machinery
+    def _spill_slot(self, slot: int, *, pressure: bool = False) -> None:
+        """Evict an active slot to the host tier, parking its state.
+
+        Order matters: the engine's ``spill_fn`` enqueues the gather of
+        the evicted pages' bytes BEFORE `KVPager.spill` releases those
+        pages for reuse. The port's pools are updated in place, so the
+        gather must be on the device's stream ahead of any later write
+        into the released pages; the engine's stream order gives that.
+        """
+        st = self.slots.pop(slot)
+        ids = self.pager.peek_spill(slot)
+        handle = self._spill_fn(ids) \
+            if (self._spill_fn is not None and ids) else None
+        rec = self.pager.spill(slot)
+        assert len(rec.spilled_pages) == len(ids)
+        self.preempted.append(_Preempted(state=st, record=rec,
+                                         handle=handle,
+                                         seq=self._preempt_seq))
+        self._preempt_seq += 1
+        self.stats.preemptions += 1
+        self.stats.spilled_pages += len(ids)
+        if pressure:
+            self.stats.pressure_spills += 1
+
+    def _pick_victim(self, *, below: int | None,
+                     keep_one: bool = False) -> int | None:
+        """Victim choice: lowest priority, then most pages held (frees the
+        most pool), then least progress. ``below`` restricts to strictly
+        lower classes; ``keep_one`` never empties the active set
+        (pressure relief must leave a slot to make progress)."""
+        cand = [
+            (st.request.priority, -len(self.pager.slot_pages[slot]),
+             len(st.generated) / st.request.max_new_tokens, slot)
+            for slot, st in self.slots.items()
+            if below is None or st.request.priority < below]
+        if not cand or (keep_one and len(self.slots) <= 1):
+            return None
+        return min(cand)[-1]
+
+    def _preempt_one(self, *, below: int) -> bool:
+        victim = self._pick_victim(below=below)
+        if victim is None:
+            return False
+        self._spill_slot(victim)
+        return True
+
+    def _try_restore(self, p: _Preempted) -> bool:
+        """Re-admit a parked request if capacity allows: pager restore,
+        then the engine scatters the host-tier bytes into the fresh
+        pages. The slot resumes exactly where it was spilled — the commit
+        watermark came back with the record, so nothing re-prefills."""
+        if not self.pager.can_restore(p.record):
+            return False
+        t0 = time.perf_counter()
+        slot, fresh = self.pager.restore(p.record)
+        if self._restore_fn is not None and p.handle is not None:
+            self._restore_fn(p.handle, fresh)
+        self.stats.restore_time_s += time.perf_counter() - t0
+        self.stats.restores += 1
+        self.stats.restored_pages += len(fresh)
+        self.slots[slot] = p.state
+        self.preempted.remove(p)
+        return True
+
+    def _relieve_pressure(self, drafts: dict[int, list[int]]) -> None:
+        """Optimistic admission's safety valve, run before packing a
+        chunked step: if the decode extends this step will draw more
+        pages than the free pool holds, spill victims (any class — pool
+        pressure outranks SLO) until the step fits. ``drafts`` is the
+        reference's per-slot draft proposals, empty until speculation is
+        ported."""
+        if not self.pager.cfg.optimistic:
+            return
+        pager = self.pager
+        while True:
+            need = 0
+            for slot, st in self.slots.items():
+                if st.prefilling:
+                    continue
+                n = 1 + len(drafts.get(slot, ()))
+                short = (pager.pages_for(st.next_pos + n)
+                         - len(pager.slot_pages[slot]))
+                if short > 0:
+                    need += max(0, short - pager.slot_reserved.get(slot, 0))
+            if need <= len(pager.free_pages) - pager._reserved:
+                return
+            victim = self._pick_victim(below=None, keep_one=True)
+            if victim is None:
+                return      # last slot: fits() guarantees the pool covers it
+            drafts.pop(victim, None)
+            self._spill_slot(victim, pressure=True)
+
+    def preempt_request(self, rid: int) -> bool:
+        """Spill the active slot serving ``rid`` (test/ops hook; organic
+        preemption is priority-driven). Returns False when ``rid`` is not
+        currently on a slot (queued, parked, finished, or unknown)."""
+        if not self.preemption:
+            raise ValueError("preemption is not enabled on this scheduler")
+        for slot, st in self.slots.items():
+            if st.request.rid == rid:
+                self._spill_slot(slot)
+                return True
+        return False
+
     # ------------------------------------------- chunked (token-budget) step
     def _step_chunked(self, events: list[tuple[int, int]]) -> None:
         """One fixed-shape dispatch packing prefill chunks + decode rows.
@@ -318,6 +541,12 @@ class Scheduler:
         slot's page-table row per dispatch row).
         """
         b = self.num_slots
+        if self.preemption:
+            # optimistic admission: make sure this step's extends fit the
+            # free pool BEFORE packing rows (victims lose their row)
+            self._relieve_pressure({})
+            if not self.slots:
+                return
         prefilling = [s for s, st in self.slots.items() if st.prefilling]
         want = 1
         if prefilling:
@@ -391,13 +620,22 @@ class Scheduler:
                 # register on the final chunk: the whole prompt is resident
                 self.pager.register_prefix(slot, st.request.tokens,
                                            st.request.prefix_id)
+            first = slot in chunk_tok         # prompt completed this step
             tok = int(sampled[row])
             st.generated.append(tok)
             events.append((st.request.rid, tok))
-            if slot not in chunk_tok:         # a decode row, not a first token
+            if not first:                     # a decode row, not a first token
                 self.stats.slot_tokens += 1
             if st.done:
                 self._finish(slot)
+            elif first and st.request.rid in self.handoff_rids:
+                # disagg handoff point: the prompt's KV is fully committed
+                # and the first token is sampled — park the slot for
+                # export instead of decoding here. The pager slot stays
+                # live (pages intact) until the controller gathers its
+                # bytes and frees it.
+                self.slots.pop(slot)
+                self.ready_handoffs.append((st, slot))
 
     # ------------------------------------------------- one-shot decode step
     def _decode_once(self, events: list[tuple[int, int]]) -> None:

@@ -22,7 +22,10 @@ relative to the value (`torch.finfo(dtype).eps`).
 The serving cases run the smoke model (Qwen2.5's 14 q / 2 kv heads at
 d_model 128, RTN int4) through the engine on the card: a page commit
 equal to the CPU's, one-shot streams equal to chunked ones over bf16
-pools, and greedy parallel siblings equal to each other.
+pools, greedy parallel siblings equal to each other, a spill → restore
+round trip of int8 pages byte for byte through pinned host memory, a
+handoff's wire image equal to a synchronous gather of the same pages,
+and preempted streams equal to uninterrupted ones.
 """
 import dataclasses
 
@@ -38,8 +41,9 @@ from repro_torch.core.quantize import QuantConfig, quantize_groupwise
 from repro_torch.kernels import awq_matmul as k1
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
+from repro_torch.models import layers
 from repro_torch.models.model import Model
-from repro_torch.serving import kv_pager
+from repro_torch.serving import disagg, kv_pager
 from repro_torch.serving.engine import GenerationEngine
 
 pytestmark = pytest.mark.cuda
@@ -737,3 +741,161 @@ def test_parallel_siblings_identical_on_card(smoke_engine, chunked):
     assert all(np.array_equal(out[r], out[rids[0]]) for r in rids)
     assert eng.stats().prefix_shared_pages == 4
     assert eng._scheduler.pager.pages_in_use == 0
+
+
+def _pages_bytes(eng, ids) -> dict:
+    """{leaf: [L, n, ...] bytes on the host} of pages ``ids``, gathered
+    synchronously (no host tier involved)."""
+    layers = eng._paged_cache["seg_0"]
+    return {k: torch.stack([e["kv_pool"][k][ids] for e in layers]).cpu()
+            .view(torch.uint8) for k in layers[0]["kv_pool"]}
+
+
+def test_spill_restore_round_trip_on_card(smoke_engine):
+    """int8 pages spilled to the host tier: the parked strips lie in
+    pinned host memory and hold the pages' codes and scale strips byte
+    for byte; after other requests overwrite the freed pages, a restore
+    puts exactly those bytes into the fresh pages."""
+    m, make = smoke_engine
+    eng = make(kv_quant="int8", preemption=True, num_slots=2, num_pages=9)
+    rid = eng.submit(np.arange(21, dtype=np.int32) * 5 % m.cfg.vocab_size,
+                     12)
+    for _ in range(4):
+        eng.step()
+    sched = eng._scheduler
+    (slot,) = sched.slots
+    ids = sched.pager.peek_spill(slot)
+    before = _pages_bytes(eng, ids)
+    assert eng.preempt(rid)
+    (parked,) = sched.preempted
+    for k, t in parked.handle["strips"]["seg_0"].items():
+        assert t.device.type == "cpu" and t.is_pinned(), k
+    parked.handle["event"].synchronize()
+    for k, t in parked.handle["strips"]["seg_0"].items():
+        assert torch.equal(t.view(torch.uint8), before[k]), k
+    # a higher class draws the freed pages and writes into them; the
+    # parked request comes back afterwards
+    other = eng.submit(np.arange(40, dtype=np.int32) % m.cfg.vocab_size, 2,
+                       priority=1)
+    out = eng.drain()
+    st = eng.stats()
+    assert st.restores == st.preemptions >= 1
+    assert st.pages_spilled_now == 0 and st.pager.pages_used == 0
+    assert out[rid].shape == (12,) and out[other].shape == (2,)
+
+
+def test_restore_bytes_on_card(smoke_engine):
+    """The restore scatter itself: the fresh pages equal the spilled
+    pages byte for byte (int8 codes and scale strips)."""
+    m, make = smoke_engine
+    eng = make(kv_quant="int8", preemption=True, num_slots=2)
+    rid = eng.submit(np.arange(21, dtype=np.int32) * 3 % m.cfg.vocab_size,
+                     8)
+    for _ in range(3):
+        eng.step()
+    sched = eng._scheduler
+    (slot,) = sched.slots
+    before = _pages_bytes(eng, sched.pager.peek_spill(slot))
+    assert eng.preempt(rid)
+    (parked,) = sched.preempted
+    assert sched._try_restore(parked)
+    (slot2,) = sched.slots
+    after = _pages_bytes(eng, sched.pager.slot_pages[slot2])
+    for k in before:
+        assert torch.equal(after[k], before[k]), k
+    assert eng.drain()[rid].shape == (8,)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "none"])
+def test_handoff_wire_equals_synchronous_gather_on_card(smoke_engine,
+                                                        kv_quant):
+    """A handoff's wire image (gathered on the card, copied to pinned
+    host memory without blocking, waited on in `wire`) equals a
+    synchronous gather of the same pages taken before the export, even
+    when later prefill steps reuse those pages before the wire: int8
+    codes and scale strips, and bf16 pages (as int16 words)."""
+    m, make = smoke_engine
+    pe = disagg.PrefillEngine(m, make().params, max_seq=64, num_slots=2,
+                              page_size=8, kv_quant=kv_quant)
+    pe.submit(np.arange(29, dtype=np.int32) * 7 % m.cfg.vocab_size, 6)
+    sched = pe.engine._scheduler
+    while not sched.ready_handoffs:
+        pe.step()
+    ids = list(sched.pager.slot_pages[sched.ready_handoffs[0][1]])
+    want = _pages_bytes(pe.engine, ids)
+    (h,) = pe.collect_handoffs()
+    pe.submit(np.arange(40, dtype=np.int32) % m.cfg.vocab_size, 4)
+    for _ in range(3):
+        pe.step()                          # overwrites the freed pages
+    pe.wire(h)
+    assert h.wire_bytes == sum(v.numel() for v in want.values())
+    for k, a in h.strips["seg_0"].items():
+        got = torch.from_numpy(np.ascontiguousarray(a)).view(torch.uint8)
+        assert torch.equal(got, want[k]), k
+
+
+@pytest.mark.parametrize("admission", ["reserved", "optimistic"])
+def test_preempted_streams_equal_uninterrupted_on_card(smoke_engine,
+                                                       admission):
+    """Organic SLO preemption (and, optimistic, pressure relief) over
+    int8 pages on the card: with every quantized linear on K1 / K3
+    (``offload_min_flops=0``, rows independent of their neighbours),
+    every stream equals the same request served alone without
+    preemption."""
+    m, make = smoke_engine
+    rng = np.random.default_rng(0)
+    longs = [rng.integers(0, m.cfg.vocab_size, n).astype(np.int32)
+             for n in (21, 25)]
+    shorts = [rng.integers(0, m.cfg.vocab_size, n).astype(np.int32)
+              for n in (6, 4)]
+    kw = dict(kv_quant="int8", num_slots=2, max_seq=128, prefill_chunk=8)
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        eng = make(num_pages=14, preemption=True, admission=admission, **kw)
+        lo = [eng.submit(p, 24) for p in longs]
+        for _ in range(4):
+            eng.step()
+        hi = [eng.submit(p, 8, priority=1) for p in shorts]
+        out = eng.drain()
+        solo = make(num_pages=64, **kw)
+        want = []
+        for p, n in [(p, 24) for p in longs] + [(p, 8) for p in shorts]:
+            r = solo.submit(p, n)
+            want.append(solo.drain()[r].tolist())
+    st = eng.stats()
+    assert st.preemptions >= 1 and st.restores == st.preemptions
+    assert st.spilled_pages == st.restored_pages > 0
+    assert st.pages_spilled_now == 0 and st.pager.pages_used == 0
+    assert [out[r].tolist() for r in lo + hi] == want
+
+
+def test_rmsnorm_rows_equal_across_row_counts(cuda):
+    """A row's RMSNorm bits do not depend on how many rows share the call
+    (a chunk step's width): the rows of a 64-row call equal the same rows
+    normalized 1, 4, 8 or 16 at a time, and as [4, C, D] blocks; also at
+    widths that are not 28 × 32."""
+    x = (torch.randn(64, 896, generator=cuda, device="cuda") * 3
+         ).to(torch.bfloat16)
+    p = {"gamma": torch.rand(896, generator=cuda, device="cuda") + 0.5}
+    full = layers.rmsnorm(p, x)
+    for n in (1, 4, 8, 16):
+        for i in range(0, 64, n):
+            assert torch.equal(layers.rmsnorm(p, x[i:i + n]),
+                               full[i:i + n]), (n, i)
+    for c in (1, 2, 16):
+        blk = x[:4 * c].reshape(4, c, 896)
+        assert torch.equal(layers.rmsnorm(p, blk).reshape(-1, 896),
+                           full[:4 * c]), c
+    ref = layers.rmsnorm({"gamma": p["gamma"].cpu()}, x.cpu())
+    torch.testing.assert_close(full.cpu().float(), ref.float(), rtol=8e-3,
+                               atol=0)
+    # widths that split into 32s over more than two stages, or not at all
+    for d in (100, 1056, 4864):
+        x = torch.randn(64, d, generator=cuda, device="cuda") * 3
+        p = {"gamma": torch.rand(d, generator=cuda, device="cuda") + 0.5}
+        full = layers.rmsnorm(p, x)
+        for n in (1, 16):
+            for i in range(0, 64, n):
+                assert torch.equal(layers.rmsnorm(p, x[i:i + n]),
+                                   full[i:i + n]), (d, n, i)
+        ref = layers.rmsnorm({"gamma": p["gamma"].cpu()}, x.cpu())
+        torch.testing.assert_close(full.cpu(), ref, rtol=1e-5, atol=1e-5)

@@ -212,13 +212,23 @@ def test_pager_replay_matches_jax():
     assert (done >= 5).all(), done
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(spec_decode="ngram"), dict(spec_tree=True),
-    dict(draft_fn=lambda reqs: {}), dict(mesh=object()),
-    dict(preemption=True), dict(admission="optimistic")],
+@pytest.mark.parametrize("kwargs,exc,match", [
+    (dict(spec_decode="ngram"), NotImplementedError, "not ported"),
+    (dict(spec_tree=True), NotImplementedError, "not ported"),
+    (dict(draft_fn=lambda reqs: {}), NotImplementedError, "not ported"),
+    (dict(mesh=object()), NotImplementedError, "not ported"),
+    (dict(preemption=True, chunked_prefill=False), ValueError, "chunked"),
+    (dict(admission="optimistic"), ValueError, "optimistic"),
+    (dict(admission="yolo"), ValueError, "admission")],
     ids=["spec_decode", "spec_tree", "draft", "mesh", "preemption",
-         "optimistic"])
-def test_unported_engine_options_raise(model_params, kwargs):
+         "optimistic", "unknown_admission"])
+def test_unported_engine_options_raise(model_params, kwargs, exc, match):
+    """Speculation, draft models and meshes are not ported. Preemption
+    and optimistic admission are, with the reference's checks:
+    preemption needs the chunked path (raised when serving starts, at
+    the first `submit`), optimistic admission needs preemption, and an
+    unknown admission policy is refused."""
     m, params = model_params
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GenerationEngine(m, params["float"], max_seq=32, **kwargs)
+    with pytest.raises(exc, match=match):
+        eng = GenerationEngine(m, params["float"], max_seq=32, **kwargs)
+        eng.submit(np.arange(4, dtype=np.int32), 4)

@@ -8,6 +8,8 @@ per scan-stacked parameter, so its counts are the reference's times the
 number of layers and its paths collapse onto the reference's. Sizes are
 exact integers and must be equal; the compression ratio too.
 """
+import importlib.util
+import pathlib
 import re
 
 import numpy as np
@@ -108,12 +110,12 @@ FLEET = ["--smoke", "--batch", "2", "--prompt-len", "20", "--max-new", "4"]
                                   ["--replicas", "2", "--disagg"],
                                   ["--mesh-axis", "2"], ["--replicas", "2"]])
 def test_fleet_flags_raise(flag):
-    """--replicas with tensor-parallel (--mesh-axis > 1) or disaggregated
-    replicas raises (neither is ported); without --replicas the fleet
-    flags are ignored and the classic path runs, as the reference does;
-    --replicas alone serves the fleet."""
+    """--replicas with tensor-parallel (--mesh-axis > 1) replicas raises
+    (not ported); without --replicas the fleet flags are ignored and the
+    classic path runs, as the reference does; --replicas alone serves
+    the fleet, and with --disagg a fleet of prefill/decode pairs."""
     argv = FLEET + ["--quant", "none", "--device", "cpu"] + flag
-    if "--replicas" in flag and len(flag) > 2:
+    if "--mesh-axis" in flag and "--replicas" in flag:
         with pytest.raises(NotImplementedError, match="not ported"):
             tserve.main(argv)
         return
@@ -121,6 +123,7 @@ def test_fleet_flags_raise(flag):
     if "--replicas" in flag:
         assert out["replicas"] == 2 and out["requests"] == 4
         assert "shape" not in out
+        assert all(t.shape == (4,) for t in out["streams"])
     else:
         assert out["shape"] == [2, 4] and "replicas" not in out
 
@@ -161,3 +164,33 @@ def test_launch_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(FLAGS + ["--quant", "none"])
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its phases run only under ``main``)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_fleet_integers_equal_reference(capsys):
+    """The integers chip_smoke.py gates its full-width fleet on are the
+    reference launcher's, and the port's, at the same flags on the smoke
+    model: the schedule does not depend on widths or token values."""
+    smoke = _chip_smoke()
+    argv = smoke.FLEET_ARGS + ["--smoke"]
+    want = smoke.FLEET_WANT[False]
+    jserve.main(argv)
+    jlines = capsys.readouterr().out.splitlines()
+    out = tserve.main(argv + ["--device", "cpu"])
+    placed = re.compile(r"\[serve\] placement: (\d+) scored, (\d+) affinity "
+                        r"hits, (\d+) session hits, (\d+) prefill tokens")
+    (jm,) = [placed.match(ln) for ln in jlines if placed.match(ln)]
+    keys = ("placements", "affinity_hits", "session_hits",
+            "prefill_tokens_skipped")
+    assert dict(zip(keys, map(int, jm.groups()))) == want
+    assert {k: out[k] for k in keys} == want
+    assert out["requests"] == 8
+    assert all(t.shape == (32,) for t in out["streams"])
