@@ -83,15 +83,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                on both sides, and the streams equal a unified engine's
                with every quantized linear on K1 / K3; ``"auto"``'s split
                report is printed;
- 11. profile — decode steps of 4 slots (chunked, then one-shot over the
+ 11. spec_ngram — adaptive n-gram speculation (``spec_decode="ngram"``,
+               ``spec_k=4``, ``spec_adaptive=True``) on the serve engine:
+               8 greedy requests of 32 new tokens, each prompt a seeded
+               24-token motif repeated to a serve length (16 … 200).
+               Gated: drafts proposed and verified, every rollback one
+               `KVPager.truncate`, K1 / K2 / K3 launched, and with every
+               quantized linear on K1 / K3 all 8 streams equal to the
+               same traffic on the engine without speculation; under the
+               default threshold compared and reported. Acceptance,
+               tokens per verify row, rollbacks, ``spec_k_now``, decode
+               tokens/s and the host ms of a step with verify rows are
+               reported;
+ 12. spec_tree — the same with token trees (``spec_tree=True``, fanout
+               2, int8 pools): every tree verify step launches K2 with
+               its ancestor mask and logical positions once a layer; then
+               a drafter whose accepted node is always a depth-1
+               alternate, so `_tree_compact` must move one KV position
+               per accepted token. Gated as above, plus tree steps run;
+ 13. spec_draft — draft-model speculation with the served model as its
+               own draft (``draft_model=model``): K4 must launch in the
+               draft's dense prefills; streams gated equal under
+               ``offload_min_flops=0``; the acceptance rate and the
+               draft's host ms a step (``spec_k + 1`` dense decode steps)
+               are reported;
+ 14. profile — decode steps of 4 slots (chunked, then one-shot over the
                same pages' layout), then chunk steps (4 rows of 16
-               prompt tokens at contexts 64–448), timed bare and under
-               torch.profiler: device busy time, idle share, top kernels,
-               each port kernel's device time and launches a step, and
-               all device launches a step;
- 12. check   — one unified `chunk_step` on the card (K1 + K2) against the
+               prompt tokens at contexts 64–448), then verify steps (4
+               rows of 1 + 4 tokens whose drafts the plain engine's
+               stream gives), timed bare and under torch.profiler:
+               device busy time, idle share, top kernels, each port
+               kernel's device time and launches a step, all device
+               launches a step, and tokens emitted per verify row;
+ 15. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
- 13. launch  — the launcher's AWQ path at full width,
+ 16. launch  — the launcher's AWQ path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --batch 4 --prompt-len 256 --max-new 32``:
                calibration forward (K4 in every layer), AWQ search + pack
@@ -101,10 +127,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                serialized into AWQ_MACRO bytes, which must total the
                report's packed size, and one of each (K, N) must parse
                back bit for bit;
- 14. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
+ 17. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
                AWQ-packed weights on the card (K4 + K1 + K3) against the
                same prefill on CPU copies (plain versions);
- 15. fleet   — the launcher's fleet path at full width,
+ 18. fleet   — the launcher's fleet path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --replicas 2 --mesh-axis 1 --batch 4
                --prompt-len 256 --max-new 32``: AWQ calibrate + pack, two
@@ -113,7 +139,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                integers (placements, affinity and session hits, prefill
                tokens skipped) must equal the reference launcher's for the
                same flags, and K1 and K3 must launch;
- 16. fleet_disagg — the same with ``--disagg``: each replica a
+ 19. fleet_disagg — the same with ``--disagg``: each replica a
                `DisaggController` (bf16 pools on both sides), which the
                Router scores by its sides' queues and the decode side's
                headroom; ``"auto"`` hands nothing off at this shape
@@ -1279,6 +1305,207 @@ def disagg(model, params) -> dict:
                   split_report=rep))
 
 
+# ----------------------------------------------------------- phases 11-13
+# the speculation traffic: each serve length (16 … 200) filled with its
+# own seeded 24-token motif, the kind of repetition (templated chat, code)
+# prompt lookup drafts from; 32 new tokens each, greedy
+SPEC_MOTIF = 24
+SPEC_K = 4
+
+
+def spec_prompts(vocab: int) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED + 3)
+    return [np.resize(rng.integers(0, vocab, SPEC_MOTIF), n).astype(np.int32)
+            for n in SERVE_LENS]
+
+
+def spec_refs(model, params) -> dict:
+    """The speculation traffic on the serve engine without speculation,
+    under both configurations: the streams the speculating engines must
+    reproduce."""
+    prompts = spec_prompts(model.cfg.vocab_size)
+    refs = {}
+    for name, ecfg in (("all_kernel", ALL_KERNEL),
+                       ("default", qlinear.ExecutionConfig())):
+        eng = GenerationEngine(model, params, **SERVE_KW)
+        with qlinear.execution_config(ecfg):
+            rids = [eng.submit(p, 32) for p in prompts]
+            out = eng.drain()
+        refs[name] = [out[r] for r in rids]
+    return refs
+
+
+def _spec_serve(eng, prompts) -> dict:
+    """Drive the speculation traffic through ``eng``, watching its
+    scheduler: `truncate` calls, K2 launches in steps whose ``run_batch``
+    carried a tree, the drafter's host time, and the host time of steps
+    that verified drafts (each ends in a device→host copy)."""
+    rids = [eng.submit(p, 32) for p in prompts]
+    sched = eng._scheduler
+    seen = dict(truncates=0, tree_steps=0, tree_k2=0, draft_s=[])
+    truncate, run, draft = sched.pager.truncate, sched._run_batch, \
+        sched._draft_fn
+
+    def counted_truncate(*a):
+        seen["truncates"] += 1
+        return truncate(*a)
+
+    def watched_run(*a, **kw):
+        before = COUNTERS["paged_attention_chunk"].count
+        res = run(*a, **kw)
+        if kw.get("tree") is not None:
+            seen["tree_steps"] += 1
+            seen["tree_k2"] += COUNTERS["paged_attention_chunk"].count - before
+        return res
+
+    def timed_draft(reqs):
+        t = time.perf_counter()
+        res = draft(reqs)
+        seen["draft_s"].append(time.perf_counter() - t)
+        return res
+
+    sched.pager.truncate, sched._run_batch = counted_truncate, watched_run
+    if draft is not None:
+        sched._draft_fn = timed_draft
+    verify_s, verify_steps = 0.0, 0
+    decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
+    t0 = time.perf_counter()
+    while not eng.idle:
+        rows, prefilled = sched.stats.spec_rows, sched.stats.prefill_tokens
+        ts = time.perf_counter()
+        events = eng.step()                 # ends in a device→host copy
+        dt = time.perf_counter() - ts
+        steps += 1
+        if sched.stats.spec_rows > rows:
+            verify_s += dt
+            verify_steps += 1
+        if sched.stats.prefill_tokens == prefilled:
+            decode_s += dt
+            decode_tokens += len(events)
+            decode_steps += 1
+    out = eng.drain()
+    draft_s = seen.pop("draft_s")
+    return dict(rids=rids, out=out, serve_s=time.perf_counter() - t0,
+                steps=steps, **seen,
+                decode_tokens_per_s=decode_tokens / decode_s,
+                decode_step_ms=1e3 * decode_s / max(1, decode_steps),
+                verify_steps=verify_steps,
+                verify_step_ms=1e3 * verify_s / max(1, verify_steps),
+                draft_calls=len(draft_s),
+                draft_ms_per_step=1e3 * sum(draft_s) / max(1, len(draft_s)))
+
+
+def _spec_phase(label, model, params, refs, names=("all_kernel", "default"),
+                **engine_kw) -> dict:
+    """The speculation traffic on a speculating serve engine: with every
+    quantized linear on K1 / K3 (streams gated equal to ``refs``, the
+    engine without speculation) and, where ``names`` asks, under the
+    default hybrid threshold (compared and reported). Gates: drafts
+    proposed and verified, every rollback one `truncate`, K1–K3 launched
+    (and K4 for a draft model), nothing left in use."""
+    prompts = spec_prompts(model.cfg.vocab_size)
+    draft = engine_kw.get("draft_model") is not None
+    runs = {}
+    for name in names:
+        ecfg = ALL_KERNEL if name == "all_kernel" else qlinear.ExecutionConfig()
+        eng = GenerationEngine(model, params, **SERVE_KW, spec_k=SPEC_K,
+                               **engine_kw)
+        _reset_peak()
+        # this path: counts start at 0 here and are read right after
+        reset_counts()
+        with qlinear.execution_config(ecfg):
+            run = _spec_serve(eng, prompts)
+        launches = read_counts()
+        out, rids = run.pop("out"), run.pop("rids")
+        check_streams(f"{label} {name}", out, rids, model.cfg.vocab_size)
+        diffs = _first_diffs([out[r] for r in rids], refs[name])
+        if name == "all_kernel" and any(d is not None for d in diffs):
+            raise AssertionError(f"{label} {name}: streams differ from the "
+                                 f"engine without speculation at {diffs}")
+        st = eng.stats()
+        need = SLO_NAMES + (("flash_attention",) if draft else ())
+        if not (st.draft_tokens > 0 and eng.scheduler_stats.spec_rows > 0
+                and run["truncates"] == st.rollbacks
+                and min(launches[n] for n in need) > 0
+                and st.pager.pages_used == 0):
+            raise AssertionError(
+                f"{label} {name}: draft tokens {st.draft_tokens}, verify "
+                f"rows {eng.scheduler_stats.spec_rows}, rollbacks "
+                f"{st.rollbacks} vs truncates {run['truncates']}, launches "
+                f"{launches}, pages in use {st.pager.pages_used}")
+        runs[name] = dict(
+            **run, identical_streams=sum(d is None for d in diffs),
+            first_diff=diffs, launches=launches, tree_moves=eng.tree_moves,
+            spec_rows=eng.scheduler_stats.spec_rows,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            **{k: getattr(st, k) for k in (
+                "draft_tokens", "accepted_tokens", "acceptance_rate",
+                "spec_tokens_per_row", "rollbacks", "spec_k_now",
+                "spec_fanout_now", "dispatches", "weight_bytes_per_token")})
+    return dict(requests=len(prompts), spec_k=SPEC_K, **runs)
+
+
+def spec_ngram(model, params, refs) -> dict:
+    """Adaptive n-gram (prompt-lookup) speculation on the serve engine."""
+    return _spec_phase("spec_ngram", model, params, refs,
+                       spec_decode="ngram", spec_adaptive=True)
+
+
+def _alternate_drafter(ref_streams, prompts, vocab: int):
+    """A tree draft_fn whose chain starts off the target's greedy stream
+    and whose last node, a depth-1 alternate, is on it: every verify
+    accepts that alternate, whose KV `_tree_compact` must move."""
+    def draft(reqs):
+        out = {}
+        for slot, rid, ctx, _q, k, _f in reqs:
+            good = int(ref_streams[rid][len(ctx) - len(prompts[rid])])
+            nodes = [((good + 1) % vocab, -1)] + [
+                ((good + 2 + i) % vocab, i) for i in range(k - 2)]
+            out[slot] = nodes + [(good, -1)] if k > 1 else nodes
+        return out
+    return draft
+
+
+def spec_tree(model, params, refs) -> dict:
+    """Tree speculation (n-gram trees, root fanout 2) over int8 pools,
+    then a drafter whose accepted node is always an alternate. Gates: a
+    tree verify step ran and each launched K2 (with its ancestor mask)
+    once a layer; `_tree_compact` moved KV; streams equal."""
+    res = _spec_phase("spec_tree", model, params, refs, spec_decode="ngram",
+                      spec_tree=True, spec_tree_fanout=2)
+    prompts = spec_prompts(model.cfg.vocab_size)
+    forced = _spec_phase("spec_tree", model, params, refs,
+                         names=("all_kernel",), spec_decode="draft_model",
+                         spec_tree=True, draft_fn=_alternate_drafter(
+                             refs["all_kernel"], prompts,
+                             model.cfg.vocab_size))["all_kernel"]
+    for name, run in (("ngram all_kernel", res["all_kernel"]),
+                      ("ngram default", res["default"]),
+                      ("alternate", forced)):
+        layers = model.cfg.num_layers
+        if run["tree_steps"] and run["tree_k2"] != layers * run["tree_steps"]:
+            raise AssertionError(f"spec_tree {name}: {run['tree_k2']} K2 "
+                                 f"launches in {run['tree_steps']} tree "
+                                 f"steps, want {layers} a step")
+    if not (res["all_kernel"]["tree_steps"] > 0 and forced["tree_steps"] > 0
+            and forced["tree_moves"] == forced["accepted_tokens"] > 0):
+        raise AssertionError(
+            f"spec_tree: tree steps {res['all_kernel']['tree_steps']} / "
+            f"{forced['tree_steps']}, KV moves {forced['tree_moves']} for "
+            f"{forced['accepted_tokens']} accepted alternates")
+    return dict(res, alternate=forced)
+
+
+def spec_draft(model, params, refs) -> dict:
+    """Draft-model speculation with the served model as its own draft
+    (the repo has no smaller Qwen2.5): each step runs ``spec_k + 1``
+    dense decode steps of the draft, and each new slot's dense prefill
+    (K4) at its bucketed length."""
+    return _spec_phase("spec_draft", model, params, refs,
+                       names=("all_kernel",), spec_decode="draft_model",
+                       draft_model=model, draft_params=params)
+
+
 # each kernel's CUDA kernels in a profile, by name (K1 and K3 share their
 # templates and differ in the output functor; K2 and K4 run two kernels
 # each); "copy" is PyTorch's copy kernels (dtype casts among them),
@@ -1373,10 +1600,46 @@ def profile(model, params, steps: int = 6) -> dict:
     if eng.stats().prefill_tokens != 2 * plen or not eng.idle:
         raise AssertionError("profile: the chunk steps did not each land "
                              "4 rows of 16 prompt tokens")
-    return dict(dec, oneshot_decode_step=oneshot, chunk_step=chunk)
+    return dict(dec, oneshot_decode_step=oneshot, chunk_step=chunk,
+                verify_step=_profile_verify(model, params, prompts, steps))
 
 
-# ----------------------------------------------------------------- phase 12
+def _profile_verify(model, params, prompts, steps: int) -> dict:
+    """Verify steps of 4 rows × (1 + SPEC_K) tokens at contexts ~105–170,
+    each row drafting the decode prompts' own greedy continuation (the
+    engine without speculation's stream: the drafter every row accepts,
+    so every profiled step verifies 4 full runs)."""
+    new = (2 * steps + 4) * (SPEC_K + 1) + 8
+    plain = GenerationEngine(model, params, **SERVE_KW)
+    rids = [plain.submit(p, new) for p in prompts]
+    got = plain.drain()
+    oracle = [got[r] for r in rids]
+
+    def draft(reqs):                  # none until all four decode
+        return {slot: [int(t) for t in oracle[rid][len(ctx) - 100:][:k]]
+                for slot, rid, ctx, _q, k in reqs} if len(reqs) == 4 else {}
+
+    eng = GenerationEngine(model, params, **SERVE_KW, spec_k=SPEC_K,
+                           spec_decode="draft_model", draft_fn=draft)
+    for p in prompts:
+        eng.submit(p, new)
+    while eng.stats().prefill_tokens < 400:     # land every prompt
+        eng.step()
+    eng.step()
+    st0 = eng.scheduler_stats
+    rows0, acc0 = st0.spec_rows, st0.accepted_tokens
+    res = _profile_steps(eng, steps)
+    rows = eng.scheduler_stats.spec_rows - rows0
+    acc = eng.scheduler_stats.accepted_tokens - acc0
+    if rows != 2 * steps * 4:
+        raise AssertionError(f"profile: {rows} verify rows in "
+                             f"{2 * steps} steps, want 4 a step")
+    return dict(slots=4, spec_k=SPEC_K, context=101,
+                drafter="the plain engine's greedy stream",
+                tokens_per_verify_row=(acc + rows) / rows, **res)
+
+
+# ----------------------------------------------------------------- phase 15
 def tree_to(tree, device):
     if isinstance(tree, PackedLinear):
         return tree.to(device)
@@ -1436,7 +1699,7 @@ def cross_check(model, params) -> dict:
     return res
 
 
-# ----------------------------------------------------------------- phase 13
+# ----------------------------------------------------------------- phase 16
 LAUNCH_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--batch", "4",
                "--prompt-len", "256", "--max-new", "32"]
 
@@ -1523,7 +1786,7 @@ def check_awq_macro(params, report) -> dict:
                              round_trips.items()})
 
 
-# ----------------------------------------------------------------- phase 14
+# ----------------------------------------------------------------- phase 17
 def check_prefill(model, params) -> dict:
     """One full-sequence prefill (B 1, S 64) on the launcher's AWQ-packed
     weights, on the card (K4 attention, K1 projections) and on CPU copies
@@ -1559,7 +1822,7 @@ def check_prefill(model, params) -> dict:
                 margin_clear=clear)
 
 
-# ----------------------------------------------------------------- phase 15
+# ----------------------------------------------------------------- phase 18
 FLEET_ARGS = ["--arch", "qwen25-05b", "--quant", "awq", "--replicas", "2",
               "--mesh-axis", "1", "--batch", "4", "--prompt-len", "256",
               "--max-new", "32"]
@@ -1630,9 +1893,11 @@ def main() -> None:
     ap.add_argument("--out", help="also write every phase line to this "
                                   "JSON file")
     ap.add_argument("--profile-only", action="store_true",
-                    help="build, then only the profile phase (decode and "
-                         "chunk steps); prints no kernels or ok line")
+                    help="build, then only the profile phase (decode, "
+                         "one-shot decode, chunk and verify steps); prints "
+                         "no kernels or ok line")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -1700,6 +1965,16 @@ def main() -> None:
     phase("optimistic", **optimistic_run)
     disagged = disagg(model, params)
     phase("disagg", **disagged)
+    srefs = spec_refs(model, params)
+    ngrammed = spec_ngram(model, params, srefs)
+    phase("spec_ngram", **ngrammed)
+    treed = spec_tree(model, params, srefs)
+    phase("spec_tree", **treed)
+    drafted = spec_draft(model, params, srefs)
+    phase("spec_draft", **drafted)
+    spec_runs = [ngrammed["all_kernel"], ngrammed["default"],
+                 treed["all_kernel"], treed["default"], treed["alternate"],
+                 drafted["all_kernel"]]
     prof = profile(model, params)
     phase("profile", **prof)
     checked = cross_check(model, params)
@@ -1710,8 +1985,9 @@ def main() -> None:
     launched, awq_params = launch()
     phase("launch", **launched)
     # each kernel's launches on the paths that carry it: K1, K2 and K3
-    # while the engine serves (chunked and one-shot), K4 in the one-shot
-    # engine's prefills and the launcher's calibration and generate()
+    # while the engine serves (chunked, one-shot, speculating), K4 in the
+    # one-shot engine's prefills, the draft model's prefills and the
+    # launcher's calibration and generate()
     for entry in (k1_entry, k2_entry, k3_entry):
         kernel = entry["name"]
         entry["launches"] = (served["launches"][kernel]
@@ -1720,9 +1996,13 @@ def main() -> None:
                                    for res in (preempted, optimistic_run)
                                    for run in (res["all_kernel"],
                                                res["default"]))
-                             + disagged["launches"][kernel])
+                             + disagged["launches"][kernel]
+                             + sum(run["launches"][kernel]
+                                   for run in spec_runs))
     k4_entry["launches"] = (launched["launches"]["flash_attention"]
-                            + oneshot["launches"]["flash_attention"])
+                            + oneshot["launches"]["flash_attention"]
+                            + drafted["all_kernel"]["launches"][
+                                "flash_attention"])
     prefilled = check_prefill(model, awq_params)
     phase("check_prefill", **prefilled)
     del awq_params
@@ -1734,7 +2014,8 @@ def main() -> None:
     del disagg_fleet["streams"]
     phase("fleet_disagg", **disagg_fleet)
 
-    phase("summary", gpu=smi, **{k: served[k] for k in (
+    phase("summary", gpu=smi, script_s=time.perf_counter() - t_start,
+          **{k: served[k] for k in (
         "decode_tokens_per_s", "decode_step_ms", "decode_steps", "steps",
         "serve_s", "peak_mem_bytes", "launches", "launches_per_decode_step",
         "qlinear_calls")},
@@ -1751,6 +2032,19 @@ def main() -> None:
         profile_chunk_step={k: prof["chunk_step"][k] for k in (
             "step_ms", "profiled_step_ms", "device_busy_ms",
             "device_idle_share")},
+        profile_verify_step={k: prof["verify_step"][k] for k in (
+            "step_ms", "profiled_step_ms", "device_busy_ms",
+            "device_idle_share", "device_launches",
+            "tokens_per_verify_row")},
+        **{label: {cfg_name: {k: res[cfg_name][k] for k in (
+            "identical_streams", "draft_tokens", "accepted_tokens",
+            "acceptance_rate", "spec_tokens_per_row", "rollbacks",
+            "spec_k_now", "spec_fanout_now", "tree_steps", "tree_moves",
+            "decode_tokens_per_s", "verify_step_ms", "draft_ms_per_step")}
+            for cfg_name in res if cfg_name in (
+                "all_kernel", "default", "alternate")}
+           for label, res in (("spec_ngram", ngrammed), ("spec_tree", treed),
+                              ("spec_draft", drafted))},
         check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()},
         launch={k: launched[k] for k in (
             "calibrate_s", "awq_s", "calibrated", "compression_ratio",

@@ -115,17 +115,18 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     v's dtype. Scores are f32; probabilities are rounded to
     ``probs_dtype`` (the caller's choice, `_cache_probs_dtype`) before the
     value product. An explicit ``vis [B, C, S]`` mask overrides the
-    positional mask; rows whose mask is empty then give exactly 0.
+    positional mask; rows whose mask is empty then give exactly 0. Both
+    masks feed the same softmax, so a row sees the same bits under either
+    when they show it the same keys (a tree verify row's chain nodes and
+    the sequential decode rows they stand for).
     """
     scores = einsum_f32("bqkgd,bskd->bkgqs", q, k) * scale
     neg = torch.full_like(scores, -1e30)
     if vis is not None:
         vism = vis[:, None, None, :, :]
-        scores = torch.where(vism, scores, neg)
-        m = scores.amax(dim=-1, keepdim=True)
-        p = torch.where(vism, torch.exp(scores - m), torch.zeros_like(scores))
-        l = p.sum(dim=-1, keepdim=True)
-        probs = p / torch.where(l == 0.0, torch.ones_like(l), l)
+        probs = torch.softmax(torch.where(vism, scores, neg), dim=-1)
+        probs = torch.where(vism.any(dim=-1, keepdim=True), probs,
+                            torch.zeros_like(probs))
     else:
         mask = k_pos[:, None, :] >= 0
         if causal:

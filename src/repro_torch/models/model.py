@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers, stack
 from repro_torch.models.layers import embed_lookup, linear, norm
-from repro_torch.numerics import matmul_f32
+from repro_torch.numerics import matmul_f32_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +70,12 @@ class Model:
 
     def _head_logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits; the tied head is a plain f32 ``[.., D] × [D, V]``
-        product (the largest read of a decode step, outside any kernel)."""
+        product (the largest read of a decode step, outside any kernel),
+        whose rows do not depend on how many share the call
+        (`numerics.matmul_f32_rows`): a verify step's rows equal the same
+        rows decoded one step at a time."""
         if self.cfg.tie_embeddings:
-            return matmul_f32(x, params["embed"]["table"].t())
+            return matmul_f32_rows(x, params["embed"]["table"].t())
         return linear(params["lm_head"], x.to(torch.float32))
 
     # ----------------------------------------------------------------- loss

@@ -9,7 +9,9 @@ a last-bit difference, rounded once more into a bf16 cache, is enough
 to flip a near-tied argmax. On the CPU these products therefore run in
 float64 and are rounded once to float32, which makes each row's result
 independent of its neighbours (the inputs are f32 or narrower, so every
-product is exact in f64). On CUDA they run in float32 (TF32 off).
+product is exact in f64). On CUDA they run in float32 (TF32 off), where
+cuBLAS picks its kernel from the shape (a GEMV for one row, a tiled GEMM
+for more), so `matmul_f32_rows` feeds it blocks of a fixed row count.
 """
 from __future__ import annotations
 
@@ -28,3 +30,26 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(eq, a, b)`` in float32 (see the module docstring)."""
     return torch.einsum(eq, _wide(a), _wide(b)).to(torch.float32)
+
+
+ROW_BLOCK = 16
+
+
+def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 with each row's bits independent of how many
+    rows the call holds: on CUDA the rows go through cuBLAS in blocks of
+    `ROW_BLOCK` (the last one zero-padded), so every row meets the same
+    kernel at the same shape whether it is one of 1 (`generate`), of 4 (a
+    decode step) or of 20 (a verify step of 4 rows × 5 positions). ``b``
+    is widened once for all blocks. On the CPU, `matmul_f32`."""
+    if a.device.type != "cuda":
+        return matmul_f32(a, b)
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2 = a.reshape(-1, k).to(torch.float32)
+    m = a2.shape[0]
+    a2 = torch.cat([a2, a2.new_zeros(-m % ROW_BLOCK, k)])
+    wide = b.to(torch.float32)
+    outs = [torch.matmul(a2[i:i + ROW_BLOCK], wide)
+            for i in range(0, a2.shape[0], ROW_BLOCK)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out[:m].reshape(*lead, b.shape[-1])

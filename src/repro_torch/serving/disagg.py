@@ -20,7 +20,9 @@ token) — and runs them as SEPARATE engines with different batch shapes:
     own pool: fresh physical pages, scatter restore, and a re-admission
     that skips prefill entirely — the decode-side TTFT is pure transfer
     cost. Pages whose content-hash chain key is already in its prefix
-    index are aliased instead of transferred.
+    index are aliased instead of transferred. It keeps every engine
+    knob, speculation included: adopted slots decode with n-gram,
+    draft-model or tree verify rows like any other.
   * `DisaggController` — owns both engines behind the ordinary
     `submit()/step()/collect()/drain()` API. Placement follows the
     roofline split policy (`roofline.costmodel.disagg_report`): prompts
@@ -168,7 +170,8 @@ class PrefillEngine:
 class DecodeEngine:
     """The decode half: a `GenerationEngine` that adopts wired handoffs
     into its own pool and also serves ordinary requests (the controller
-    routes short prompts here whole)."""
+    routes short prompts here whole); with ``spec_decode`` set it
+    speculates on both."""
 
     def __init__(self, model, params, *, mesh=None, **kw):
         self.engine = GenerationEngine(model, params, mesh=mesh, **kw)

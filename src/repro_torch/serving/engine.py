@@ -38,10 +38,24 @@
   * disaggregated serving — `handoff_gather` / `handoff_wire` /
     `handoff_scatter` move a slot's pages between two engines' pools
     (`serving.disagg`).
+  * speculative decoding (chunked path only) — ``spec_decode="ngram"``
+    (prompt-lookup self-drafting) or ``"draft_model"`` (a greedy draft
+    model with its own dense ``[num_slots, max_seq]`` cache, prefilled
+    per slot through `Model.prefill`, kernel K4 on the card; or a custom
+    ``draft_fn``) proposes up to ``spec_k`` tokens per decoding slot. One
+    chunk step verifies every draft in one weight pass and gathers
+    ``spec_k + 1`` logits a row; acceptance runs on the device and only
+    the fix token, the accepted count (and a tree's path) come back to
+    the host, in one copy. ``spec_tree=True`` verifies token trees: each
+    node's logical position is its depth and its row's ancestor mask is
+    the attention mask of the span (kernel K2's ``rpos`` / ``amask`` on
+    int8 pools), and the accepted branch's KV is compacted into the
+    slots sequential decode would have written. Greedy streams equal
+    sequential decode's; sampled rows use residual acceptance with the
+    engine's seeded `torch.Generator`. ``spec_adaptive=True`` walks
+    ``spec_k`` (and the tree's fanout) from the measured acceptance.
 
-Not ported yet (each raises `NotImplementedError`): speculative decoding,
-tree speculation, draft models and meshes; their `EngineStats` counters
-stay 0.
+Not ported yet (raises `NotImplementedError`): meshes.
 """
 from __future__ import annotations
 
@@ -52,7 +66,7 @@ import torch
 
 from repro_torch.core.packing import PackedLinear
 from repro_torch.serving.kv_pager import (KVPager, PagerConfig, PagerStats,
-                                          commit_prefill)
+                                          _commit_dense_leaf, commit_prefill)
 from repro_torch.serving.scheduler import Request, Scheduler, SchedulerStats
 
 
@@ -62,8 +76,7 @@ class SamplerConfig:
     top_k: int = 0              # 0 ⇒ full softmax
 
 
-# the reference's default draft length, which its `stats()` reports as
-# ``spec_k_now`` while nothing speculates (speculation is not ported)
+# the draft length a one-shot scheduler reports (the scheduler's default)
 _SPEC_K = 4
 
 
@@ -71,9 +84,8 @@ _SPEC_K = 4
 class EngineStats:
     """One structured serving snapshot: the reference's fields, in its
     order. Pager occupancy, dispatch / packing accounting, speculative
-    acceptance (0 until speculation is ported), preemption and the host
-    KV tier, and the memory footprint of the page pools and weights (one
-    device: ``model_axis`` 1)."""
+    acceptance, preemption and the host KV tier, and the memory footprint
+    of the page pools and weights (one device: ``model_axis`` 1)."""
     pager: PagerStats
     # dispatch / packing
     dispatches: int               # steps issued
@@ -88,7 +100,7 @@ class EngineStats:
     draft_tokens: int
     accepted_tokens: int
     rollbacks: int
-    spec_k_now: int               # current draft length
+    spec_k_now: int               # current draft length (adaptive)
     spec_fanout_now: int          # current tree root fanout (1 = linear)
     # SLO preemption / host KV tier
     preemptions: int
@@ -104,7 +116,8 @@ class EngineStats:
     kv_pool_bytes_per_device: int
     kv_bytes_per_token: float
     # weight stream: resident bytes of the served params and the bytes
-    # streamed per emitted token (one weight pass per decode step)
+    # streamed per emitted token (one weight pass per decode step,
+    # amortized over spec-accepted tokens per row when speculating)
     weight_bytes: int
     weight_bytes_per_token: float
     # load snapshot a fleet router scores: requests waiting for a slot
@@ -119,10 +132,6 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.contiguous().numpy()
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 def _categorical(logits: torch.Tensor, gen: torch.Generator | None
@@ -148,6 +157,22 @@ def sample(logits: torch.Tensor, cfg: SamplerConfig,
     return _categorical(logits, gen).to(torch.int32)
 
 
+def _filter_logits(logits: torch.Tensor, temps: torch.Tensor,
+                   topks: torch.Tensor) -> torch.Tensor:
+    """logits ``[B, ..., V]`` scaled by each row's temperature (rows with
+    ``temps == 0`` by 1) and cut to its top-k (``topks == 0``: no cut)."""
+    v = logits.shape[-1]
+    row = (-1,) + (1,) * (logits.dim() - 1)
+    scaled = logits / torch.where(temps > 0, temps,
+                                  torch.ones_like(temps)).view(row)
+    desc = torch.sort(scaled, dim=-1, descending=True).values
+    kidx = torch.clip(topks.long() - 1, 0, v - 1).view(row).expand(
+        *scaled.shape[:-1], 1)
+    kth = torch.gather(desc, -1, kidx)
+    filtered = scaled.masked_fill(scaled < kth, -1e30)
+    return torch.where((topks > 0).view(row), filtered, scaled)
+
+
 def sample_batched(logits: torch.Tensor, temps: torch.Tensor,
                    topks: torch.Tensor,
                    gen: torch.Generator | None = None) -> torch.Tensor:
@@ -156,17 +181,114 @@ def sample_batched(logits: torch.Tensor, temps: torch.Tensor,
     Rows with ``temps == 0`` are greedy — plain argmax, bit-identical to
     `sample` with temperature 0; ``topks == 0`` disables the top-k filter.
     """
-    v = logits.shape[-1]
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    scaled = logits / torch.where(temps > 0, temps,
-                                  torch.ones_like(temps))[:, None]
-    desc = torch.sort(scaled, dim=-1, descending=True).values
-    kth = torch.gather(desc, 1, torch.clip(topks.long() - 1, 0, v - 1)[:, None])
-    filtered = torch.where(scaled < kth, torch.full_like(scaled, -1e30),
-                           scaled)
-    scaled = torch.where((topks > 0)[:, None], filtered, scaled)
-    sampled = _categorical(scaled, gen).to(torch.int32)
+    sampled = _categorical(_filter_logits(logits, temps, topks),
+                           gen).to(torch.int32)
     return torch.where(temps == 0.0, greedy, sampled)
+
+
+def _spec_gather_drafts(tokens: torch.Tensor, sample_idx: torch.Tensor,
+                        r: int):
+    """draft_next [B, R]: the input token each gathered logit must
+    predict — tokens at in-row index sample_idx + j + 1 (clipped;
+    indices past a row's run are masked by n_draft downstream); and j
+    [1, R]."""
+    c = tokens.shape[1]
+    j = torch.arange(r, dtype=torch.int32, device=tokens.device)[None, :]
+    nxt = torch.clip(sample_idx[:, None] + j + 1, 0, c - 1).long()
+    return torch.gather(tokens, 1, nxt), j
+
+
+def _tree_walk_greedy(g, tokens, parents, n_draft, depth: int):
+    """Device-side greedy tree acceptance: from the root (in-row index 0),
+    follow the child whose token equals the target argmax at the current
+    node, as deep as the matches go.
+
+    g ``[B, R]`` — the target argmax after each in-row position; tokens /
+    parents ``[B, C]`` (parent = in-row index, ``-1`` = none); n_draft
+    ``[B]`` node counts (nodes sit at in-row indices ``1 … n_draft``).
+    Returns ``(fix [B], n_acc [B], path [B, depth])`` int32 — the
+    corrected / bonus token (argmax at the deepest accepted node), the
+    accepted depth, and the accepted branch's in-row indices (0-padded).
+    Emitting ``path`` tokens then ``fix`` reproduces sequential greedy
+    decode token for token.
+    """
+    b, c = tokens.shape
+    dev = tokens.device
+    idx = torch.arange(c, device=dev)[None, :]
+    rmax = g.shape[1] - 1
+    cur = torch.zeros(b, dtype=torch.int64, device=dev)
+    n_acc = torch.zeros(b, dtype=torch.int32, device=dev)
+    path = torch.zeros((b, depth), dtype=torch.int32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for t in range(depth):
+        g_cur = torch.gather(g, 1, cur.clip(0, rmax)[:, None])
+        cand = ((parents == cur[:, None]) & (tokens == g_cur)
+                & (idx >= 1) & (idx <= n_draft[:, None]) & alive[:, None])
+        has = cand.any(1)
+        child = torch.argmax(cand.to(torch.int32), 1)   # first candidate
+        cur = torch.where(has, child, cur)
+        n_acc += has.to(torch.int32)
+        path[:, t] = torch.where(has, child, 0).to(torch.int32)
+        alive &= has
+    fix = torch.gather(g, 1, cur.clip(0, rmax)[:, None])[:, 0]
+    return fix, n_acc, path
+
+
+def _tree_walk_sampled(probs, tokens, parents, n_draft, depth: int,
+                       gen: torch.Generator | None):
+    """Multi-branch acceptance sampling over a token tree (SpecInfer-style
+    point-mass residuals), distribution-faithful per row.
+
+    At each accepted node the children are tried in in-row order: child
+    token x is accepted with probability ``p(x) / mass`` where ``p`` is
+    the target distribution at the node and ``mass`` the residual left by
+    previously rejected siblings (whose point mass is zeroed). When every
+    child is rejected the fix token is drawn from the residual; at a leaf
+    (or full depth) from the plain target — the bonus draw. ``probs [B,
+    R, V]`` must already be temperature / top-k filtered; one-hot rows
+    reduce exactly to `_tree_walk_greedy`. Draws come from ``gen``.
+    """
+    b, c = tokens.shape
+    dev = tokens.device
+    rmax = probs.shape[1] - 1
+    us = torch.rand((depth, c, b), generator=gen, device=dev)
+    bidx = torch.arange(b, device=dev)
+
+    def take_p(cur):
+        return probs[bidx, cur.clip(0, rmax)]
+
+    cur = torch.zeros(b, dtype=torch.int64, device=dev)
+    n_acc = torch.zeros(b, dtype=torch.int32, device=dev)
+    path = torch.zeros((b, depth), dtype=torch.int32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    p_bonus = torch.zeros((b, probs.shape[-1]), dtype=probs.dtype,
+                          device=dev)
+    for t in range(depth):
+        accepted = torch.zeros(b, dtype=torch.bool, device=dev)
+        child = torch.zeros(b, dtype=torch.int64, device=dev)
+        p_res = take_p(cur)
+        for j in range(1, c):
+            tok_j = tokens[:, j].long()
+            is_cand = (alive & ~accepted & (parents[:, j] == cur)
+                       & (j <= n_draft))
+            p_tok = p_res[bidx, tok_j]
+            mass = p_res.sum(1)
+            acc = is_cand & (us[t, j] * mass < p_tok)        # P = p_tok / mass
+            rej = is_cand & ~acc
+            p_res[bidx, tok_j] = torch.where(rej, 0.0, p_tok)
+            accepted |= acc
+            child = torch.where(acc, j, child)
+        stepped = alive & accepted
+        p_bonus = torch.where((alive & ~accepted)[:, None], p_res, p_bonus)
+        cur = torch.where(stepped, child, cur)
+        n_acc += stepped.to(torch.int32)
+        path[:, t] = torch.where(stepped, child, 0).to(torch.int32)
+        alive = stepped
+    p_bonus = torch.where(alive[:, None], take_p(cur), p_bonus)
+    safe = torch.where(p_bonus.sum(1, keepdim=True) > 0, p_bonus, 1.0)
+    fix = _categorical(torch.log(safe), gen).to(torch.int32)
+    return fix, n_acc, path
 
 
 def _tensor_bytes(tree) -> int:
@@ -189,18 +311,54 @@ class GenerationEngine:
                  num_pages: int | None = None, seed: int = 0,
                  kv_quant: str | None = None, prefill_chunk: int = 16,
                  chunked_prefill: bool | None = None,
-                 spec_decode: str | None = None, spec_tree: bool = False,
+                 spec_decode: str | None = None, spec_k: int = 4,
+                 spec_ngram_max: int = 3, spec_adaptive: bool = False,
+                 spec_tree: bool = False, spec_tree_fanout: int = 2,
                  draft_model=None, draft_params=None, draft_fn=None,
                  mesh=None, preemption: bool = False,
                  admission: str = "reserved"):
-        asked = {"speculative decoding (spec_decode)": spec_decode is not None,
-                 "tree speculation (spec_tree)": spec_tree,
-                 "draft models (draft_model / draft_params / draft_fn)":
-                     (draft_model, draft_params, draft_fn) != (None,) * 3,
-                 "mesh-sharded serving (mesh)": mesh is not None}
-        for what, requested in asked.items():
-            if requested:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded serving (mesh) is not ported to repro_torch "
+                "yet")
+        # speculative decoding: "ngram" (prompt-lookup self-drafter, no
+        # second model) or "draft_model" (greedy small-model drafter —
+        # pass draft_model + draft_params, or a custom draft_fn)
+        if spec_decode not in (None, "ngram", "draft_model"):
+            raise ValueError(f"unknown spec_decode {spec_decode!r}")
+        if spec_decode is not None and spec_k < 1:
+            raise ValueError("spec_k must be ≥ 1")
+        if spec_decode == "draft_model" and draft_model is None \
+                and draft_fn is None:
+            raise ValueError("spec_decode='draft_model' needs draft_model "
+                             "(+ draft_params) or a draft_fn")
+        if draft_model is not None and not self._cache_chunkable(
+                draft_model.init_paged_cache(2, page_size, device="meta")):
+            raise ValueError(
+                "draft_model keeps bounded per-slot sequential state "
+                "(ring/SSM/MLA) — the draft cache must be pure dense "
+                "full attention")
+        # tree speculation: drafts branch (a primary chain + alternate
+        # first tokens), one chunk step verifies every branch under the
+        # ancestor mask, and the device-side walk + KV compaction keep
+        # greedy streams token-identical to sequential decode
+        if spec_tree and spec_decode is None:
+            raise ValueError("spec_tree needs a drafter — set "
+                             "spec_decode='ngram' or 'draft_model'")
+        if spec_tree and spec_tree_fanout < 1:
+            raise ValueError("spec_tree_fanout must be ≥ 1")
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_adaptive = spec_adaptive
+        self.spec_tree = spec_tree
+        self.spec_tree_fanout = spec_tree_fanout
+        self.spec_ngram_max = spec_ngram_max
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self._custom_draft_fn = draft_fn
+        # KV positions `_tree_compact` moved (each one strip of every pool
+        # leaf in every layer), counted on the device
+        self.tree_moves = 0
         # SLO-aware preemption: priority classes on submit(), victim spill
         # to a host-memory page tier, zero-recompute restore.
         # admission="optimistic" drops the worst-case decode reservation
@@ -314,6 +472,10 @@ class GenerationEngine:
                 "chunked_prefill=True but the arch keeps bounded per-slot "
                 "sequential state (ring/SSM/MLA): only pure paged-attention "
                 "caches support the chunked path")
+        if self.spec_decode is not None and not chunked:
+            raise ValueError(
+                "spec_decode requires the chunked serving path (verify "
+                "runs are multi-token rows of the unified chunk dispatch)")
         if self.preemption and not chunked:
             raise ValueError(
                 "preemption requires the chunked serving path: restore "
@@ -323,8 +485,25 @@ class GenerationEngine:
         self._tables_version = -1
         self._tables_dev = None
         if chunked:
+            draft_fn = None
+            sched_spec = None
+            if self.spec_decode is not None:
+                sched_spec = "ngram" if self.spec_decode == "ngram" \
+                    else "draft_fn"
+                if self.spec_decode == "draft_model":
+                    draft_fn = self._custom_draft_fn
+                    if draft_fn is None:
+                        self._draft_init()
+                        draft_fn = self._draft_tree_fn if self.spec_tree \
+                            else self._draft_fn
             return Scheduler(pager, run_batch=self._exec_run_batch,
                              chunk_size=self.prefill_chunk,
+                             spec_decode=sched_spec, spec_k=self.spec_k,
+                             adaptive_spec_k=self.spec_adaptive,
+                             spec_tree=self.spec_tree,
+                             spec_tree_fanout=self.spec_tree_fanout,
+                             draft_fn=draft_fn,
+                             ngram_max=self.spec_ngram_max,
                              preemption=self.preemption,
                              spill_fn=(self._exec_spill
                                        if self.preemption else None),
@@ -364,18 +543,47 @@ class GenerationEngine:
 
     @torch.no_grad()
     def _exec_run_batch(self, tokens, pos, row_slots, sample_idx, temps,
-                        topks):
-        """One unified chunk step (the Scheduler's ``run_batch``)."""
+                        topks, n_draft=None, tree=None):
+        """One unified chunk step (the Scheduler's ``run_batch``). With
+        drafts in ``n_draft`` it is a verify step returning ``(fix,
+        n_acc)``; with ``tree`` a tree verify step returning ``(fix,
+        n_acc, path)``, the accepted branch's KV already compacted. Only
+        those integers come back to the host, in one copy."""
         dev = self.device
         tables = self._device_tables(self._context_bucket(int(pos.max())))
         page_table = tables[torch.as_tensor(row_slots, device=dev).long()]
+        args = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+                for a in (tokens, pos, sample_idx)]
+        greedy = not np.any(temps) and not np.any(topks)
+        if tree is not None or (n_draft is not None and n_draft.any()):
+            args.append(torch.as_tensor(n_draft, dtype=torch.int32,
+                                        device=dev))
+            if tree is not None:
+                args += [torch.as_tensor(tree[k], device=dev)
+                         for k in ("rpos", "amask", "parents")]
+                fn = self._tree_greedy if greedy else self._tree_sampled
+            else:
+                fn = self._spec_greedy if greedy else self._spec_sampled
+            if not greedy:
+                args += [torch.as_tensor(temps, dtype=torch.float32,
+                                         device=dev),
+                         torch.as_tensor(topks, dtype=torch.int32,
+                                         device=dev)]
+            res = fn(page_table, *args)
+            if tree is None:
+                out = torch.stack(res, 1).cpu().numpy()
+                return out[:, 0], out[:, 1]
+            fix, n_acc, path, moved = res
+            out = torch.cat([torch.stack([fix, n_acc, moved], 1), path],
+                            1).cpu().numpy()
+            self.tree_moves += int(out[:, 2].sum())
+            return out[:, 0], out[:, 1], out[:, 3:]
         logits, self._paged_cache = self.model.chunk_step(
-            self.params, self._paged_cache,
-            torch.as_tensor(tokens, dtype=torch.int32, device=dev),
-            torch.as_tensor(pos, dtype=torch.int32, device=dev),
-            torch.as_tensor(sample_idx, dtype=torch.int32, device=dev),
-            page_table=page_table)
-        return self._sample_rows(logits, temps, topks).cpu().numpy()
+            self.params, self._paged_cache, *args, page_table=page_table)
+        out = self._sample_rows(logits, temps, topks).cpu().numpy()
+        if n_draft is None:
+            return out
+        return out, np.zeros(out.shape[0], np.int32)
 
     def _sample_rows(self, logits, temps, topks) -> torch.Tensor:
         """Per-row sampling; all-greedy steps take a plain argmax."""
@@ -420,6 +628,297 @@ class GenerationEngine:
             torch.as_tensor(pos, dtype=torch.int32, device=dev),
             page_table=tables)
         return self._sample_rows(logits, temps, topks).cpu().numpy()
+
+    # --- speculative verify steps -----------------------------------------
+    # A verify row is a multi-token decode row of the unified chunk step:
+    # tokens[b, sample_idx[b] : sample_idx[b] + 1 + n_draft[b]] is the run
+    # [last_sampled, d_1 … d_k] at consecutive positions, and
+    # `chunk_step(num_logits = spec_k + 1)` returns the target
+    # distribution after each of them. Acceptance runs on the device, so
+    # the vocab-sized distributions never leave it: each row returns its
+    # leading-accept count and ONE corrected/bonus token.
+
+    def _verify_logits(self, page_table, tokens, pos, sample_idx,
+                       rpos=None, amask=None) -> torch.Tensor:
+        """One chunk step gathering ``spec_k + 1`` logits a row:
+        ``[B, spec_k + 1, V]`` f32; the pools update in place."""
+        logits, self._paged_cache = self.model.chunk_step(
+            self.params, self._paged_cache, tokens, pos, sample_idx,
+            page_table=page_table, num_logits=self.spec_k + 1, rpos=rpos,
+            amask=amask)
+        return logits
+
+    def _spec_greedy(self, page_table, tokens, pos, sample_idx, n_draft):
+        """Greedy verify: accept the longest draft prefix that matches the
+        argmax chain; the fix token is the argmax after it (the corrected
+        token on rejection, the bonus token on full acceptance) — exactly
+        the tokens sequential greedy decode would emit."""
+        logits = self._verify_logits(page_table, tokens, pos, sample_idx)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, R]
+        draft_next, j = _spec_gather_drafts(tokens, sample_idx, g.shape[1])
+        ok = (draft_next == g) & (j < n_draft[:, None])
+        n_acc = torch.cumprod(ok.to(torch.int32), 1).sum(1).to(torch.int32)
+        fix = torch.gather(g, 1, n_acc.long()[:, None])[:, 0]
+        return fix, n_acc
+
+    def _spec_sampled(self, page_table, tokens, pos, sample_idx, n_draft,
+                      temps, topks):
+        """Acceptance sampling for point-mass drafts, distribution-faithful
+        per row: draft d_j is accepted with probability p(d_j) under the
+        row's (temperature / top-k filtered) target distribution; on the
+        first rejection the fix token is drawn from the residual — the
+        target with d_j removed, renormalized — and on full acceptance
+        from the plain target at the bonus position. Greedy rows reduce to
+        the argmax chain of `_spec_greedy`; rows with ``n_draft == 0`` to
+        one plain sample at ``sample_idx``. Draws come from the engine's
+        seeded generator."""
+        logits = self._verify_logits(page_table, tokens, pos, sample_idx)
+        v = logits.shape[-1]
+        g = torch.argmax(logits, dim=-1).to(torch.int32)
+        scaled = _filter_logits(logits, temps, topks)
+        probs = torch.softmax(scaled, dim=-1)
+        draft_next, j = _spec_gather_drafts(tokens, sample_idx, g.shape[1])
+        p_draft = torch.gather(probs, -1, draft_next.long()[..., None])[..., 0]
+        u = torch.rand(p_draft.shape, generator=self._gen,
+                       device=p_draft.device)
+        greedy = (temps == 0.0)[:, None]
+        ok = torch.where(greedy, draft_next == g, u < p_draft)
+        ok &= j < n_draft[:, None]
+        n_acc = torch.cumprod(ok.to(torch.int32), 1).sum(1).to(torch.int32)
+        dmask = torch.nn.functional.one_hot(draft_next.long(), v).bool()
+        rej = _categorical(scaled.masked_fill(dmask, -1e30), self._gen)
+        bon = _categorical(scaled, self._gen)
+        # greedy rows: the residual argmax IS the global argmax (a greedy
+        # rejection means draft ≠ argmax), and the bonus is the argmax too
+        rej = torch.where(greedy, g, rej.to(torch.int32))
+        bon = torch.where(greedy, g, bon.to(torch.int32))
+        idx = n_acc.long()[:, None]
+        fix = torch.where(n_acc == n_draft, torch.gather(bon, 1, idx)[:, 0],
+                          torch.gather(rej, 1, idx)[:, 0])
+        return fix, n_acc
+
+    # --- tree-speculative verify steps ------------------------------------
+    # A tree verify row carries a whole token TREE at contiguous KV slots
+    # (node i at slot q + 1 + i, in node-index order): `chunk_step` runs
+    # ONE weight pass with the per-row ancestor mask routing each node's
+    # attention to exactly its own root path, and with ``rpos`` giving
+    # nodes their LOGICAL position q + depth(i) (siblings share a depth,
+    # so their RoPE angles match what sequential decode would use). The
+    # device-side walk picks the deepest accepted branch, and that
+    # branch's KV is compacted into the contiguous slots sequential
+    # decode would have written; after the host truncates the losing
+    # branches the pages hold what a sequential run would have written.
+
+    def _tree_compact(self, pt, q, path, n_acc) -> torch.Tensor:
+        """Move the accepted branch's strips into place; returns the moves
+        a row ([B] int32).
+
+        For accepted depth ``t`` (1-based) the node at in-row index
+        ``path[:, t-1]`` moves from KV slot ``q + path[:, t-1]`` to slot
+        ``q + t`` in every pool leaf (int8 codes and scale strips
+        included). The pools are updated in place, so each leaf gathers
+        every source strip into a temporary before its one scatter:
+        chained moves within a row cannot clobber each other. No-op moves
+        (node already in place), depths beyond ``n_acc`` and padding rows
+        (``q < 0``) are redirected to offset 0 of the scratch page 0.
+        Those duplicate destinations make the scatter's write order to
+        that one position undefined on CUDA, which is harmless only
+        because page 0 is never read: keep it so.
+        """
+        ps = self.page_size
+        t = torch.arange(1, path.shape[1] + 1, dtype=torch.int32,
+                         device=path.device)[None, :]
+        live = (t <= n_acc[:, None]) & (path != t) & (q[:, None] >= 0)
+        src = torch.where(live, q[:, None] + path, 0).long()
+        dst = torch.where(live, q[:, None] + t, 0).long()
+        pt = pt.long()
+        sp = torch.where(live, torch.gather(pt, 1, src // ps), 0).reshape(-1)
+        dp = torch.where(live, torch.gather(pt, 1, dst // ps), 0).reshape(-1)
+        so, do = (src % ps).reshape(-1), (dst % ps).reshape(-1)
+        for layers in self._paged_cache.values():
+            for entry in layers:
+                for leaf in entry["kv_pool"].values():
+                    leaf.index_put_((dp, do), leaf[sp, so])
+        return live.sum(1).to(torch.int32)
+
+    def _tree_greedy(self, page_table, tokens, pos, sample_idx, n_draft,
+                     rpos, amask, parents):
+        """Greedy tree verify: one weight pass over every branch, then the
+        argmax walk — emits exactly the tokens sequential greedy decode
+        would (rows with ``n_draft == 0`` degenerate to plain decode).
+        Returns ``(fix, n_acc, path, moves)``."""
+        logits = self._verify_logits(page_table, tokens, pos, sample_idx,
+                                     rpos, amask)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)
+        fix, n_acc, path = _tree_walk_greedy(g, tokens, parents, n_draft,
+                                             self.spec_k)
+        moved = self._tree_compact(page_table, pos[:, 0], path, n_acc)
+        return fix, n_acc, path, moved
+
+    def _tree_sampled(self, page_table, tokens, pos, sample_idx, n_draft,
+                      rpos, amask, parents, temps, topks):
+        """Sampled tree verify: residual acceptance over sibling branches
+        (`_tree_walk_sampled`); greedy rows ride a one-hot target, so
+        mixed-sampler steps keep their greedy rows argmax-exact."""
+        logits = self._verify_logits(page_table, tokens, pos, sample_idx,
+                                     rpos, amask)
+        v = logits.shape[-1]
+        g = torch.argmax(logits, dim=-1)
+        probs = torch.softmax(_filter_logits(logits, temps, topks), dim=-1)
+        probs = torch.where(
+            (temps == 0.0)[:, None, None],
+            torch.nn.functional.one_hot(g, v).to(probs.dtype), probs)
+        fix, n_acc, path = _tree_walk_sampled(probs, tokens, parents,
+                                              n_draft, self.spec_k, self._gen)
+        moved = self._tree_compact(page_table, pos[:, 0], path, n_acc)
+        return fix, n_acc, path, moved
+
+    # --- draft-model drafting (spec_decode="draft_model") -----------------
+    # The draft model keeps a DENSE per-slot cache [num_slots, max_seq]
+    # (it is small by construction — paging it would buy nothing): lazy
+    # per-slot prefill when a request starts decoding, then k + 1 greedy
+    # decode steps per scheduler step (the extra step writes the last
+    # draft's KV, so after full acceptance the draft cache is already
+    # caught up to the bonus token's position). Rejected-draft KV is
+    # simply overwritten — positions are absolute, and the next step's
+    # inputs rewrite every position past the accepted stream before any
+    # causal read can see it.
+
+    def _draft_init(self):
+        self._draft_cache = self.draft_model.init_cache(
+            self.num_slots, self.max_seq, device=self.device)
+        self._draft_rid: dict[int, int] = {}
+
+    def _draft_prefill(self, tokens: np.ndarray, slot: int) -> None:
+        """tokens [S] → the draft cache's rows 0..S-1 of ``slot`` rewritten.
+
+        ``tokens`` is the context zero-padded up to a geometric length
+        bucket (`_draft_bucket`), the reference's bound on its compiled
+        family. The pad tail's KV (a zero continuation of the real prefix)
+        lands at positions ≥ the real context length — exactly the
+        positions drafting rewrites before any causal read can see them,
+        the same dead-KV argument that covers rejected drafts.
+        """
+        toks = torch.as_tensor(tokens, dtype=torch.int32,
+                               device=self.device)[None]
+        pre = self.draft_model.init_cache(1, toks.shape[1],
+                                          device=self.device)
+        pre, _, _ = self.draft_model.prefill(self.draft_params,
+                                             {"tokens": toks}, pre)
+        for seg, layers in self._draft_cache.items():
+            for i, entry in enumerate(layers):
+                for k, leaf in entry["kv"].items():
+                    _commit_dense_leaf(leaf, pre[seg][i]["kv"][k], slot)
+
+    def _draft_bucket(self, n: int) -> int:
+        """Geometric draft-prefill length bucket covering ``n`` tokens."""
+        b = 8
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq)
+
+    def _draft_logits(self, tok: np.ndarray, posv: np.ndarray):
+        dev = self.device
+        logits, self._draft_cache = self.draft_model.decode_step(
+            self.draft_params, self._draft_cache,
+            torch.as_tensor(tok, dtype=torch.int32, device=dev),
+            torch.as_tensor(posv, dtype=torch.int32, device=dev))
+        return logits
+
+    def _draft_step(self, tok: np.ndarray, posv: np.ndarray) -> np.ndarray:
+        """One greedy draft decode step over every slot → argmax [B]."""
+        return torch.argmax(self._draft_logits(tok, posv), dim=-1).to(
+            torch.int32).cpu().numpy()
+
+    def _draft_top(self, tok: np.ndarray, posv: np.ndarray, f: int
+                   ) -> np.ndarray:
+        """Top-``f`` next tokens per row (column 0 = the argmax) — the
+        branching first step of tree drafting."""
+        return torch.topk(self._draft_logits(tok, posv), f, dim=-1).indices \
+            .to(torch.int32).cpu().numpy()
+
+    def _draft_catch_up(self, reqs) -> None:
+        """Prefill the draft cache of every slot whose request changed."""
+        for slot, rid, ctx, q, *_ in reqs:
+            if self._draft_rid.get(slot) != rid:   # slot reused: re-prefill
+                padded = np.zeros(self._draft_bucket(q), np.int32)
+                padded[:q] = ctx[:q]
+                self._draft_prefill(padded, slot)
+                self._draft_rid[slot] = rid
+
+    @torch.no_grad()
+    def _draft_fn(self, reqs):
+        """Scheduler drafting hook: [(slot, rid, ctx, next_pos, k_eff)] →
+        {slot: draft tokens} via greedy draft-model decode."""
+        self._draft_catch_up(reqs)
+        tok = np.zeros(self.num_slots, np.int32)
+        posv = np.zeros(self.num_slots, np.int32)
+        active: dict[int, int] = {}
+        for slot, _rid, ctx, q, k in reqs:
+            tok[slot] = int(ctx[-1])
+            posv[slot] = q
+            active[slot] = k
+        props: dict[int, list[int]] = {slot: [] for slot in active}
+        for i in range(max(active.values()) + 1):
+            nxt = self._draft_step(tok, posv)
+            for slot, k in active.items():
+                if i < k:
+                    props[slot].append(int(nxt[slot]))
+                    tok[slot] = int(nxt[slot])
+                    posv[slot] += 1
+                # i ≥ k: frozen — the row idempotently rewrites its last
+                # draft's KV (rows of inactive slots idle at position 0,
+                # which the next per-slot prefill rewrites)
+        return props
+
+    @torch.no_grad()
+    def _draft_tree_fn(self, reqs):
+        """Tree drafting hook (``spec_tree``): the draft model's top-
+        ``fanout`` first-step tokens branch the root — the top-1 opens
+        the primary chain (continued greedily), the rest become depth-1
+        alternates hedging a chain miss. Alternates consume node budget:
+        the chain keeps ``k_eff − #alternates`` nodes, so the row width
+        never exceeds the linear verify bucket. Same lazy per-slot
+        dense-cache prefill and idempotent-rewrite argument as
+        `_draft_fn`; requests carry a trailing ``fanout`` element."""
+        self._draft_catch_up(reqs)
+        tok = np.zeros(self.num_slots, np.int32)
+        posv = np.zeros(self.num_slots, np.int32)
+        chain: dict[int, int] = {}        # slot → chain length left
+        fans: dict[int, int] = {}
+        for slot, _rid, ctx, q, k, f in reqs:
+            tok[slot] = int(ctx[-1])
+            posv[slot] = q
+            chain[slot] = k
+            fans[slot] = f
+        fmax = max(max(fans.values()), 1)
+        nodes: dict[int, list[tuple[int, int]]] = {s: [] for s in chain}
+        last: dict[int, int] = {}         # slot → chain tip node index
+        alts: dict[int, list[int]] = {}
+        for i in range(max(chain.values()) + 1):
+            if i == 0:
+                top = self._draft_top(tok, posv, fmax)
+                nxt = top[:, 0]
+            else:
+                nxt = self._draft_step(tok, posv)
+            for slot, k in chain.items():
+                if i == 0:
+                    a = [int(t) for t in top[slot, 1:fans[slot]]][:k - 1]
+                    alts[slot] = a
+                    chain[slot] = k - len(a)   # chain keeps the rest
+                    nodes[slot].append((int(nxt[slot]), -1))
+                    last[slot] = 0
+                    tok[slot] = int(nxt[slot])
+                    posv[slot] += 1
+                elif i < chain[slot]:
+                    nodes[slot].append((int(nxt[slot]), last[slot]))
+                    last[slot] = len(nodes[slot]) - 1
+                    tok[slot] = int(nxt[slot])
+                    posv[slot] += 1
+                # i ≥ chain length: frozen, same dead-KV argument as above
+        for slot, a in alts.items():
+            nodes[slot].extend((t, -1) for t in a)
+        return nodes
 
     # --- host-memory page tier (preemption spill/restore) -----------------
     def _pool_leaves(self):
@@ -514,24 +1013,48 @@ class GenerationEngine:
         self._scatter({seg: {k: a[:, strip_idx] for k, a in leaves.items()}
                        for seg, leaves in strips.items()}, fresh_ids)
 
+    @torch.no_grad()
     def warmup(self) -> int:
         """Run one all-padding dispatch of every width the scheduler may
-        pick (`scheduler.width_family`), so the first request pays no
-        first-launch cost (kernel loads, allocator growth). Padding only
-        touches the scratch page and no counter of `stats()`. Returns the
-        number of dispatches run: 0 on the one-shot path, whose prefill
-        runs at each prompt's own length."""
+        pick (`scheduler.width_family`, verify widths included), so the
+        first request pays no first-launch cost (kernel loads, allocator
+        growth); under speculation each width of 2 or more also runs the
+        greedy verify step (and the tree verify step, with an all-false
+        ancestor mask). Padding only touches the scratch page and no
+        counter of `stats()`. Returns the number of dispatches run: 0 on
+        the one-shot path, whose prefill runs at each prompt's own
+        length."""
         if self._scheduler is None:
             self._scheduler = self._serving_init()
         if not self._scheduler.chunked:
             return 0
-        b = self.num_slots
-        zeros_i = np.zeros(b, np.int32)
+        b, dev = self.num_slots, self.device
+        n = 0
         for c in self._scheduler.width_buckets:
-            self._exec_run_batch(np.zeros((b, c), np.int32),
-                                 np.full((b, c), -1, np.int32), zeros_i,
-                                 zeros_i, np.zeros(b, np.float32), zeros_i)
-        return len(self._scheduler.width_buckets)
+            tokens = np.zeros((b, c), np.int32)
+            pos = np.full((b, c), -1, np.int32)
+            zeros_i = np.zeros(b, np.int32)
+            self._exec_run_batch(tokens, pos, zeros_i, zeros_i,
+                                 np.zeros(b, np.float32), zeros_i)
+            n += 1
+            if self.spec_decode is None or c < 2:
+                continue        # a width-1 row can never carry a draft
+            page_table = self._device_tables(self._context_bucket(0))[
+                torch.zeros(b, dtype=torch.long, device=dev)]
+            args = [torch.as_tensor(a, device=dev)
+                    for a in (tokens, pos, zeros_i, zeros_i)]
+            self._spec_greedy(page_table, *args)
+            n += 1
+            if self.spec_tree:
+                # padding rows: -1 logical positions and parents, and an
+                # all-false ancestor mask (nothing visible in the span)
+                none = args[1]
+                self._tree_greedy(
+                    page_table, *args, none,
+                    torch.zeros((b, c, c), dtype=torch.bool, device=dev),
+                    none)
+                n += 1
+        return n
 
     def submit(self, tokens, max_new_tokens: int,
                sampler: SamplerConfig | None = None,
@@ -643,10 +1166,18 @@ class GenerationEngine:
         if self._scheduler is None:
             st, queued = SchedulerStats(), 0
             pager_stats = KVPager(self._pager_config()).stats()
+            # what serving would start with: a chunked scheduler's draft
+            # length and fanout, or a one-shot scheduler's defaults
+            spec_k_now, fanout_now = (
+                (self.spec_k, min(self.spec_tree_fanout, 2)
+                 if self.spec_tree else 1)
+                if self.chunked_prefill is not False else (_SPEC_K, 1))
         else:
             st = self._scheduler.stats
             queued = len(self._scheduler.queue) + len(self._scheduler.preempted)
             pager_stats = self._scheduler.pager.stats()
+            spec_k_now = self._scheduler.spec_k_cur
+            fanout_now = self._scheduler.fanout_cur
         pool_bytes = self.paged_kv_page_bytes() * pager_stats.pages_total
         valid = st.dispatched_positions - st.padded_positions
         fixed_total = valid + st.padded_positions_fixed
@@ -664,8 +1195,8 @@ class GenerationEngine:
             draft_tokens=st.draft_tokens,
             accepted_tokens=st.accepted_tokens,
             rollbacks=st.rollbacks,
-            spec_k_now=_SPEC_K,
-            spec_fanout_now=1,
+            spec_k_now=spec_k_now,
+            spec_fanout_now=fanout_now,
             preemptions=st.preemptions,
             pressure_spills=st.pressure_spills,
             restores=st.restores,

@@ -990,3 +990,11 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
                     _commit_paged_leaf(pool, pre_kv[k], pages, page_size,
                                        start_page=start_page)
     return cache
+
+
+def _commit_dense_leaf(slot_cache: torch.Tensor, pre: torch.Tensor,
+                       slot: int) -> None:
+    """pre [1, S, ...] → slot row prefix of ``slot_cache [num_slots,
+    S_max, ...]``, in place (a draft model's dense per-slot cache)."""
+    s = pre.shape[1]
+    slot_cache[slot, :s] = pre[0].to(slot_cache.dtype)

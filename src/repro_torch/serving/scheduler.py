@@ -1,21 +1,37 @@
 """Continuous-batching request scheduler.
 
-A numpy copy of the reference package's `serving/scheduler.py`, cut to
-the paths the port runs so far. Two execution models over the same
-admission/eviction machinery:
+A numpy copy of the reference package's `serving/scheduler.py`. Two
+execution models over the same admission/eviction machinery:
 
   * chunked (token-budget) scheduling — every `step()` issues ONE
     fixed-shape dispatch of ``num_slots × c`` token positions, where each
-    row is one slot's **token run**: a single decode token or a prefill
-    chunk (a lone long prompt drains the whole idle budget across several
+    row is one slot's **token run**: a single decode token, a speculative
+    draft/verify run of up to ``spec_k + 1`` tokens, or a prefill chunk
+    (a lone long prompt drains the whole idle budget across several
     rows). Rows declare their true run length and ``c`` is the smallest
     width bucket covering the longest run this step, so steps with only
-    decode rows narrow to ``c = 1``. The first token is sampled in the
-    same dispatch whose chunk commits the last prompt token. The width
-    family stays bounded at O(log chunk) buckets.
+    plain decode rows narrow to ``c = 1``. The first token is sampled in
+    the same dispatch whose chunk commits the last prompt token. The
+    width family stays bounded at O(log chunk + log spec_k) buckets.
   * one-shot scheduling — per-request prefill fused with page commit and
     first-token sampling at admission, then single-token decode over all
     slots.
+
+Speculative decoding (chunked mode only) rides the token-run
+generalization: a drafter proposes up to ``spec_k`` tokens per decoding
+slot — the built-in **n-gram prompt-lookup self-drafter** (the slot's
+own context predicts its continuation) or an engine-supplied
+``draft_fn`` (a draft model) — and the slot's row becomes
+``[last_token, d_1, …, d_k]`` at consecutive positions. One dispatch
+verifies every draft in one weight pass; the executor returns how many
+leading drafts the target accepted plus one corrected/bonus token, and
+rejected suffixes roll the KV watermark back via `KVPager.truncate`.
+Under ``spec_tree`` the drafts are token trees (a primary chain plus
+alternate first tokens): each node sits at its own KV slot, its logical
+position is its depth, and the row's ancestor closure is the attention
+mask of its span; the executor walks the tree on the device and returns
+the accepted branch. ``adaptive_spec_k`` walks the draft length (and
+the tree's root fanout, the other way) from an EMA of the acceptance.
 
 Admission is FIFO within priority when a slot is free and the pager can
 cover the request's worst-case KV footprint; EOS/budget eviction
@@ -43,18 +59,14 @@ SLO-aware preemption (``preemption=True``, chunked mode only):
     `restore` re-enters the chunk dispatch at the pager's commit
     watermark with **zero recompute**.
   * Under ``PagerConfig.optimistic`` admission the scheduler also runs a
-    pre-dispatch **pressure check**: if this step's decode extends would
-    drain the free pool, victims are spilled (same score) before packing,
-    which keeps `extend` infallible at dispatch time.
+    pre-dispatch **pressure check**: if this step's decode/verify
+    extends would drain the free pool, victims are spilled (same score)
+    before packing, which keeps `extend` infallible at dispatch time.
 
 Disaggregated serving (`serving.disagg`): a rid in ``handoff_rids``
 parks its slot in ``ready_handoffs`` when its first token is sampled,
 instead of decoding here, and `admit_handoff` adopts a shipped slot as an
 already-decoding one.
-
-Speculative decoding (linear and tree) is not ported yet; its
-`SchedulerStats` counters are declared all the same (the reference's
-full set, in its order) and stay 0.
 
 The scheduler is device-agnostic: it talks to the engine through the
 ``run_batch`` (chunked) or ``prefill_commit`` + ``decode`` (one-shot)
@@ -72,16 +84,122 @@ import numpy as np
 from repro_torch.serving.kv_pager import KVPager, SpillRecord
 
 
-def width_family(chunk_size: int) -> list[int]:
-    """Column-width buckets the token-budget packer may dispatch: powers
-    of two up to ``chunk_size`` plus ``chunk_size`` itself, so rows are
+def ngram_propose(ctx: np.ndarray, k: int, max_n: int = 3,
+                  min_n: int = 1, window: int = 512) -> list[int]:
+    """Prompt-lookup drafting: continue ``ctx`` by matching its suffix.
+
+    Finds the longest suffix n-gram (``max_n`` down to ``min_n``) that
+    occurred earlier in ``ctx`` and proposes up to ``k`` tokens that
+    followed its most recent earlier occurrence. Returns ``[]`` when
+    nothing matches — the slot falls back to plain single-token decode.
+    This is the self-drafting mode: repetitive text (code, templated
+    chat, lists) drafts itself with no second model.
+
+    The match scans only the trailing ``window`` tokens, so per-step
+    drafting cost is O(window), not O(context) — long streams don't turn
+    the host-side drafter into a quadratic scan (recent context is also
+    where the predictive repetition lives).
+    """
+    ctx = np.asarray(ctx)
+    if window and len(ctx) > window:
+        ctx = ctx[-window:]
+    ln = len(ctx)
+    for n in range(min(max_n, ln - 1), min_n - 1, -1):
+        tail = ctx[ln - n:]
+        # windows over ctx[:-1]: every match has at least one continuation
+        # token, and the suffix itself (start ln - n) is never a candidate
+        win = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+        hits = np.nonzero((win == tail).all(axis=1))[0]
+        if len(hits):
+            start = int(hits[-1]) + n          # most recent occurrence
+            cont = ctx[start:start + k]
+            if cont.size:
+                return [int(t) for t in cont]
+    return []
+
+
+def ngram_propose_tree(ctx: np.ndarray, budget: int, fanout: int,
+                       max_n: int = 3, min_n: int = 1,
+                       window: int = 512) -> list[tuple[int, int]]:
+    """Prompt-lookup drafting, tree-shaped: ``[(token, parent), …]``.
+
+    Like `ngram_propose`, but instead of a single chain the proposal is a
+    token TREE of at most ``budget`` nodes: a primary chain continued
+    from the suffix's most recent earlier occurrence, plus up to
+    ``fanout - 1`` depth-1 **alternate** first tokens taken from older
+    occurrence sites whose continuations start differently. Each node is
+    ``(token, parent)`` with ``parent`` the node index of its parent
+    (``-1`` = the root, i.e. the slot's last sampled token); parents
+    always precede children (topological order), which the device-side
+    acceptance walk and the KV-slot layout both rely on. Alternates hedge
+    the chain: when the target rejects the primary first token, a
+    matching alternate still salvages one accepted token from the same
+    weight pass. Returns ``[]`` when nothing matches.
+    """
+    ctx = np.asarray(ctx)
+    if window and len(ctx) > window:
+        ctx = ctx[-window:]
+    ln = len(ctx)
+    for n in range(min(max_n, ln - 1), min_n - 1, -1):
+        tail = ctx[ln - n:]
+        win = np.lib.stride_tricks.sliding_window_view(ctx[:-1], n)
+        hits = np.nonzero((win == tail).all(axis=1))[0]
+        if not len(hits):
+            continue
+        start = int(hits[-1]) + n              # most recent occurrence
+        first = int(ctx[start])
+        # depth-1 alternates: older sites with DISTINCT first tokens
+        alts: list[int] = []
+        seen = {first}
+        for h in hits[-2::-1]:
+            if len(alts) >= fanout - 1:
+                break
+            t2 = int(ctx[int(h) + n])
+            if t2 not in seen:
+                seen.add(t2)
+                alts.append(t2)
+        chain_len = max(1, budget - len(alts))
+        alts = alts[:budget - chain_len]
+        chain = [int(t) for t in ctx[start:start + chain_len]]
+        if not chain:
+            continue
+        nodes = [(chain[0], -1)]
+        for i, t in enumerate(chain[1:]):
+            nodes.append((t, i))               # chain: parent = predecessor
+        nodes.extend((t, -1) for t in alts)    # alternates branch the root
+        return nodes
+    return []
+
+
+def spec_k_buckets(spec_k_max: int) -> list[int]:
+    """Draft-length buckets adaptive speculation moves through: powers of
+    two up to ``spec_k_max``, plus ``spec_k_max`` itself. Bounded at
+    O(log k), so the verify-width family stays bounded too."""
+    ks = {1, spec_k_max}
+    k = 2
+    while k < spec_k_max:
+        ks.add(k)
+        k *= 2
+    return sorted(ks)
+
+
+def width_family(chunk_size: int, spec_k: int = 0) -> list[int]:
+    """Column-width buckets the token-budget packer may dispatch.
+
+    Powers of two up to ``chunk_size`` (plus ``chunk_size`` itself and,
+    under speculative decoding, the verify-run width ``kb + 1`` for every
+    draft-length bucket adaptive ``spec_k`` may visit), so the
+    step-width family stays O(log chunk + log k) wide while rows are
     padded only to the smallest bucket covering the step's longest
-    declared run."""
+    declared run — not unconditionally to the prefill chunk width.
+    """
     widths = {1, chunk_size}
     w = 2
     while w < chunk_size:
         widths.add(w)
         w *= 2
+    if spec_k:
+        widths.update(kb + 1 for kb in spec_k_buckets(spec_k))
     return sorted(widths)
 
 
@@ -142,7 +260,7 @@ class SchedulerStats:
     prefill_tokens: int = 0       # prompt tokens run through the model
     #                               (counted on the chunked path only)
     prefill_tokens_skipped: int = 0   # aliased prompt tokens never re-run
-    # --- speculative decoding (not ported: stay 0) -----------------------
+    # --- speculative decoding -------------------------------------------
     spec_rows: int = 0            # draft/verify runs dispatched
     draft_tokens: int = 0         # draft tokens proposed and verified
     accepted_tokens: int = 0      # draft tokens the target accepted
@@ -181,7 +299,7 @@ class SchedulerStats:
     @property
     def spec_tokens_per_row(self) -> float:
         """Mean tokens emitted per draft/verify run (accepted + the
-        corrected/bonus token); 0 while nothing speculated."""
+        corrected/bonus token); 1.0 means drafting never helped."""
         return (self.accepted_tokens + self.spec_rows) / max(self.spec_rows,
                                                              1)
 
@@ -202,8 +320,30 @@ class Scheduler:
         the paged cache (row b reads/writes slot ``row_slots[b]``'s
         pages) and returns, per row, the token sampled at ``sample_idx``
         (consumed only for rows that finished their prompt or decoded).
+        Under speculative decoding the call carries an extra keyword
+        ``n_draft [B]`` (draft tokens per row — the run is
+        ``tokens[b, sample_idx[b] : sample_idx[b] + 1 + n_draft[b]]``)
+        and must return ``(fix_tok [B], n_acc [B])``: the leading-accept
+        count against the target distribution and the corrected (on
+        rejection) or bonus (on full acceptance) token sampled at index
+        ``n_acc``. Rows with ``n_draft == 0`` degenerate to the plain
+        contract (``n_acc = 0``, ``fix_tok`` = the sampled token).
+        Under ``spec_tree`` steps carrying at least one tree row add a
+        keyword ``tree={"rpos", "amask", "parents"}`` (logical
+        positions, per-row ancestor-closure visibility blocks, in-row
+        parent indices) and must return ``(fix_tok, n_acc, path)`` with
+        ``path [B, spec_k]`` the accepted branch's in-row node indices —
+        the executor walks the tree on the device and compacts the
+        winning branch's KV into contiguous slots before returning.
       * prefill_commit(request, slot, pages, n_shared) → first token;
         decode(page_tables, token, pos, temps, topks) → next tokens.
+
+    ``spec_decode``: ``None`` (off), ``"ngram"`` (built-in prompt-lookup
+    self-drafter), or ``"draft_fn"`` with a ``draft_fn`` callable
+    ``[(slot, rid, ctx, next_pos, k_eff)] → {slot: [tokens]}`` (the
+    engine's draft-model hook, or a custom drafter in tests). Draft
+    length is capped per slot at ``min(spec_k, budget_left - 1)`` so a
+    verify run can never write KV past the slot's admitted reservation.
 
     ``preemption=True`` (chunked only) enables victim spill to the host
     tier; ``spill_fn(phys_ids) → handle`` gathers the pages' bytes BEFORE
@@ -216,6 +356,13 @@ class Scheduler:
                  decode: Callable | None = None,
                  run_batch: Callable | None = None,
                  chunk_size: int = 16,
+                 spec_decode: str | None = None,
+                 spec_k: int = 4,
+                 adaptive_spec_k: bool = False,
+                 spec_tree: bool = False,
+                 spec_tree_fanout: int = 2,
+                 draft_fn: Callable | None = None,
+                 ngram_max: int = 3,
                  preemption: bool = False,
                  spill_fn: Callable | None = None,
                  restore_fn: Callable | None = None):
@@ -228,11 +375,49 @@ class Scheduler:
         elif prefill_commit is None or decode is None:
             raise ValueError("need run_batch (chunked) or "
                              "prefill_commit + decode (one-shot)")
+        if spec_decode not in (None, "ngram", "draft_fn"):
+            raise ValueError(f"unknown spec_decode {spec_decode!r}")
+        if spec_decode is not None:
+            if not self.chunked:
+                raise ValueError("speculative decoding requires the "
+                                 "chunked (token-budget) execution path")
+            if spec_k < 1:
+                raise ValueError("spec_k must be ≥ 1")
+            if spec_decode == "draft_fn" and draft_fn is None:
+                raise ValueError("spec_decode='draft_fn' needs a draft_fn")
+        if spec_tree:
+            if spec_decode is None:
+                raise ValueError("spec_tree needs a drafter "
+                                 "(spec_decode='ngram' or 'draft_fn')")
+            if spec_tree_fanout < 1:
+                raise ValueError("spec_tree_fanout must be ≥ 1")
         self._run_batch = run_batch
         self._prefill_commit = prefill_commit
         self._decode = decode
         self.chunk_size = chunk_size
-        self.width_buckets = width_family(chunk_size)
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k              # max draft length (static cap)
+        self._draft_fn = draft_fn
+        self.ngram_max = ngram_max
+        # adaptive draft length: walk spec_k_cur through the bucket family
+        # {1, 2, 4, …, spec_k} from an EMA of the measured per-step
+        # acceptance fraction. The verify dispatch always gathers
+        # spec_k + 1 logits a row, so adapting k only changes the packed
+        # row widths.
+        self.adaptive_spec_k = adaptive_spec_k
+        self.spec_k_cur = spec_k
+        self._k_buckets = spec_k_buckets(spec_k)
+        self._accept_ema: float | None = None
+        # tree speculation: drafts become (token, parent) node lists and
+        # the executor's device-side walk returns the deepest accepted
+        # path. ``fanout_cur`` GROWS when acceptance is low (alternates
+        # hedge a missing primary chain) and shrinks back toward 1 when
+        # the chain keeps hitting.
+        self.spec_tree = spec_tree
+        self.spec_tree_fanout = spec_tree_fanout
+        self.fanout_cur = min(spec_tree_fanout, 2) if spec_tree else 1
+        self.width_buckets = width_family(
+            chunk_size, spec_k if spec_decode is not None else 0)
         if preemption and not self.chunked:
             raise ValueError("preemption requires the chunked "
                              "(token-budget) execution path")
@@ -490,11 +675,10 @@ class Scheduler:
 
     def _relieve_pressure(self, drafts: dict[int, list[int]]) -> None:
         """Optimistic admission's safety valve, run before packing a
-        chunked step: if the decode extends this step will draw more
-        pages than the free pool holds, spill victims (any class — pool
-        pressure outranks SLO) until the step fits. ``drafts`` is the
-        reference's per-slot draft proposals, empty until speculation is
-        ported."""
+        chunked step: if the decode/verify extends this step will draw
+        more pages than the free pool holds, spill victims (any class —
+        pool pressure outranks SLO) until the step fits. Victims lose
+        their draft proposals along with their row."""
         if not self.pager.cfg.optimistic:
             return
         pager = self.pager
@@ -528,31 +712,105 @@ class Scheduler:
                 return True
         return False
 
+    # ---------------------------------------------------- speculative drafts
+    def _propose_drafts(self) -> dict:
+        """Per decoding slot, up to ``spec_k`` draft tokens for this step.
+
+        Draft length is capped at the slot's remaining budget minus one
+        (the corrected/bonus token), so a verify run never writes KV past
+        position ``prompt + max_new − 2`` — inside the reservation
+        `alloc_slot` already holds, which is what keeps `extend` for
+        verify runs infallible. Empty proposals fall back to plain
+        decode rows.
+
+        Under ``spec_tree`` proposals are ``[(token, parent), …]`` node
+        lists (parent = node index, ``-1`` = root) with the same total
+        node cap — a tree occupies one KV slot per node, so the budget
+        argument is identical. A ``draft_fn`` drafter receives an extra
+        trailing ``fanout`` element per request and must return node
+        lists in topological order (parents before children).
+        """
+        tree = self.spec_tree
+        out: dict = {}
+        reqs: list[tuple] = []
+        caps: dict[int, int] = {}
+        for slot, st in self.slots.items():
+            if st.prefilling:
+                continue
+            r = st.request
+            k_eff = min(self.spec_k_cur,
+                        r.max_new_tokens - len(st.generated) - 1)
+            if k_eff <= 0:
+                continue
+            ctx = np.concatenate([r.tokens,
+                                  np.asarray(st.generated, np.int32)])
+            if self.spec_decode == "ngram":
+                prop = (ngram_propose_tree(ctx, k_eff, self.fanout_cur,
+                                           self.ngram_max) if tree
+                        else ngram_propose(ctx, k_eff, self.ngram_max))
+                if prop:
+                    out[slot] = prop
+            else:
+                reqs.append((slot, r.rid, ctx, st.next_pos, k_eff,
+                             self.fanout_cur) if tree
+                            else (slot, r.rid, ctx, st.next_pos, k_eff))
+                caps[slot] = k_eff
+        if reqs:
+            for slot, prop in (self._draft_fn(reqs) or {}).items():
+                cap = caps.get(slot, 0)
+                if tree:
+                    prop = [(int(t), int(par)) for t, par in prop][:cap]
+                    if any(par >= i for i, (_, par) in enumerate(prop)):
+                        raise ValueError(
+                            f"draft_fn returned a non-topological tree "
+                            f"for slot {slot}: every parent index must "
+                            f"precede its child")
+                else:
+                    prop = [int(t) for t in prop][:cap]
+                if prop:
+                    out[slot] = prop
+        return out
+
     # ------------------------------------------- chunked (token-budget) step
     def _step_chunked(self, events: list[tuple[int, int]]) -> None:
-        """One fixed-shape dispatch packing prefill chunks + decode rows.
+        """One fixed-shape dispatch packing prefill chunks + token runs.
 
         The dispatch is a ``[num_slots, c]`` token block — the step's
-        token budget. Each decoding slot takes one row holding its single
-        decode token; the remaining rows are handed to prefilling slots
-        in admission order as consecutive chunks, so a lone long prompt
-        drains the whole idle budget instead of one chunk per step. Rows
-        carry their slot in ``row_slots`` (the executor gathers that
-        slot's page-table row per dispatch row).
+        token budget. Each decoding slot takes one row holding its token
+        run (the single decode token, or ``[last, d_1 … d_k]`` for a
+        speculative verify run at consecutive positions); the remaining
+        rows are handed to prefilling slots in admission order as
+        consecutive chunks, so a lone long prompt drains the whole idle
+        budget instead of one chunk per step. Rows carry their slot in
+        ``row_slots`` (the executor gathers that slot's page-table row
+        per dispatch row).
+
+        Every row declares its true run length and ``c`` is the smallest
+        width bucket covering the longest one (a prefilling slot wants
+        ``min(chunk_size, remaining)``) — decode rows are no longer
+        padded to the prefill chunk width when only a short tail chunk
+        is in flight, and pure-decode steps narrow to ``c = 1`` (or the
+        verify-run bucket). The widths stay within `width_family`.
         """
         b = self.num_slots
+        drafts = self._propose_drafts() if self.spec_decode is not None \
+            else {}
         if self.preemption:
             # optimistic admission: make sure this step's extends fit the
             # free pool BEFORE packing rows (victims lose their row)
-            self._relieve_pressure({})
+            self._relieve_pressure(drafts)
             if not self.slots:
                 return
         prefilling = [s for s, st in self.slots.items() if st.prefilling]
         want = 1
+        for slot, st in self.slots.items():
+            if not st.prefilling:
+                want = max(want, 1 + len(drafts.get(slot, ())))
         if prefilling:
-            want = max(min(self.chunk_size,
-                           len(self.slots[s].request.tokens)
-                           - self.slots[s].committed) for s in prefilling)
+            want = max(want, max(
+                min(self.chunk_size,
+                    len(self.slots[s].request.tokens)
+                    - self.slots[s].committed) for s in prefilling))
         c = next(w for w in self.width_buckets if w >= want)
         tokens = np.zeros((b, c), np.int32)
         pos = np.full((b, c), -1, np.int32)
@@ -560,19 +818,49 @@ class Scheduler:
         temps = np.zeros(b, np.float32)
         topks = np.zeros(b, np.int32)
         sample_idx = np.zeros(b, np.int32)
+        n_draft = np.zeros(b, np.int32)
         sample_row: dict[int, int] = {}       # slot → row holding its sample
         chunk_tok: dict[int, int] = {}        # slot → prompt tokens this step
+        run_q: dict[int, int] = {}            # slot → base pos of its run
+        row_draft: dict[int, list] = {}       # slot → drafts in its run
+        tree_rows: dict[int, tuple] = {}      # row → packed tree metadata
         row = 0
-        for slot, st in self.slots.items():   # decode rows first
+        for slot, st in self.slots.items():   # decode/verify rows first
             if st.prefilling:
                 continue
             r = st.request
+            d = drafts.get(slot, [])
+            n = 1 + len(d)
             q = st.next_pos
             tokens[row, 0] = st.generated[-1]
-            pos[row, 0] = q
+            if d and self.spec_tree:
+                # tree verify row: node i sits at KV slot q + 1 + i (the
+                # pager's extend/truncate stay contiguous), its LOGICAL
+                # position is q + depth(i) (siblings share a depth, not a
+                # slot), and the ancestor closure becomes the row's
+                # intra-chunk visibility block
+                tokens[row, 1:n] = [t for t, _ in d]
+                dep = np.zeros(n, np.int32)
+                anc = np.zeros((n, n), bool)
+                anc[0, 0] = True
+                par_inrow = np.full(n, -1, np.int32)
+                for i, (_t, par) in enumerate(d):
+                    j = 1 + i
+                    pj = 1 + par if par >= 0 else 0
+                    par_inrow[j] = pj
+                    dep[j] = dep[pj] + 1
+                    anc[j] = anc[pj]
+                    anc[j, j] = True
+                tree_rows[row] = (n, q, dep, anc, par_inrow)
+            elif d:
+                tokens[row, 1:n] = d
+            pos[row, :n] = np.arange(q, q + n)
             row_slots[row] = slot
-            self.pager.extend(slot, q + 1)
+            self.pager.extend(slot, q + n)
             sample_row[slot] = row
+            run_q[slot] = q
+            row_draft[slot] = d
+            n_draft[row] = len(d)
             temps[row] = r.temperature
             topks[row] = r.top_k
             row += 1
@@ -604,10 +892,36 @@ class Scheduler:
         self.stats.dispatched_positions += b * c
         self.stats.padded_positions += b * c - valid
         self.stats.padded_positions_fixed += b * c_fixed - valid
-        sampled = self._run_batch(tokens, pos, row_slots, sample_idx,
-                                  temps, topks)
+        path_arr = None
+        if self.spec_decode is None:
+            sampled = self._run_batch(tokens, pos, row_slots, sample_idx,
+                                      temps, topks)
+            fix_tok, n_acc = sampled, np.zeros(b, np.int32)
+        elif tree_rows:
+            # tree verify: rpos carries logical (depth) positions, amask
+            # the per-row ancestor closure (plain causality elsewhere),
+            # parents the in-row walk topology. The executor returns the
+            # deepest accepted path as in-row node indices.
+            rpos = pos.copy()
+            amask = np.broadcast_to(np.tril(np.ones((c, c), bool)),
+                                    (b, c, c)).copy()
+            parents = np.full((b, c), -1, np.int32)
+            for trow, (n, q, dep, anc, par_inrow) in tree_rows.items():
+                rpos[trow, :n] = q + dep
+                amask[trow] = False
+                amask[trow, :n, :n] = anc
+                parents[trow, :n] = par_inrow
+            fix_tok, n_acc, path_arr = self._run_batch(
+                tokens, pos, row_slots, sample_idx, temps, topks,
+                n_draft=n_draft,
+                tree={"rpos": rpos, "amask": amask, "parents": parents})
+        else:
+            fix_tok, n_acc = self._run_batch(tokens, pos, row_slots,
+                                             sample_idx, temps, topks,
+                                             n_draft=n_draft)
         self.stats.decode_steps += 1
         self.stats.slot_steps += b
+        step_drafted = step_accepted = 0
         for slot in list(self.slots):
             st = self.slots[slot]
             if slot in chunk_tok:
@@ -616,26 +930,87 @@ class Scheduler:
             row = sample_row.get(slot)
             if row is None or st.prefilling:
                 continue                      # mid-prefill: nothing sampled
-            if slot in chunk_tok and st.request.prefix_id is not None:
+            first = slot in chunk_tok         # prompt completed this step
+            if first and st.request.prefix_id is not None:
                 # register on the final chunk: the whole prompt is resident
                 self.pager.register_prefix(slot, st.request.tokens,
                                            st.request.prefix_id)
-            first = slot in chunk_tok         # prompt completed this step
-            tok = int(sampled[row])
-            st.generated.append(tok)
-            events.append((st.request.rid, tok))
-            if not first:                     # a decode row, not a first token
+            if first:
+                tok = int(fix_tok[row])
+                st.generated.append(tok)
+                events.append((st.request.rid, tok))
+                if st.done:
+                    self._finish(slot)
+                elif st.request.rid in self.handoff_rids:
+                    # disagg handoff point: the prompt's KV is fully
+                    # committed and the first token is sampled — park the
+                    # slot for export instead of decoding here. The pager
+                    # slot stays live (pages intact) until the controller
+                    # gathers its bytes and frees it.
+                    self.slots.pop(slot)
+                    self.ready_handoffs.append((st, slot))
+                continue
+            # decode / verify row: emit the accepted draft prefix plus the
+            # corrected (rejection) or bonus (full-acceptance) token,
+            # stopping at EOS / budget mid-run. Tree rows read the
+            # accepted tokens off the returned path (in-row node indices,
+            # deepest accepted branch); linear rows off the draft prefix.
+            d = row_draft.get(slot, [])
+            na = min(int(n_acc[row]), len(d))
+            if self.spec_tree and d:
+                emit = [d[int(path_arr[row, t]) - 1][0] for t in range(na)]
+            else:
+                emit = d[:na]
+            for tok in emit + [int(fix_tok[row])]:
+                st.generated.append(tok)
+                events.append((st.request.rid, tok))
                 self.stats.slot_tokens += 1
+                if st.done:
+                    break
+            if d:
+                self.stats.spec_rows += 1
+                self.stats.draft_tokens += len(d)
+                self.stats.accepted_tokens += na
+                step_drafted += len(d)
+                step_accepted += na
             if st.done:
                 self._finish(slot)
-            elif first and st.request.rid in self.handoff_rids:
-                # disagg handoff point: the prompt's KV is fully committed
-                # and the first token is sampled — park the slot for
-                # export instead of decoding here. The pager slot stays
-                # live (pages intact) until the controller gathers its
-                # bytes and frees it.
-                self.slots.pop(slot)
-                self.ready_handoffs.append((st, slot))
+            elif na < len(d):
+                # rejected suffix: roll the KV watermark (and any pages
+                # drawn for it) back so the cache matches the stream
+                self.stats.rollbacks += 1
+                self.stats.rollback_pages += self.pager.truncate(
+                    slot, run_q[slot] + na + 1)
+        if self.adaptive_spec_k and step_drafted:
+            self._adapt_spec_k(step_accepted / step_drafted)
+
+    # EMA half-life of one drafting step; hysteresis band so k doesn't
+    # flap on a borderline drafter (one bucket move per step, at most)
+    _EMA_ALPHA = 0.5
+    _SHRINK_BELOW = 0.35
+    _GROW_ABOVE = 0.65
+
+    def _adapt_spec_k(self, frac: float) -> None:
+        """Fold one step's acceptance fraction into the EMA and move
+        ``spec_k_cur`` one bucket within {1, 2, 4, …, spec_k}."""
+        a = self._EMA_ALPHA
+        self._accept_ema = frac if self._accept_ema is None \
+            else (1 - a) * self._accept_ema + a * frac
+        i = self._k_buckets.index(self.spec_k_cur)
+        if self._accept_ema < self._SHRINK_BELOW and i > 0:
+            self.spec_k_cur = self._k_buckets[i - 1]
+        elif self._accept_ema > self._GROW_ABOVE \
+                and i + 1 < len(self._k_buckets):
+            self.spec_k_cur = self._k_buckets[i + 1]
+        if self.spec_tree:
+            # tree shape rides the same EMA in the opposite direction:
+            # a missing drafter earns more hedging (wider root fanout), a
+            # hitting one hands the node budget back to chain depth
+            if self._accept_ema < self._SHRINK_BELOW:
+                self.fanout_cur = min(self.fanout_cur + 1,
+                                      self.spec_tree_fanout)
+            elif self._accept_ema > self._GROW_ABOVE:
+                self.fanout_cur = max(self.fanout_cur - 1, 1)
 
     # ------------------------------------------------- one-shot decode step
     def _decode_once(self, events: list[tuple[int, int]]) -> None:

@@ -25,7 +25,10 @@ equal to the CPU's, one-shot streams equal to chunked ones over bf16
 pools, greedy parallel siblings equal to each other, a spill → restore
 round trip of int8 pages byte for byte through pinned host memory, a
 handoff's wire image equal to a synchronous gather of the same pages,
-and preempted streams equal to uninterrupted ones.
+preempted streams equal to uninterrupted ones, and speculation: the
+head's rows equal across verify widths, a verify row equal to the same
+row in a plain step, `_tree_compact` equal to the CPU's, and greedy
+n-gram, tree and draft-model streams equal to the plain engine's.
 """
 import dataclasses
 
@@ -899,3 +902,145 @@ def test_rmsnorm_rows_equal_across_row_counts(cuda):
                                    full[i:i + n]), (d, n, i)
         ref = layers.rmsnorm({"gamma": p["gamma"].cpu()}, x.cpu())
         torch.testing.assert_close(full.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------- speculation
+
+def test_head_rows_equal_across_verify_widths(cuda):
+    """The tied f32 head at Qwen2.5-0.5B's width (896 → 151,936): a row's
+    logits are the same bits whether the call holds 1 row (`generate`),
+    4 (a decode step of 4 slots), 5, 16, 20 (a verify step of 4 rows ×
+    ``spec_k + 1``) or 40, so greedy verify rows cannot part from plain
+    decode at a near-tied argmax; and they equal the CPU's f64-summed
+    product within f32 rounding."""
+    from repro_torch.configs import get_config
+    model = Model(get_config("qwen25-05b"))
+    params = {"embed": {"table": (torch.randn(
+        151936, 896, generator=cuda, device="cuda") * 0.02).to(
+            torch.bfloat16)}}
+    x = torch.randn(40, 896, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    full = model._head_logits(params, x)
+    for m in (1, 4, 5, 16, 20):
+        for i in range(0, 40 - m + 1, m):
+            assert torch.equal(model._head_logits(params, x[i:i + m]),
+                               full[i:i + m]), (m, i)
+    assert torch.equal(model._head_logits(params, x.reshape(4, 10, 896)),
+                       full.reshape(4, 10, -1))
+    ref = model._head_logits({"embed": {"table": params["embed"][
+        "table"].cpu()}}, x[:4].cpu())
+    torch.testing.assert_close(full[:4].cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_verify_rows_equal_plain_step_on_card(smoke_engine):
+    """One decode row's logits in a plain chunk step (``num_logits`` 1)
+    and in a verify step gathering ``spec_k + 1`` logits a row, beside
+    rows carrying drafts, are the same bits (int8 pools: K2; every
+    quantized linear on K1 / K3)."""
+    m, make = smoke_engine
+    eng = make(kv_quant="int8")
+    eng.submit(np.arange(12, dtype=np.int32), 4)
+    eng.step()                                  # prefill: 12 tokens in
+    table = eng._device_tables(eng._context_bucket(20))
+    pt = table[torch.zeros(4, dtype=torch.long, device="cuda")]
+    out = {}
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        for r in (1, 5):
+            cache = {seg: [{"kv_pool": {k: t.clone() for k, t in
+                                        e["kv_pool"].items()}}
+                           for e in layers]
+                     for seg, layers in eng._paged_cache.items()}
+            toks = torch.zeros((4, 5), dtype=torch.int32, device="cuda")
+            pos = torch.full((4, 5), -1, dtype=torch.int32, device="cuda")
+            toks[:, :5] = torch.arange(5, device="cuda") + 40
+            pos[0, 0] = 12                      # the decode row
+            pos[1, :5] = torch.arange(12, 17)   # a run with 4 drafts
+            logits, _ = m.chunk_step(eng.params, cache, toks, pos,
+                                     torch.zeros(4, dtype=torch.int32,
+                                                 device="cuda"),
+                                     page_table=pt, num_logits=r)
+            out[r] = logits if r == 1 else logits[:, 0]
+    assert torch.equal(out[1][0], out[5][0])
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "none"])
+def test_tree_compact_on_card_equals_cpu(smoke_engine, kv_quant):
+    """`_tree_compact`'s gather-then-scatter on the card moves the same
+    strips as on the CPU: int8 codes, scale strips and bf16 words equal
+    on every page but the scratch page 0."""
+    m, make = smoke_engine
+    eng = make(kv_quant=kv_quant, page_size=4, spec_decode="ngram",
+               spec_tree=True)
+    eng.submit(np.arange(4, dtype=np.int32), 2)    # allocates the pools
+    g = torch.Generator().manual_seed(3)
+    for layers in eng._paged_cache.values():
+        for e in layers:
+            for k, t in e["kv_pool"].items():
+                src = (torch.randint(-127, 128, t.shape, generator=g)
+                       if t.dtype == torch.int8
+                       else torch.randn(t.shape, generator=g))
+                t.copy_(src.to(t.dtype))
+    cpu = {seg: [{"kv_pool": {k: t.cpu() for k, t in e["kv_pool"].items()}}
+                 for e in layers] for seg, layers in eng._paged_cache.items()}
+    args = [torch.tensor(a, dtype=torch.int32) for a in (
+        [[3, 5, 7, 0], [1, 2, 4, 6], [8, 9, 10, 11], [0, 0, 0, 0]],
+        [2, 5, 9, -1], [[3, 4, 0], [1, 3, 5], [2, 1, 4], [1, 2, 3]],
+        [2, 3, 1, 3])]
+    moved = eng._tree_compact(*(a.cuda() for a in args))
+    card = eng._paged_cache
+    eng._paged_cache = cpu
+    assert torch.equal(eng._tree_compact(*args), moved.cpu())
+    for seg, layers in cpu.items():
+        for a, b in zip(layers, card[seg]):
+            for k in a["kv_pool"]:
+                assert torch.equal(a["kv_pool"][k][1:],
+                                   b["kv_pool"][k][1:].cpu()), k
+    assert int(moved.sum()) == 5
+
+
+@pytest.mark.parametrize("kw", [
+    dict(spec_decode="ngram", spec_k=4, spec_adaptive=True),
+    dict(spec_decode="ngram", spec_k=4, spec_tree=True),
+    dict(spec_decode="draft_model", spec_k=4)],
+    ids=["ngram", "tree", "draft_model"])
+def test_spec_streams_equal_plain_on_card(smoke_engine, kw):
+    """Greedy speculative streams over int8 pools equal the engine's
+    without speculation, every quantized linear on K1 / K3; tree verify
+    steps launch K2 with their ancestor masks, and the draft model's
+    prefill launches K4."""
+    m, make = smoke_engine
+    rng = np.random.default_rng(4)
+    prompts = [np.resize(rng.integers(0, m.cfg.vocab_size, 5), n).astype(
+        np.int32) for n in (12, 20, 7, 16)]
+    prompts += [rng.integers(0, m.cfg.vocab_size, 9).astype(np.int32)]
+    if kw["spec_decode"] == "draft_model":
+        kw = dict(kw, draft_model=m, draft_params=make().params)
+    streams, tree_k2 = {}, []
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        for name, extra in (("plain", {}), ("spec", kw)):
+            eng = make(kv_quant="int8", **extra)
+            rids = [eng.submit(p, 16) for p in prompts]
+            run = eng._scheduler._run_batch
+
+            def counted(*a, run=run, **k):
+                before = k2.COUNTER.count
+                res = run(*a, **k)
+                if k.get("tree") is not None:
+                    tree_k2.append(k2.COUNTER.count - before)
+                return res
+            eng._scheduler._run_batch = counted
+            k4_before = k4.COUNTER.count
+            out = eng.drain()
+            streams[name] = [out[r].tolist() for r in rids]
+            assert eng._scheduler.pager.pages_in_use == 0
+    st = eng.stats()
+    assert streams["spec"] == streams["plain"]
+    assert st.draft_tokens > 0
+    if kw.get("spec_tree"):
+        assert tree_k2 and min(tree_k2) == m.cfg.num_layers
+    if kw["spec_decode"] == "draft_model":
+        # the draft decodes over its dense bf16 cache, the target verifies
+        # over int8 pages: near ties may go the other way, so acceptance is
+        # high but not total
+        assert st.accepted_tokens > st.draft_tokens // 2
+        assert k4.COUNTER.count - k4_before >= m.cfg.num_layers * len(prompts)

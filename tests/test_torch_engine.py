@@ -213,21 +213,28 @@ def test_pager_replay_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(spec_decode="ngram"), NotImplementedError, "not ported"),
-    (dict(spec_tree=True), NotImplementedError, "not ported"),
-    (dict(draft_fn=lambda reqs: {}), NotImplementedError, "not ported"),
+    (dict(spec_decode="medusa"), ValueError, "unknown spec_decode"),
+    (dict(spec_tree=True), ValueError, "spec_tree needs a drafter"),
+    (dict(spec_decode="draft_model"), ValueError,
+     "spec_decode='draft_model' needs draft_model"),
+    (dict(spec_decode="ngram", spec_tree=True, spec_tree_fanout=0),
+     ValueError, "spec_tree_fanout must be"),
+    (dict(spec_decode="ngram", chunked_prefill=False), ValueError,
+     "spec_decode requires the chunked serving path"),
     (dict(mesh=object()), NotImplementedError, "not ported"),
     (dict(preemption=True, chunked_prefill=False), ValueError, "chunked"),
     (dict(admission="optimistic"), ValueError, "optimistic"),
     (dict(admission="yolo"), ValueError, "admission")],
-    ids=["spec_decode", "spec_tree", "draft", "mesh", "preemption",
-         "optimistic", "unknown_admission"])
+    ids=["spec_decode", "spec_tree", "draft", "spec_tree_fanout",
+         "spec_oneshot", "mesh", "preemption", "optimistic",
+         "unknown_admission"])
 def test_unported_engine_options_raise(model_params, kwargs, exc, match):
-    """Speculation, draft models and meshes are not ported. Preemption
-    and optimistic admission are, with the reference's checks:
-    preemption needs the chunked path (raised when serving starts, at
-    the first `submit`), optimistic admission needs preemption, and an
-    unknown admission policy is refused."""
+    """Meshes are not ported. Speculation, preemption and optimistic
+    admission are, with the reference's checks and messages: an unknown
+    drafter, a tree without a drafter, draft mode without a model, a
+    zero fanout, speculation or preemption off the chunked path (raised
+    when serving starts, at the first `submit`), optimistic admission
+    without preemption and an unknown admission policy are refused."""
     m, params = model_params
     with pytest.raises(exc, match=match):
         eng = GenerationEngine(m, params["float"], max_seq=32, **kwargs)
