@@ -30,7 +30,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                bf16: the calibration forward (B 2, S 64), the launcher's
                prefill (B 4, S 256), the one-shot engine's longest
                prefill (B 1, S 200), a ragged S 1000, a 128-token window
-               and a bidirectional case;
+               and a bidirectional case; then K1 - K4 at the other dense
+               models' shapes (``dense_models`` on the same line): K1 at
+               their 16 (K, N) pairs and K3 at smollm's and glm4's SiLU
+               fronts (M 4 and 1024, the model's call), K2 at hd 256 with
+               and without gemma3's 1,024-token window, G 8 over one kv
+               head, G 16 at hd 128 and G 3 (C 1 and 16, contexts up to
+               1,500), K4 at hd 256 (S 1,400 with and without the window,
+               B 2 × S 1,100), gemma-2b's MQA, glm4's G 16 and smollm's
+               G 3;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -48,10 +56,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                decode tokens/s, decode step ms, host ms per
                prefill-commit and the `stats()` byte fields are reported;
   6. oneshot_identity — the same requests one-shot over bf16 pages,
-               each stream against `generate()` at B 1: the first tokens
-               must be equal; identical streams are counted, and each
-               other stream's first differing position and generate()'s
-               logit margin there are reported;
+               each stream against `generate()` at B 1, under the default
+               hybrid threshold and with every quantized linear on K1 /
+               K3 (which separates the linears from the attention): the
+               first tokens must be equal; identical streams are counted,
+               and each other stream's first differing position and
+               generate()'s logit margin there are reported;
   7. parallel — greedy ``submit(prompt, 32, n=4)`` on the chunked int8
                engine with the 200-token prompt, under the default
                hybrid threshold (the streams are compared and reported)
@@ -147,7 +157,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                served direct by a decode engine. The same gates (no
                prefill tokens skipped: a pair reports none, as the
                reference's does), and its streams must equal the
-               unified fleet's (same placements, same steps).
+               unified fleet's (same placements, same steps);
+ 20-23. gemma3-4b (the slice's main path: 34 layers, d 2560, 8 q / 4 kv
+               heads, hd 256, d_ff 10,240, V 262,144, a 1,024-token window
+               on 29 layers), smollm-360m and gemma-2b at full size, and
+               glm4-9b at its widths with 8 of its 40 layers, each from
+               random weights (seed 0): the launcher's AWQ path (``--arch
+               <name> --quant awq``: calibration with K4, AWQ search and
+               pack of every linear, `generate()` with K4 prefills, and on
+               gemma3 its rings past the window: 2 × 1,100 prompt
+               tokens); a serve burst (8 greedy requests of 32 new tokens
+               over int8 pages of 16, 4 slots; gemma3's prompts include
+               1,100 and 1,400 tokens, so its windowed layers' K2 reads
+               mask keys that slid out of the window) under the default
+               threshold (this model's serving path: counts from 0) and
+               with every quantized linear on K1 / K3, each stream against
+               generate() at B 1 (first tokens gated equal by the
+               `check` rule: where generate()'s top-2 margin clears 2 ×
+               5 % of its logits' scale; streams and near ties reported
+               with logit margins); K1 / K2 launched, K3 on the
+               SiLU models only (gemma's GeGLU fronts are two K1 calls);
+               and `check` / `check_prefill` on a 2-layer cut of the
+               served model (gemma3: its first windowed and first global
+               layer) against CPU copies; gemma3's line adds a profiled
+               decode step of 4 slots at contexts ~1,100.
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -155,11 +188,14 @@ kernel's numbers cover, its tolerances and the per-shape results are on
 the ``kernel_shapes`` line before them) and, last,
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero
 before it. Without CUDA the script exits 1 at once. ``--out PATH`` also
-writes every phase line to PATH as one JSON object.
+writes every phase line to PATH as one JSON object. ``--profile-only``
+builds and profiles Qwen2.5's steps, then a gemma3-4b decode step.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -174,6 +210,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import qlinear  # noqa: E402
 from repro_torch.core.packing import (PackedLinear, dequantize_int4,  # noqa: E402
@@ -205,6 +242,7 @@ CHUNK_K1 = [(896, 896), (896, 128), (896, 128), (896, 896), (4864, 896)]
 
 
 PHASES: dict[str, dict] = {}
+T_START = time.perf_counter()
 # each kernel wrapper's launch count (one per launch of its kernel)
 COUNTERS = {"awq_matmul": k1.COUNTER, "paged_attention_chunk": k2.COUNTER,
             "awq_gateup": k1.GATEUP_COUNTER, "flash_attention": k4.COUNTER}
@@ -220,6 +258,8 @@ def read_counts(names=COUNTERS) -> dict:
 
 
 def phase(phase_name: str, **fields) -> None:
+    """Print one phase line; ``at_s`` is the script's wall time so far."""
+    fields = dict(fields, at_s=time.perf_counter() - T_START)
     PHASES[phase_name] = fields
     print(json.dumps({"phase": phase_name, **fields}), flush=True)
 
@@ -230,8 +270,10 @@ def time_ms(fn, n_inputs: int, iters: int = 40) -> float:
     A launch from Python costs the host tens of µs, more than a small
     kernel runs, so timing launches as they are issued would measure the
     host. The stream is first held by a spin kernel long enough for the
-    host to enqueue every call; the events then see the calls run back
-    to back."""
+    host to enqueue every call (sized from three calls after a warm-up
+    call, so a first call's set-up does not stretch the hold); the events
+    then see the calls run back to back."""
+    fn(0)                   # first-call set-up (library handles, kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(3):
@@ -937,11 +979,12 @@ def serve_oneshot(model, params) -> dict:
 
 
 @torch.no_grad()
-def _logit_margin(model, params, prompt, ref, i: int, other: int) -> float:
+def _logit_margin(model, params, prompt, ref, i: int, other: int,
+                  max_seq: int = 512) -> float:
     """generate()'s logit of its own token ``ref[i]`` minus its logit of
     ``other`` at position i: the prefill, then i decode steps fed ref's
     tokens (generate()'s own computation up to that position)."""
-    cache = model.init_cache(1, 512, device="cuda")
+    cache = model.init_cache(1, max_seq, device="cuda")
     cache, logits, pos = model.prefill(
         params, {"tokens": torch.as_tensor(prompt, device="cuda")[None]},
         cache)
@@ -956,11 +999,24 @@ def _logit_margin(model, params, prompt, ref, i: int, other: int) -> float:
 
 def oneshot_identity(model, params) -> dict:
     """The same requests one-shot over bf16 pools, each stream against the
-    port's own `generate()` at B = 1. The first token comes from the same
-    `Model.prefill` on the same input and must be equal; later tokens are
-    reported, not gated: decode rows meet the generic matmul path at
-    M = 4 where generate() has M = 1 (`core/qlinear.py`,
-    `offload_min_flops`), so near-tied logits may part."""
+    port's own `generate()` at B = 1, under the default hybrid threshold
+    and with every quantized linear on K1 / K3 (``ALL_KERNEL``), which
+    separates the linears from the attention. The first token comes from
+    the same `Model.prefill` on the same input and must be equal; later
+    tokens are reported, not gated: decode rows attend at M = 4 slots
+    over the context bucket's gathered pages where generate() attends at
+    B = 1 over its dense cache, so near-tied logits may part."""
+    return {name: _oneshot_identity(model, params, ecfg)
+            for name, ecfg in (("default", qlinear.ExecutionConfig()),
+                               ("all_kernel", ALL_KERNEL))}
+
+
+def _oneshot_identity(model, params, ecfg) -> dict:
+    with qlinear.execution_config(ecfg):
+        return _oneshot_identity_run(model, params)
+
+
+def _oneshot_identity_run(model, params) -> dict:
     eng = GenerationEngine(model, params, num_slots=4, page_size=16,
                            max_seq=512, kv_quant="none",
                            chunked_prefill=False)
@@ -1888,6 +1944,532 @@ def fleet(disagg: bool = False, unified_streams=None) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phases 20-24
+# The reference's other dense models at their published widths (K1 - K4 at
+# their shapes, then each model's launcher, serve burst and CPU check).
+# G 3 / 8 / 2 / 16 groups, hd 64 / 256 / 256 / 128; gemma3's windowed layers
+# (window 1024) read through K2's window mask and decode over generate()'s
+# rings; gemma's GeGLU fronts are two K1 calls (no K3), as in the reference.
+DENSE_ARCHS = {
+    # depth: layers run (None = all); the CPU check runs 2 of them
+    "gemma3-4b": dict(layers=None, batch=2, prompt_len=1100,
+                      serve_lens=[1100, 1400, 64, 300, 900, 17, 700, 200],
+                      max_seq=2048, chunk=64),
+    "smollm-360m": dict(layers=None, batch=4, prompt_len=256,
+                        serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+    "gemma-2b": dict(layers=None, batch=4, prompt_len=256,
+                     serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+    # 8 of glm4-9b's 40 layers: full width, depth cut for the time limit
+    "glm4-9b": dict(layers=8, batch=4, prompt_len=256,
+                    serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+}
+# K1 (K, N) of the new models' linears (smollm q/o, k/v, gate/up, down;
+# gemma-2b q/o, k/v, gate/up, down; gemma3 q, k/v, o, gate/up, down; glm4
+# q/o, k/v, down); K3 pairs of the SiLU models (smollm, glm4)
+DENSE_K1 = [(960, 960), (960, 320), (960, 2560), (2560, 960),
+            (2048, 2048), (2048, 256), (2048, 16384), (16384, 2048),
+            (2560, 2048), (2560, 1024), (2048, 2560), (2560, 10240),
+            (10240, 2560), (4096, 4096), (4096, 256), (13696, 4096)]
+DENSE_K3 = [(960, 2560), (4096, 13696)]
+# K2: model, Hkv, G, hd, window
+DENSE_K2 = [("gemma3-4b", 4, 2, 256, 0), ("gemma3-4b", 4, 2, 256, 1024),
+            ("gemma-2b", 1, 8, 256, 0), ("glm4-9b", 2, 16, 128, 0),
+            ("smollm-360m", 5, 3, 64, 0)]
+# K4: model, B, S, H, Hkv, hd, window (causal, bf16)
+DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
+            ("gemma3-4b", 1, 1400, 8, 4, 256, 1024),
+            ("gemma3-4b", 2, 1100, 8, 4, 256, 1024),
+            ("gemma-2b", 4, 256, 8, 1, 256, 0),
+            ("glm4-9b", 4, 256, 32, 2, 128, 0),
+            ("smollm-360m", 4, 256, 15, 5, 64, 0)]
+
+
+def _k1_shape(gen, k, n, m) -> dict:
+    """K1 at one (K, N, M) in the model's call (input scale, bf16 out),
+    held against the plain version, timed beside it and torch.matmul on
+    the dequantized weight."""
+    cfg = QuantConfig(group_size=GS)
+    p = pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k), cfg),
+        None, None, cfg)
+    wbytes = p.qweight.nbytes + p.scales.nbytes + p.zeros.nbytes
+    packs = [(p.qweight.clone(), p.scales.clone(), p.zeros.clone())
+             for _ in range(max(1, COLD_BYTES // wbytes))]
+    w_bf16 = dequantize_int4(p.qweight, p.scales, p.zeros, GS,
+                             torch.bfloat16)
+    lib_w = [w_bf16.clone() for _ in range(max(1, COLD_BYTES
+                                               // w_bf16.nbytes))]
+    kw = dict(input_scale=torch.rand(k, generator=gen, device="cuda") + 0.5,
+              out_dtype=torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    out = k1.awq_matmul(x, *packs[0], GS, **kw)
+    ref = k1.awq_matmul_ref(x, *packs[0], GS, torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    lim = 1e-4 * float(ref.float().abs().max()) + bf16_ulp(ref)
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"K1 {k}x{n} M={m}: err exceeds its tolerance "
+                             f"by {float((err - lim).max())}")
+    full = k1.awq_matmul(torch.cat([x, x]), *packs[0], GS, **kw)
+    if not torch.equal(full[:m], out):
+        raise AssertionError(f"K1 {k}x{n}: rows at M={m} differ from the "
+                             f"same rows at M={2 * m}")
+    ms = time_ms(lambda i: k1.awq_matmul(x, *packs[i], GS, **kw), len(packs))
+    plain = time_ms(lambda i: k1.awq_matmul_ref(
+        x, *packs[i], GS, torch.bfloat16, **kw), len(packs), iters=10)
+    lib = time_ms(lambda i: torch.matmul(x, lib_w[i]), len(lib_w))
+    b_ms, b_by = bound(x.nbytes + wbytes + k * 4 + m * n * 2,
+                       (2 * m * k * n, BF16_OPS_PER_S))
+    return dict(k=k, n=n, m=m, max_abs_err=float(err.max()),
+                least_tol=float(lim.min()), ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                span_block=k1.span_block(m, k, n))
+
+
+def _k3_shape(gen, k, n, m) -> dict:
+    cfg = QuantConfig(group_size=GS)
+    g, u = (pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k), cfg),
+        None, None, cfg) for _ in range(2))
+    wbytes = sum(t.nbytes for p in (g, u)
+                 for t in (p.qweight, p.scales, p.zeros))
+    packs = [tuple(t.clone() for p in (g, u)
+                   for t in (p.qweight, p.scales, p.zeros))
+             for _ in range(max(1, COLD_BYTES // wbytes))]
+    wg, wu = (dequantize_int4(p.qweight, p.scales, p.zeros, GS,
+                              torch.bfloat16) for p in (g, u))
+    kw = dict(input_scales=(torch.rand(k, generator=gen, device="cuda") + 0.5,
+                            torch.rand(k, generator=gen, device="cuda") + 0.5),
+              out_dtype=torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    # gated: the f32 output (K3's function with the model's input scales);
+    # the bf16 output rounds g before silu, and a g a few f32 ulps off a
+    # bf16 midpoint may round the other way, which silu's slope can carry
+    # past four bf16 ulps of the product (ROADMAP, Reference caveats:
+    # "Cross-framework numerics"), so its elements past k3_tolerance are
+    # counted and reported
+    errs = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        okw = dict(kw, out_dtype=out_dtype)
+        out = k1.awq_gateup(x, *packs[0], GS, **okw)
+        ref = k1.awq_gateup_ref(x, *packs[0], GS, torch.bfloat16, **okw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        lim = k3_tolerance(ref)
+        past = int((err > lim).sum())
+        if out_dtype == torch.float32 and past:
+            raise AssertionError(f"K3 {k}x{n} M={m}: err exceeds its "
+                                 f"tolerance by {float((err - lim).max())}")
+        errs[str(out_dtype).split(".")[-1]] = dict(
+            max_abs_err=float(err.max()), least_tol=float(lim.min()),
+            past_tolerance=past, elements=err.numel())
+    ms = time_ms(lambda i: k1.awq_gateup(x, *packs[i], GS, **kw), len(packs))
+    plain = time_ms(lambda i: k1.awq_gateup_ref(
+        x, *packs[i], GS, torch.bfloat16, **kw), len(packs), iters=10)
+    lib = time_ms(lambda i: torch.nn.functional.silu(x @ wg) * (x @ wu), 1)
+    b_ms, b_by = bound(x.nbytes + wbytes + 2 * k * 4 + m * n * 2,
+                       (2 * 2 * m * k * n, BF16_OPS_PER_S))
+    return dict(k=k, n=n, m=m, max_abs_err=errs["float32"]["max_abs_err"],
+                by_output=errs, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _k2_shape(gen, arch, hkv, g, hd, window, c) -> dict:
+    """K2 over 4 slots of 96 pages of 16 (contexts 17 … 1,500, past
+    gemma3's window), a padding row's tail, C query tokens a row."""
+    b, page, nblk = 4, 16, 96
+    npages = b * nblk + 1
+    copies = max(1, COLD_BYTES // (2 * npages * page * hkv * (hd + 4)))
+    pools = []
+    for _ in range(copies):
+        kp, vp = (torch.randint(-127, 128, (npages, page, hkv, hd),
+                                generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(npages, page, hkv, generator=gen, device="cuda")
+                  / 50 for _ in range(2))
+        pools.append((kp, ks, vp, vs))
+    table = (torch.randperm(npages - 1, generator=gen, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([17, 700, 1100, 1500 - c], dtype=torch.int32,
+                        device="cuda")
+    pos = base[:, None] + torch.arange(c, dtype=torch.int32,
+                                       device="cuda")[None]
+    pos[0, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=gen, device="cuda")
+
+    def run(i, fn):
+        kp, ks, vp, vs = pools[i]
+        return fn(q, kp, ks, vp, vs, table, pos, window=window)
+
+    out = run(0, k2.paged_attention_chunk)
+    ref = run(0, k2.paged_attention_chunk_ref)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"K2 {arch} hd={hd} G={g} window={window} "
+                             f"C={c}: err {err} > {tol}")
+    ms = time_ms(lambda i: run(i, k2.paged_attention_chunk), copies)
+    plain = time_ms(lambda i: run(i, k2.paged_attention_chunk_ref), copies,
+                    iters=10)
+    s_slot = nblk * page
+    vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, window=window)
+    keys = int(vis.any(dim=1).sum())
+    nbytes = (2 * q.nbytes + keys * hkv * (2 * hd + 8) + table.nbytes
+              + pos.nbytes)
+    b_ms, b_by = bound(nbytes, (4 * int(vis.sum()) * hkv * g * hd,
+                                F32_OPS_PER_S))
+    mask = vis[:, None].expand(b, hkv * g, c, s_slot)
+    kp, ks, vp, vs = pools[0]
+    kk, vv = ((cp.float() * sc[..., None])[table.long()].reshape(
+        b, s_slot, hkv, hd).transpose(1, 2).to(torch.bfloat16).contiguous()
+        for cp, sc in ((kp, ks), (vp, vs)))
+    qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, c, hd).to(
+        torch.bfloat16)
+    lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qs, kk, vv, attn_mask=mask, enable_gqa=True), 1)
+    return dict(model=arch, hkv=hkv, g=g, hd=hd, window=window, c=c,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def _k4_shape(gen, arch, b, s, h, hkv, hd, window) -> dict:
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for n in (h, hkv, hkv))
+    kw = dict(causal=True, window=window)
+    out = k4.flash_attention(q, k, v, **kw)
+    ref = k4.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    lim = 1e-5 + torch.finfo(torch.bfloat16).eps * ref.float().abs()
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"K4 {arch} S={s} hd={hd} window={window}: err "
+                             f"exceeds 1e-5 + eps|ref| by "
+                             f"{float((err - lim).max())}")
+    ms = time_ms(lambda i: k4.flash_attention(q, k, v, **kw), 1)
+    plain = time_ms(lambda i: k4.flash_attention_ref(q, k, v, **kw), 1,
+                    iters=5)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    mask = k4.visibility(s, causal=True, window=window, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+    lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1)
+    pair_flops = 2 * hd * h * b * int(mask.sum())
+    b_ms, b_by = bound(q.nbytes + k.nbytes + v.nbytes + out.nbytes,
+                       (3 * pair_flops, BF16_OPS_PER_S))
+    return dict(model=arch, b=b, s=s, h=h, hkv=hkv, hd=hd, window=window,
+                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_dense_kernels(gen) -> dict:
+    """K1 - K4 at the other dense models' shapes, each held against its
+    plain version (K1 / K3 at the model's call, M 4 and 1024; K2 at C 1
+    and 16; K4 at the prefills the launcher and the engine give it)."""
+    return dict(
+        awq_matmul=[_k1_shape(gen, k, n, m) for k, n in DENSE_K1
+                    for m in (4, 1024)],
+        awq_gateup=[_k3_shape(gen, k, n, m) for k, n in DENSE_K3
+                    for m in (4, 1024)],
+        paged_attention_chunk=[_k2_shape(gen, *case, c) for case in DENSE_K2
+                               for c in (1, 16)],
+        flash_attention=[_k4_shape(gen, *case) for case in DENSE_K4],
+        tolerance="K1 / K2 / K4 as on Qwen2.5's shapes (kernel_shapes' "
+                  "tolerance fields); K1 also holds its M rows equal to the "
+                  "same rows of a 2M launch; K3 gated on its f32 output, "
+                  "its bf16 output's elements past four bf16 ulps counted "
+                  "(awq_gateup[].by_output); times are the model's call "
+                  "(input scales, bf16 output)")
+
+
+@contextlib.contextmanager
+def _depth(arch: str, layers):
+    """The registry serves ``arch`` cut to ``layers`` layers (its widths
+    unchanged) while the block runs."""
+    if layers is None:
+        yield
+        return
+    full, smoke = configs._REGISTRY[arch]
+    configs._REGISTRY[arch] = (
+        lambda: dataclasses.replace(full(), num_layers=layers), smoke)
+    try:
+        yield
+    finally:
+        configs._REGISTRY[arch] = (full, smoke)
+
+
+def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
+    """The launcher's AWQ path for one model: calibrate, AWQ search and
+    pack every linear, generate() (K4 prefills; rings on windowed
+    layers). Returns (phase fields, the AWQ params, the model)."""
+    args = ["--arch", arch, "--quant", "awq", "--batch", str(spec["batch"]),
+            "--prompt-len", str(spec["prompt_len"]), "--max-new", "32"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _depth(arch, spec["layers"]):
+        cfg = get_config(arch)
+        # this model's launcher path: counts start at 0 here, read after
+        reset_counts()
+        t0 = time.perf_counter()
+        out = launcher.main(args)
+        total_s = time.perf_counter() - t0
+    launches = read_counts()
+    rep, by_step = out["report"], out["launches"]
+    toks = out["tokens"]
+    # 7 linears a layer, and an untied head, which stays float
+    n_lin = 7 * cfg.num_layers + (not cfg.tie_embeddings)
+    if out["shape"] != [spec["batch"], 32] or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch} launch: bad tokens {out['shape']}")
+    # every linear of a layer is quantized at the published widths (the
+    # pipeline keeps K·N < 16,384 in float, which only smoke widths meet)
+    if not (len(rep.calibrated) == len(rep.quantized)
+            and len(rep.quantized) + len(rep.skipped) == n_lin):
+        raise AssertionError(f"{arch} launch: {len(rep.calibrated)} of "
+                             f"{len(rep.quantized)} linears calibrated, "
+                             f"{len(rep.skipped)} kept float, want {n_lin}")
+    glu_k3 = cfg.act == "silu"
+    gen_l = by_step["generate"]
+    if not (by_step["calibrate"]["flash_attention"] >= cfg.num_layers
+            and gen_l["flash_attention"] >= cfg.num_layers
+            and gen_l["awq_matmul"] > 0
+            and (gen_l["awq_gateup"] > 0) == glu_k3):
+        raise AssertionError(f"{arch} launch: kernels {by_step} (K3 "
+                             f"{'expected' if glu_k3 else 'not expected'})")
+    fields = dict(
+        args=" ".join(args), layers=cfg.num_layers,
+        depth_cut=(f"{cfg.num_layers} of {configs._REGISTRY[arch][0]().num_layers}"
+                   if spec["layers"] else None),
+        d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        window=cfg.sliding_window, total_s=total_s,
+        calibrate_s=out["calib_s"], awq_s=out["awq_s"],
+        quantized=len(rep.quantized), calibrated=len(rep.calibrated),
+        skipped=len(rep.skipped), compression_ratio=rep.compression_ratio,
+        fp16_bytes=out["fp16_bytes"], awq_macro_bytes=out["macro_bytes"],
+        generate_s=out["generate_s"], tokens_per_s=out["tokens_per_s"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, launches_by_step=by_step,
+        sample=toks[0][:8].tolist())
+    return fields, out["params"], Model(cfg)
+
+
+K2_WINDOWED = {"calls": 0}
+
+
+def _count_windowed_k2() -> None:
+    """Count K2 calls made with a window (the wrapper's own counter counts
+    every launch)."""
+    plain_call = k2.paged_attention_chunk
+
+    def call(*args, window: int = 0, **kw):
+        if window:
+            K2_WINDOWED["calls"] += 1
+        return plain_call(*args, window=window, **kw)
+
+    k2.paged_attention_chunk = call
+
+
+def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
+    rng = np.random.default_rng(SEED + 5)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def dense_serve(arch: str, model, params, spec: dict) -> dict:
+    """8 greedy requests of 32 new tokens through the chunked engine over
+    int8 pools (4 slots, pages of 16), under the default threshold (this
+    model's serving path: counts from 0 here, read after) and with every
+    quantized linear on K1 / K3; each stream against the port's own
+    generate() at B 1 under the same config: first tokens gated,
+    whole streams reported with the first differing position and
+    generate()'s logit margin there. The first tokens are held by the
+    `check` rule: the engine's comes from its last prefill chunk over
+    the int8 pages, generate()'s from its K4 prefill over bf16 K/V."""
+    cfg = model.cfg
+    prompts = dense_prompts(cfg.vocab_size, spec["serve_lens"])
+    kw = dict(num_slots=4, page_size=16, max_seq=spec["max_seq"],
+              prefill_chunk=spec["chunk"], kv_quant="int8")
+    res = {}
+    for name, ecfg in (("default", qlinear.ExecutionConfig()),
+                       ("all_kernel", ALL_KERNEL)):
+        with qlinear.execution_config(ecfg):
+            eng = GenerationEngine(model, params, **kw)
+            _reset_peak()
+            reset_counts()
+            K2_WINDOWED["calls"] = 0
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, 32) for p in prompts]
+            steps, decode_s, decode_steps, prefilled = 0, 0.0, 0, 0
+            decode_tokens = 0
+            while not eng.idle:
+                ts = time.perf_counter()
+                events = eng.step()         # ends in a device→host copy
+                dt = time.perf_counter() - ts
+                steps += 1
+                now = eng.stats().prefill_tokens
+                if now == prefilled:        # a step with decode rows only
+                    decode_s += dt
+                    decode_steps += 1
+                    decode_tokens += len(events)
+                prefilled = now
+            out = eng.drain()
+            serve_s = time.perf_counter() - t0
+            launches = read_counts()
+            windowed = K2_WINDOWED["calls"]
+            peak = torch.cuda.max_memory_allocated()
+            check_streams(f"{arch} serve", out, rids, cfg.vocab_size)
+            t0 = time.perf_counter()
+            refs = [eng.generate({"tokens": p[None]}, 32)[0]
+                    for p in prompts]
+            generate_s = time.perf_counter() - t0
+            identical, mismatches, first_ties = 0, [], []
+            for rid, p, ref in zip(rids, prompts, refs):
+                got = out[rid]
+                if got[0] != ref[0]:
+                    # the engine's first token is its last prefill chunk's
+                    # argmax, over the int8 pages K2 reads; generate()'s is
+                    # its K4 prefill's over bf16 K/V: gated by the `check`
+                    # rule (equal where the top-2 margin clears 2 x 5 % of
+                    # the logits' scale), reported otherwise
+                    margin, scale = _first_margin(model, params, p,
+                                                  spec["max_seq"])
+                    if margin > 2 * 0.05 * scale:
+                        raise AssertionError(
+                            f"{arch} serve {name}: request {rid}: first "
+                            f"token {got[0]} != generate()'s {ref[0]}, "
+                            f"margin {margin} of scale {scale}")
+                    first_ties.append(dict(request=rid, margin=margin,
+                                           scale=scale))
+                if np.array_equal(got, ref):
+                    identical += 1
+                    continue
+                i = int(np.argmax(got != ref))
+                mismatches.append(dict(
+                    request=rid, prompt_len=len(p), first_diff=i,
+                    generate_token=int(ref[i]), engine_token=int(got[i]),
+                    logit_margin=_logit_margin(model, params, p, ref, i,
+                                               int(got[i]),
+                                               max_seq=spec["max_seq"])))
+        want_k3 = cfg.act == "silu"
+        if not (launches["awq_matmul"] > 0
+                and launches["paged_attention_chunk"] > 0
+                and (launches["awq_gateup"] > 0) == want_k3
+                and launches["flash_attention"] == 0):
+            raise AssertionError(f"{arch} serve {name}: kernels {launches}")
+        if cfg.sliding_window and not (
+                windowed > 0 and max(map(len, prompts)) > cfg.sliding_window):
+            raise AssertionError(f"{arch} serve {name}: {windowed} windowed "
+                                 f"K2 calls, prompts up to "
+                                 f"{max(map(len, prompts))}")
+        st = eng.stats()
+        res[name] = dict(
+            requests=len(rids), steps=steps, serve_s=serve_s,
+            decode_steps=decode_steps,
+            decode_step_ms=1e3 * decode_s / max(1, decode_steps),
+            decode_tokens_per_s=decode_tokens / max(decode_s, 1e-9),
+            prefill_tokens=st.prefill_tokens, kv_pool_bytes=st.kv_pool_bytes,
+            weight_bytes=st.weight_bytes, peak_mem_bytes=peak,
+            launches=launches, k2_windowed_calls=windowed,
+            generate_s=generate_s, identical_streams=identical,
+            first_tokens_equal=len(rids) - len(first_ties),
+            first_token_near_ties=first_ties, mismatches=mismatches)
+        del eng
+        gc.collect()
+    return dict(prompt_lens=list(spec["serve_lens"]), **res)
+
+
+@torch.no_grad()
+def _first_margin(model, params, prompt, max_seq: int) -> tuple[float, float]:
+    """generate()'s first-token logits (its prefill at B 1): the top-2
+    margin and the largest magnitude."""
+    cache = model.init_cache(1, max_seq, device="cuda")
+    _, logits, _ = model.prefill(
+        params, {"tokens": torch.as_tensor(prompt, device="cuda")[None]},
+        cache)
+    lg = logits[0].float()
+    top2 = torch.topk(lg, 2).values
+    return float(top2[0] - top2[1]), float(lg.abs().max())
+
+
+def _cut_two_layers(model, params):
+    """A 2-layer model of ``model``'s widths and its params: the first
+    windowed layer then the first global one where the model has both
+    (gemma3-4b: layers 0 and 5), else layers 0 and 1."""
+    cfg = model.cfg
+    kinds = cfg.layer_kinds()
+    where = []                                   # layer -> (segment, index)
+    for si, (_, n) in enumerate(cfg.segments()):
+        where += [(f"seg_{si}", i) for i in range(n)]
+    windowed = [i for i, k in enumerate(kinds) if k.window]
+    full = [i for i, k in enumerate(kinds) if not k.window]
+    if windowed and full:
+        pick = [windowed[0], full[0]]
+        cut = dataclasses.replace(cfg, num_layers=2, global_every=2)
+    else:
+        pick = [0, 1]
+        cut = dataclasses.replace(cfg, num_layers=2)
+    cm = Model(cut)
+    layers = [params["segments"][where[i][0]][where[i][1]] for i in pick]
+    segs, j = {}, 0
+    for si, (_, n) in enumerate(cut.segments()):
+        segs[f"seg_{si}"] = layers[j:j + n]
+        j += n
+    return cm, {**params, "segments": segs}, pick
+
+
+def dense_check(arch: str, model, params) -> dict:
+    """The CPU checks at a depth the host can run: a 2-layer cut of the
+    served AWQ model, one chunk step pair (`cross_check`) and one prefill
+    (`check_prefill`) on the card against CPU copies."""
+    cm, cp, pick = _cut_two_layers(model, params)
+    return dict(layers=pick, check=cross_check(cm, cp),
+                check_prefill=check_prefill(cm, cp))
+
+
+def dense_models() -> tuple[dict, dict]:
+    """Phases 21-24: each model's launcher, serve burst and CPU check.
+    Returns (per-model fields, per-model launches of K1 - K4)."""
+    _count_windowed_k2()
+    out, launches = {}, {}
+    for arch, spec in DENSE_ARCHS.items():
+        t = time.perf_counter()
+        launched, params, model = dense_launch(arch, spec)
+        served = dense_serve(arch, model, params, spec)
+        checked = dense_check(arch, model, params)
+        prof = (profile_dense_decode(model, params)
+                if arch == "gemma3-4b" else None)
+        fields = dict(launch=launched, serve=served, **checked,
+                      phase_s=time.perf_counter() - t)
+        if prof is not None:
+            fields["profile_decode_step"] = prof
+        phase(arch, **fields)
+        out[arch] = fields
+        launches[arch] = {
+            n: launched["launches"][n] + served["default"]["launches"][n]
+            + served["all_kernel"]["launches"][n] for n in COUNTERS}
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def profile_dense_decode(model, params, steps: int = 6) -> dict:
+    """A decode step of 4 slots at contexts ~1,100 (past the window of
+    gemma3's local layers), profiled as `profile` profiles Qwen2.5's."""
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=2048, prefill_chunk=64, kv_quant="int8")
+    rng = np.random.default_rng(SEED + 6)
+    for _ in range(4):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, 1100)
+                   .astype(np.int32), 64)
+    while eng.stats().prefill_tokens < 4 * 1100:
+        eng.step()
+    eng.step()
+    return dict(slots=4, context=1100, **_profile_steps(eng, steps))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -1932,6 +2514,13 @@ def main() -> None:
         params, _ = quantize_params(model.init(
             torch.Generator(device="cuda").manual_seed(SEED), device="cuda"))
         phase("profile", **profile(model, params))
+        del params
+        torch.cuda.empty_cache()
+        # gemma3-4b at full size, RTN int4: a decode step past the window
+        model = Model(get_config("gemma3-4b"))
+        params, _ = quantize_params(model.init(
+            torch.Generator(device="cuda").manual_seed(SEED), device="cuda"))
+        phase("profile_gemma3", **profile_dense_decode(model, params))
         return
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1941,7 +2530,7 @@ def main() -> None:
     kernels = [k1_entry, k2_entry, k3_entry, k4_entry]
     phase("kernel_shapes", awq_matmul=k1_detail,
           paged_attention_chunk=k2_detail, awq_gateup=k3_detail,
-          flash_attention=k4_detail)
+          flash_attention=k4_detail, dense_models=check_dense_kernels(gen))
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -1956,7 +2545,8 @@ def main() -> None:
     phase("serve", **served)
     oneshot = serve_oneshot(model, params)
     phase("serve_oneshot", **oneshot)
-    phase("oneshot_identity", **oneshot_identity(model, params))
+    identity = oneshot_identity(model, params)
+    phase("oneshot_identity", **identity)
     phase("parallel", **parallel(model, params))
     refs = uninterrupted(model, params)
     preempted = preempt(model, params, refs)
@@ -2013,6 +2603,17 @@ def main() -> None:
     disagg_fleet = fleet(disagg=True, unified_streams=unified)
     del disagg_fleet["streams"]
     phase("fleet_disagg", **disagg_fleet)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the other dense models: each one's phase line, and K1 - K4's
+    # launches on its launcher and serving paths
+    dense, dense_launches = dense_models()
+    for entry in kernels:
+        qwen = entry["launches"]
+        entry["launches"] = qwen + sum(
+            by[entry["name"]] for by in dense_launches.values())
+        entry["launches_by_model"] = {"qwen25-05b": qwen, **{
+            arch: by[entry["name"]] for arch, by in dense_launches.items()}}
 
     phase("summary", gpu=smi, script_s=time.perf_counter() - t_start,
           **{k: served[k] for k in (
@@ -2053,6 +2654,22 @@ def main() -> None:
         awq_macro={k: launched["awq_macro"][k] for k in ("bytes",
                                                          "seconds")},
         check_prefill=[prefilled["max_abs_err"], prefilled["tol"]],
+        oneshot_identity={name: [r["identical_streams"], r["requests"]]
+                          for name, r in identity.items()},
+        **{arch: dict(
+            phase_s=f["phase_s"], layers=f["launch"]["layers"],
+            launch_s=f["launch"]["total_s"],
+            launch_peak_mem_bytes=f["launch"]["peak_mem_bytes"],
+            generate_tokens_per_s=f["launch"]["tokens_per_s"],
+            **{f"serve_{name}": {k: f["serve"][name][k] for k in (
+                "decode_step_ms", "decode_tokens_per_s", "serve_s",
+                "identical_streams", "peak_mem_bytes",
+                "k2_windowed_calls")} for name in ("default", "all_kernel")},
+            check=[f["check"]["step1"]["max_abs_err"],
+                   f["check"]["step1"]["tol"]],
+            check_prefill=[f["check_prefill"]["max_abs_err"],
+                           f["check_prefill"]["tol"]])
+           for arch, f in dense.items()},
         fleet={k: served_fleet[k] for k in (
             "fleet_s", "tokens_per_s", "requests", "generated",
             "prefill_tokens_skipped", "placements", "affinity_hits",

@@ -15,7 +15,10 @@ elsewhere. The paper's hybrid split (§III) is kept as the reference has
 it: matmuls below ``offload_min_flops`` stay on the generic path even
 when the kernel is selected — at Qwen2.5 width that is the k / v
 projections at M <= 4 (2·M·896·128 < 2^20). The gate/up pair counts
-both products' flops, 2·M·K·2N.
+both products' flops, 2·M·K·2N. The generic path's product keeps a
+row's bits independent of M on the card (`numerics.matmul_f32_rows`), as
+K1's and K3's summation rule does: a decode row at M 4 equals the same
+row of `generate()` at M 1.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.core.packing import PackedLinear, dequantize_packed
 from repro_torch.kernels import awq_matmul as k1
-from repro_torch.numerics import matmul_f32
+from repro_torch.numerics import matmul_f32_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +104,7 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
         x2 = (x2.to(torch.float32) * p.input_scale[None, :]).to(
             cfg.compute_dtype)
         w = dequantize_packed(p, cfg.compute_dtype)
-        y = matmul_f32(x2, w).to(orig_dtype)
+        y = matmul_f32_rows(x2, w).to(orig_dtype)
 
     if p.bias is not None:
         y = y + p.bias.to(orig_dtype)

@@ -32,7 +32,15 @@
 //   - A block of 4 warps owns 64 query rows of one head, 16 per warp; the
 //     scores, the running max and sum and the output accumulator stay in
 //     registers in the MMA fragment layout, and the probabilities go from
-//     the score fragments straight into the A operand of PV. The softmax
+//     the score fragments straight into the A operand of PV.
+//   - At hd 256 one warp's 16 x 256 f32 accumulator alone would take 128
+//     registers a thread, and Q's fragments 64 more. There a block has 8
+//     warps: the two warps of a 16-row group both compute the rows' scores
+//     and softmax (the same instructions on the same data, so the same
+//     bits) and each keeps half of the output's head dims (64 registers);
+//     Q stays in shared memory and each k-chunk's fragments are loaded
+//     where they are used. ptxas' report (chip_smoke.py's build line)
+//     shows the registers and that nothing spills. The softmax
 //     runs in the log2 domain (scale * log2(e) folded into one multiply,
 //     ex2.approx), and tiles every row of a warp sees whole skip the mask.
 //   - K/V tiles of 64 keys are staged in their own type with 16-byte
@@ -73,11 +81,15 @@ struct Strides {  // element strides of the batch, head and sequence dims
 // ------------------------------------------------------------------------
 // Tensor-core body: bf16 / f16.
 // ------------------------------------------------------------------------
-constexpr int MQ = 64;          // query rows per block (16 per warp)
+constexpr int MQ = 64;          // query rows per block (16 per row group)
 constexpr int MK = 64;          // keys per tile
-constexpr int MW = 4;           // warps per block
-constexpr int MT = 32 * MW;     // threads per block
 static_assert(MQ == MK, "Q and K / V tiles are copied by one routine");
+
+// warps a block: one per 16-row group at hd 64 and 128; two per group at
+// hd 256, which split the output's head dims between them
+template <int HD> __host__ __device__ constexpr int mma_warps() {
+  return HD == 256 ? 8 : 4;
+}
 
 template <typename T> struct Pair;
 template <> struct Pair<__nv_bfloat16> {
@@ -168,7 +180,8 @@ __device__ __forceinline__ void mma<__half>(float (&d)[4],
 // 2 * tig + {0, 1}; an A operand holds the same rows at columns
 // 2 * tig + {0, 1} (a0 / a1) and 2 * tig + 8 + {0, 1} (a2 / a3).
 // copy stages of the K / V ring: three at hd 64 (64 KB of shared memory),
-// two at hd 128 (the tests' width; 122 KB would leave one block an SM)
+// two at hd 128 (the tests' width; 122 KB would leave one block an SM) and
+// at hd 256 (165 KB: one block of 8 warps an SM)
 template <int HD> __host__ __device__ constexpr int stages() {
   return HD == 64 ? 3 : 2;
 }
@@ -177,7 +190,7 @@ template <typename T, int HD> constexpr size_t mma_smem() {
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(MT)
+__global__ void __launch_bounds__(32 * mma_warps<HD>())
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int H, int G, int S,
@@ -185,8 +198,12 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using P2 = Pair<T>;
   constexpr int LD = HD + 8;            // padded row (elements)
   constexpr int CH = HD / 8;            // 16-byte chunks per row
+  constexpr int NTH = 32 * mma_warps<HD>();  // threads per block
+  constexpr int DS = mma_warps<HD>() / 4;   // warps sharing a row group
+  constexpr int HDO = HD / DS;          // output head dims a warp keeps
+  constexpr bool QREG = HD <= 128;      // Q's fragments held in registers
   constexpr int NKT = MK / 8;           // 8-key score tiles per warp
-  constexpr int NDT = HD / 8;           // 8-wide output tiles per warp
+  constexpr int NDT = HDO / 8;          // 8-wide output tiles per warp
   constexpr int NS = stages<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);   // [MQ][LD]
@@ -210,6 +227,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int rg = warp % 4;              // this warp's 16-row group
+  const int dh = warp / 4;              // ... and its part of the head dims
   const int grp = lane / 4, tig = lane % 4;
   const int q0 = qt * MQ;
   const int n_rows = min(MQ, S - q0);
@@ -227,7 +246,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Copies: a pass of the block's threads covers RPP rows of a tile, each
   // thread one 16-byte chunk at a fixed (row, column) of the pass.
-  constexpr int RPP = MT / CH;
+  constexpr int RPP = NTH / CH;
   constexpr uint32_t TILE = MK * LD * sizeof(T);      // bytes of a tile
   const int st_r = tid / CH, st_c = (tid % CH) * 8;
   const uint32_t st_off = (st_r * LD + st_c) * sizeof(T);
@@ -256,7 +275,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) stage_tile(i, i);
 
-  const int row0 = warp * 16;           // this warp's first row in the tile
+  const int row0 = rg * 16;             // this warp's first row in the tile
   const int r_a = q0 + row0 + grp;      // positions of this thread's rows
   const int r_b = r_a + 8;
   const int wp_first = q0 + row0;
@@ -266,9 +285,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t q_ld = q_s + ((row0 + lane % 16) * LD + (lane / 16) * 8) * sizeof(T);
   const uint32_t k_ld = ((lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8) *
                         sizeof(T);
-  const uint32_t v_ld = ((lane % 16) * LD + (lane / 16) * 8) * sizeof(T);
+  const uint32_t v_ld =
+      ((lane % 16) * LD + (lane / 16) * 8 + dh * HDO) * sizeof(T);
 
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[QREG ? HD / 16 : 1][4];
   float acc[NDT][4];
   // running max (log2 domain: scores times scale * log2(e)) and this
   // thread's share of the running sum, for rows r_a and r_b
@@ -283,9 +303,12 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<NS - 2>();            // tile it has landed (this thread's part)
     __syncthreads();                    // ... everyone's; slot it - 1 is free
     stage_tile(it + NS - 1, slot == 0 ? NS - 1 : slot - 1);
-    if (it == 0) {                      // Q fragments, once
+    if constexpr (QREG) {
+      if (it == 0) {                    // Q fragments, once
 #pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) ldsm_x4(q_ld + kc * 16 * sizeof(T), qa[kc]);
+        for (int kc = 0; kc < HD / 16; ++kc)
+          ldsm_x4(q_ld + kc * 16 * sizeof(T), qa[kc]);
+      }
     }
     const int t0 = t_first + it * MK;
     const uint32_t kt = k_s + slot * TILE + k_ld;
@@ -310,10 +333,17 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jp = 0; jp < NKT / 2; ++jp)
         ldsm_x4(kt + (jp * 16 * LD + kc * 16) * sizeof(T), kf[jp]);
+      uint32_t qf[4];                   // ... and Q's, from registers or smem
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kc][e];
+      } else {
+        ldsm_x4(q_ld + kc * 16 * sizeof(T), qf);
+      }
 #pragma unroll
       for (int jp = 0; jp < NKT / 2; ++jp) {
-        mma<T>(s[2 * jp], qa[kc], kf[jp][0], kf[jp][1]);
-        mma<T>(s[2 * jp + 1], qa[kc], kf[jp][2], kf[jp][3]);
+        mma<T>(s[2 * jp], qf, kf[jp][0], kf[jp][1]);
+        mma<T>(s[2 * jp + 1], qf, kf[jp][2], kf[jp][3]);
       }
     }
     // scale into the log2 domain, mask, running max over the row's quad
@@ -410,7 +440,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
   for (int j = 0; j < NDT; ++j) {
-    const int d = 8 * j + 2 * tig;
+    const int d = dh * HDO + 8 * j + 2 * tig;
     if (r_a < S)
       *reinterpret_cast<typename P2::T2*>(ob + r_a * os.s + d) =
           P2::pack(acc[j][0] * inv_a, acc[j][1] * inv_a);
@@ -439,7 +469,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   }
   const int n_qt = (S + MQ - 1) / MQ;
-  flash_mma_kernel<T, HD><<<n_qt * B * H, MT, smem, stream>>>(
+  flash_mma_kernel<T, HD><<<n_qt * B * H, 32 * mma_warps<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H,
       H / Hkv, S, n_qt, causal, window, scale * 1.4426950408889634f, n_sm);
@@ -635,13 +665,18 @@ using LaunchFn = int (*)(const void*, const void*, const void*, void*, Strides,
                          Strides, Strides, Strides, int, int, int, int, int,
                          int, float, cudaStream_t);
 
+template <int HD>
+LaunchFn pick_hd(int dtype) {
+  if (dtype == 0) return launch_f32<HD>;
+  if (dtype == 1) return launch_mma<__nv_bfloat16, HD>;
+  if (dtype == 2) return launch_mma<__half, HD>;
+  return nullptr;
+}
+
 LaunchFn pick(int dtype, int HD) {
-  if (HD != 64 && HD != 128) return nullptr;
-  const bool wide = HD == 128;
-  if (dtype == 0) return wide ? launch_f32<128> : launch_f32<64>;
-  if (dtype == 1)
-    return wide ? launch_mma<__nv_bfloat16, 128> : launch_mma<__nv_bfloat16, 64>;
-  if (dtype == 2) return wide ? launch_mma<__half, 128> : launch_mma<__half, 64>;
+  if (HD == 64) return pick_hd<64>(dtype);
+  if (HD == 128) return pick_hd<128>(dtype);
+  if (HD == 256) return pick_hd<256>(dtype);
   return nullptr;
 }
 
@@ -650,7 +685,7 @@ LaunchFn pick(int dtype, int HD) {
 // Plain C entry point (loaded with ctypes). dtype: 0 f32, 1 bf16, 2 f16 (q,
 // k, v and o alike). Strides are in elements for the batch, head and
 // sequence dims; the head dim is contiguous. The caller has checked shapes,
-// dtypes, H % Hkv == 0, hd in {64, 128}, S >= 1 and, for bf16 / f16,
+// dtypes, H % Hkv == 0, hd in {64, 128, 256}, S >= 1 and, for bf16 / f16,
 // 16-byte aligned pointers and strides. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long qsb,

@@ -51,6 +51,10 @@
 // treated as masked. The TPU version's row padding to 8 and its 128-lane
 // replicated m / l scratch are not carried over: C·G = 7·C rows work as
 // they are. Tensor cores (for a bf16 pool) are left for later work.
+// Head dims 64, 128 and 256 are built. At 256 a block holds 8 x 8 f32
+// accumulators a lane and needs about 109 KB of shared memory (two blocks
+// an SM); the query rows of any group size (G 3 to 16 in the registered
+// models) tile the same way, 8 of the C·G rows a block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,11 +112,16 @@ __device__ __forceinline__ int slot_keys(const int32_t* pos, int b, int C,
 
 // A key's row of K codes is HD / 16 chunks of 16 bytes; chunk c of key t is
 // stored at chunk c ^ swz(t), so the 8 lanes of a quarter warp, each reading
-// chunk c of its own key, hit 8 different 16-byte bank groups.
+// chunk c of its own key, hit 8 different 16-byte bank groups (of the 8 in
+// 128 bytes). At hd 64 (4 chunks a key) two keys share 128 bytes, so the
+// XOR takes t / 2; at hd 128 and 256 (8 and 16 chunks) a key's row spans
+// whole bank rows, so chunk c of every key falls in bank group c % 8 and
+// the XOR takes t % 8, which keeps c ^ swz(t) inside the row.
 template <int HD>
 __device__ __forceinline__ int swz(int t) {
   constexpr int CH = HD / 16;
-  return (t / (8 / CH)) % CH;
+  if constexpr (CH >= 8) return t % 8;
+  else return (t / (8 / CH)) % CH;
 }
 
 template <int HD>
@@ -414,7 +423,7 @@ int launch(const void* q, const void* k_pool, const void* ks,
 
 // Plain C entry point (loaded with ctypes): the partial pass, then the
 // merge pass, on one stream. amask may be null (the default in-span rule). The caller has checked shapes, dtypes and
-// contiguity, hd in {64, 128} and the grid's limits, and passes f32
+// contiguity, hd in {64, 128, 256} and the grid's limits, and passes f32
 // scratch of ceil(n_blocks * P / 128) * B * Hkv * C * G rows: part_ml
 // (m, l: 2 floats a row) and part_acc (hd floats a row). Returns
 // cudaGetLastError().
@@ -432,6 +441,10 @@ extern "C" int paged_attention_chunk_f32(
                       window, scale, s);
   if (HD == 128)
     return launch<128>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
+                       part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,
+                       window, scale, s);
+  if (HD == 256)
+    return launch<256>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
                        part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,
                        window, scale, s);
   return (int)cudaErrorInvalidValue;

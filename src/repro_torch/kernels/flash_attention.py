@@ -24,6 +24,7 @@ from repro_torch.numerics import einsum_f32
 COUNTER = LaunchCounter()
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
 
 
 def visibility(s: int, *, causal: bool, window: int,
@@ -71,8 +72,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B, H, S, hd]``, k/v ``[B, Hkv, S, hd]`` → ``[B, H, S, hd]``.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the
-    kernel (q, k and v of one type among f32 / bf16 / f16, hd 64 or 128,
-    the head dim contiguous) and raise on anything else. bf16 and f16
+    kernel (q, k and v of one type among f32 / bf16 / f16, hd 64, 128 or
+    256, the head dim contiguous) and raise on anything else. bf16 and f16
     run on tensor cores, whose 16-byte copies want every row 16-byte
     aligned (pointer and strides); f32 runs on the CUDA cores.
     """
@@ -83,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    window=window)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
     _check(q.dtype in _DTYPES, f"unsupported dtype {q.dtype}")
-    _check(hd in (64, 128), f"head_dim {hd} (kernel built for 64, 128)")
+    _check(hd in HEAD_DIMS, f"head_dim {hd} (kernel built for 64, 128, 256)")
     _check(window >= 0, f"window must be >= 0, got {window}")
     hkv = k.shape[1]
     _check(hkv > 0 and h % hkv == 0, f"H={h} is not a multiple of Hkv={hkv}")

@@ -7,7 +7,8 @@ Execution regimes (as in the reference):
     matrix is formed on the card; the reference chunks queries by
     ``attn_chunk`` for the same reason).
   * decode (dense cache) — single-token attention against a
-    ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`).
+    ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`); a
+    sliding-window layer keeps a ring of ``min(window, S_max)`` slots.
   * paged chunk (serving) — `attention_chunk_paged`: the engine's unified
     prefill/decode step over the page pools (scatter the block's K/V,
     then attend per token under the three-part visibility rule);
@@ -166,18 +167,16 @@ def attention(p, x, cfg, *, positions, window: int = 0,
 # Dense decode cache (GenerationEngine.generate)
 # ---------------------------------------------------------------------------
 
-def _no_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            "the sliding-window ring decode cache is not ported yet")
-
-
 def init_kv_cache(cfg, batch: int, max_seq: int, window: int,
                   dtype=torch.bfloat16, device=None):
-    _no_window(window)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    """Dense decode cache ``[B, S, Hkv, hd]`` (int8 codes plus f32
+    per-(position, head) scale strips under ``cfg.kv_quant == "int8"``).
+    A windowed layer keeps a ring of ``S = min(window, max_seq)`` slots:
+    position p lives at slot ``p % window`` (`_ring_positions`)."""
+    s = min(window, max_seq) if window else max_seq
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant == "int8":
-        sshape = (batch, max_seq, cfg.num_kv_heads)
+        sshape = (batch, s, cfg.num_kv_heads)
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
@@ -205,27 +204,53 @@ def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
 
 
+def _ring_positions(pos: torch.Tensor, w: int) -> torch.Tensor:
+    """Absolute position held by each ring slot; < 0 ⇒ not yet written.
+
+    Slot s (0..W-1) at current position ``pos [B]`` (the token being
+    written) holds the newest absolute position p ≤ pos with p ≡ s
+    (mod W). → ``[B, W]``."""
+    slots = torch.arange(w, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    return p - ((p - slots) % w)
+
+
 def fill_cache_from_prefill(cache, k, v, positions, window: int):
-    """Write prefill keys/values [B, S, ...] into a fresh decode cache."""
-    _no_window(window)
-    s = k.shape[1]
-    if "ks" in cache:
+    """Write prefill keys/values [B, S, ...] into a fresh decode cache. A
+    windowed layer whose prompt is longer than its ring keeps the last W
+    tokens, each at slot ``position % W``."""
+    b, s = k.shape[0], k.shape[1]
+    quant = "ks" in cache
+    if quant:
         k, ks = _kv_quantize(k)
         v, vs = _kv_quantize(v)
-        cache["ks"][:, :s] = ks
-        cache["vs"][:, :s] = vs
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    if not window or s <= window:
+        idx = (slice(None), slice(0, s))
+    else:
+        k, v = k[:, -window:], v[:, -window:]
+        if quant:
+            ks, vs = ks[:, -window:], vs[:, -window:]
+        idx = (torch.arange(b, device=k.device)[:, None],
+               positions[:, -window:].long() % window)
+    if quant:
+        cache["ks"][idx] = ks
+        cache["vs"][idx] = vs
+    cache["k"][idx] = k.to(cache["k"].dtype)
+    cache["v"][idx] = v.to(cache["v"].dtype)
     return cache
 
 
 def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
-    """Single-token decode. x [B, D], pos [B] -> (y [B, D], cache)."""
-    _no_window(window)
+    """Single-token decode. x [B, D], pos [B] -> (y [B, D], cache).
+
+    A windowed layer writes slot ``pos % window`` of its ring and attends
+    over the positions the ring holds (`_ring_positions`) under the
+    causal window mask; a full layer writes slot ``pos`` and attends over
+    ``k <= pos``."""
     b = x.shape[0]
     q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
     bidx = torch.arange(b, device=x.device)
-    slot = pos.long()
+    slot = (pos.long() % window) if window else pos.long()
     if "ks" in cache:
         k1, ks1 = _kv_quantize(k1)
         v1, vs1 = _kv_quantize(v1)
@@ -239,12 +264,15 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
         ck = _kv_dequant(ck, cache["ks"], adt)
         cv = _kv_dequant(cv, cache["vs"], adt)
     s_max = ck.shape[1]
-    ar = torch.arange(s_max, device=x.device)[None, :]
-    k_pos = torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
+    if window:
+        k_pos = _ring_positions(pos, s_max)
+    else:
+        ar = torch.arange(s_max, device=x.device)[None, :]
+        k_pos = torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
-    out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=False, window=0,
-                scale=cfg.head_dim ** -0.5,
+    out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=bool(window),
+                window=window, scale=cfg.head_dim ** -0.5,
                 probs_dtype=_cache_probs_dtype(cv.dtype, adt))
     return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
 

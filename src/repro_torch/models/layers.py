@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from repro_torch.core import calibration
 from repro_torch.core.packing import PackedLinear
 from repro_torch.core.qlinear import qlinear_apply
-from repro_torch.numerics import matmul_f32
+from repro_torch.numerics import matmul_f32_rows
 
 
 # ---------------------------------------------------------------------- init
@@ -55,12 +55,14 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 def linear(p, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     """``y = x @ w (+ b)``: float weights in x's dtype with f32
     accumulation (recording x under ``name`` during calibration), or the
-    quantized dispatch for a `PackedLinear`."""
+    quantized dispatch for a `PackedLinear`. A row's bits do not depend
+    on how many rows share the call (`numerics.matmul_f32_rows`; one call
+    inside a full-sequence forward, `numerics.free_rows`)."""
     if isinstance(p, PackedLinear):
         return qlinear_apply(p, x)
     calibration.record_linear_input(name, x)
     w = p["w"]
-    y = matmul_f32(x, w.to(x.dtype)).to(x.dtype)
+    y = matmul_f32_rows(x, w.to(x.dtype)).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -69,11 +69,13 @@ class Model:
         return x, positions
 
     def _head_logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits; the tied head is a plain f32 ``[.., D] × [D, V]``
-        product (the largest read of a decode step, outside any kernel),
-        whose rows do not depend on how many share the call
-        (`numerics.matmul_f32_rows`): a verify step's rows equal the same
-        rows decoded one step at a time."""
+        """f32 logits; the head (tied: the embedding table; untied:
+        ``lm_head``, which the AWQ pipeline never quantizes) is a plain f32
+        ``[.., D] × [D, V]`` product (the largest read of a decode step,
+        outside any kernel), whose rows do not depend on how many share
+        the call (`numerics.matmul_f32_rows`, also through `linear`): a
+        verify step's rows equal the same rows decoded one step at a
+        time."""
         if self.cfg.tie_embeddings:
             return matmul_f32_rows(x, params["embed"]["table"].t())
         return linear(params["lm_head"], x.to(torch.float32))

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import numerics
 from repro_torch.core import calibration
 from repro_torch.models import blocks
 
@@ -44,19 +45,23 @@ def stack_init_paged_cache(cfg, num_pages: int, page_size: int,
 
 def stack_apply(params, x, cfg, *, mode: str, positions, cache=None,
                 page_table=None, rpos=None, amask=None):
-    """Run all layers. Returns (x, cache); caches update in place."""
+    """Run all layers. Returns (x, cache); caches update in place. A
+    full-sequence forward (train, prefill) runs its linears as one call
+    each (`numerics.free_rows`); serving steps keep a row's bits
+    independent of the step's row count."""
     capture = calibration.capture_active()
-    for si, (kind, n) in enumerate(cfg.segments()):
-        p_seg = params[seg_name(si)]
-        c_seg = cache[seg_name(si)] if cache is not None else None
-        for i in range(n):
-            nm = ((lambda local, _si=si, _i=i:
-                   f"segments/{seg_name(_si)}/{local}@{_i}")
-                  if capture else None)
-            x, c_new = blocks.block_apply(
-                p_seg[i], x, cfg, kind, mode=mode, positions=positions,
-                cache=None if c_seg is None else c_seg[i], name=nm,
-                page_table=page_table, rpos=rpos, amask=amask)
-            if c_seg is not None:
-                c_seg[i] = c_new
+    with numerics.free_rows(mode in ("train", "prefill")):
+        for si, (kind, n) in enumerate(cfg.segments()):
+            p_seg = params[seg_name(si)]
+            c_seg = cache[seg_name(si)] if cache is not None else None
+            for i in range(n):
+                nm = ((lambda local, _si=si, _i=i:
+                       f"segments/{seg_name(_si)}/{local}@{_i}")
+                      if capture else None)
+                x, c_new = blocks.block_apply(
+                    p_seg[i], x, cfg, kind, mode=mode, positions=positions,
+                    cache=None if c_seg is None else c_seg[i], name=nm,
+                    page_table=page_table, rpos=rpos, amask=amask)
+                if c_seg is not None:
+                    c_seg[i] = c_new
     return x, cache

@@ -11,9 +11,13 @@ float64 and are rounded once to float32, which makes each row's result
 independent of its neighbours (the inputs are f32 or narrower, so every
 product is exact in f64). On CUDA they run in float32 (TF32 off), where
 cuBLAS picks its kernel from the shape (a GEMV for one row, a tiled GEMM
-for more), so `matmul_f32_rows` feeds it blocks of a fixed row count.
+for more), so `matmul_f32_rows` feeds it blocks of a fixed row count,
+except inside `free_rows` (a full-sequence forward, whose rows are never
+held against rows of another M).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -32,7 +36,30 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, _wide(a), _wide(b)).to(torch.float32)
 
 
-ROW_BLOCK = 16
+# Rows a cuBLAS call takes. At 4 rows cuBLAS serves an f32 product with
+# kernels that spread over many blocks; at 16 it gave the k / v
+# projections' 896 → 128 product one 32 × 128 tile, one block, 51 µs a
+# call on the H100 (chip_smoke.py's profile, PR 21).
+ROW_BLOCK = 4
+_FREE_ROWS = False
+
+
+@contextlib.contextmanager
+def free_rows(on: bool = True):
+    """Within, `matmul_f32_rows` makes one call whatever its row count.
+
+    For full-sequence forwards (train, prefill, the calibration forward):
+    their rows are never held against rows computed at another M (a
+    one-shot prefill and `generate()`'s prefill of one prompt have the
+    same M), and blocks of `ROW_BLOCK` would cost M / 4 launches a linear
+    at M up to 1,024. Serving steps (decode, chunk, verify) and the head stay
+    blocked."""
+    global _FREE_ROWS
+    prev, _FREE_ROWS = _FREE_ROWS, on
+    try:
+        yield
+    finally:
+        _FREE_ROWS = prev
 
 
 def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,9 +67,11 @@ def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     rows the call holds: on CUDA the rows go through cuBLAS in blocks of
     `ROW_BLOCK` (the last one zero-padded), so every row meets the same
     kernel at the same shape whether it is one of 1 (`generate`), of 4 (a
-    decode step) or of 20 (a verify step of 4 rows × 5 positions). ``b``
-    is widened once for all blocks. On the CPU, `matmul_f32`."""
-    if a.device.type != "cuda":
+    decode step of 4 slots) or of 20 (a verify step of 4 rows × 5
+    positions). ``b``
+    is widened once for all blocks. On the CPU, and inside `free_rows`,
+    `matmul_f32`."""
+    if a.device.type != "cuda" or _FREE_ROWS:
         return matmul_f32(a, b)
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k).to(torch.float32)

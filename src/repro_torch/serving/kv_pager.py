@@ -137,7 +137,9 @@ Preemption spill/restore (`spill` / `restore`):
 Device-side commit (the one-shot prefill path): `commit_prefill` writes
 one request's dense prefill cache into the page pools, quantizing on
 commit for int8 pools with the chunk step's codec. Only ``kv_pool``
-entries are ported; the sliding-window ring, MLA and SSM entries raise.
+entries are ported (a windowed attention layer has one too: the paged
+read masks what slid out of the window); hymba's per-slot ring (``kv``),
+MLA and SSM entries raise.
 """
 from __future__ import annotations
 
@@ -971,6 +973,15 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
     prefix pages and are not rewritten. The pools update in place; the
     cache is returned, as the reference returns its new one. ``slot``
     addresses per-slot state, which only the unported entry kinds have.
+
+    A windowed layer's prefill cache is a ring of ``min(window, S)``
+    slots (`attention.init_kv_cache`), and it is committed as the
+    reference commits it: its slots go to the first ``min(window, S)``
+    positions of the pages. For a prompt no longer than the window that
+    is the prompt's KV in order; for a longer one the reference writes
+    the ring's slot order and leaves the later positions unwritten, and
+    the port does the same (held equal to the reference in
+    `tests/test_torch_ring_cache.py`).
     """
     del slot
     pages = None                      # one host→device copy per commit

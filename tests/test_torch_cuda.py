@@ -1044,3 +1044,250 @@ def test_spec_streams_equal_plain_on_card(smoke_engine, kw):
         # high but not total
         assert st.accepted_tokens > st.draft_tokens // 2
         assert k4.COUNTER.count - k4_before >= m.cfg.num_layers * len(prompts)
+
+
+# ------------------------------------------------- rows that depend on M
+
+# the generic path's (K, N): Qwen2.5's k / v projections (under the hybrid
+# threshold at M <= 4), smollm-360m's (under it at M 1), and gemma-2b's
+# and glm4-9b's k / v widths taken through the generic path as well
+GENERIC_KN = [(896, 128), (960, 320), (2048, 256), (4096, 256)]
+
+
+@pytest.mark.parametrize("k,n", GENERIC_KN)
+def test_generic_path_rows_equal_across_m(cuda, k, n):
+    """The generic quantized path (dequantize, then one f32 cuBLAS
+    product) and a float linear in a serving step: a row's bits are the
+    same whether the call holds 1 row (`generate`), 4 (a decode step),
+    5, 16 or 20 (a verify step) of the same 40."""
+    from repro_torch.core.qlinear import qlinear_apply
+    cfg = QuantConfig(group_size=64)
+    w = torch.randn(k, n, generator=cuda, device="cuda") / k ** 0.5
+    p = pack_linear(*quantize_groupwise(w, cfg),
+                    torch.rand(k, generator=cuda, device="cuda") + 0.5, None,
+                    cfg)
+    x = torch.randn(40, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for fn in (lambda a: qlinear_apply(p, a, impl="ref"),
+               lambda a: layers.linear({"w": w}, a)):
+        full = fn(x)
+        for m in (1, 4, 5, 16, 20):
+            for i in range(0, 40 - m + 1, m):
+                assert torch.equal(fn(x[i:i + m]), full[i:i + m]), (m, i)
+
+
+def test_untied_head_rows_equal_across_m(cuda):
+    """glm4-9b's untied f32 head (4096 → 151,552, never quantized): a
+    row's logits are the same bits at M 1, 4, 5, 16 and 20, and equal the
+    CPU's f64-summed product within f32 rounding."""
+    from repro_torch.configs import get_config
+    model = Model(dataclasses.replace(get_config("glm4-9b"), num_layers=1))
+    params = {"lm_head": {"w": torch.randn(
+        4096, 151552, generator=cuda, device="cuda") / 64}}
+    x = torch.randn(40, 4096, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    full = model._head_logits(params, x)
+    assert full.dtype == torch.float32
+    for m in (1, 4, 5, 16, 20):
+        for i in range(0, 40 - m + 1, m):
+            assert torch.equal(model._head_logits(params, x[i:i + m]),
+                               full[i:i + m]), (m, i)
+    ref = model._head_logits({"lm_head": {"w": params["lm_head"]["w"][
+        :, :8192].cpu()}}, x[:4].cpu())
+    torch.testing.assert_close(full[:4, :8192].cpu(), ref, rtol=1e-5,
+                               atol=1e-5)
+
+
+# ------------------------------------------- the other dense models' shapes
+
+# Hkv, G, hd, window: gemma3-4b's global and windowed layers, gemma-2b
+# (MQA), glm4-9b, smollm-360m
+K2_DENSE = [(4, 2, 256, 0), (4, 2, 256, 1024), (1, 8, 256, 0),
+            (2, 16, 128, 0), (5, 3, 64, 0)]
+
+
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("hkv,g,hd,window", K2_DENSE)
+def test_paged_attention_kernel_dense_model_shapes(cuda, hkv, g, hd, window,
+                                                   c):
+    """K2 at the other dense models' head dims and groupings, over slots
+    of 96 pages of 16 (contexts up to 1,536, past gemma3's 1,024-token
+    window)."""
+    b, page, nblk = 4, 16, 96
+    npages = b * nblk + 1
+    pools = _k2_pools(cuda, npages, page, hkv, hd)
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 300, 1100, nblk * page - c], dtype=torch.int32,
+                        device="cuda")
+    pos = base[:, None] + torch.arange(c, dtype=torch.int32,
+                                       device="cuda")[None]
+    pos[0, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    before = k2.COUNTER.count
+    out = _k2_run(q, pools, table, pos, window=window)
+    assert k2.COUNTER.count == before + 1
+    assert out[3].abs().sum() > 0
+
+
+# b, h, hkv, s, hd, causal, window
+K4_DENSE = [(1, 8, 4, 1100, 256, True, 0),      # gemma3 global layer
+            (1, 8, 4, 1100, 256, True, 1024),   # gemma3 windowed layer
+            (2, 8, 4, 64, 256, True, 1024),     # gemma3 calibration
+            (2, 8, 1, 300, 256, True, 0),       # gemma-2b (MQA)
+            (1, 32, 2, 257, 128, True, 0),      # glm4-9b (g = 16)
+            (1, 15, 5, 200, 64, True, 0),       # smollm-360m (g = 3)
+            (1, 8, 4, 130, 256, False, 0)]      # hd 256, bidirectional
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,hd,causal,window", K4_DENSE)
+def test_flash_attention_kernel_dense_model_shapes(cuda, b, h, hkv, s, hd,
+                                                   causal, window, dtype):
+    q, k, v = _k4_inputs(cuda, b, h, hkv, s, hd, dtype)
+    before = k4.COUNTER.count
+    out = k4.flash_attention(q, k, v, causal=causal, window=window)
+    ref = k4.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k4.COUNTER.count == before + 1
+    _k4_check(out, ref, dtype)
+
+
+def test_flash_attention_kernel_hd256_strided_views(cuda):
+    """hd 256 read through ``transpose(1, 2)`` views of [B, S, H, hd]
+    projections, as `attention()` passes them."""
+    b, s, h, hkv, hd = 2, 77, 8, 4, 256
+    qs, ks, vs = (torch.randn(b, s, n, hd, generator=cuda, device="cuda")
+                  .to(torch.bfloat16) for n in (h, hkv, hkv))
+    q, k, v = (t.transpose(1, 2) for t in (qs, ks, vs))
+    out = k4.flash_attention(q, k, v, window=32)
+    ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), window=32)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    _k4_check(out, ref, torch.bfloat16)
+
+
+# the other dense models' K1 (K, N): smollm-360m's q / o, k / v and down,
+# gemma3-4b's q, k / v, o and GeGLU gate / up and down, glm4-9b's k / v
+K1_DENSE = [(960, 960), (960, 320), (2560, 960), (2560, 2048), (2560, 1024),
+            (2048, 2560), (2560, 10240), (10240, 2560), (4096, 256),
+            (2048, 256)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 64, 1024])
+@pytest.mark.parametrize("k,n", K1_DENSE)
+def test_awq_matmul_kernel_dense_model_shapes(cuda, k, n, m):
+    w, scale = _k1_linear(cuda, k, n, 64, True)
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        _k1_check(*_k1_run(x, w, scale, out_dtype))
+
+
+@pytest.mark.parametrize("k,n", [(960, 2560), (4096, 13696)])
+def test_awq_gateup_kernel_dense_model_shapes(cuda, k, n):
+    """K3 at smollm-360m's and glm4-9b's SiLU fronts (K 960 is 7.5 of the
+    summation rule's 128-k spans), and its rows equal across M."""
+    args, scales = _k3_pair(cuda, k, n, 64, True)
+    x = torch.randn(1024, k, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        full = k1.awq_gateup(x, *args, **kw)
+        _k3_check(full, k1.awq_gateup_ref(x, *args, torch.bfloat16, **kw))
+        for m in (1, 4, 64):
+            part = k1.awq_gateup(x[:m].contiguous(), *args, **kw)
+            _k3_check(part, k1.awq_gateup_ref(x[:m].contiguous(), *args,
+                                              torch.bfloat16, **kw))
+            assert torch.equal(part, full[:m]), m
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma-2b", "gemma3-4b",
+                                  "glm4-9b"])
+def test_dense_smoke_chunk_step_on_card_near_cpu(cuda, arch):
+    """Each model's smoke config, RTN int4, through two chunk steps over
+    int8 pools on the card (K1 / K3, K2) and on the CPU (plain versions):
+    logits within 5% of their largest magnitude (bf16 activations round
+    differently once K2 dequantizes in f32). glm4-9b's smoke head dim
+    (32) is not one K2 is built for, so its smoke model runs at hd 64
+    (the published model's is 128)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch)
+    if cfg.head_dim not in k2.HEAD_DIMS:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    m = Model(cfg)
+    params, _ = quantize_params(m.init(cuda, device="cuda"))
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(3)
+    table = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4)
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 3, 8)).astype(np.int32))
+    pos = [torch.full((3, 8), -1, dtype=torch.int32) for _ in range(2)]
+    pos[0][0], pos[0][1, :5] = torch.arange(8), torch.arange(5)
+    pos[1][0], pos[1][1, 0] = torch.arange(8, 16), 5
+    sidx = [torch.tensor([7, 4, 0], dtype=torch.int32),
+            torch.tensor([7, 0, 0], dtype=torch.int32)]
+    pools = {d: m.init_paged_cache(13, 8, kv_quant="int8", device=d)
+             for d in ("cuda", "cpu")}
+    prm = {"cuda": params, "cpu": cpu_params}
+    for step in range(2):
+        logits = {}
+        for d in ("cuda", "cpu"):
+            with torch.no_grad():
+                lg, pools[d] = m.chunk_step(
+                    prm[d], pools[d], toks[step].to(d), pos[step].to(d),
+                    sidx[step].to(d), page_table=table.to(d))
+            logits[d] = lg[:2].float().cpu()
+        ref = logits["cpu"]
+        assert float((logits["cuda"] - ref).abs().max()) <= \
+            0.05 * float(ref.abs().max())
+
+
+def _tree_to(tree, device):
+    from repro_torch.core.packing import PackedLinear
+    if isinstance(tree, PackedLinear):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_gemma3_smoke_ring_decode_on_card_near_cpu(cuda):
+    """gemma3-4b's smoke config (window 32, RTN int4, f32 activations)
+    decoding on the card past its rings' wrap (prompt 40, then 24 steps):
+    K4 prefills every layer, the windowed layers write slot pos % 32 and
+    read what their rings hold; the logits stay within 2% of their scale
+    of the same steps on CPU copies (plain versions), each step fed the
+    CPU's token. Every linear rounds its f32 input to bf16, so a sum a
+    few ulps off on one side can round an input to the neighbouring bf16
+    value (2^-8): a 0.1% bound failed on the card, at 0.48% of the scale;
+    a ring slot read at the wrong position moves them by far more."""
+    from repro_torch.configs import get_smoke_config
+    m = Model(dataclasses.replace(get_smoke_config("gemma3-4b"),
+                                  activation_dtype="float32"))
+    params, _ = quantize_params(m.init(cuda, device="cuda"))
+    prm = {"cuda": params, "cpu": _tree_to(params, "cpu")}
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 512, (1, 40)).astype(np.int32))
+    state = {}
+    with torch.no_grad():
+        for d in ("cuda", "cpu"):
+            cache = m.init_cache(1, 64, dtype=torch.float32, device=d)
+            before = k4.COUNTER.count
+            cache, lg, pos = m.prefill(prm[d], {"tokens": prompt.to(d)},
+                                       cache)
+            if d == "cuda":
+                assert k4.COUNTER.count - before == m.cfg.num_layers
+            state[d] = [cache, lg, pos]
+        for _ in range(24):
+            ref = state["cpu"][1].float()
+            got = state["cuda"][1].float().cpu()
+            assert float((got - ref).abs().max()) <= \
+                2e-2 * float(ref.abs().max())
+            tok = ref.argmax(-1).to(torch.int32)
+            for d in ("cuda", "cpu"):
+                cache, _, pos = state[d]
+                lg, cache = m.decode_step(prm[d], cache, tok.to(d), pos)
+                state[d] = [cache, lg, pos + 1]
+    assert int(state["cpu"][2][0]) == 64

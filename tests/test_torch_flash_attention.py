@@ -30,6 +30,12 @@ CASES = [
     (1, 2, 2, 256, 64, False, 0, 128, 128),     # bidirectional (encoder)
     (1, 2, 2, 512, 64, True, 128, 128, 128),    # sliding window
     (2, 3, 1, 384, 64, True, 0, 128, 128),      # odd head count, g=3
+    # the other dense models' shapes: gemma3 (8 / 4 heads, hd 256, and its
+    # windowed layers), gemma-2b (MQA, g = 8, hd 256), glm4 (g = 16, hd 128)
+    (1, 8, 4, 128, 256, True, 0, 64, 64),
+    (1, 8, 4, 192, 256, True, 64, 64, 64),
+    (1, 8, 1, 128, 256, True, 0, 64, 64),
+    (1, 16, 1, 128, 128, True, 0, 64, 64),
 ]
 
 

@@ -1,5 +1,4 @@
-"""The one-shot serving path, parallel sampling and `generate_scan`,
-held against the JAX package and against the port itself.
+"""The one-shot serving path's parts, held against the JAX package.
 
   * `commit_prefill` against the reference's on the same dense prefill
     cache and pool: bf16 pages and int8 codes equal, f32 scale strips at
@@ -8,14 +7,12 @@ held against the JAX package and against the port itself.
     float and AWQ params over bf16 and int8 pools, at the reference's
     kernel tolerances (`tests/test_kernels.py:40`: rtol/atol 2e-5 where
     every cached value is f32 or int8, 2e-2 over bf16 pages);
-  * the engine: one-shot streams ≡ chunked streams ≡ the port's own
-    `generate()` over bf16 pools (JAX serving streams are not an oracle:
-    seven JAX identity tests are red on this tree), and integers (stats,
-    pager state) equal to the JAX engine's for the same submits. Over
-    int8 pools one-shot and chunked differ by design (the one-shot
-    prefill attends over the dense bf16 cache and quantizes on commit),
-    so there only the first token, which no pool has touched yet, is
-    held against JAX.
+  * the engine's first token, which `Model.prefill` gives before any
+    pool is read, against JAX's prefill over either pool type.
+
+The engine's streams (one-shot ≡ chunked ≡ `generate()`) are in
+`tests/test_torch_oneshot_streams.py`; parallel sampling and
+`generate_scan` in `tests/test_torch_parallel.py`.
 """
 import dataclasses
 
@@ -25,20 +22,17 @@ import numpy as np
 import pytest
 import torch
 
-import repro.configs as jconfigs
 from repro.configs import qwen25_05b as jcfgs
 from repro.core import pipeline as jpipe
 from repro.core import qlinear as jql
 from repro.models import build_model as jbuild
-from repro.serving import GenerationEngine as JEngine
 from repro.serving import kv_pager as jkv
 from repro_torch import bridge
 from repro_torch.configs import qwen25_05b as tcfgs
-from repro_torch.core.pipeline import quantize_params
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
 from repro_torch.models.model import Model
 from repro_torch.serving import kv_pager as tkv
-from repro_torch.serving.engine import GenerationEngine, SamplerConfig
+from repro_torch.serving.engine import GenerationEngine
 
 TOL_F32 = dict(rtol=2e-5, atol=2e-5)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -68,16 +62,6 @@ def f32_compute():
     jql.set_execution_config(compute_dtype=jnp.float32)
     with execution_config(F32):
         yield
-
-
-@pytest.fixture(scope="module")
-def port_model():
-    """The port alone, bf16 activations (the engine identity runs)."""
-    cfg = dataclasses.replace(tcfgs.smoke_config(), num_heads=14,
-                              num_kv_heads=2)
-    m = Model(cfg)
-    p = m.init(torch.Generator().manual_seed(0), device="cpu")
-    return m, {"float": p, "awq": quantize_params(p)[0]}
 
 
 def _prompts(vocab, lens, seed):
@@ -187,77 +171,7 @@ def test_decode_step_paged_matches_jax(parity, kind, kv_quant):
         pos[:2] += 1
 
 
-# -------------------------------------------------------- one-shot engine
-
-def _serve(m, params, prompts, new, **kw):
-    kw = {"max_seq": 64, "num_slots": 4, "page_size": 8, **kw}
-    eng = GenerationEngine(m, params, **kw)
-    rids = [eng.submit(p, new) for p in prompts]
-    out = eng.drain()
-    assert eng._scheduler.pager.pages_in_use == 0
-    return [list(out[r]) for r in rids], eng
-
-
-@pytest.mark.parametrize("chunk", [8, 3, 5, 64])
-def test_oneshot_matches_chunked_and_generate(port_model, chunk):
-    """The reference's `test_chunked_matches_oneshot_and_generate` on the
-    port (page 8: an aligned chunk, two unaligned, one past the prompt)."""
-    m, params = port_model
-    prompts = _prompts(m.cfg.vocab_size, (5, 12, 9, 17, 7, 21), 1)
-    chunked, eng_c = _serve(m, params["awq"], prompts, 8,
-                            prefill_chunk=chunk)
-    oneshot, eng_o = _serve(m, params["awq"], prompts, 8,
-                            chunked_prefill=False)
-    assert chunked == oneshot
-    assert eng_c._scheduler.chunked and not eng_o._scheduler.chunked
-    assert eng_c.stats().prefill_tokens == sum(map(len, prompts))
-    # the reference counts prompt tokens on the chunked path only
-    assert eng_o.stats().prefill_tokens == 0
-    assert eng_o.warmup() == 0 and eng_c.warmup() > 0
-    for p, stream in zip(prompts, oneshot):
-        np.testing.assert_array_equal(
-            stream, eng_o.generate({"tokens": p[None]}, 8)[0])
-
-
-def test_oneshot_shared_prefix_identical_and_integers_match_jax(port_model):
-    """The reference's `test_chunked_shared_prefix_identical_and_skips_
-    flops`: chunks of 5 straddle page and prefix boundaries; shared ≡
-    unshared ≡ one-shot streams, and the chunked run's integers equal the
-    JAX engine's for the same submits."""
-    m, params = port_model
-    rng = np.random.default_rng(3)
-    vocab = m.cfg.vocab_size
-    prefix = rng.integers(0, vocab, (19,)).astype(np.int32)
-    prompts = [np.concatenate([prefix, rng.integers(0, vocab, (t,)).astype(
-        np.int32)]) for t in (6, 3, 9, 5)]
-    kw = dict(max_seq=64, num_slots=4, page_size=8)
-
-    def serve(eng, prefix_id):
-        rids = [eng.submit(p, 6, prefix_id=prefix_id) for p in prompts]
-        out = eng.drain()
-        assert eng._scheduler.pager.pages_in_use == 0
-        return [list(out[r]) for r in rids], eng.scheduler_stats
-
-    shared, st_s = serve(GenerationEngine(m, params["float"],
-                                          prefill_chunk=5, **kw), "sys")
-    unshared, st_u = serve(GenerationEngine(m, params["float"],
-                                            prefill_chunk=5, **kw), None)
-    oneshot, st_o = serve(GenerationEngine(m, params["float"],
-                                           chunked_prefill=False, **kw),
-                          "sys")
-    assert shared == unshared == oneshot
-    assert st_s.prefix_shared_pages == 6
-    assert st_s.prefill_tokens_skipped == 3 * 16
-    assert st_u.prefill_tokens_skipped == 0
-    assert st_s.prefill_tokens < st_u.prefill_tokens
-    # one-shot: each follower aliases the 2 registered pages, nothing skips
-    assert st_o.prefix_shared_pages == 6 and st_o.prefill_tokens_skipped == 0
-    jm = jbuild(jconfigs.get_smoke_config("qwen25-05b"))
-    jeng = JEngine(jm, jm.init(jax.random.PRNGKey(0)), prefill_chunk=5,
-                   **kw)
-    _, st_j = serve(jeng, "sys")
-    assert dataclasses.asdict(st_s) == dataclasses.asdict(st_j)
-
+# ------------------------------------------------------ the first token
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
 def test_oneshot_first_token_matches_jax(parity, kv_quant):
@@ -280,110 +194,3 @@ def test_oneshot_first_token_matches_jax(parity, kv_quant):
         top2 = np.sort(np.asarray(jl)[0])[-2:]
         assert top2[1] - top2[0] > 1e-3          # a clear argmax
         assert out[rid][0] == int(jnp.argmax(jl[0])) == int(tl[0].argmax())
-
-
-# ----------------------------------------------------- parallel sampling
-
-def test_parallel_greedy_identical_streams_and_page_sharing(port_model):
-    """The reference's parallel-sampling case on the port: greedy n = 3
-    siblings equal the port's `generate()`, the prompt's full pages are
-    written once and aliased, and the integers equal the JAX engine's."""
-    m, params = port_model
-    prompt = _prompts(m.cfg.vocab_size, (20,), 7)[0]   # 2 full pages at 8
-    kw = dict(max_seq=64, num_slots=4, page_size=8)
-    eng = GenerationEngine(m, params["awq"], **kw)
-    ref = eng.generate({"tokens": prompt[None]}, 8)[0]
-    rids = eng.submit(prompt, 8, n=3)
-    assert isinstance(rids, list) and len(rids) == 3
-    peak_ref = 0
-    while not eng.idle:
-        eng.step()
-        peak_ref = max(peak_ref, int(eng._scheduler.pager.page_ref.max()))
-    out = eng.collect()
-    for r in rids:
-        np.testing.assert_array_equal(out[r], ref)
-    assert peak_ref == 3                          # every sibling aliases
-    st = eng.scheduler_stats
-    assert st.prefix_shared_pages == 4            # 2 pages × 2 siblings
-    assert st.prefill_tokens_skipped == 2 * 16
-    assert eng._scheduler.pager.pages_in_use == 0
-    eng._scheduler.pager.verify_invariants()
-    jm = jbuild(jconfigs.get_smoke_config("qwen25-05b"))
-    jeng = JEngine(jm, jm.init(jax.random.PRNGKey(0)), **kw)
-    jrids = jeng.submit(prompt, 8, n=3)
-    jeng.drain()
-    assert jrids == rids
-    assert dataclasses.asdict(jeng.scheduler_stats) == dataclasses.asdict(st)
-    one = GenerationEngine(m, params["awq"], chunked_prefill=False, **kw)
-    rids = one.submit(prompt, 8, n=3)
-    out = one.drain()
-    for r in rids:
-        np.testing.assert_array_equal(out[r], ref)
-    assert one.scheduler_stats.prefix_shared_pages == 4
-
-
-def test_parallel_submit_shapes_and_validation(port_model):
-    m, params = port_model
-    eng = GenerationEngine(m, params["float"], max_seq=64, num_slots=4,
-                           page_size=8)
-    rid = eng.submit(np.arange(4, dtype=np.int32), 2)
-    assert isinstance(rid, int)                   # n=1 keeps the scalar form
-    with pytest.raises(ValueError, match="n must be"):
-        eng.submit(np.arange(4, dtype=np.int32), 2, n=0)
-    rids = eng.submit(np.arange(20, dtype=np.int32), 2, n=2,
-                      prefix_id="sys")
-    assert rids == [rid + 1, rid + 2]
-    assert [r.prefix_id for r in eng._scheduler.queue][-2:] == ["sys"] * 2
-    more = eng.submit(np.arange(20, dtype=np.int32), 2, n=2)
-    assert [r.prefix_id for r in eng._scheduler.queue][-2:] == \
-        [f"__par{more[0]}"] * 2
-    eng.drain()
-    assert eng._scheduler.pager.pages_in_use == 0
-
-
-def test_parallel_sampled_marginals_match_independent_runs(port_model):
-    """The first sampled token of `submit(n=2)` siblings is distributed
-    like two independent single submissions (total-variation bound)."""
-    m, params = port_model
-    prompt = _prompts(m.cfg.vocab_size, (20,), 8)[0]
-    samp = SamplerConfig(temperature=1.0, top_k=4)
-
-    def first_tokens(n_mode, reps, seed):
-        eng = GenerationEngine(m, params["float"], max_seq=64, num_slots=4,
-                               page_size=8, seed=seed)
-        firsts = []
-        for _ in range(reps):
-            if n_mode:
-                rids = eng.submit(prompt, 1, sampler=samp, n=2)
-            else:
-                rids = [eng.submit(prompt, 1, sampler=samp)
-                        for _ in range(2)]
-            out = eng.drain()
-            firsts += [int(out[r][0]) for r in rids]
-        assert eng._scheduler.pager.pages_in_use == 0
-        return firsts
-
-    a = first_tokens(True, 40, seed=1)
-    b = first_tokens(False, 40, seed=2)
-    support = sorted(set(a) | set(b))
-    assert len(support) <= 4                      # top_k bounds the support
-    pa = np.array([a.count(t) for t in support], float) / len(a)
-    pb = np.array([b.count(t) for t in support], float) / len(b)
-    assert 0.5 * np.abs(pa - pb).sum() < 0.25     # TV distance, n=80 each
-    assert len(set(a)) > 1                        # siblings draw apart
-
-
-# ---------------------------------------------------------- generate_scan
-
-@pytest.mark.parametrize("sampler", [SamplerConfig(),
-                                     SamplerConfig(temperature=0.8,
-                                                   top_k=5)],
-                         ids=["greedy", "sampled"])
-def test_generate_scan_equals_generate(port_model, sampler):
-    m, params = port_model
-    eng = GenerationEngine(m, params["awq"], max_seq=64, sampler=sampler)
-    batch = {"tokens": np.stack(_prompts(m.cfg.vocab_size, (7, 7), 2))}
-    got = eng.generate_scan(batch, 9, gen=torch.Generator().manual_seed(3))
-    ref = eng.generate(batch, 9, gen=torch.Generator().manual_seed(3))
-    assert got.shape == (2, 9) and got.dtype == np.int32
-    np.testing.assert_array_equal(got, ref)

@@ -2,7 +2,9 @@
 
 Qwen2.5's grouping (G = 7, so C·G is odd), chunks of 1, 5 and 16 query
 tokens, padding rows, stale page-table tails, and a tree-style case with
-a non-trivial ancestor mask, logical positions and a sliding window.
+a non-trivial ancestor mask, logical positions and a sliding window;
+then the other dense models' groupings and head dims (hd 256 with and
+without a window, G 8 over one kv head, G 16) against the JAX oracle.
 Tolerance f32 rtol/atol 2e-5 (same math; online-softmax reassociation
 only); rows that see nothing must be exactly 0 on both sides.
 """
@@ -191,3 +193,33 @@ def test_kernel_spans_over_a_long_slot(window):
         np.testing.assert_allclose(
             k2.paged_attention_merge_ref(m, l, acc).numpy(), whole.numpy(),
             rtol=0, atol=_merge_tol(whole))
+
+
+# the other dense models' (Hkv, G, hd, window): gemma3's global and windowed
+# layers, gemma-2b (MQA), glm4, smollm
+NEW_SHAPES = [(4, 2, 256, 0), (4, 2, 256, 6), (1, 8, 256, 0), (2, 16, 128, 0),
+              (5, 3, 64, 0)]
+
+
+@pytest.mark.parametrize("hkv,g,hd,window", NEW_SHAPES)
+@pytest.mark.parametrize("c", [1, 5])
+def test_plain_matches_jax_oracle_at_new_shapes(c, hkv, g, hd, window):
+    rng = np.random.default_rng(c + hd + g)
+    shape = (NPAGES, P, hkv, hd)
+    k, ks = (np.array(a) for a in _kv_quantize(jnp.asarray(
+        rng.standard_normal(shape).astype(np.float32) * 2)))
+    v, vs = (np.array(a) for a in _kv_quantize(jnp.asarray(
+        rng.standard_normal(shape).astype(np.float32))))
+    q = rng.standard_normal((B, c, hkv, g, hd)).astype(np.float32)
+    table = rng.integers(1, NPAGES, (B, NBLK)).astype(np.int32)
+    base = np.array([3, NBLK * P - c - 2, 0], np.int32)
+    pos = base[:, None] + np.arange(c, dtype=np.int32)[None]
+    pos[2] = -1
+    jout = np.asarray(jref.paged_attention_chunk_ref(
+        *(jnp.asarray(a) for a in (q, k, ks, v, vs, table, pos)),
+        window=window))
+    tout = k2.paged_attention_chunk(
+        *(torch.from_numpy(a) for a in (q, k, ks, v, vs, table, pos)),
+        window=window).numpy()
+    np.testing.assert_allclose(tout, jout, rtol=2e-5, atol=2e-5)
+    assert not tout[2].any() and not jout[2].any()
