@@ -7,7 +7,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                per source, all started together); ptxas' registers and
                spills, and each library's count of tensor-core (HMMA /
                HGMMA) instructions in its SASS (K1's, K3's and K4's must
-               be > 0);
+               be > 0; K4b runs on the f32 CUDA cores);
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
                M ∈ {1, 4, 16, 64, 1024}, GS 64, unscaled with f32 output
                (the TPU function) and with an AWQ input scale and bf16
@@ -38,7 +38,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                head, G 16 at hd 128 and G 3 (C 1 and 16, contexts up to
                1,500), K4 at hd 256 (S 1,400 with and without the window,
                B 2 × S 1,100), gemma-2b's MQA, glm4's G 16 and smollm's
-               G 3;
+               G 3; K4b (flash_attention_bwd, the gradient of K4) at the
+               train phase's shape (B 8, S 512, 14 / 2 heads, hd 64,
+               bf16) and gemma3's windowed layers (hd 256, S 1,400,
+               window 1,024), from K4's own output and lse, held against
+               its plain version, two calls bit-equal, timed beside the
+               plain version and SDPA's backward kernels (profiler);
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -181,6 +186,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                served model (gemma3: its first windowed and first global
                layer) against CPU copies; gemma3's line adds a profiled
                decode step of 4 slots at contexts ~1,100.
+ 24. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
+               bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
+               no weight decay: the reference's descent test), per-block
+               remat, 20 steps. Gated: every parameter receives a finite
+               gradient at step 0, every loss finite, the last below the
+               first by more than 0.3, K4 twice a layer a step (forward
+               and recompute) and K4b once. Reported: losses, host ms a
+               step, tokens/s, peak memory, one profiled step (busy ms,
+               idle share, top kernels); then a 2-layer full-width cut's
+               loss and gradients on the card against CPU copies (5 % of
+               each leaf's largest magnitude);
+ 25. train_resume — `repro_torch.launch.train.main` at full size
+               (``--steps 8 --batch 8 --seq 512 --ckpt-every 4
+               --simulate-failure-at 6``, checkpoints under the
+               git-ignored build/, deleted after): one recovery from step
+               4's checkpoint, the redone steps' losses equal bit for
+               bit, LATEST 8; then a synchronous save and a restore
+               (timed) equal to the saved state bit for bit, and a step
+               from each giving the same loss.
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -200,6 +224,7 @@ import gc
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -222,10 +247,19 @@ from repro_torch.kernels import awq_matmul as k1  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import paged_attention as k2  # noqa: E402
+from repro_torch.bridge import state_to_arrays  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
+from repro_torch.data.pipeline import make_dataset  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.disagg import DisaggController  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
+from repro_torch.training import AdamWConfig, TrainConfig, make_train_step  # noqa: E402
+from repro_torch.training.train_step import (init_train_state,  # noqa: E402
+                                             loss_and_grads, missing_grads,
+                                             train_state_shapes)
+from repro_torch.utils.tree import flatten_with_paths  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -246,15 +280,17 @@ T_START = time.perf_counter()
 # each kernel wrapper's launch count (one per launch of its kernel)
 COUNTERS = {"awq_matmul": k1.COUNTER, "paged_attention_chunk": k2.COUNTER,
             "awq_gateup": k1.GATEUP_COUNTER, "flash_attention": k4.COUNTER}
+# K4b launches only on the train path
+ALL_COUNTERS = {**COUNTERS, "flash_attention_bwd": k4.BWD_COUNTER}
 
 
 def reset_counts() -> None:
-    for c in COUNTERS.values():
+    for c in ALL_COUNTERS.values():
         c.count = 0
 
 
 def read_counts(names=COUNTERS) -> dict:
-    return {n: COUNTERS[n].count for n in names}
+    return {n: ALL_COUNTERS[n].count for n in names}
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -1570,6 +1606,8 @@ KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
                 "awq_gateup": ("GluOut",),
                 "paged_attention_chunk": ("paged_partial", "paged_merge"),
                 "flash_attention": ("flash_mma", "flash_f32"),
+                "flash_attention_bwd": ("delta_kernel", "dkdv_kernel",
+                                        "dq_kernel"),
                 "copy": ("copy_kernel",),
                 "reduce": ("reduce_kernel",)}
 
@@ -2470,6 +2508,322 @@ def profile_dense_decode(model, params, steps: int = 6) -> dict:
     return dict(slots=4, context=1100, **_profile_steps(eng, steps))
 
 
+# ------------------------------------------------------------ K4b, train
+# K4b at the train path's shapes: Qwen2.5-0.5B's (B 8, S 512, the train
+# phase's batch) and gemma3-4b's windowed layers (hd 256, window 1,024)
+K4B_SHAPES = [("qwen25-05b", 8, 512, 14, 2, 64, 0),
+              ("gemma3-4b", 1, 1400, 8, 4, 256, 1024)]
+
+
+def _sdpa_bwd_ms(q, k, v, do, window: int, iters: int = 5) -> float:
+    """Device ms of the backward of `scaled_dot_product_attention` (causal,
+    GQA; a boolean mask where windowed) on the same tensors, made
+    contiguous: the profiler's device time of every kernel the backward
+    launches, over ``iters`` calls."""
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    s = q.shape[2]
+    mask_kw = (dict(attn_mask=k4.visibility(s, causal=True, window=window,
+                                            device="cuda"))
+               if window else dict(is_causal=True))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, enable_gqa=True, **mask_kw)
+
+    def grad():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    grad()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(iters):
+            grad()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kern) / 1e3 / iters
+
+
+def check_k4b(gen) -> tuple[dict, dict]:
+    """K4b against its plain version from the same forward (K4's output
+    and lse), at the train path's shapes; timed beside the plain version
+    and SDPA's backward."""
+    per_shape = []
+    for arch, b, s, h, hkv, hd, window in K4B_SHAPES:
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n in (h, hkv, hkv))
+        do = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kw = dict(causal=True, window=window)
+        out, lse = k4._forward(q, k, v, hd ** -0.5, True, window, True)
+        args = (q, k, v, out, lse, do)
+        got = k4.flash_attention_bwd(*args, **kw)
+        want = k4.flash_attention_bwd_ref(*args, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.float() - w.float()).abs().max())
+            lim = 2e-2 * float(w.float().abs().max())
+            if not err <= lim:
+                raise AssertionError(f"K4b {arch} {name}: err {err} > {lim}")
+            errs[name] = [err, lim]
+        again = k4.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"K4b {arch}: two calls differ")
+        ms = time_ms(lambda i: k4.flash_attention_bwd(*args, **kw), 1)
+        plain = time_ms(lambda i: k4.flash_attention_bwd_ref(*args, **kw), 1,
+                        iters=5)
+        lib = _sdpa_bwd_ms(q, k, v, do, window)
+        pairs = int(k4.visibility(s, causal=True, window=window,
+                                  device="cuda").sum())
+        # per visible (query, key) pair and head: the five products (S,
+        # dO V^T, dV, dK, dQ) of 2 * hd flops each on bf16 inputs
+        flops = 5 * 2 * hd * h * b * pairs
+        nbytes = (sum(t.nbytes for t in args) + sum(t.nbytes for t in got))
+        b_ms, b_by = bound(nbytes, (flops, BF16_OPS_PER_S))
+        per_shape.append(dict(
+            model=arch, b=b, s=s, h=h, hkv=hkv, hd=hd, window=window,
+            max_abs_err=max(e for e, _ in errs.values()), errs=errs, ms=ms,
+            plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+            gflop=flops / 1e9, mbytes=nbytes / 1e6))
+    qwen = per_shape[0]
+    entry = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:118",
+        max_abs_err=max(c["max_abs_err"] for c in per_shape),
+        ms=qwen["ms"], plain_ms=qwen["plain_ms"], bound_ms=qwen["bound_ms"],
+        bound_by=qwen["bound_by"], library_ms=qwen["library_ms"])
+    detail = dict(
+        at="the train phase's attention: B 8, S 512, H 14 / Hkv 2, hd 64, "
+           "bf16, causal; then gemma3-4b's windowed layers",
+        replaces_note="no TPU kernel: the reference trains through the jnp "
+                      "attention at that line, which XLA differentiates; "
+                      "K4b is the gradient of K4 "
+                      "(src/repro/kernels/flash_attention.py:108)",
+        tolerance="each of dq, dk, dv within 2e-2 of its largest plain "
+                  "magnitude (bf16 outputs of f32 math); two calls equal "
+                  "bit for bit",
+        bound="the larger of: bytes of q, k, v, o, dO, lse read and dq, dk, "
+              "dv written once at 3.35 TB/s; per visible (query, key) pair "
+              "and head five products of 2*hd flops at 989 TFLOP/s (bf16 "
+              "inputs); the kernel runs them on the f32 CUDA cores",
+        library_call="the backward kernels of torch SDPA (is_causal, or a "
+                     "boolean mask where windowed; enable_gqa) on the same "
+                     "bf16 tensors, made contiguous, by the profiler",
+        shapes=per_shape)
+    return entry, detail
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, decay_steps=200, weight_decay=0.0)
+TRAIN_COUNTERS = ("flash_attention", "flash_attention_bwd")
+
+
+class _Trainer:
+    """Train steps as `_profile_steps` drives engine steps: each `step()`
+    takes the next batch and ends synchronized."""
+
+    def __init__(self, step_fn, state, ds, first: int):
+        self.step_fn, self.state, self.ds, self.i = step_fn, state, ds, first
+
+    def step(self):
+        self.state, _ = self.step_fn(self.state, self.ds.batch_at(self.i))
+        self.i += 1
+        torch.cuda.synchronize()
+
+
+def train() -> dict:
+    """Full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512, bf16
+    gradient casts, AdamW (the reference's descent settings), remat on,
+    20 steps. Gated: every parameter gets a finite gradient at step 0,
+    every loss finite, the last below the first by more than 0.3, K4 and
+    K4b launched on every layer. Then one profiled step, and a 2-layer
+    full-width cut's gradients on the card against CPU copies."""
+    cfg = get_config("qwen25-05b")
+    if not cfg.remat:
+        raise AssertionError("train: the config does not remat")
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    ds = make_dataset(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED)
+    step_fn = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**TRAIN_OPT), grad_comm_dtype="bfloat16"))
+    batch0 = {k: torch.as_tensor(v, device="cuda")
+              for k, v in ds.batch_at(0).items()}
+    _, _, grads = loss_and_grads(model, state["params"], batch0)
+    missing = missing_grads(grads)
+    n_leaves = len(state_to_arrays(grads))
+    finite = all(bool(torch.isfinite(g).all()) for _, g in
+                 flatten_with_paths(grads))
+    if missing or not finite:
+        raise AssertionError(f"train: step 0's gradient missing {missing} "
+                             f"or not finite ({finite})")
+    del grads
+    _reset_peak()
+    reset_counts()
+    losses, step_s = [], []
+    t_all = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, ds.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    train_s = time.perf_counter() - t_all
+    launches = read_counts(TRAIN_COUNTERS)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0] - 0.3:
+        raise AssertionError(f"train: loss {losses[0]} -> {losses[-1]} did "
+                             f"not fall by 0.3")
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    if per_step != {"flash_attention": 2 * cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers}:
+        raise AssertionError(f"train: launches a step {per_step}, want K4 "
+                             f"twice a layer (forward, remat) and K4b once")
+    step_med = float(np.median(step_s[2:]))
+    trainer = _Trainer(step_fn, state, ds, TRAIN_STEPS)
+    del state
+    prof = _profile_steps(trainer, 1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, layers=cfg.num_layers, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS, optimizer=TRAIN_OPT,
+                grad_comm_dtype="bfloat16", remat=True,
+                step0_grad_leaves=n_leaves, first_loss=losses[0],
+                last_loss=losses[-1], losses=losses, train_s=train_s,
+                step_ms=[1e3 * x for x in step_s], step_ms_median=1e3 * step_med,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_med,
+                peak_mem_bytes=peak, launches=launches,
+                launches_per_step=per_step, profile_step=prof,
+                check=train_check(model))
+
+
+def train_check(model) -> dict:
+    """A 2-layer full-width cut (layers 0 and 1 of a fresh seed-0 init):
+    one loss and gradient on the card (K4, K4b, remat) and on CPU copies
+    (plain versions), B 1 × S 64. The two round to bf16 at other places,
+    so each leaf's gradient is held within 5 % of its largest CPU
+    magnitude (the `check` rule), the loss too; every leaf present."""
+    cut = Model(dataclasses.replace(model.cfg, num_layers=2))
+    params = cut.init(torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda")
+    batch = make_dataset(cut.cfg, 1, 64, SEED).batch_at(0)
+    out = {}
+    for d, prm in (("cuda", params), ("cpu", tree_to(params, "cpu"))):
+        loss, _, grads = loss_and_grads(
+            cut, prm, {k: torch.as_tensor(v, device=d)
+                       for k, v in batch.items()})
+        if missing_grads(grads):
+            raise AssertionError(f"train check: {d} gradient missing "
+                                 f"{missing_grads(grads)}")
+        out[d] = (float(loss), state_to_arrays(grads))
+    worst, worst_path = 0.0, None
+    for path, want in out["cpu"][1].items():
+        got = out["cuda"][1][path]
+        lim = 0.05 * float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if not (np.isfinite(got).all() and err <= lim):
+            raise AssertionError(f"train check {path}: err {err} > {lim}")
+        rel = err / max(lim / 0.05, 1e-30)
+        if rel >= worst:
+            worst, worst_path = rel, path
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    if not loss_err <= 0.05 * abs(out["cpu"][0]):
+        raise AssertionError(f"train check: loss {out['cuda'][0]} vs "
+                             f"{out['cpu'][0]}")
+    return dict(layers=2, leaves=len(out["cpu"][1]), loss=out["cuda"][0],
+                cpu_loss=out["cpu"][0],
+                worst_leaf=worst_path, worst_err_over_leaf_max=worst)
+
+
+RESUME_ARGS = ["--arch", "qwen25-05b", "--steps", "8", "--batch", "8",
+               "--seq", "512", "--ckpt-every", "4", "--simulate-failure-at",
+               "6", "--log-every", "1"]
+
+
+def train_resume() -> dict:
+    """The train launcher at full size: 8 steps, async checkpoints at 4
+    and 8, a failure injected at step 6 (recovered from step 4's
+    checkpoint). Gated: one recovery, ≥ 4 steps, LATEST = 8, the redone
+    steps' losses equal the first run's bit for bit. Then one step on
+    the restored state, a timed synchronous save and restore of the
+    result, the restore equal to the saved arrays bit for bit, and one
+    more step from each giving the same loss. The directory (inside the
+    checkout's git-ignored build/) is deleted at the end."""
+    d = ROOT / "build" / "train_resume"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_launcher.main(RESUME_ARGS + ["--ckpt-dir", str(d)])
+        launch_s = time.perf_counter() - t0
+        launches = read_counts(TRAIN_COUNTERS)
+        losses = out["losses"]
+        # steps 0-5, then (after the failure at 6) 4-7 again
+        if not (out["recoveries"] == 1 and out["steps"] >= 4
+                and latest_step(str(d)) == 8):
+            raise AssertionError(f"train_resume: {out} LATEST "
+                                 f"{latest_step(str(d))}")
+        redone_equal = losses[6:8] == losses[4:6]
+        if not redone_equal:
+            raise AssertionError(f"train_resume: redone steps 4, 5 give "
+                                 f"{losses[6:8]}, first run {losses[4:6]}")
+        npz = d / "step_00000008.npz"
+        npz_bytes = npz.stat().st_size
+        model = Model(get_config("qwen25-05b"))
+        tpl = train_state_shapes(model)
+        state, got = restore(str(d), tpl, device="cuda")
+        ds = make_dataset(model.cfg, 8, 512, SEED)
+        step_fn = make_train_step(model, TrainConfig(optimizer=AdamWConfig(
+            lr=1e-3, warmup_steps=20, decay_steps=8, weight_decay=0.0)))
+        state, _ = step_fn(state, ds.batch_at(8))
+        (d / "step_00000004.npz").unlink(missing_ok=True)   # disk room
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(str(d), 9, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = restore(str(d), tpl, step=9, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mine = state_to_arrays(state)
+        with np.load(d / "step_00000009.npz") as blob:
+            disk_equal = all(np.array_equal(blob[p], a)
+                             for p, a in mine.items())
+        back_equal = all(np.array_equal(a, mine[p])
+                         for p, a in state_to_arrays(back).items())
+        if not (disk_equal and back_equal):
+            raise AssertionError(f"train_resume: saved {disk_equal}, "
+                                 f"restored {back_equal} not bit-equal")
+        del mine
+        b9 = ds.batch_at(9)
+        _, m1 = step_fn(state, b9)
+        _, m2 = step_fn(back, b9)
+        same_loss = float(m1["loss"]) == float(m2["loss"])
+        if not same_loss:
+            raise AssertionError(f"train_resume: {float(m1['loss'])} vs "
+                                 f"{float(m2['loss'])} after restore")
+        del state, back
+        return dict(args=RESUME_ARGS, launch_s=launch_s,
+                    steps=out["steps"], recoveries=out["recoveries"],
+                    losses=losses, step_ms=[1e3 * x for x in out["step_s"]],
+                    latest=8, redone_losses_equal=redone_equal,
+                    npz_bytes=npz_bytes, save_s=save_s, restore_s=restore_s,
+                    restore_bit_equal=back_equal, disk_bit_equal=disk_equal,
+                    resumed_loss_equal=same_loss, loss_after=float(m1["loss"]),
+                    launches=launches)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -2527,10 +2881,12 @@ def main() -> None:
     (k1_entry, k1_detail), (k2_entry, k2_detail) = check_k1(gen), check_k2(gen)
     k3_entry, k3_detail = check_k3(gen)
     k4_entry, k4_detail = check_k4(gen)
+    k4b_entry, k4b_detail = check_k4b(gen)
     kernels = [k1_entry, k2_entry, k3_entry, k4_entry]
     phase("kernel_shapes", awq_matmul=k1_detail,
           paged_attention_chunk=k2_detail, awq_gateup=k3_detail,
-          flash_attention=k4_detail, dense_models=check_dense_kernels(gen))
+          flash_attention=k4_detail, flash_attention_bwd=k4b_detail,
+          dense_models=check_dense_kernels(gen))
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -2614,6 +2970,17 @@ def main() -> None:
             by[entry["name"]] for by in dense_launches.values())
         entry["launches_by_model"] = {"qwen25-05b": qwen, **{
             arch: by[entry["name"]] for arch, by in dense_launches.items()}}
+    # training: Qwen2.5-0.5B at full size (K4 forward and remat, K4b)
+    trained = train()
+    phase("train", **trained)
+    resumed = train_resume()
+    phase("train_resume", **resumed)
+    by_path = {name: trained["launches"][name] + resumed["launches"][name]
+               for name in TRAIN_COUNTERS}
+    k4_entry["launches"] += by_path["flash_attention"]
+    k4_entry["launches_train"] = by_path["flash_attention"]
+    k4b_entry["launches"] = by_path["flash_attention_bwd"]
+    kernels.append(k4b_entry)
 
     phase("summary", gpu=smi, script_s=time.perf_counter() - t_start,
           **{k: served[k] for k in (
@@ -2685,6 +3052,15 @@ def main() -> None:
             for cfg_name in ("all_kernel", "default")}
            for label, res in (("preempt", preempted),
                               ("optimistic", optimistic_run))},
+        train={k: trained[k] for k in (
+            "first_loss", "last_loss", "step_ms_median", "tokens_per_s",
+            "peak_mem_bytes", "launches_per_step")},
+        train_profile_step={k: trained["profile_step"][k] for k in (
+            "profiled_step_ms", "device_busy_ms", "device_idle_share")},
+        train_check=trained["check"]["worst_err_over_leaf_max"],
+        train_resume={k: resumed[k] for k in (
+            "steps", "recoveries", "npz_bytes", "save_s", "restore_s",
+            "launch_s")},
         disagg={k: disagged[k] for k in (
             "handoffs", "direct", "wire_bytes", "adopt_ms_mean",
             "prefill_step_ms", "decode_step_ms", "peak_mem_bytes",

@@ -13,6 +13,11 @@ nothing of the reference package). A quantized linear is any object with
     strips, or float pools), unstacked the same way.
   * `tree_to_torch` — any subtree as it is (one linear, a config of
     tensors); `to_tensor` — any one array (page tables, positions).
+  * `state_to_arrays` / `arrays_to_state` — the other way and back: a
+    port tree (a train state, params, quantized params) as the
+    reference's ``{path: numpy array}`` with its layers stacked (the
+    checkpoint format), and such a dict into the structure of a port
+    template, unstacked as `params_to_torch` unstacks.
 
 Like every entry point of the port, these put their tensors on ``cuda``
 unless the caller passes ``device="cpu"``; asking for CUDA without a
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core.packing import PackedLinear
 from repro_torch.device import resolve_device
+from repro_torch.utils.tree import layer_parts
 
 _PACKED_FIELDS = ("qweight", "scales", "zeros", "input_scale", "bias")
 
@@ -99,3 +105,68 @@ def paged_cache_to_torch(cache: dict, device=None) -> dict:
     """Reference paged cache ``{seg_i: {"kv_pool": {k, v[, ks, vs]}}}`` with
     ``[L, N, P, Hkv, hd]`` leaves → ``{seg_i: [{"kv_pool": ...}, ...]}``."""
     return _unstack_segments(tree_to_torch(cache, device))
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as host numpy, bf16 as its raw 16-bit words (int16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.contiguous().numpy()
+
+
+def state_to_arrays(state: Any) -> dict[str, np.ndarray]:
+    """Port tree → ``{reference path: host numpy array}`` in the reference's
+    leaf order, each list of layers stacked along a leading dim on the host
+    (no device copy). bf16 leaves become int16 words."""
+    out = {}
+    for path, parts, leaf in layer_parts(state):
+        out[path] = (np.stack([host_numpy(t) for t in parts])
+                     if parts is not None else host_numpy(leaf))
+    return out
+
+
+def _array_to(a: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
+    """One array as a tensor of ``like``'s dtype on ``device``. A bf16
+    leaf is read from 16-bit words (int16 as written here, or the
+    reference's 2-byte bfloat16 records) bit for bit; any other is cast
+    as the reference's restore casts (``astype``)."""
+    if like.dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind in "iuV":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device=device,
+                                                       dtype=like.dtype)
+
+
+def arrays_to_state(arrays: dict, template: Any, device=None) -> Any:
+    """``{path: array}`` (as `state_to_arrays` or the reference's
+    checkpoint writes it) → a tree of ``template``'s structure and dtypes
+    (template leaves may be ``meta`` tensors) on ``device``. A list of
+    layers takes row i of each stacked array, as `params_to_torch`
+    unstacks the reference's segments."""
+    device = resolve_device(device)
+    leaves = {}
+    for path, parts, leaf in layer_parts(template):
+        a = arrays[path]
+        if parts is None:
+            leaves[path] = _array_to(a, leaf, device)
+        else:
+            leaves[path] = [_array_to(a[i], t, device)
+                            for i, t in enumerate(parts)]
+
+    def build(node, prefix, layer):
+        if isinstance(node, list):
+            return [build(n, prefix, i) for i, n in enumerate(node)]
+        if isinstance(node, PackedLinear):
+            return PackedLinear(**{
+                f: None if getattr(node, f) is None
+                else build(getattr(node, f), f"{prefix}/{f}", layer)
+                for f in _PACKED_FIELDS}, group_size=node.group_size)
+        if isinstance(node, dict):
+            return {k: None if v is None
+                    else build(v, f"{prefix}/{k}" if prefix else k, layer)
+                    for k, v in node.items()}
+        got = leaves[prefix]
+        return got if layer is None else got[layer]
+    return build(template, "", None)

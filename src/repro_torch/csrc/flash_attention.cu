@@ -59,6 +59,13 @@
 // contiguous, 16-byte aligned rows; the wrapper checks), so the caller's
 // [B, S, H, hd] projections need no transpose copy.
 //
+// Optionally (a non-null lse pointer) each row's log-sum-exp of its
+// visible scaled scores, lse = m + log l in natural units, goes to an f32
+// [B, H, S] array: the backward (csrc/flash_attention_bwd.cu) recomputes
+// the probabilities as exp(s * scale - lse) from it. A row that saw no key
+// gets +inf, so its recomputed probabilities are 0. The serving paths pass
+// null and write nothing more.
+//
 // f32 inputs, which only the tests pass, take a CUDA-core body of their
 // own (f32 has no exact tensor-core product): a block of 4 warps owns 32
 // rows, 8 per warp in registers, over 32-key tiles converted into shared
@@ -68,6 +75,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -192,9 +200,10 @@ template <typename T, int HD> constexpr size_t mma_smem() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(32 * mma_warps<HD>())
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int H, int G, int S,
-                 int n_qt, int causal, int window, float scale_log2, int n_sm) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int H, int G, int S, int n_qt, int causal,
+                 int window, float scale_log2, int n_sm) {
   using P2 = Pair<T>;
   constexpr int LD = HD + 8;            // padded row (elements)
   constexpr int CH = HD / 8;            // 16-byte chunks per row
@@ -436,6 +445,16 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   if (!warp_live) return;
+  if (lse != nullptr && dh == 0 && tig == 0) {
+    // natural units: m is in the log2 domain (scores times scale * log2 e)
+    float* lb = lse + ((long long)b * H + h) * S;
+    if (r_a < S)
+      lb[r_a] = l_a == 0.f ? CUDART_INF_F
+                         : (m_a + log2f(l_a)) * 0.6931471805599453f;
+    if (r_b < S)
+      lb[r_b] = l_b == 0.f ? CUDART_INF_F
+                         : (m_b + log2f(l_b)) * 0.6931471805599453f;
+  }
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
 #pragma unroll
@@ -452,7 +471,7 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+               float* lse, Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
                int Hkv, int S, int causal, int window, float scale,
                cudaStream_t stream) {
   constexpr size_t smem = mma_smem<T, HD>();
@@ -471,7 +490,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   const int n_qt = (S + MQ - 1) / MQ;
   flash_mma_kernel<T, HD><<<n_qt * B * H, 32 * mma_warps<HD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os, H,
       H / Hkv, S, n_qt, causal, window, scale * 1.4426950408889634f, n_sm);
   return (int)cudaGetLastError();
 }
@@ -502,8 +521,9 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 Strides qs, Strides ks, Strides vs, Strides os, int G, int S,
-                 int causal, int window, float scale) {
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int G, int S, int causal, int window,
+                 float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                     // [BQ][HD]
   float* Vs = Qs + BQ * HD;             // [KT][HD]
@@ -630,9 +650,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();                       // Pw is rewritten by the next tile
   }
 
+  float* lb = lse == nullptr ? nullptr
+                              : lse + ((long long)b * gridDim.y + h) * S;
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     if (row0 + r >= n_rows) break;
+    if (lb != nullptr && lane == 0)
+      lb[q0 + row0 + r] = l[r] == 0.f ? CUDART_INF_F : m[r] + logf(l[r]);
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     float* orow = ob + (q0 + row0 + r) * os.s;
 #pragma unroll
@@ -642,7 +666,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+               float* lse, Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
                int Hkv, int S, int causal, int window, float scale,
                cudaStream_t stream) {
   const size_t smem =
@@ -656,14 +680,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_f32_kernel<HD><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
-      H / Hkv, S, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs,
+      os, H / Hkv, S, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-using LaunchFn = int (*)(const void*, const void*, const void*, void*, Strides,
-                         Strides, Strides, Strides, int, int, int, int, int,
-                         int, float, cudaStream_t);
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*,
+                         Strides, Strides, Strides, Strides, int, int, int,
+                         int, int, int, float, cudaStream_t);
 
 template <int HD>
 LaunchFn pick_hd(int dtype) {
@@ -683,12 +707,13 @@ LaunchFn pick(int dtype, int HD) {
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype: 0 f32, 1 bf16, 2 f16 (q,
-// k, v and o alike). Strides are in elements for the batch, head and
+// k, v and o alike). lse: null, or a contiguous f32 [B, H, S] array. Strides are in elements for the batch, head and
 // sequence dims; the head dim is contiguous. The caller has checked shapes,
 // dtypes, H % Hkv == 0, hd in {64, 128, 256}, S >= 1 and, for bf16 / f16,
 // 16-byte aligned pointers and strides. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, long long qsb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh,
     long long oss, int B, int H, int Hkv, int S, int HD, int dtype, int causal,
@@ -696,7 +721,7 @@ extern "C" int flash_attention_fwd(
   cudaSetDevice(device);
   const LaunchFn fn = pick(dtype, HD);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, o, Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+  return fn(q, k, v, o, static_cast<float*>(lse), Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
             Strides{vsb, vsh, vss}, Strides{osb, osh, oss}, B, H, Hkv, S,
             causal, window, scale, static_cast<cudaStream_t>(stream));
 }

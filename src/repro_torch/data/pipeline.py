@@ -4,9 +4,10 @@ and step give the same tokens and labels bit for bit).
 
 Every batch is a pure function of ``(seed, step)`` (numpy Philox keyed on
 both). The token stream is a vocab-reduced Markov chain rather than iid
-uniform, so next-token entropy is below log V. The reference's audio and
-vision batches and its host sharding are not copied: the port serves
-text-only models on one card.
+uniform, so next-token entropy is below log V. `host_slice` cuts a
+host's rows of the global batch, as the reference's does, and iterating
+a dataset yields ``batch_at(0), batch_at(1), ...``. The reference's audio
+and vision batches are not copied: the port runs text-only models.
 """
 from __future__ import annotations
 
@@ -43,6 +44,17 @@ class SyntheticDataset:
             tok[:, t + 1] = np.where(jumps[:, t], jump_to[:, t], nxt)
         return {"tokens": tok[:, :-1].astype(np.int32),
                 "labels": tok[:, 1:].astype(np.int32)}
+
+    def host_slice(self, batch: dict, host_id: int, n_hosts: int) -> dict:
+        per = self.global_batch // n_hosts
+        return {k: v[host_id * per:(host_id + 1) * per]
+                for k, v in batch.items()}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 def make_dataset(cfg: ModelConfig, global_batch: int, seq_len: int,

@@ -39,7 +39,10 @@ SIGNATURES: dict[str, tuple[str, list]] = {
     "paged_attention": ("paged_attention_chunk_f32",
                         [_P] * 12 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention": ("flash_attention_fwd",
-                        [_P] * 4 + [_L] * 12 + [_I] * 8 + [_F, _I, _P]),
+                        [_P] * 5 + [_L] * 12 + [_I] * 8 + [_F, _I, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 10 + [ctypes.POINTER(_L)] + [_I] * 8
+                            + [_F, _I, _P]),
 }
 
 

@@ -5,7 +5,8 @@ Execution regimes (as in the reference):
   * train/prefill — full-sequence attention through kernel K4
     (`kernels.flash_attention`: tiled online softmax, so no S × S score
     matrix is formed on the card; the reference chunks queries by
-    ``attn_chunk`` for the same reason).
+    ``attn_chunk`` for the same reason). Training differentiates it:
+    K4 forward, K4b backward (`flash_attention.FlashAttentionFn`).
   * decode (dense cache) — single-token attention against a
     ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`); a
     sliding-window layer keeps a ring of ``min(window, S_max)`` slots.
@@ -152,6 +153,11 @@ def attention(p, x, cfg, *, positions, window: int = 0,
     either side. Probabilities stay f32 up to the output, where the
     reference's `_sdpa` rounds them to v's dtype before the value
     product: under bf16 activations the two agree to bf16 precision.
+
+    Training goes through the same call: with grad enabled the kernel
+    runs as `flash_attention.FlashAttentionFn`, K4 forward (saving each
+    row's log-sum-exp) and K4b backward, so dq, dk and dv (and with them
+    every q / k / v weight and bias) get their gradient on the card.
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions, window, name)

@@ -68,8 +68,8 @@ def linear(p, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     return y
 
 
-def _mean_square(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of x² over the last dim (keepdim), with a row's bits the same
+def _staged_mean(t: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim (keepdim), with a row's bits the same
     whatever the number of rows beside it.
 
     PyTorch's CUDA reduction sizes its lanes per output from the number of
@@ -80,18 +80,17 @@ def _mean_square(xf: torch.Tensor) -> torch.Tensor:
     a fixed lane layout (d_model 896 = 28 × 32: two stages). A width that
     a stage cannot split is padded with zeros and the mean scaled back.
     Other devices take one reduction."""
-    sq = xf * xf
-    if xf.device.type != "cuda":
-        return sq.mean(dim=-1, keepdim=True)
-    d, div = sq.shape[-1], 1
-    while sq.shape[-1] > 32:
-        if sq.shape[-1] % 32:
-            sq = F.pad(sq, (0, 32 - sq.shape[-1] % 32))
-        sq = sq.unflatten(-1, (-1, 32)).mean(-1)
+    if t.device.type != "cuda":
+        return t.mean(dim=-1, keepdim=True)
+    d, div = t.shape[-1], 1
+    while t.shape[-1] > 32:
+        if t.shape[-1] % 32:
+            t = F.pad(t, (0, 32 - t.shape[-1] % 32))
+        t = t.unflatten(-1, (-1, 32)).mean(-1)
         div *= 32
-    div *= sq.shape[-1]
-    ms = sq.mean(-1, keepdim=True)
-    return ms if div == d else ms * (div / d)
+    div *= t.shape[-1]
+    m = t.mean(-1, keepdim=True)
+    return m if div == d else m * (div / d)
 
 
 def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
@@ -99,7 +98,7 @@ def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
     """RMSNorm in f32 (the paper's PS-side non-linear op)."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    xf = xf * torch.rsqrt(_mean_square(xf) + eps)
+    xf = xf * torch.rsqrt(_staged_mean(xf * xf) + eps)
     g = p["gamma"].to(torch.float32)
     if plus_one:
         g = 1.0 + g
@@ -107,10 +106,13 @@ def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
 
 
 def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32; mean and variance staged as `rmsnorm`'s mean
+    square (`_staged_mean`), so a row's bits do not depend on the row
+    count on CUDA."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    mu = _staged_mean(xf)
+    var = _staged_mean((xf - mu) ** 2)
     xf = (xf - mu) * torch.rsqrt(var + eps)
     return (xf * p["gamma"].to(torch.float32)
             + p["beta"].to(torch.float32)).to(dt)

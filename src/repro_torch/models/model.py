@@ -4,9 +4,9 @@ Entry points mirror the reference's `Model`: `prefill` + `decode_step`
 over the dense cache (`GenerationEngine.generate`) or, with a page table,
 over the page pools (the one-shot serving path), `chunk_step` over the
 paged pools (the chunked serving path), `forward_logits`, and `loss`, the
-chunked-vocab causal-LM loss, forward only (AWQ's calibration forward).
-The audio / vision frontends and training (the backward pass) are not
-ported yet.
+chunked-vocab causal-LM loss (AWQ's calibration forward and the train
+step's objective, `training.train_step`). The audio / vision frontends
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers, stack
 from repro_torch.models.layers import embed_lookup, linear, norm
-from repro_torch.numerics import matmul_f32_rows
+from repro_torch.numerics import free_rows, matmul_f32_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +82,13 @@ class Model:
 
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Chunked-vocab causal-LM loss (forward only): tokens / labels
-        ``[B, S]``, labels < 0 ignored. The f32 logits are formed
-        ``logits_chunk`` positions at a time, never as one [B, S, V]."""
+        """Chunked-vocab causal-LM loss: tokens / labels ``[B, S]``,
+        labels < 0 ignored. The f32 logits are formed ``logits_chunk``
+        positions at a time, never as one [B, S, V]. Differentiable: the
+        train step calls ``backward()`` on it, and the attention of every
+        layer runs K4 forward and K4b backward on the card. The head runs
+        inside `numerics.free_rows` (one product a chunk): a training
+        forward's rows are never held against serving rows."""
         cfg = self.cfg
         labels = batch.get("labels")
         if labels is None:
@@ -101,7 +105,8 @@ class Model:
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, s, chunk):
-            logits = self._head_logits(params, x[:, c0:c0 + chunk])
+            with free_rows():
+                logits = self._head_logits(params, x[:, c0:c0 + chunk])
             li = labels[:, c0:c0 + chunk]
             logz = torch.logsumexp(logits, dim=-1)
             ll = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]

@@ -9,6 +9,7 @@ capture names letter for letter, which `core.pipeline` reads back.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import numerics
 from repro_torch.core import calibration
@@ -43,18 +44,36 @@ def stack_init_paged_cache(cfg, num_pages: int, page_size: int,
             for si, (kind, n) in enumerate(cfg.segments())}
 
 
+def _remat_block(p, x, cfg, kind, positions):
+    """One train-mode block, as `torch.utils.checkpoint` recomputes it in
+    the backward: inside `numerics.free_rows` itself, since the backward
+    runs after `stack_apply`'s own context has closed, and the recompute
+    must repeat the forward's bits."""
+    with numerics.free_rows():
+        return blocks.block_apply(p, x, cfg, kind, mode="train",
+                                  positions=positions)[0]
+
+
 def stack_apply(params, x, cfg, *, mode: str, positions, cache=None,
                 page_table=None, rpos=None, amask=None):
     """Run all layers. Returns (x, cache); caches update in place. A
     full-sequence forward (train, prefill) runs its linears as one call
     each (`numerics.free_rows`); serving steps keep a row's bits
-    independent of the step's row count."""
+    independent of the step's row count. With ``cfg.remat``, a train
+    forward under grad checkpoints each block (the reference's
+    `jax.checkpoint`): the backward recomputes it, K4 included."""
     capture = calibration.capture_active()
+    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
+             and not capture)
     with numerics.free_rows(mode in ("train", "prefill")):
         for si, (kind, n) in enumerate(cfg.segments()):
             p_seg = params[seg_name(si)]
             c_seg = cache[seg_name(si)] if cache is not None else None
             for i in range(n):
+                if remat:
+                    x = checkpoint(_remat_block, p_seg[i], x, cfg, kind,
+                                   positions, use_reentrant=False)
+                    continue
                 nm = ((lambda local, _si=si, _i=i:
                        f"segments/{seg_name(_si)}/{local}@{_i}")
                       if capture else None)

@@ -64,6 +64,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.bridge import host_numpy
 from repro_torch.core.packing import PackedLinear
 from repro_torch.serving.kv_pager import (KVPager, PagerConfig, PagerStats,
                                           _commit_dense_leaf, commit_prefill)
@@ -125,13 +126,6 @@ class EngineStats:
     # (free minus reservations)
     queue_depth: int = 0
     admission_headroom: int = 0
-
-
-def _host_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host tensor as numpy, bf16 as its raw 16-bit words."""
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.contiguous().numpy()
 
 
 def _categorical(logits: torch.Tensor, gen: torch.Generator | None
@@ -993,7 +987,7 @@ class GenerationEngine:
         """
         if handle["event"] is not None:
             handle["event"].synchronize()
-        strips = {seg: {k: _host_numpy(t) for k, t in leaves.items()}
+        strips = {seg: {k: host_numpy(t) for k, t in leaves.items()}
                   for seg, leaves in handle["strips"].items()}
         wire = sum(a.nbytes for leaves in strips.values()
                    for a in leaves.values())

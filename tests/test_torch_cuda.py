@@ -1291,3 +1291,140 @@ def test_gemma3_smoke_ring_decode_on_card_near_cpu(cuda):
                 lg, cache = m.decode_step(prm[d], cache, tok.to(d), pos)
                 state[d] = [cache, lg, pos + 1]
     assert int(state["cpu"][2][0]) == 64
+
+
+# --------------------------------------------------------------- K4b, train
+# K4b (flash attention backward) against its plain version from the same
+# forward output and lse (K4's): f32 math on both sides, outputs rounded
+# once to the input type, so a bf16 gradient is held within 2e-2 of that
+# output's largest magnitude, an f32 one within 1e-4 (another order of
+# f32 sums over up to 1,400 keys and 8 heads).
+K4B_CASES = [
+    # b, h, hkv, s, hd, causal, window
+    (2, 14, 2, 512, 64, True, 0),       # Qwen2.5's train shape (G 7)
+    (1, 14, 2, 17, 64, True, 0),
+    (1, 14, 2, 1, 64, True, 0),
+    (1, 4, 2, 77, 64, False, 0),        # bidirectional
+    (1, 4, 2, 512, 128, True, 0),       # G 2, hd 128
+    (1, 4, 2, 1400, 128, True, 256),    # windowed
+    (1, 8, 1, 512, 256, True, 0),       # G 8, hd 256
+    (1, 8, 4, 1400, 256, True, 1024),   # gemma3's windowed layers
+    (1, 8, 1, 17, 256, True, 8),
+]
+
+
+def _k4b_run(cuda, b, h, hkv, s, hd, causal, window, dtype):
+    q, k, v = (torch.randn(b, s, n, hd, generator=cuda, device="cuda")
+               .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+    do = torch.randn(b, h, s, hd, generator=cuda, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window)
+    out, lse = k4._forward(q, k, v, hd ** -0.5, causal, window, True)
+    return (q, k, v, out, lse, do), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,hd,causal,window", K4B_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, s, hd,
+                                                  causal, window, dtype):
+    args, kw = _k4b_run(cuda, b, h, hkv, s, hd, causal, window, dtype)
+    before = k4.BWD_COUNTER.count
+    got = k4.flash_attention_bwd(*args, **kw)
+    again = k4.flash_attention_bwd(*args, **kw)
+    want = k4.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert k4.BWD_COUNTER.count == before + 2
+    bound = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    dv_scale = float(want[2].float().abs().max())
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name                  # two calls, same bits
+        # at S 1 (one key: P = 1, dS = dO.v - dO.o) dq and dk are exactly 0,
+        # and both sides give the rounding noise of that difference: they
+        # are held against dv's scale (|dO|), the size of its terms
+        scale = float(w.float().abs().max()) if s > 1 else dv_scale
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= bound * max(scale, 1e-30), (name, err, scale)
+
+
+def test_flash_attention_function_backward_launches_k4b(cuda):
+    """Through autograd on the card: K4 once forward, K4b once backward,
+    the gradients equal the bare K4b call's, and a failed build or launch
+    would raise (no plain fallback on CUDA tensors)."""
+    args, kw = _k4b_run(cuda, 2, 14, 2, 96, 64, True, 0, torch.bfloat16)
+    q, k, v, _, _, do = args
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = k4.COUNTER.count, k4.BWD_COUNTER.count
+    out = k4.flash_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (k4.COUNTER.count - f0, k4.BWD_COUNTER.count - b0) == (1, 1)
+    want = k4.flash_attention_bwd(*args, **kw)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_layernorm_rows_equal_across_m(cuda):
+    """A row's LayerNorm bits do not depend on how many rows share the
+    call (mean and variance staged as `rmsnorm`'s mean square): the rows
+    of a 20-row call equal the same rows normalized 1, 4 or 16 at a time;
+    and the card is within bf16 rounding of the CPU."""
+    x = (torch.randn(20, 896, generator=cuda, device="cuda") * 3 + 1
+         ).to(torch.bfloat16)
+    p = {"gamma": torch.rand(896, generator=cuda, device="cuda") + 0.5,
+         "beta": torch.randn(896, generator=cuda, device="cuda")}
+    full = layers.layernorm(p, x)
+    for m in (1, 4, 16, 20):
+        for i in range(0, 20 - m + 1, m):
+            assert torch.equal(layers.layernorm(p, x[i:i + m]),
+                               full[i:i + m]), (m, i)
+    ref = layers.layernorm({k: t.cpu() for k, t in p.items()}, x.cpu())
+    torch.testing.assert_close(full.cpu().float(), ref.float(), rtol=8e-3,
+                               atol=8e-3)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_train_step_gradients_on_card_near_cpu(cuda):
+    """The gradient is not cut: a 2-layer full-width Qwen2.5-0.5B step
+    (bf16 activations and casts, remat on) on the card against the same
+    step on CPU copies (plain versions). Every leaf, the attention's wq,
+    wk, wv and their biases included, is present on both sides and within
+    5 % of the leaf's largest CPU magnitude (the `check` rule: the two
+    round to bf16 at other places). K4 runs twice a layer (forward and
+    the remat recompute), K4b once."""
+    from repro_torch.bridge import state_to_arrays
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.training.train_step import loss_and_grads, missing_grads
+    cfg = dataclasses.replace(get_config("qwen25-05b"), num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = make_dataset(cfg, 1, 64).batch_at(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _tree_to(params, "cpu")
+        f0, b0 = k4.COUNTER.count, k4.BWD_COUNTER.count
+        loss, _, grads = loss_and_grads(
+            model, p, {k: torch.as_tensor(v, device=dev)
+                       for k, v in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert k4.COUNTER.count - f0 == 4
+            assert k4.BWD_COUNTER.count - b0 == 2
+        assert missing_grads(grads) == []
+        out[dev] = (float(loss), state_to_arrays(grads))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 0.05 * abs(out["cpu"][0])
+    for leaf in ("wq/w", "wk/w", "wv/w", "wq/b", "wk/b", "wv/b"):
+        assert f"segments/seg_0/attn/{leaf}" in out["cuda"][1]
+    for path, want in out["cpu"][1].items():
+        got = out["cuda"][1][path]
+        assert np.isfinite(got).all(), path
+        lim = 0.05 * float(np.abs(want).max())
+        assert float(np.abs(got - want).max()) <= lim, path
