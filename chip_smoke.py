@@ -5,9 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   1. device  — name, capability, ``nvidia-smi`` name and power limit;
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together); ptxas' registers and
-               spills, and each library's count of tensor-core (HMMA /
-               HGMMA) instructions in its SASS (K1's, K3's and K4's must
-               be > 0; K4b runs on the f32 CUDA cores);
+               spills, each K4b kernel's registers and spills by name
+               (bf16 / f16 / f32 at hd 64, 128 and 256), and each
+               library's count of tensor-core (HMMA / HGMMA)
+               instructions in its SASS (K1's, K3's, K4's and K4b's must
+               be > 0);
   3. kernels — K1 (awq_matmul) at Qwen2.5-0.5B's four (K, N) pairs ×
                M ∈ {1, 4, 16, 64, 1024}, GS 64, unscaled with f32 output
                (the TPU function) and with an AWQ input scale and bf16
@@ -43,7 +45,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                bf16) and gemma3's windowed layers (hd 256, S 1,400,
                window 1,024), from K4's own output and lse, held against
                its plain version, two calls bit-equal, timed beside the
-               plain version and SDPA's backward kernels (profiler);
+               plain version and SDPA's backward kernels (profiler); K4b
+               runs its five products on tensor cores in two launches
+               (dQ with D, then dK / dV);
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -214,6 +218,10 @@ the ``kernel_shapes`` line before them) and, last,
 before it. Without CUDA the script exits 1 at once. ``--out PATH`` also
 writes every phase line to PATH as one JSON object. ``--profile-only``
 builds and profiles Qwen2.5's steps, then a gemma3-4b decode step.
+``--k4b-only`` builds, checks and times K4b (``check_k4b``) and profiles
+train steps; ``--k4b-only CU`` does so with another K4b source of the same
+entry point (a parent commit's, unpacked into a git-ignored directory),
+so two versions are compared in one call, in turns.
 """
 from __future__ import annotations
 
@@ -224,6 +232,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -337,6 +346,33 @@ def sass_mma_count(lib: pathlib.Path) -> dict | None:
     sass = subprocess.run([str(tool), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     return {op: sass.count(f" {op}.") for op in ("HMMA", "HGMMA")}
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by kernel name, element type and head dim (``dq_mma_kernel<bf16,
+    64>``): ptxas names the entry function, then its spills, then its
+    registers."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?_Z\w*?\d((?:[a-z]+_)*kernel)I(\w+)", ln)
+        if m:
+            kind = ("bf16" if "bfloat16" in m.group(2) else "f16"
+                    if "__half" in m.group(2) else "f32")
+            hd = re.search(r"Li(\d+)E", m.group(2))
+            name = f"{m.group(1)}<{kind}, {hd.group(1) if hd else '-'}>"
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def bound(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
@@ -1606,7 +1642,8 @@ KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
                 "awq_gateup": ("GluOut",),
                 "paged_attention_chunk": ("paged_partial", "paged_merge"),
                 "flash_attention": ("flash_mma", "flash_f32"),
-                "flash_attention_bwd": ("delta_kernel", "dkdv_kernel",
+                "flash_attention_bwd": ("dq_mma_kernel", "dkdv_mma_kernel",
+                                        "delta_kernel", "dkdv_kernel",
                                         "dq_kernel"),
                 "copy": ("copy_kernel",),
                 "reduce": ("reduce_kernel",)}
@@ -2609,7 +2646,9 @@ def check_k4b(gen) -> tuple[dict, dict]:
         bound="the larger of: bytes of q, k, v, o, dO, lse read and dq, dk, "
               "dv written once at 3.35 TB/s; per visible (query, key) pair "
               "and head five products of 2*hd flops at 989 TFLOP/s (bf16 "
-              "inputs); the kernel runs them on the f32 CUDA cores",
+              "inputs); the kernel runs them on tensor cores (mma.sync), "
+              "recomputing S and dP^T once more for dQ and splitting the f32 "
+              "P and dS into two bf16 halves: ~2x those flops issued",
         library_call="the backward kernels of torch SDPA (is_causal, or a "
                      "boolean mask where windowed; enable_gqa) on the same "
                      "bf16 tensors, made contiguous, by the profiler",
@@ -2635,13 +2674,8 @@ class _Trainer:
         torch.cuda.synchronize()
 
 
-def train() -> dict:
-    """Full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512, bf16
-    gradient casts, AdamW (the reference's descent settings), remat on,
-    20 steps. Gated: every parameter gets a finite gradient at step 0,
-    every loss finite, the last below the first by more than 0.3, K4 and
-    K4b launched on every layer. Then one profiled step, and a 2-layer
-    full-width cut's gradients on the card against CPU copies."""
+def _train_setup():
+    """train()'s model, state from seed 0, dataset and step function."""
     cfg = get_config("qwen25-05b")
     if not cfg.remat:
         raise AssertionError("train: the config does not remat")
@@ -2651,6 +2685,32 @@ def train() -> dict:
     ds = make_dataset(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED)
     step_fn = make_train_step(model, TrainConfig(
         optimizer=AdamWConfig(**TRAIN_OPT), grad_comm_dtype="bfloat16"))
+    return cfg, model, state, ds, step_fn
+
+
+def train_profile(warm: int = 3, steps: int = 2) -> dict:
+    """``steps`` train steps at train()'s settings, bare and then profiled,
+    after ``warm`` steps (``--k4b-only``)."""
+    _, _, state, ds, step_fn = _train_setup()
+    trainer = _Trainer(step_fn, state, ds, 0)
+    del state
+    for _ in range(warm):
+        trainer.step()
+    prof = _profile_steps(trainer, steps)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def train() -> dict:
+    """Full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512, bf16
+    gradient casts, AdamW (the reference's descent settings), remat on,
+    20 steps. Gated: every parameter gets a finite gradient at step 0,
+    every loss finite, the last below the first by more than 0.3, K4 and
+    K4b launched on every layer. Then one profiled step, and a 2-layer
+    full-width cut's gradients on the card against CPU copies."""
+    cfg, model, state, ds, step_fn = _train_setup()
     batch0 = {k: torch.as_tensor(v, device="cuda")
               for k, v in ds.batch_at(0).items()}
     _, _, grads = loss_and_grads(model, state["params"], batch0)
@@ -2832,6 +2892,14 @@ def main() -> None:
                     help="build, then only the profile phase (decode, "
                          "one-shot decode, chunk and verify steps); prints "
                          "no kernels or ok line")
+    ap.add_argument("--k4b-only", nargs="?", const="", metavar="CU",
+                    help="build, then only check_k4b and profiled train "
+                         "steps (train's settings), with the checkout's K4b "
+                         "or, given CU, another source with the same C "
+                         "entry point (a parent commit's "
+                         "csrc/flash_attention_bwd.cu) to compare two "
+                         "versions on one card; prints no kernels or ok "
+                         "line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2857,11 +2925,33 @@ def main() -> None:
           per_source={n: b.seconds for n, b in built.items()},
           ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln],
+          k4b_kernels=ptxas_by_kernel(built["flash_attention_bwd"].log),
           sass_tensor_core_instructions=mma)
-    for n in ("awq_matmul", "awq_gateup", "flash_attention"):
+    for n in ("awq_matmul", "awq_gateup", "flash_attention",
+              "flash_attention_bwd"):
         if not mma[n] or mma[n]["HMMA"] + mma[n]["HGMMA"] <= 0:
             raise AssertionError(f"{n}: no tensor-core instruction in its "
                                  f"SASS ({mma[n]})")
+    # K4b's tensor-core kernels keep their sums in registers at hd 64 and
+    # 128 (the train path's head dims): ptxas must spill nothing there
+    k4b_regs = PHASES["build"]["k4b_kernels"]
+    spilled = {n: r for n, r in k4b_regs.items()
+               if "mma" in n and not n.endswith(" 256>")
+               and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0}
+    if spilled or not any("mma" in n for n in k4b_regs):
+        raise AssertionError(f"flash_attention_bwd: spills at hd 64 / 128 "
+                             f"or no tensor-core kernel in ptxas' report "
+                             f"({k4b_regs})")
+
+    if args.k4b_only is not None:
+        if args.k4b_only:
+            build.load_source("flash_attention_bwd", args.k4b_only)
+        k4b_entry, k4b_detail = check_k4b(
+            torch.Generator(device="cuda").manual_seed(SEED))
+        phase("k4b", source=args.k4b_only or k4b_entry["source"], gpu=smi,
+              **k4b_detail)
+        phase("train_profile", gpu=smi, **train_profile())
+        return
 
     if args.profile_only:
         model = Model(get_config("qwen25-05b"))

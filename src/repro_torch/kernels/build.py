@@ -50,7 +50,8 @@ SIGNATURES: dict[str, tuple[str, list]] = {
 class Built:
     path: Path
     seconds: float
-    log: str          # nvcc's output (ptxas register / spill report)
+    log: str          # nvcc's output (ptxas register / spill report), kept
+                      # beside the library for later loads
 
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -100,14 +101,17 @@ def build_all(names=None) -> dict[str, Built]:
     started = {n: _start(n) for n in names}
     failed = []
     for n, (out, proc, t0, tmp) in started.items():
-        if proc is None:
-            BUILT.setdefault(n, Built(out, 0.0, "(cached)"))
+        if proc is None:                  # built before: its nvcc log beside it
+            log = out.with_suffix(".log")
+            BUILT.setdefault(n, Built(out, 0.0, log.read_text()
+                                      if log.exists() else "(cached)"))
             continue
         log, _ = proc.communicate()       # wait for every nvcc, even failed
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"csrc/{n}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         BUILT[n] = Built(out, time.perf_counter() - t0, log)
     if failed:
@@ -115,19 +119,36 @@ def build_all(names=None) -> dict[str, Built]:
     return {n: BUILT[n] for n in names}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use), with
-    its entry point's argtypes and restype declared."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        path = build_all([name])[name].path
-        lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LOADED[name] = lib
+def _open(name: str, path: Path) -> ctypes.CDLL:
+    """Load a library as kernel ``name``'s, with its entry point's argtypes
+    and restype declared."""
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _LOADED[name] = lib
     return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    lib = _LOADED.get(name)
+    return lib if lib is not None else _open(name, build_all([name])[name].path)
+
+
+def load_source(name: str, source: str | os.PathLike) -> ctypes.CDLL:
+    """Build another version of ``csrc/<name>.cu`` (the same C entry
+    point, e.g. a parent commit's source) and load it in place of this
+    checkout's, so two versions of a kernel can be timed on one card."""
+    source = Path(source).resolve()
+    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-alt-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+                       check=True, capture_output=True)
+    return _open(name, out)
 
 
 def check(err: int, what: str) -> None:

@@ -19,9 +19,11 @@ differentiates its jnp attention); here `FlashAttentionFn` is a
 `torch.autograd.Function` whose forward is K4 with each row's
 log-sum-exp (``lse``) as a second output and whose backward is K4b
 (`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``): it recomputes
-the probabilities from ``lse`` and returns dq, dk and dv (GQA's dk / dv
-summed over each group inside the kernel, no atomics, so two calls give
-the same bits). Its plain version, `flash_attention_bwd_ref`, is the same
+the probabilities from ``lse`` and returns dq, dk and dv. For bf16 and
+f16 its five products run on tensor cores in two launches (dQ with
+``D = rowsum(dO ∘ O)``, then dK / dV with GQA's group summed inside the
+kernel), f32 on the CUDA cores in three; no atomics, so two calls give
+the same bits. Its plain version, `flash_attention_bwd_ref`, is the same
 formula in PyTorch. `flash_attention` goes through the Function when
 grad is enabled and an input requires it; serving, under
 ``torch.no_grad``, launches the bare forward. On CPU tensors both
@@ -39,7 +41,8 @@ from repro_torch.kernels.build import LaunchCounter, check, load
 from repro_torch.numerics import einsum_f32
 
 COUNTER = LaunchCounter()
-# K4b's calls (each three launches: D = rowsum(dO * O), dK / dV, dQ)
+# K4b's calls (each two launches for bf16 / f16: dQ and D, then dK / dV;
+# three for f32: D, dK / dV, dQ)
 BWD_COUNTER = LaunchCounter()
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -137,6 +140,22 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention: {msg}")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Head dim contiguous and, unless f32, every row 16-byte aligned
+    (pointer and strides): what the tensor-core bodies' copies take."""
+    if t.stride(3) != 1:
+        return False
+    step = 16 // t.element_size()
+    return t.dtype == torch.float32 or (
+        t.data_ptr() % 16 == 0 and all(st % step == 0 for st in t.stride()[:3]))
+
+
+def _check_rows(tensors) -> None:
+    for t, name in tensors:
+        _check(t.stride(3) == 1, f"{name}'s head dim must be contiguous")
+        _check(_rows_aligned(t), f"{name}'s rows must be 16-byte aligned")
+
+
 def _check_qkv(q, k, v) -> None:
     """What both CUDA kernels take: q, k and v of one type among f32 /
     bf16 / f16 on one card, hd 64, 128 or 256, H a multiple of Hkv."""
@@ -162,13 +181,7 @@ def _forward(q, k, v, scale: float, causal: bool, window: int,
     out = torch.empty_like(q)             # q's layout (strides) and type
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
-        _check(t.stride(3) == 1, f"{name}'s head dim must be contiguous")
-        if q.dtype != torch.float32:
-            step = 16 // t.element_size()
-            _check(t.data_ptr() % 16 == 0
-                   and all(st % step == 0 for st in t.stride()[:3]),
-                   f"{name}'s rows must be 16-byte aligned")
+    _check_rows(((q, "q"), (k, "k"), (v, "v"), (out, "out")))
     if out.numel() == 0:
         return out, lse
     lib = load("flash_attention")
@@ -189,9 +202,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     """K4b: (dq, dk, dv) of `flash_attention` at (q, k, v), given its
     output ``o``, its ``lse`` (f32 ``[B, H, S]``) and the output's gradient
     ``do``. CPU tensors take `flash_attention_bwd_ref`; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (every operand's head dim contiguous,
-    o and do of q's type and shape) and raise on anything else. The
-    gradients take their inputs' layouts and types."""
+    ``csrc/flash_attention_bwd.cu`` (o and do of q's type and shape, every
+    operand's head dim contiguous and, for bf16 / f16, every row of all
+    eight operands 16-byte aligned) and raise on anything else: bf16 and
+    f16 on tensor cores in two launches, f32 on the CUDA cores in three.
+    The gradients take their inputs' layouts and types."""
     b, h, s, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
@@ -206,8 +221,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
            "lse must be a contiguous f32 [B, H, S]")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     operands = (q, k, v, o, do, dq, dk, dv)
-    for t in operands:
-        _check(t.stride(3) == 1, "every operand's head dim must be contiguous")
+    _check_rows(zip(operands, ("q", "k", "v", "o", "do", "dq", "dk", "dv")))
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -243,7 +257,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or (do.device.type == "cuda"
+                                  and not _rows_aligned(do)):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
         return dq, dk, dv, None, None, None

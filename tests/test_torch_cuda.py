@@ -1297,8 +1297,10 @@ def test_gemma3_smoke_ring_decode_on_card_near_cpu(cuda):
 # K4b (flash attention backward) against its plain version from the same
 # forward output and lse (K4's): f32 math on both sides, outputs rounded
 # once to the input type, so a bf16 gradient is held within 2e-2 of that
-# output's largest magnitude, an f32 one within 1e-4 (another order of
-# f32 sums over up to 1,400 keys and 8 heads).
+# output's largest magnitude, an f16 one within 2.5e-3 (the same five
+# units in the last place at f16's 11 significant bits, where bf16 has
+# 8), an f32 one within 1e-4 (another order of f32 sums over up to 1,400
+# keys and 8 heads).
 K4B_CASES = [
     # b, h, hkv, s, hd, causal, window
     (2, 14, 2, 512, 64, True, 0),       # Qwen2.5's train shape (G 7)
@@ -1310,6 +1312,15 @@ K4B_CASES = [
     (1, 8, 1, 512, 256, True, 0),       # G 8, hd 256
     (1, 8, 4, 1400, 256, True, 1024),   # gemma3's windowed layers
     (1, 8, 1, 17, 256, True, 8),
+    # S that cut the tensor-core body's tiles (32 keys, 32 / 64 queries)
+    # mid-tile
+    (1, 14, 2, 65, 64, True, 0),
+    (1, 14, 2, 1000, 64, True, 0),
+    (1, 4, 2, 65, 128, True, 0),
+    (1, 4, 2, 1000, 128, True, 0),
+    (2, 4, 4, 300, 64, True, 0),        # G 1 (h == hkv)
+    (1, 2, 2, 200, 256, True, 0),       # G 1, hd 256
+    (1, 4, 2, 333, 64, False, 64),      # bidirectional, windowed
 ]
 
 
@@ -1322,7 +1333,8 @@ def _k4b_run(cuda, b, h, hkv, s, hd, causal, window, dtype):
     return (q, k, v, out, lse, do), kw
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("b,h,hkv,s,hd,causal,window", K4B_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, s, hd,
                                                   causal, window, dtype):
@@ -1333,7 +1345,8 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, s, hd,
     want = k4.flash_attention_bwd_ref(*args, **kw)
     torch.cuda.synchronize()
     assert k4.BWD_COUNTER.count == before + 2
-    bound = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    bound = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3,
+             torch.float32: 1e-4}[dtype]
     dv_scale = float(want[2].float().abs().max())
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
         assert g.dtype == dtype and g.shape == w.shape, name
@@ -1344,6 +1357,45 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, h, hkv, s, hd,
         scale = float(w.float().abs().max()) if s > 1 else dv_scale
         err = float((g.float() - w.float()).abs().max())
         assert err <= bound * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_bwd_rows_equal_across_batch(cuda, dtype):
+    """A batch row's dq, dk and dv do not depend on the batch around it:
+    each row of a B 8 call equals, bit for bit, the same row computed in a
+    B 1 call (Qwen2.5's heads, a ragged S)."""
+    args, kw = _k4b_run(cuda, 8, 14, 2, 200, 64, True, 0, dtype)
+    full = k4.flash_attention_bwd(*args, **kw)
+    for i in range(8):
+        one = k4.flash_attention_bwd(*(t[i:i + 1] for t in args), **kw)
+        for name, f, o in zip(("dq", "dk", "dv"), full, one):
+            assert torch.equal(f[i:i + 1], o), (i, name)
+
+
+def test_flash_attention_bwd_rejects_misaligned_rows(cuda):
+    """The tensor-core body copies 16-byte rows: a bf16 operand whose rows
+    start off a 16-byte boundary is refused, not read wrongly; the f32
+    body reads element by element and takes any alignment."""
+    args, kw = _k4b_run(cuda, 1, 4, 2, 16, 64, True, 0, torch.bfloat16)
+    for i in (0, 3, 5):                 # q, o and do
+        flat = torch.zeros(args[i].numel() + 1, device="cuda",
+                           dtype=torch.bfloat16)
+        off = flat[1:].view(args[i].shape)
+        off.copy_(args[i])
+        bad = args[:i] + (off,) + args[i + 1:]
+        with pytest.raises(ValueError):
+            k4.flash_attention_bwd(*bad, **kw)
+    args, kw = _k4b_run(cuda, 1, 4, 2, 16, 64, True, 0, torch.float32)
+    flat = torch.zeros(args[5].numel() + 1, device="cuda")
+    do32 = flat[1:].view(args[5].shape)
+    do32.copy_(args[5])
+    args = args[:5] + (do32,)
+    got = k4.flash_attention_bwd(*args, **kw)
+    want = k4.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max())
 
 
 def test_flash_attention_function_backward_launches_k4b(cuda):
