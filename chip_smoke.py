@@ -47,7 +47,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                its plain version, two calls bit-equal, timed beside the
                plain version and SDPA's backward kernels (profiler); K4b
                runs its five products on tensor cores in two launches
-               (dQ with D, then dK / dV);
+               (dQ with D, then dK / dV); the MoE family's shapes: K1 at
+               qwen2-moe's and deepseek-v2-lite's linears outside the
+               experts (deepseek's dense down K 10,944, kv_down N 576,
+               kv_up K 512), K3 at their shared / dense fronts, K2 and K4
+               at qwen2-moe's G 1, hd 128, and (``moe_experts``) K3 and K1
+               over each model's 60 / 64 routed experts in one launch
+               (the expert axis) at 4, 64 and 1,024 rows an expert, held
+               against the plain versions, timed beside them and
+               `torch.bmm` on the dequantized bf16 experts;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -167,30 +175,43 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                prefill tokens skipped: a pair reports none, as the
                reference's does), and its streams must equal the
                unified fleet's (same placements, same steps);
- 20-23. gemma3-4b (the slice's main path: 34 layers, d 2560, 8 q / 4 kv
-               heads, hd 256, d_ff 10,240, V 262,144, a 1,024-token window
-               on 29 layers), smollm-360m and gemma-2b at full size, and
-               glm4-9b at its widths with 8 of its 40 layers, each from
-               random weights (seed 0): the launcher's AWQ path (``--arch
+ 20-25. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
+               V 262,144, a 1,024-token window; 12 of its 34 layers, two
+               of them global), smollm-360m (8 of 32 layers), gemma-2b (6
+               of 18), glm4-9b (8 of 40), then the MoE family:
+               qwen2-moe-a2.7b (60 experts top-4 + 4 shared, 16 heads of
+               128) and deepseek-v2-lite-16b (MLA + 64 experts top-6 + 2
+               shared, its first layer dense), each at full width with
+               its depth cut for the time limit (the phase line lists the
+               layers), from random weights (seed 0): the launcher's AWQ
+               path (``--arch
                <name> --quant awq``: calibration with K4, AWQ search and
                pack of every linear, `generate()` with K4 prefills, and on
                gemma3 its rings past the window: 2 × 1,100 prompt
-               tokens); a serve burst (8 greedy requests of 32 new tokens
-               over int8 pages of 16, 4 slots; gemma3's prompts include
-               1,100 and 1,400 tokens, so its windowed layers' K2 reads
-               mask keys that slid out of the window) under the default
+               tokens; the MoE models' routed experts at RTN, on K3 and
+               K1's expert axis); a serve burst (8 greedy requests of 32
+               new tokens over int8 pages of 16, 4 slots, on the engine's
+               default path: chunked, or one-shot for deepseek's MLA
+               latents; gemma3's prompts include 1,100 and 1,400 tokens,
+               so its windowed layers' K2 reads mask keys that slid out
+               of the window) under the default
                threshold (this model's serving path: counts from 0) and
                with every quantized linear on K1 / K3, each stream against
                generate() at B 1 (first tokens gated equal by the
                `check` rule: where generate()'s top-2 margin clears 2 ×
                5 % of its logits' scale; streams and near ties reported
-               with logit margins); K1 / K2 launched, K3 on the
-               SiLU models only (gemma's GeGLU fronts are two K1 calls);
-               and `check` / `check_prefill` on a 2-layer cut of the
-               served model (gemma3: its first windowed and first global
-               layer) against CPU copies; gemma3's line adds a profiled
-               decode step of 4 slots at contexts ~1,100.
- 24. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
+               with logit margins); K1 launched, K2 on the chunked path,
+               K3 on the SiLU models only (gemma's GeGLU fronts are two K1
+               calls), the expert axis on the MoE models; and `check`
+               (deepseek: a one-shot prefill and decode step) /
+               `check_prefill` on a 2-layer cut of the served model
+               (gemma3: its first windowed and first global layer;
+               deepseek: its dense layer and a MoE one) against CPU
+               copies, the CPU side taking the card's MoE routing
+               (`RouteTie`: routing flips counted and reported);
+               gemma3's line adds a profiled decode step of 4 slots at
+               contexts ~1,100.
+ 26. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
                bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
                no weight decay: the reference's descent test), per-block
                remat, 20 steps. Gated: every parameter receives a finite
@@ -201,7 +222,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                idle share, top kernels); then a 2-layer full-width cut's
                loss and gradients on the card against CPU copies (5 % of
                each leaf's largest magnitude);
- 25. train_resume — `repro_torch.launch.train.main` at full size
+ 27. train_resume — `repro_torch.launch.train.main` at full size
                (``--steps 8 --batch 8 --seq 512 --ckpt-every 4
                --simulate-failure-at 6``, checkpoints under the
                git-ignored build/, deleted after): one recovery from step
@@ -261,6 +282,7 @@ from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.data.pipeline import make_dataset  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.disagg import DisaggController  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
@@ -289,8 +311,13 @@ T_START = time.perf_counter()
 # each kernel wrapper's launch count (one per launch of its kernel)
 COUNTERS = {"awq_matmul": k1.COUNTER, "paged_attention_chunk": k2.COUNTER,
             "awq_gateup": k1.GATEUP_COUNTER, "flash_attention": k4.COUNTER}
+# K1's and K3's launches over a MoE layer's stacked experts (the expert
+# axis; each is counted under its kernel's name too)
+EXPERT_COUNTERS = {"awq_matmul_experts": k1.EXPERT_COUNTER,
+                   "awq_gateup_experts": k1.GATEUP_EXPERT_COUNTER}
 # K4b launches only on the train path
-ALL_COUNTERS = {**COUNTERS, "flash_attention_bwd": k4.BWD_COUNTER}
+ALL_COUNTERS = {**COUNTERS, **EXPERT_COUNTERS,
+                "flash_attention_bwd": k4.BWD_COUNTER}
 
 
 def reset_counts() -> None:
@@ -1781,13 +1808,95 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+class RouteTie:
+    """The card's MoE routing, recorded while the card's side of a CPU
+    check runs (``record``), then imposed on the CPU's side (``force``).
+
+    A MoE layer's top-k is discrete: where two experts' probabilities lie
+    closer than the card's and the CPU's roundings move them, the two
+    sides route a token to different experts, and its row then leaves the
+    other side's by far more than any rounding (a whole expert's output).
+    So the CPU side takes the card's expert ids (its gates read from its
+    own probabilities at those ids) and the logits are held as for a
+    dense model; every token whose top-k set the CPU would have chosen
+    otherwise is counted, with the CPU's gap between its k-th and
+    (k+1)-th probability there and the largest difference between the
+    two sides' probabilities of that token (a flip needs gap <= 2x it)."""
+
+    def __init__(self):
+        self.routes, self.flips, self.calls = [], [], 0
+
+    @contextlib.contextmanager
+    def record(self):
+        plain = moe.route
+
+        def route(probs, cfg, cap):
+            out = plain(probs, cfg, cap)
+            self.routes.append((out[0].cpu(), probs.float().cpu()))
+            return out
+
+        moe.route = route
+        try:
+            yield
+        finally:
+            moe.route = plain
+
+    @contextlib.contextmanager
+    def force(self):
+        plain = moe.route
+
+        def route(probs, cfg, cap):
+            idx, card_probs = self.routes[self.calls]
+            self.calls += 1
+            own = torch.topk(probs, cfg.top_k, dim=-1)
+            differ = (own.indices.sort(-1).values
+                      != idx.sort(-1).values).any(-1)
+            for t in differ.nonzero()[:, 0].tolist():
+                top = torch.topk(probs[t], cfg.top_k + 1).values
+                self.flips.append(dict(
+                    call=self.calls - 1, token=t,
+                    gap=float(top[-2] - top[-1]),
+                    probs_diff=float((probs[t].float()
+                                      - card_probs[t]).abs().max())))
+            gates = torch.gather(probs, 1, idx)
+            if cfg.norm_topk_prob:
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9)
+            return (idx, gates,
+                    *moe.assign_slots(idx, cfg.num_experts, cap))
+
+        moe.route = route
+        try:
+            yield
+        finally:
+            moe.route = plain
+
+    def report(self) -> dict:
+        if self.calls != len(self.routes):
+            raise AssertionError(f"routing: the CPU routed {self.calls} "
+                                 f"times, the card {len(self.routes)}")
+        if any(f["gap"] > 2 * f["probs_diff"] for f in self.flips):
+            raise AssertionError(f"routing: a flip past the two sides' "
+                                 f"difference: {self.flips}")
+        return dict(routed_calls=self.calls,
+                    tokens=sum(int(i.shape[0]) for i, _ in self.routes),
+                    flips=self.flips)
+
+
+def _device_side(tie: RouteTie, d: str):
+    """The routing context of one side of a card-vs-CPU check: the card's
+    side (first) records, the CPU's follows it."""
+    return tie.record() if d == "cuda" else tie.force()
+
+
 def cross_check(model, params) -> dict:
     """One prefill chunk (C=16) and one decode step (C=1) of the unified
     chunk step on the card vs CPU copies (plain versions). bf16
     activations round differently once K2 dequantizes K/V in f32 (card)
     instead of to bf16 (CPU gather path), so logits are held at 5% of
     their largest magnitude, and the argmax must agree on rows whose
-    top-2 margin clears that tolerance."""
+    top-2 margin clears that tolerance. A MoE model's CPU side takes the
+    card's routing (`RouteTie`)."""
     cpu_params = tree_to(params, "cpu")
     rng = np.random.default_rng(SEED + 1)
     table = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
@@ -1808,9 +1917,9 @@ def cross_check(model, params) -> dict:
                                               (toks_b, pos_b, sidx_b))):
         if step == 1:      # both sides read the card's committed pages
             pools["cpu"] = tree_to(pools["cuda"], "cpu")
-        logits = {}
+        logits, tie = {}, RouteTie()
         for d in ("cuda", "cpu"):
-            with torch.no_grad():
+            with torch.no_grad(), _device_side(tie, d):
                 lg, pools[d] = model.chunk_step(
                     prm[d], pools[d], toks.to(d), pos.to(d), sidx.to(d),
                     page_table=table.to(d))
@@ -1827,6 +1936,8 @@ def cross_check(model, params) -> dict:
         res[f"step{step}"] = dict(max_abs_err=err, tol=tol,
                                   clear_rows=int(clear.sum()),
                                   argmax_agree=int(agree.sum()))
+        if model.cfg.num_experts:
+            res[f"step{step}"]["routing"] = tie.report()
     return res
 
 
@@ -1925,15 +2036,16 @@ def check_prefill(model, params) -> dict:
     sums run in another order, and the differences grow over 24 layers,
     so the last position's logits are held at 5% of their largest
     magnitude, as `cross_check` holds a chunk step, and the argmax must
-    agree if the top-2 margin clears that tolerance."""
+    agree if the top-2 margin clears that tolerance. A MoE model's CPU
+    side takes the card's routing (`RouteTie`)."""
     rng = np.random.default_rng(SEED + 3)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 64))
                             .astype(np.int32))
     prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
     before = k4.COUNTER.count
-    logits = {}
+    logits, tie = {}, RouteTie()
     for d in ("cuda", "cpu"):
-        with torch.no_grad():
+        with torch.no_grad(), _device_side(tie, d):
             cache = model.init_cache(1, 64, device=d)
             _, lg, _ = model.prefill(prm[d], {"tokens": toks.to(d)}, cache)
         logits[d] = lg.float().cpu()
@@ -1946,11 +2058,14 @@ def check_prefill(model, params) -> dict:
     if not err <= tol or (clear and not agree):
         raise AssertionError(f"check_prefill: err {err} > {tol} or argmax "
                              f"differs on a clear row")
-    if k4.COUNTER.count - before != model.cfg.num_layers:
+    attn_layers = sum(k.mixer == "attn" for k in model.cfg.layer_kinds())
+    if k4.COUNTER.count - before != attn_layers:
         raise AssertionError("check_prefill: the card's prefill did not run "
-                             "K4 once per layer")
+                             "K4 once per attention layer")
     return dict(max_abs_err=err, tol=tol, argmax_agree=agree,
-                margin_clear=clear)
+                margin_clear=clear,
+                **({"routing": tie.report()} if model.cfg.num_experts
+                   else {}))
 
 
 # ----------------------------------------------------------------- phase 18
@@ -2026,17 +2141,27 @@ def fleet(disagg: bool = False, unified_streams=None) -> dict:
 # (window 1024) read through K2's window mask and decode over generate()'s
 # rings; gemma's GeGLU fronts are two K1 calls (no K3), as in the reference.
 DENSE_ARCHS = {
-    # depth: layers run (None = all); the CPU check runs 2 of them
-    "gemma3-4b": dict(layers=None, batch=2, prompt_len=1100,
+    # depth: layers run (None = all), every model at full width, its depth
+    # cut for the time limit; the CPU check runs 2 of them. gemma3-4b's 12
+    # of 34 keep windowed layers and two global ones (global every 6)
+    "gemma3-4b": dict(layers=12, batch=2, prompt_len=1100,
                       serve_lens=[1100, 1400, 64, 300, 900, 17, 700, 200],
                       max_seq=2048, chunk=64),
-    "smollm-360m": dict(layers=None, batch=4, prompt_len=256,
+    "smollm-360m": dict(layers=8, batch=4, prompt_len=256,
                         serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "gemma-2b": dict(layers=None, batch=4, prompt_len=256,
+    "gemma-2b": dict(layers=6, batch=4, prompt_len=256,
                      serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    # 8 of glm4-9b's 40 layers: full width, depth cut for the time limit
     "glm4-9b": dict(layers=8, batch=4, prompt_len=256,
                     serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+    # the MoE family: qwen2-moe (attention + MoE) on the chunked engine,
+    # deepseek-v2-lite (MLA + MoE, its first layer dense) on the one-shot
+    # engine; the launcher's batch of 4 x 256 tokens is 1,024, the most a
+    # MoE layer takes dropless
+    "qwen2-moe-a2.7b": dict(layers=8, batch=4, prompt_len=256,
+                            serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+    "deepseek-v2-lite-16b": dict(layers=8, batch=4, prompt_len=256,
+                                 serve_lens=SERVE_LENS, max_seq=512,
+                                 chunk=16),
 }
 # K1 (K, N) of the new models' linears (smollm q/o, k/v, gate/up, down;
 # gemma-2b q/o, k/v, gate/up, down; gemma3 q, k/v, o, gate/up, down; glm4
@@ -2044,19 +2169,33 @@ DENSE_ARCHS = {
 DENSE_K1 = [(960, 960), (960, 320), (960, 2560), (2560, 960),
             (2048, 2048), (2048, 256), (2048, 16384), (16384, 2048),
             (2560, 2048), (2560, 1024), (2048, 2560), (2560, 10240),
-            (10240, 2560), (4096, 4096), (4096, 256), (13696, 4096)]
-DENSE_K3 = [(960, 2560), (4096, 13696)]
+            (10240, 2560), (4096, 4096), (4096, 256), (13696, 4096),
+            # the MoE family's linears outside the experts: qwen2-moe q/k/
+            # v/o (2048 -> 2048, as gemma-2b's q) and shared down; deepseek
+            # q_proj, kv_down (N 576), kv_up (K 512), the dense layer's
+            # down (K 10,944: a short last span) and shared down
+            (5632, 2048), (2048, 3072), (2048, 576), (512, 4096),
+            (10944, 2048), (2816, 2048)]
+DENSE_K3 = [(960, 2560), (4096, 13696),
+            (2048, 5632), (2048, 10944), (2048, 2816)]
 # K2: model, Hkv, G, hd, window
 DENSE_K2 = [("gemma3-4b", 4, 2, 256, 0), ("gemma3-4b", 4, 2, 256, 1024),
             ("gemma-2b", 1, 8, 256, 0), ("glm4-9b", 2, 16, 128, 0),
-            ("smollm-360m", 5, 3, 64, 0)]
+            ("smollm-360m", 5, 3, 64, 0), ("qwen2-moe-a2.7b", 16, 1, 128, 0)]
 # K4: model, B, S, H, Hkv, hd, window (causal, bf16)
 DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
             ("gemma3-4b", 1, 1400, 8, 4, 256, 1024),
             ("gemma3-4b", 2, 1100, 8, 4, 256, 1024),
             ("gemma-2b", 4, 256, 8, 1, 256, 0),
             ("glm4-9b", 4, 256, 32, 2, 128, 0),
-            ("smollm-360m", 4, 256, 15, 5, 64, 0)]
+            ("smollm-360m", 4, 256, 15, 5, 64, 0),
+            ("qwen2-moe-a2.7b", 4, 256, 16, 16, 128, 0)]
+# K1 / K3 over a MoE layer's routed experts (the expert axis): model, E,
+# d_model, expert d_ff; K3 takes d_model -> d_ff, K1 d_ff -> d_model
+EXPERT_SHAPES = [("qwen2-moe-a2.7b", 60, 2048, 1408),
+                 ("deepseek-v2-lite-16b", 64, 2048, 1408)]
+# rows an expert: a decode step, a chunk step (4 slots x 16), a prefill
+EXPERT_ROWS = (4, 64, 1024)
 
 
 def _k1_shape(gen, k, n, m) -> dict:
@@ -2237,6 +2376,88 @@ def _k4_shape(gen, arch, b, s, h, hkv, hd, window) -> dict:
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
+def _expert_shape(gen, arch, e, d, f, m, gateup: bool) -> dict:
+    """K3 (``gateup``: d -> f, gate and up) or K1 (f -> d) over E routed
+    experts at M rows each, in the model's call (unit input scales, as a
+    routed expert keeps at RTN; bf16 output), one launch for all of them:
+    held against the plain version (a loop over the experts), timed
+    beside it and `torch.bmm` on the dequantized bf16 experts. The bound
+    reads every expert's packed weight once."""
+    cfg = QuantConfig(group_size=GS)
+    k, n = (d, f) if gateup else (f, d)
+
+    def stacked():
+        ps = [pack_linear(*quantize_groupwise(
+            torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k),
+            cfg), None, None, cfg) for _ in range(e)]
+        return tuple(torch.stack([getattr(p, a) for p in ps])
+                     for a in ("qweight", "scales", "zeros"))
+
+    ws = [stacked() for _ in range(2 if gateup else 1)]
+    ones = torch.ones(e, k, device="cuda")
+    x = torch.randn(e, m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wbytes = sum(t.nbytes for w in ws for t in w)
+    dense = [torch.stack([dequantize_int4(q, sc, z, GS, torch.bfloat16)
+                          for q, sc, z in zip(*w)]) for w in ws]
+    if gateup:
+        args = (x, *ws[0], *ws[1], GS)
+        kw = dict(input_scales=(ones, ones))
+        fn, plain = k1.awq_gateup_experts, k1.awq_gateup_experts_ref
+        lib = lambda i: (torch.nn.functional.silu(torch.bmm(x, dense[0]))  # noqa: E731
+                         * torch.bmm(x, dense[1]))
+    else:
+        args, kw = (x, *ws[0], GS), dict(input_scale=ones)
+        fn, plain = k1.awq_matmul_experts, k1.awq_matmul_experts_ref
+        lib = lambda i: torch.bmm(x, dense[0])  # noqa: E731
+    errs = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = fn(*args, out_dtype=out_dtype, **kw)
+        ref = plain(*args, torch.bfloat16, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        lim = (k3_tolerance(ref) if gateup else
+               1e-4 * float(ref.float().abs().max())
+               + (bf16_ulp(ref) if out_dtype == torch.bfloat16 else 0))
+        past = int((err > lim).sum())
+        # gated as K1 and K3 are gated (kernel_shapes' tolerance field)
+        if past and (out_dtype == torch.float32 or not gateup):
+            raise AssertionError(f"{arch} experts {'K3' if gateup else 'K1'} "
+                                 f"{k}x{n} M={m}: err exceeds its tolerance "
+                                 f"by {float((err - lim).max())}")
+        errs[str(out_dtype).split(".")[-1]] = dict(
+            max_abs_err=float(err.max()), past_tolerance=past,
+            elements=err.numel())
+    kw["out_dtype"] = torch.bfloat16
+    ms = time_ms(lambda i: fn(*args, **kw), 1, iters=10)
+    plain_ms = time_ms(lambda i: plain(*args, torch.bfloat16, **kw), 1,
+                       iters=2)
+    lib_ms = time_ms(lib, 1, iters=10)
+    nw = 2 if gateup else 1
+    b_ms, b_by = bound(x.nbytes + wbytes + nw * e * k * 4 + e * m * n * 2,
+                       (2 * nw * e * m * k * n, BF16_OPS_PER_S))
+    return dict(model=arch, experts=e, k=k, n=n, m=m,
+                max_abs_err=errs["float32"]["max_abs_err"], by_output=errs,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, packed_bytes=wbytes)
+
+
+def check_expert_kernels(gen) -> dict:
+    """K3 and K1 over each MoE model's routed experts at 4, 64 and 1,024
+    rows an expert (a decode step's capacity, a chunk step's of 4 slots x
+    16 tokens, and the launcher's dropless prefill of 4 x 256 tokens):
+    the skinny kernel and the wide one's 64- and 128-row tiles."""
+    return dict(
+        awq_gateup_experts=[_expert_shape(gen, *case, m, True)
+                            for case in EXPERT_SHAPES for m in EXPERT_ROWS],
+        awq_matmul_experts=[_expert_shape(gen, *case, m, False)
+                            for case in EXPERT_SHAPES for m in EXPERT_ROWS],
+        tolerance="K1 as on Qwen2.5's shapes, gated on both outputs; K3 "
+                  "gated on its f32 output, its bf16 output's elements past "
+                  "four bf16 ulps counted (by_output); times are the "
+                  "model's call (unit input scales, bf16 output); "
+                  "library_ms: torch.bmm on the dequantized bf16 experts")
+
+
 def check_dense_kernels(gen) -> dict:
     """K1 - K4 at the other dense models' shapes, each held against its
     plain version (K1 / K3 at the model's call, M 4 and 1024; K2 at C 1
@@ -2273,10 +2494,28 @@ def _depth(arch: str, layers):
         configs._REGISTRY[arch] = (full, smoke)
 
 
+def _linear_counts(cfg) -> tuple[int, int, int]:
+    """(quantized, kept float, routed-expert) linears the pipeline gives
+    this model at its published widths: per layer the mixer's 4 and the
+    GLU's 3, or on a MoE layer the shared experts' 3 and the routed
+    experts' 3 stacked leaves (their router and ``shared_gate`` stay
+    float), and an untied head (float)."""
+    quant = skip = routed = 0
+    for kind in cfg.layer_kinds():
+        quant += 7
+        if kind.mlp == "moe":
+            routed += 3
+            quant += 3 * bool(cfg.num_shared_experts)
+            skip += 1 + cfg.shared_expert_gate
+    return quant, skip + (not cfg.tie_embeddings), routed
+
+
 def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
     """The launcher's AWQ path for one model: calibrate, AWQ search and
-    pack every linear, generate() (K4 prefills; rings on windowed
-    layers). Returns (phase fields, the AWQ params, the model)."""
+    pack every linear (a MoE layer's routed experts at RTN, as no forward
+    records them), generate() (K4 prefills on attention layers, rings on
+    windowed ones; a MoE layer's experts on K3 and K1's expert axis).
+    Returns (phase fields, the AWQ params, the model)."""
     args = ["--arch", arch, "--quant", "awq", "--batch", str(spec["batch"]),
             "--prompt-len", str(spec["prompt_len"]), "--max-new", "32"]
     gc.collect()
@@ -2290,35 +2529,49 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
         t0 = time.perf_counter()
         out = launcher.main(args)
         total_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
     rep, by_step = out["report"], out["launches"]
     toks = out["tokens"]
-    # 7 linears a layer, and an untied head, which stays float
-    n_lin = 7 * cfg.num_layers + (not cfg.tie_embeddings)
     if out["shape"] != [spec["batch"], 32] or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
         raise AssertionError(f"{arch} launch: bad tokens {out['shape']}")
     # every linear of a layer is quantized at the published widths (the
-    # pipeline keeps K·N < 16,384 in float, which only smoke widths meet)
-    if not (len(rep.calibrated) == len(rep.quantized)
-            and len(rep.quantized) + len(rep.skipped) == n_lin):
+    # pipeline keeps K·N < 16,384 in float, which only smoke widths meet),
+    # and every one but the routed experts calibrated
+    n_quant, n_skip, n_routed = _linear_counts(cfg)
+    routed = [p for p in rep.quantized if "/experts/" in p]
+    if not (len(rep.quantized) == n_quant and len(rep.skipped) == n_skip
+            and len(routed) == n_routed
+            and set(rep.calibrated) == set(rep.quantized) - set(routed)):
         raise AssertionError(f"{arch} launch: {len(rep.calibrated)} of "
-                             f"{len(rep.quantized)} linears calibrated, "
-                             f"{len(rep.skipped)} kept float, want {n_lin}")
+                             f"{len(rep.quantized)} linears calibrated "
+                             f"({len(routed)} routed), {len(rep.skipped)} "
+                             f"kept float; want {n_quant} ({n_routed}), "
+                             f"{n_skip}")
     glu_k3 = cfg.act == "silu"
+    attn_layers = sum(k.mixer == "attn" for k in cfg.layer_kinds())
     gen_l = by_step["generate"]
-    if not (by_step["calibrate"]["flash_attention"] >= cfg.num_layers
-            and gen_l["flash_attention"] >= cfg.num_layers
-            and gen_l["awq_matmul"] > 0
+    k4_ok = (by_step["calibrate"]["flash_attention"] >= attn_layers
+             and gen_l["flash_attention"] >= attn_layers
+             if attn_layers else launches["flash_attention"] == 0)
+    experts_ok = ((launches["awq_matmul_experts"] > 0
+                   and launches["awq_gateup_experts"] > 0) == (n_routed > 0))
+    if not (k4_ok and experts_ok and gen_l["awq_matmul"] > 0
             and (gen_l["awq_gateup"] > 0) == glu_k3):
-        raise AssertionError(f"{arch} launch: kernels {by_step} (K3 "
+        raise AssertionError(f"{arch} launch: kernels {by_step}, expert "
+                             f"axis {launches} (K3 "
                              f"{'expected' if glu_k3 else 'not expected'})")
     fields = dict(
         args=" ".join(args), layers=cfg.num_layers,
         depth_cut=(f"{cfg.num_layers} of {configs._REGISTRY[arch][0]().num_layers}"
                    if spec["layers"] else None),
+        layer_kinds=[[k.tag, n] for k, n in cfg.segments()],
         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        experts=([cfg.num_experts, cfg.top_k, cfg.moe_d_ff,
+                  cfg.num_shared_experts] if cfg.num_experts else None),
+        mla=([cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+              cfg.v_head_dim] if cfg.kv_lora_rank else None),
         window=cfg.sliding_window, total_s=total_s,
         calibrate_s=out["calib_s"], awq_s=out["awq_s"],
         quantized=len(rep.quantized), calibrated=len(rep.calibrated),
@@ -2353,10 +2606,12 @@ def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
 
 
 def dense_serve(arch: str, model, params, spec: dict) -> dict:
-    """8 greedy requests of 32 new tokens through the chunked engine over
-    int8 pools (4 slots, pages of 16), under the default threshold (this
-    model's serving path: counts from 0 here, read after) and with every
-    quantized linear on K1 / K3; each stream against the port's own
+    """8 greedy requests of 32 new tokens through the engine's default path
+    (the chunked one over int8 pools, 4 slots, pages of 16; an MLA model
+    the one-shot one over its dense per-slot latents), under the default
+    threshold (this model's serving path: counts from 0 here, read after)
+    and with every quantized linear on K1 / K3; each stream against the
+    port's own
     generate() at B 1 under the same config: first tokens gated,
     whole streams reported with the first differing position and
     generate()'s logit margin there. The first tokens are held by the
@@ -2377,21 +2632,23 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
             t0 = time.perf_counter()
             rids = [eng.submit(p, 32) for p in prompts]
             steps, decode_s, decode_steps, prefilled = 0, 0.0, 0, 0
-            decode_tokens = 0
+            decode_tokens, admitted = 0, 0
             while not eng.idle:
                 ts = time.perf_counter()
                 events = eng.step()         # ends in a device→host copy
                 dt = time.perf_counter() - ts
                 steps += 1
                 now = eng.stats().prefill_tokens
-                if now == prefilled:        # a step with decode rows only
-                    decode_s += dt
+                sst = eng.scheduler_stats
+                if now == prefilled and sst.admitted == admitted:
+                    decode_s += dt          # a step with decode rows only
                     decode_steps += 1
                     decode_tokens += len(events)
-                prefilled = now
+                prefilled, admitted = now, sst.admitted
             out = eng.drain()
             serve_s = time.perf_counter() - t0
-            launches = read_counts()
+            chunked = eng._scheduler._run_batch is not None
+            launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
             windowed = K2_WINDOWED["calls"]
             peak = torch.cuda.max_memory_allocated()
             check_streams(f"{arch} serve", out, rids, cfg.vocab_size)
@@ -2428,11 +2685,19 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
                                                int(got[i]),
                                                max_seq=spec["max_seq"])))
         want_k3 = cfg.act == "silu"
+        # K2 reads the pools of the chunked path; an MLA model's one-shot
+        # prefills and decodes run no attention kernel (the reference's
+        # MLA products are plain tensor code)
         if not (launches["awq_matmul"] > 0
-                and launches["paged_attention_chunk"] > 0
+                and (launches["paged_attention_chunk"] > 0) == chunked
+                and chunked == (cfg.kv_lora_rank == 0)
                 and (launches["awq_gateup"] > 0) == want_k3
+                and (launches["awq_gateup_experts"] > 0)
+                == (launches["awq_matmul_experts"] > 0)
+                == bool(cfg.num_experts)
                 and launches["flash_attention"] == 0):
-            raise AssertionError(f"{arch} serve {name}: kernels {launches}")
+            raise AssertionError(f"{arch} serve {name}: kernels {launches}, "
+                                 f"chunked {chunked}")
         if cfg.sliding_window and not (
                 windowed > 0 and max(map(len, prompts)) > cfg.sliding_window):
             raise AssertionError(f"{arch} serve {name}: {windowed} windowed "
@@ -2440,6 +2705,7 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
                                  f"{max(map(len, prompts))}")
         st = eng.stats()
         res[name] = dict(
+            path="chunked" if chunked else "one-shot",
             requests=len(rids), steps=steps, serve_s=serve_s,
             decode_steps=decode_steps,
             decode_step_ms=1e3 * decode_s / max(1, decode_steps),
@@ -2494,17 +2760,65 @@ def _cut_two_layers(model, params):
     return cm, {**params, "segments": segs}, pick
 
 
+def cross_check_decode(model, params) -> dict:
+    """The one-shot path's counterpart of `cross_check`, for a model
+    whose cache is per-slot state (MLA latents): a prefill of 4 prompts
+    of 16 tokens into the dense cache (step 0), then one decode step over
+    the card's cache (step 1), on the card vs CPU copies (plain
+    versions), held by the same rule: logits at 5% of their largest
+    magnitude, argmax equal on rows whose top-2 margin clears that. The
+    CPU side takes the card's MoE routing (`RouteTie`)."""
+    prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 16))
+                            .astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, 4)
+                           .astype(np.int32))
+    caches = {d: model.init_cache(4, 32, device=d) for d in ("cuda", "cpu")}
+    res = {}
+    for step in (0, 1):
+        if step == 1:      # both sides read the card's cache
+            caches["cpu"] = tree_to(caches["cuda"], "cpu")
+        logits, tie = {}, RouteTie()
+        for d in ("cuda", "cpu"):
+            with torch.no_grad(), _device_side(tie, d):
+                if step == 0:
+                    caches[d], lg, _ = model.prefill(
+                        prm[d], {"tokens": toks.to(d)}, caches[d])
+                else:
+                    lg, caches[d] = model.decode_step(
+                        prm[d], caches[d], nxt.to(d),
+                        torch.full((4,), 16, dtype=torch.int32, device=d))
+            logits[d] = lg.float().cpu()
+        ref, got = logits["cpu"], logits["cuda"]
+        err = float((got - ref).abs().max())
+        tol = 0.05 * float(ref.abs().max())
+        top2 = torch.topk(ref, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree = got.argmax(-1) == ref.argmax(-1)
+        if not err <= tol or not bool(agree[clear].all()):
+            raise AssertionError(f"cross-check decode step {step}: err {err} "
+                                 f"> {tol} or argmax differs on clear rows")
+        res[f"step{step}"] = dict(max_abs_err=err, tol=tol,
+                                  clear_rows=int(clear.sum()),
+                                  argmax_agree=int(agree.sum()),
+                                  routing=tie.report())
+    return res
+
+
 def dense_check(arch: str, model, params) -> dict:
     """The CPU checks at a depth the host can run: a 2-layer cut of the
-    served AWQ model, one chunk step pair (`cross_check`) and one prefill
-    (`check_prefill`) on the card against CPU copies."""
+    served AWQ model, one chunk step pair (`cross_check`; the one-shot
+    prefill and decode step, `cross_check_decode`, for an MLA model) and
+    one prefill (`check_prefill`) on the card against CPU copies."""
     cm, cp, pick = _cut_two_layers(model, params)
-    return dict(layers=pick, check=cross_check(cm, cp),
+    check = (cross_check_decode if model.cfg.kv_lora_rank else cross_check)
+    return dict(layers=pick, check=check(cm, cp),
                 check_prefill=check_prefill(cm, cp))
 
 
 def dense_models() -> tuple[dict, dict]:
-    """Phases 21-24: each model's launcher, serve burst and CPU check.
+    """Phases 20-25: each model's launcher, serve burst and CPU check.
     Returns (per-model fields, per-model launches of K1 - K4)."""
     _count_windowed_k2()
     out, launches = {}, {}
@@ -2523,7 +2837,8 @@ def dense_models() -> tuple[dict, dict]:
         out[arch] = fields
         launches[arch] = {
             n: launched["launches"][n] + served["default"]["launches"][n]
-            + served["all_kernel"]["launches"][n] for n in COUNTERS}
+            + served["all_kernel"]["launches"][n]
+            for n in (*COUNTERS, *EXPERT_COUNTERS)}
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2976,7 +3291,8 @@ def main() -> None:
     phase("kernel_shapes", awq_matmul=k1_detail,
           paged_attention_chunk=k2_detail, awq_gateup=k3_detail,
           flash_attention=k4_detail, flash_attention_bwd=k4b_detail,
-          dense_models=check_dense_kernels(gen))
+          dense_models=check_dense_kernels(gen),
+          moe_experts=check_expert_kernels(gen))
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -3051,8 +3367,9 @@ def main() -> None:
     phase("fleet_disagg", **disagg_fleet)
     gc.collect()
     torch.cuda.empty_cache()
-    # the other dense models: each one's phase line, and K1 - K4's
-    # launches on its launcher and serving paths
+    # the other models: each one's phase line, and K1 - K4's launches on
+    # its launcher and serving paths (K1's and K3's over a MoE layer's
+    # experts also by model, as the expert axis's share)
     dense, dense_launches = dense_models()
     for entry in kernels:
         qwen = entry["launches"]
@@ -3060,6 +3377,11 @@ def main() -> None:
             by[entry["name"]] for by in dense_launches.values())
         entry["launches_by_model"] = {"qwen25-05b": qwen, **{
             arch: by[entry["name"]] for arch, by in dense_launches.items()}}
+    for entry in (k1_entry, k3_entry):
+        entry["expert_axis_launches_by_model"] = {
+            arch: by[f"{entry['name']}_experts"]
+            for arch, by in dense_launches.items()
+            if by[f"{entry['name']}_experts"]}
     # training: Qwen2.5-0.5B at full size (K4 forward and remat, K4b)
     trained = train()
     phase("train", **trained)

@@ -8,7 +8,9 @@ nothing of the reference package). A quantized linear is any object with
 
   * `params_to_torch` — model params. ``segments/seg_i`` leaves are
     scan-stacked along a leading layer dim; they become a list of
-    per-layer dicts.
+    per-layer dicts (a MoE layer's stacked experts keep their expert
+    dim: ``[L, E, ...]`` becomes ``[E, ...]`` a layer, a quantized one a
+    `PackedLinear` with that leading dim).
   * `paged_cache_to_torch` — serving page pools (int8 codes + f32 scale
     strips, or float pools), unstacked the same way.
   * `tree_to_torch` — any subtree as it is (one linear, a config of

@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the paper's qwen2.5-0.5b and the
+"""Architecture registry of the port: the paper's qwen2.5-0.5b, the
 reference's other dense decoders (smollm-360m, gemma-2b, gemma3-4b,
-glm4-9b).
+glm4-9b) and its MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b, MLA
++ MoE).
 
 Each config module exposes ``config()`` (the published dims) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).
@@ -10,7 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs import (gemma3_4b, gemma_2b, glm4_9b, qwen25_05b,
+from repro_torch.configs import (deepseek_v2_lite, gemma3_4b, gemma_2b,
+                                 glm4_9b, qwen2_moe_a27b, qwen25_05b,
                                  smollm_360m)
 from repro_torch.configs.base import LayerKind, ModelConfig  # noqa: F401
 
@@ -19,6 +21,9 @@ _REGISTRY: dict[str, tuple[Callable, Callable]] = {
     "gemma3-4b": (gemma3_4b.config, gemma3_4b.smoke_config),
     "glm4-9b": (glm4_9b.config, glm4_9b.smoke_config),
     "smollm-360m": (smollm_360m.config, smollm_360m.smoke_config),
+    "qwen2-moe-a2.7b": (qwen2_moe_a27b.config, qwen2_moe_a27b.smoke_config),
+    "deepseek-v2-lite-16b": (deepseek_v2_lite.config,
+                             deepseek_v2_lite.smoke_config),
     "qwen25-05b": (qwen25_05b.config, qwen25_05b.smoke_config),
 }
 

@@ -202,7 +202,12 @@ def parse_awq_macro_bytes(buf: bytes, k: int, n: int, group_size: int):
 
 
 def packed_linear_macro_bytes(p: PackedLinear) -> bytes:
-    """A `PackedLinear`'s AWQ_MACRO bytes (its words unpacked on the host)."""
-    return awq_macro_bytes(unpack_int4(p.qweight.cpu()).numpy(),
-                           p.scales.cpu().numpy(), p.zeros.cpu().numpy(),
-                           p.group_size)
+    """A `PackedLinear`'s AWQ_MACRO bytes (its words unpacked on the host);
+    stacked experts give each expert's linear in turn."""
+    n = p.qweight.shape[-1]
+    qw = p.qweight.cpu().reshape(-1, p.qweight.shape[-2], n)
+    sc = p.scales.cpu().reshape(qw.shape[0], -1, n).numpy()
+    zr = p.zeros.cpu().reshape(qw.shape[0], -1, n).numpy()
+    return b"".join(awq_macro_bytes(unpack_int4(q).numpy(), s, z,
+                                    p.group_size)
+                    for q, s, z in zip(qw, sc, zr))

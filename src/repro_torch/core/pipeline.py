@@ -9,10 +9,15 @@ The paper's automated flow (§III-A), as the reference runs it:
 
 Model params are nested dicts; linears are sub-dicts ``{"w": [K, N]}``
 (plus optional ``"b"``). The port keeps one tensor per layer (lists under
-``segments/seg_i``), so every linear is 2-D and a layer's linear sits at
+``segments/seg_i``), so a layer's linear sits at
 ``segments/seg_i/<layer>/<path>``; its capture name is the reference's
-``segments/seg_i/<path>@<layer>``. Linears without captured stats (or
-with ``calib=None``) fall back to plain round-to-nearest (scale = 1).
+``segments/seg_i/<path>@<layer>``. A MoE layer's routed experts are one
+stacked linear ``{"w": [E, K, N]}``: each expert is quantized on its own
+(capture name ``...@<layer>,<expert>``, which no forward records, so
+they take RTN as in the reference) and packed into one `PackedLinear`
+whose tensors carry the leading expert dim. Linears without captured
+stats (or with ``calib=None``) fall back to plain round-to-nearest
+(scale = 1).
 """
 from __future__ import annotations
 
@@ -83,6 +88,16 @@ def _quantize_2d(w: torch.Tensor, stats: LinearStats | None,
     return q, scales, zeros, 1.0 / s
 
 
+def _stack_packed(slices: list[PackedLinear], lead, bias) -> PackedLinear:
+    """Per-expert `PackedLinear`s -> one whose tensors carry ``lead``."""
+    def stack(f):
+        t = torch.stack([getattr(p, f) for p in slices])
+        return t.reshape(*lead, *t.shape[1:])
+    return PackedLinear(qweight=stack("qweight"), scales=stack("scales"),
+                        zeros=stack("zeros"), input_scale=stack("input_scale"),
+                        bias=bias, group_size=slices[0].group_size)
+
+
 def capture_name(path_parts: list[str]) -> str:
     """Param path → the reference's capture name: a layer's linear
     ``segments/seg_0/3/attn/wq`` is ``segments/seg_0/attn/wq@3``."""
@@ -123,17 +138,30 @@ def quantize_params(params: Any,
                 report.skipped.append(path)
                 return node
             w = node["w"]
-            k, n = w.shape
-            st = calib.get(capture_name(path_parts))
-            q, scales, zeros, isc = _quantize_2d(w, st, cfg)
-            if st is not None:
+            k, n = w.shape[-2:]
+            name = capture_name(path_parts)
+            if w.dim() == 2:
+                st = calib.get(name)
+                packed = pack_linear(*_quantize_2d(w, st, cfg), node.get("b"),
+                                     cfg.quant)
+                calibrated, n_lin = st is not None, 1
+            else:               # stacked experts: one slice at a time
+                sep = "," if "@" in name else "@"
+                stats = [calib.get(f"{name}{sep}{e}")
+                         for e in range(w[..., 0, 0].numel())]
+                packed = _stack_packed(
+                    [pack_linear(*_quantize_2d(w_e, st, cfg), None, cfg.quant)
+                     for w_e, st in zip(w.reshape(-1, k, n), stats)],
+                    w.shape[:-2], node.get("b"))
+                calibrated = any(st is not None for st in stats)
+                n_lin = len(stats)
+            if calibrated:
                 report.calibrated.append(path)
             report.quantized.append(path)
-            report.packed_bytes += packed_linear_nbytes(k, n,
-                                                        cfg.quant.group_size)
-            report.dense_bytes_fp16 += k * n * 2
-            return pack_linear(q, scales, zeros, isc, node.get("b"),
-                               cfg.quant)
+            report.packed_bytes += n_lin * packed_linear_nbytes(
+                k, n, cfg.quant.group_size)
+            report.dense_bytes_fp16 += n_lin * k * n * 2
+            return packed
         if isinstance(node, dict):
             return {k2: visit(v, path_parts + [k2]) for k2, v in node.items()}
         if isinstance(node, list):
@@ -157,17 +185,19 @@ def model_size_bytes(params: Any, quantized: bool,
         nonlocal total
         path = "/".join(path_parts)
         if isinstance(node, PackedLinear):
-            total += packed_linear_nbytes(node.k, node.n, node.group_size)
+            lead = node.qweight[..., 0, 0].numel()
+            total += lead * packed_linear_nbytes(node.k, node.n,
+                                                 node.group_size)
             if node.bias is not None:
                 total += node.bias.numel() * 2
             return
         if _is_linear(node):
             w = node["w"]
-            k, n = w.shape[-2], w.shape[-1]
+            lead, k, n = w[..., 0, 0].numel(), w.shape[-2], w.shape[-1]
             if quantized and _quantizable(path, node, cfg, exclude):
-                total += packed_linear_nbytes(k, n, cfg.group_size)
+                total += lead * packed_linear_nbytes(k, n, cfg.group_size)
             else:
-                total += k * n * 2
+                total += lead * k * n * 2
             if node.get("b") is not None:
                 total += node["b"].numel() * 2
             return

@@ -19,6 +19,14 @@ both products' flops, 2·M·K·2N. The generic path's product keeps a
 row's bits independent of M on the card (`numerics.matmul_f32_rows`), as
 K1's and K3's summation rule does: a decode row at M 4 equals the same
 row of `generate()` at M 1.
+
+``qlinear_experts_apply`` and ``qgateup_experts_apply`` are the same
+dispatch for a MoE layer's stacked experts (a `PackedLinear` whose
+tensors carry a leading expert dim) over their capacity buffer
+``[E, C, K]``: one K1 / K3 launch for all experts on the kernel path,
+each expert in turn on the generic path (one expert's dense weight live
+at a time, as the reference's ``lax.map``). The threshold counts the
+whole call's flops.
 """
 from __future__ import annotations
 
@@ -111,6 +119,16 @@ def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
     return y.reshape(*lead, p.n)
 
 
+def fusable_gateup(gate, up, act: str) -> bool:
+    """Whether a GLU front runs as one K3 pair: SiLU over two packed,
+    bias-free linears of equal K, N and group size (every quantized SiLU
+    front; float weights, during calibration, take two linears)."""
+    return (act == "silu" and isinstance(gate, PackedLinear)
+            and isinstance(up, PackedLinear) and gate.bias is None
+            and up.bias is None and gate.group_size == up.group_size
+            and (gate.k, gate.n) == (up.k, up.n))
+
+
 def qgateup_apply(gate: PackedLinear, up: PackedLinear, x: torch.Tensor,
                   impl: str | None = None,
                   cfg: ExecutionConfig | None = None) -> torch.Tensor:
@@ -139,3 +157,50 @@ def qgateup_apply(gate: PackedLinear, up: PackedLinear, x: torch.Tensor,
            cfg.compute_dtype, input_scales=(gate.input_scale, up.input_scale),
            out_dtype=x.dtype)
     return h.reshape(*lead, gate.n)
+
+
+def qlinear_experts_apply(p: PackedLinear, x: torch.Tensor,
+                          impl: str | None = None,
+                          cfg: ExecutionConfig | None = None
+                          ) -> torch.Tensor:
+    """Expert e's `qlinear_apply` on ``x[e]``: x ``[E, C, K]`` -> ``[E, C,
+    N]`` in x.dtype, for stacked bias-free experts (`PackedLinear` with
+    qweight ``[E, K/8, N]``)."""
+    cfg = cfg if cfg is not None else _EXEC
+    impl = _resolve_impl(impl or cfg.impl, x)
+    e, c, k = x.shape
+    if impl == "kernel" and 2.0 * e * c * k * p.n < cfg.offload_min_flops:
+        impl = "ref"
+    if impl == "kernel":
+        COUNTS.kernel += 1
+        fn = k1.awq_matmul_experts
+    else:
+        COUNTS.generic += 1
+        fn = k1.awq_matmul_experts_ref
+    return fn(x.contiguous(), p.qweight, p.scales, p.zeros, p.group_size,
+              cfg.compute_dtype, input_scale=p.input_scale, out_dtype=x.dtype)
+
+
+def qgateup_experts_apply(gate: PackedLinear, up: PackedLinear,
+                          x: torch.Tensor, impl: str | None = None,
+                          cfg: ExecutionConfig | None = None
+                          ) -> torch.Tensor:
+    """Expert e's `qgateup_apply` on ``x[e]``: x ``[E, C, K]`` -> ``[E, C,
+    N]`` in x.dtype, for stacked gate / up experts."""
+    cfg = cfg if cfg is not None else _EXEC
+    impl = _resolve_impl(impl or cfg.impl, x)
+    e, c, k = x.shape
+    if impl == "kernel" and 2.0 * e * c * k * 2 * gate.n \
+            < cfg.offload_min_flops:
+        impl = "ref"
+    if impl == "kernel":
+        COUNTS.kernel += 1
+        fn = k1.awq_gateup_experts
+    else:
+        COUNTS.generic += 1
+        fn = k1.awq_gateup_experts_ref
+    return fn(x.contiguous(), gate.qweight, gate.scales, gate.zeros,
+              up.qweight, up.scales, up.zeros, gate.group_size,
+              cfg.compute_dtype,
+              input_scales=(gate.input_scale, up.input_scale),
+              out_dtype=x.dtype)

@@ -47,7 +47,16 @@
 // well (grid.z: block z takes spans [z, z + 1) * span_block; SPLIT is a
 // template flag, so an unsplit kernel carries no code for it): then each
 // span's partial goes to scratch, and `awq_merge` adds them in span order
-// and applies the epilogue. A nibble reaches its float by one byte permute
+// and applies the epilogue.
+//
+// The expert axis. A MoE layer's routed experts are E weights of one
+// shape, stacked: qw [E, K/8, N], scales and zeros [E, K/GS, N], input
+// scales [E, K], and their rows a capacity buffer x [E, M, K] -> out
+// [E, M, N] (partials [E][nspan][NW][M][N]). One launch covers them all:
+// grid.z runs over experts x span splits, and a block first moves every
+// pointer to its expert's slice (`at_expert`), then runs the code above
+// unchanged, so expert e's rows are bit-equal to a launch on expert e
+// alone. A plain linear is the case E = 1. A nibble reaches its float by one byte permute
 // (no shifts per nibble, no int-to-float conversion), and a power-of-two
 // GS finds its group by a shift. wgmma and TMA are left for later work (a
 // different instruction may sum in a different order, so it has to take
@@ -127,10 +136,37 @@ struct Args {
   int out_bf16, M, K, N, gs;
   int gs_shift;           // log2(gs) when gs is a power of two, else -1
   int span_block;         // spans per block along grid.z
+  int experts;            // stacked weights, one slice of x and out each
 };
 
 __host__ __device__ __forceinline__ int num_spans(int K) {
   return (K + SPAN - 1) / SPAN;
+}
+
+// blocks along grid.z for one expert: span groups of a.span_block spans
+__host__ __device__ __forceinline__ int span_splits(const Args& a) {
+  return (num_spans(a.K) + a.span_block - 1) / a.span_block;
+}
+
+// the arguments of expert e: every pointer moved to that expert's slice
+template <int NW, typename TX>
+__device__ __forceinline__ Args at_expert(const Args& a, int e) {
+  Args b = a;
+  const size_t groups = (size_t)(a.K / a.gs) * a.N;
+  b.x = static_cast<const TX*>(a.x) + (size_t)e * a.M * a.K;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    b.q[w] = a.q[w] + (size_t)e * (a.K / 8) * a.N;
+    b.s[w] = a.s[w] + (size_t)e * groups;
+    b.z[w] = a.z[w] + (size_t)e * groups;
+    if (a.is[w] != nullptr) b.is[w] = a.is[w] + (size_t)e * a.K;
+  }
+  const size_t mn = (size_t)a.M * a.N;
+  b.out = static_cast<unsigned char*>(a.out) +
+          (size_t)e * mn * (a.out_bf16 ? 2 : 4);
+  if (a.part != nullptr)
+    b.part = a.part + (size_t)e * num_spans(a.K) * NW * mn;
+  return b;
 }
 
 // k's quantization group (a shift for the usual power-of-two GS)
@@ -185,8 +221,11 @@ __host__ __device__ constexpr int skinny_stage_bytes(int ngroups) {
 
 template <class Out, typename TX, bool SCALED, int NB, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
-awq_skinny(Args a) {
+awq_skinny(Args args) {
   constexpr int NW = Out::NW;
+  const int splits = span_splits(args);
+  const int expert = blockIdx.z / splits;
+  const Args a = at_expert<NW, TX>(args, expert);
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane >> 2, tig = lane & 3;
@@ -204,7 +243,7 @@ awq_skinny(Args a) {
   // span partials of one round, over the stages once every warp is done:
   // [warp][weight][tile][lane * 4 + c]
   float* red = reinterpret_cast<float*>(smem);
-  const int sp_lo = blockIdx.z * a.span_block;
+  const int sp_lo = (blockIdx.z - expert * splits) * a.span_block;
   const int sp_hi = min(num_spans(K), sp_lo + a.span_block);
   float tot[NW][NB] = {};    // thread < 128: element threadIdx.x of each tile
 
@@ -496,8 +535,11 @@ __device__ __forceinline__ void wide_store(const Stage<NW, TX, WI>& st,
 
 template <class Out, int BM, typename TX, bool SCALED, bool SPLIT>
 __global__ void __launch_bounds__(wide_threads<BM>(), BM == 64 ? 2 : 1)
-awq_wide(Args a) {
+awq_wide(Args args) {
   constexpr int NW = Out::NW;
+  const int splits = span_splits(args);
+  const int expert = blockIdx.z / splits;
+  const Args a = at_expert<NW, TX>(args, expert);
   constexpr int T = wide_threads<BM>();
   constexpr int WI = 16 * BN / T;       // words a thread loads per weight
   extern __shared__ __align__(16) unsigned char smem[];
@@ -508,7 +550,7 @@ awq_wide(Args a) {
   const int wc = warp & 1, wr = warp >> 1;        // 32 columns x 16 rows
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int K = a.K;
-  const int sp_lo = blockIdx.z * a.span_block;
+  const int sp_lo = (blockIdx.z - expert * splits) * a.span_block;
   const int sp_hi = min(num_spans(K), sp_lo + a.span_block);
 
   // this lane's ldmatrix addresses (bytes) at k 0 of a tile: A (weight)
@@ -606,11 +648,14 @@ awq_wide(Args a) {
 // Split spans: add every span's partial in span order, then the epilogue.
 // ------------------------------------------------------------------------
 template <class Out>
-__global__ void __launch_bounds__(256) awq_merge(Args a) {
+__global__ void __launch_bounds__(256) awq_merge(Args args) {
   constexpr int NW = Out::NW;
-  const size_t mn = (size_t)a.M * a.N;
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= mn) return;
+  const size_t mn = (size_t)args.M * args.N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn * args.experts) return;
+  // x is not read here: its element type does not matter
+  const Args a = at_expert<NW, __nv_bfloat16>(args, (int)(i / mn));
+  const size_t e = i % mn;
   const int nspan = num_spans(a.K);
   float t[NW] = {};
   for (int sp = 0; sp < nspan; ++sp)
@@ -630,11 +675,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
-// blocks along grid.z: span groups of a.span_block spans
-inline int span_splits(const Args& a) {
-  return (num_spans(a.K) + a.span_block - 1) / a.span_block;
-}
-
 template <class Out, typename TX, bool SCALED, int NB, bool SPLIT>
 int launch_skinny(const Args& a, cudaStream_t stream) {
   static size_t allowed = 48 << 10;
@@ -643,7 +683,8 @@ int launch_skinny(const Args& a, cudaStream_t stream) {
   const cudaError_t e =
       allow_smem(awq_skinny<Out, TX, SCALED, NB, SPLIT>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + 15) / 16, (a.M + 8 * NB - 1) / (8 * NB), span_splits(a));
+  dim3 grid((a.N + 15) / 16, (a.M + 8 * NB - 1) / (8 * NB),
+            span_splits(a) * a.experts);
   awq_skinny<Out, TX, SCALED, NB, SPLIT><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -655,7 +696,8 @@ int launch_wide(const Args& a, cudaStream_t stream) {
   const cudaError_t e =
       allow_smem(awq_wide<Out, BM, TX, SCALED, SPLIT>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, span_splits(a));
+  dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM,
+            span_splits(a) * a.experts);
   awq_wide<Out, BM, TX, SCALED, SPLIT>
       <<<grid, wide_threads<BM>(), smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -678,8 +720,8 @@ int launch_tx(const Args& a, cudaStream_t stream) {
     if (span_splits(a) > 1) {
       const int e = launch_m<Out, TX, SCALED, true>(a, stream);
       if (e != 0) return e;
-      const size_t mn = (size_t)a.M * a.N;
-      awq_merge<Out><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a);
+      const size_t n = (size_t)a.M * a.N * a.experts;
+      awq_merge<Out><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a);
       return (int)cudaGetLastError();
     }
   }
@@ -689,8 +731,10 @@ int launch_tx(const Args& a, cudaStream_t stream) {
 // the common arguments of both entry points (weights, input scales and
 // the output are filled in by the caller)
 inline Args make_args(const void* x, void* out, void* part, int out_bf16,
-                      int M, int K, int N, int group_size, int span_block) {
+                      int M, int K, int N, int group_size, int span_block,
+                      int experts) {
   Args a{};
+  a.experts = experts;
   a.x = x;
   a.out = out;
   a.part = static_cast<float*>(part);

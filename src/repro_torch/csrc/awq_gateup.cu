@@ -24,6 +24,10 @@
 //     multiply-adds bound it: tensor cores, not CUDA cores. `awq_wide` with
 //     two weights dequantizes both 64-column weight tiles once per span for
 //     64 or 128 rows, and scales x once per input-scale vector.
+//   - A MoE layer's routed experts (the expert axis, awq_common.cuh): one
+//     launch for all E experts' gate/up fronts over their capacity rows,
+//     [E, M, 2048] -> [E, M, 1408] for qwen2-moe (60 experts, ~184 MB of
+//     packed pairs a layer, read once).
 #include "awq_common.cuh"
 
 namespace {
@@ -52,15 +56,19 @@ struct GluOut {
 // dtypes, contiguity and 16-byte alignment of x and of both input-scale
 // vectors (both given or both null); K % 8 == 0, K % group_size == 0,
 // group_size % 8 == 0. x is f32 when x_f32, else bf16; out is bf16 when
-// out_bf16, else f32. Returns cudaGetLastError().
+// out_bf16, else f32. Every tensor holds `experts` stacked slices (1 for
+// one GLU front), laid out as in awq_matmul.cu. Returns
+// cudaGetLastError().
 extern "C" int awq_gateup_f32(const void* x, const void* qg, const void* sg,
                               const void* zg, const void* qu, const void* su,
                               const void* zu, const void* isg,
                               const void* isu, void* out, int x_f32,
                               int out_bf16, int M, int K, int N,
-                              int group_size, int device, void* stream) {
+                              int group_size, int experts, int device,
+                              void* stream) {
   cudaSetDevice(device);
-  Args a = make_args(x, out, nullptr, out_bf16, M, K, N, group_size, 0);
+  Args a = make_args(x, out, nullptr, out_bf16, M, K, N, group_size, 0,
+                     experts);
   a.q[0] = static_cast<const int32_t*>(qg);
   a.q[1] = static_cast<const int32_t*>(qu);
   a.s[0] = static_cast<const float*>(sg);

@@ -33,6 +33,10 @@
 //     small (the chunk step's M 64: 14 blocks at N 896), the spans are
 //     split so that about two blocks run on each SM.
 // The wrapper picks the split (`span_block`) and allocates the scratch.
+//   - A MoE layer's routed experts (the expert axis, awq_common.cuh): one
+//     launch for all E experts' down projections over their capacity
+//     rows, [E, M, 1408] -> [E, M, 2048] for qwen2-moe; decode streams
+//     every expert's packed weight once (60 x 1.6 MB at GS 64).
 #include "awq_common.cuh"
 
 namespace {
@@ -56,17 +60,20 @@ struct LinearOut {
 // dtypes, contiguity and 16-byte alignment of x and of the input scale
 // (null: unscaled); K % 8 == 0, K % group_size == 0, group_size % 8 == 0.
 // x is f32 when x_f32, else bf16; out is bf16 when out_bf16, else f32.
-// span_block is the number of spans a block takes (all of them: no split);
-// when it splits K, part holds ceil(K / 128) * M * N floats. Returns
-// cudaGetLastError().
+// Every tensor holds `experts` stacked slices (1 for a plain linear): x
+// [E, M, K], qw [E, K/8, N], scales and zeros [E, K/GS, N], input scale
+// [E, K], out [E, M, N]. span_block is the number of spans a block takes
+// (all of them: no split); when it splits K, part holds E * ceil(K / 128)
+// * M * N floats. Returns cudaGetLastError().
 extern "C" int awq_matmul(const void* x, const void* qw, const void* scales,
                           const void* zeros, const void* input_scale,
                           void* out, void* part, int x_f32, int out_bf16,
                           int M, int K, int N, int group_size,
-                          int span_block, int device, void* stream) {
+                          int span_block, int experts, int device,
+                          void* stream) {
   cudaSetDevice(device);
   Args a = make_args(x, out, part, out_bf16, M, K, N, group_size,
-                     span_block);
+                     span_block, experts);
   a.q[0] = static_cast<const int32_t*>(qw);
   a.s[0] = static_cast<const float*>(scales);
   a.z[0] = static_cast<const int8_t*>(zeros);

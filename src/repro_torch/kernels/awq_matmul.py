@@ -8,7 +8,10 @@ Ports of the reference's Pallas kernels `awq_matmul_pallas` and
 `ref.awq_gateup_ref`. `awq_matmul` and `awq_gateup` launch the
 hand-written CUDA kernels for CUDA tensors and take the plain versions
 (`awq_matmul_ref`, `awq_gateup_ref`) only for CPU tensors. There is no
-row padding: any M works.
+row padding: any M works. `awq_matmul_experts` and `awq_gateup_experts`
+run the same kernels over a MoE layer's stacked experts, one launch for
+all of them (the expert axis), beside their plain versions
+`awq_matmul_experts_ref` / `awq_gateup_experts_ref`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ from repro_torch.numerics import matmul_f32
 
 COUNTER = LaunchCounter()
 GATEUP_COUNTER = LaunchCounter()
+# launches over a MoE layer's stacked experts (counted in the two above too)
+EXPERT_COUNTER = LaunchCounter()
+GATEUP_EXPERT_COUNTER = LaunchCounter()
 
 
 def awq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
@@ -57,27 +63,103 @@ SMS = 132       # the H100's SMs
 SPLIT_BYTES = 48 << 20      # largest span-partial scratch worth a split
 
 
-def span_block(m: int, k: int, n: int) -> int:
+def span_block(m: int, k: int, n: int, experts: int = 1) -> int:
     """Spans of 128 k each block of K1's launch takes (all of them: no
     split; fewer: the spans are split over blocks, their partials go to
     scratch and a merge pass adds them in span order).
 
     Up to M 16 (the decode kernel: 16 columns a block, one span per warp
     of 8) up to 8 spans stay in one block; more go in 8 groups, each one
-    round of the block's warps. Above, the prefill kernel's 64-column x 64- or 128-row tiles
-    are split only when they fill less than half the SMs and the scratch
-    is small, into groups that give about two blocks an SM. (Measured on
-    the H100: unsplit, down's 38 spans take 4x as long at M 128; split,
-    896 -> 896 at M 1024 takes 1.6x as long.)
+    round of the block's warps, unless the call covers ``experts``
+    stacked weights whose column blocks alone give two blocks an SM
+    (a MoE layer's experts: 60 x 128 blocks for qwen2-moe's down). Above,
+    the prefill kernel's 64-column x 64- or 128-row tiles (of every
+    expert) are split only when they fill less than half the SMs and the
+    scratch is small, into groups that give about two blocks an SM.
+    (Measured on the H100: unsplit, down's 38 spans take 4x as long at
+    M 128; split, 896 -> 896 at M 1024 takes 1.6x as long.)
     """
     nspan = -(-k // SPAN)
     if m <= 16:
+        if experts > 1 and experts * -(-n // 16) >= 2 * SMS:
+            return nspan
         return nspan if nspan <= 8 else -(-nspan // 8)
-    tiles = -(-n // 64) * -(-m // (64 if m <= 64 else 128))
-    if 2 * tiles >= SMS or nspan * m * n * 4 > SPLIT_BYTES:
+    tiles = experts * -(-n // 64) * -(-m // (64 if m <= 64 else 128))
+    if 2 * tiles >= SMS or experts * nspan * m * n * 4 > SPLIT_BYTES:
         return nspan
     groups = min(nspan, -(-2 * SMS // tiles))
     return -(-nspan // groups)
+
+
+def _check_launch(chk, x, weights, vectors, group_size, compute_dtype,
+                  out_dtype):
+    """Check a launch's operands: x ``[E, M, K]``; each weight's (qweight,
+    scales, zeros) ``[E, K/8, N]``, ``[E, K/GS, N]``, ``[E, K/GS, N]``;
+    each input scale ``[E, K]`` (without the leading E for one linear,
+    E = 1). Returns (E, M, K, N)."""
+    chk(x.device.type == "cuda", f"unsupported device {x.device}")
+    chk(compute_dtype == torch.bfloat16,
+        f"the kernel computes in bf16, got {compute_dtype}")
+    chk(x.dtype in (torch.bfloat16, torch.float32),
+        f"x must be bf16 or f32, got {x.dtype}")
+    chk(out_dtype in (torch.bfloat16, torch.float32),
+        f"out_dtype must be bf16 or f32, got {out_dtype}")
+    chk(x.dim() == 3 and x.is_contiguous(), "x must be contiguous")
+    e, m, k = x.shape
+    n = weights[0][0].shape[-1]
+    chk(k % PACK == 0 and group_size % PACK == 0 and k % group_size == 0,
+        f"K={k} must be a multiple of group_size={group_size}, itself a "
+        f"multiple of 8")
+    chk(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    lead = (e,) if weights[0][0].dim() == 3 else ()
+    for (qw, sc, zr), names in zip(weights, (("qweight", "scales", "zeros"),
+                                             ("qw_up", "s_up", "z_up"))):
+        for t, name, dtype, shape in (
+                (qw, names[0], torch.int32, (k // PACK, n)),
+                (sc, names[1], torch.float32, (k // group_size, n)),
+                (zr, names[2], torch.int8, (k // group_size, n))):
+            chk(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
+            chk(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+            chk(tuple(t.shape) == lead + shape,
+                f"{name} must be {lead + shape}, got {tuple(t.shape)}")
+            chk(t.is_contiguous(), f"{name} must be contiguous")
+    for v in vectors:
+        chk(v.device == x.device, f"input scale on {v.device}, x on {x.device}")
+        chk(v.dtype == torch.float32, f"input scale must be f32, got {v.dtype}")
+        chk(tuple(v.shape) == lead + (k,),
+            f"input scale must be {lead + (k,)}, got {tuple(v.shape)}")
+        chk(v.is_contiguous(), "input scale must be contiguous")
+        chk(v.data_ptr() % 16 == 0, "input scale must be 16-byte aligned")
+    return e, m, k, n
+
+
+def _launch_matmul(x, qweight, scales, zeros, group_size, compute_dtype,
+                   input_scale, out_dtype) -> torch.Tensor:
+    """One K1 launch over x ``[E, M, K]`` and E stacked weights (E = 1: a
+    plain linear, weights without the leading dim) -> ``[E, M, N]``."""
+    vectors = [] if input_scale is None else [input_scale]
+    e, m, k, n = _check_launch(_check, x, [(qweight, scales, zeros)],
+                               vectors, group_size, compute_dtype, out_dtype)
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or e == 0:
+        return out
+    sb = span_block(m, k, n, e)
+    nspan = -(-k // SPAN)
+    part = (torch.empty(e * nspan * m * n, dtype=torch.float32,
+                        device=x.device) if sb < nspan else None)
+    lib = load("awq_matmul")
+    err = lib.awq_matmul(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        None if input_scale is None else input_scale.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
+        m, k, n, group_size, sb, e, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "awq_matmul")
+    COUNTER.count += 1
+    if qweight.dim() == 3:
+        EXPERT_COUNTER.count += 1
+    return out
 
 
 def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
@@ -107,51 +189,53 @@ def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         return awq_matmul_ref(x, qweight, scales, zeros, group_size,
                               compute_dtype, input_scale=input_scale,
                               out_dtype=out_dtype)
-    _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    _check(compute_dtype == torch.bfloat16,
-           f"the kernel computes in bf16, got {compute_dtype}")
-    _check(x.dtype in (torch.bfloat16, torch.float32),
-           f"x must be bf16 or f32, got {x.dtype}")
-    _check(out_dtype in (torch.bfloat16, torch.float32),
-           f"out_dtype must be bf16 or f32, got {out_dtype}")
-    _check(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
-    m, k = x.shape
-    n = qweight.shape[-1]
-    _check(k % PACK == 0 and group_size % PACK == 0 and k % group_size == 0,
-           f"K={k} must be a multiple of group_size={group_size}, itself a "
-           f"multiple of 8")
-    _check(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
-    vectors = [] if input_scale is None else [input_scale]
-    for t, name, dtype, shape in (
-            (qweight, "qweight", torch.int32, (k // PACK, n)),
-            (scales, "scales", torch.float32, (k // group_size, n)),
-            (zeros, "zeros", torch.int8, (k // group_size, n)),
-            *((v, "input_scale", torch.float32, (k,)) for v in vectors)):
-        _check(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
-        _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-        _check(tuple(t.shape) == shape,
-               f"{name} must be {shape}, got {tuple(t.shape)}")
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-    for v in vectors:
-        _check(v.data_ptr() % 16 == 0, "input_scale must be 16-byte aligned")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    sb = span_block(m, k, n)
-    nspan = -(-k // SPAN)
-    part = (torch.empty(nspan * m * n, dtype=torch.float32, device=x.device)
-            if sb < nspan else None)
-    lib = load("awq_matmul")
-    err = lib.awq_matmul(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        None if input_scale is None else input_scale.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
-        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
-        m, k, n, group_size, sb, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "awq_matmul")
-    COUNTER.count += 1
-    return out
+    _check(x.dim() == 2, "x must be [M, K]")
+    return _launch_matmul(x[None], qweight, scales, zeros, group_size,
+                          compute_dtype, input_scale, out_dtype)[0]
+
+
+def awq_matmul_experts_ref(x: torch.Tensor, qweight: torch.Tensor,
+                           scales: torch.Tensor, zeros: torch.Tensor,
+                           group_size: int,
+                           compute_dtype: torch.dtype = torch.float32, *,
+                           input_scale: torch.Tensor | None = None,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Plain version of `awq_matmul_experts`: `awq_matmul_ref` on each
+    expert in turn (one expert's dense weight live at a time)."""
+    return torch.stack([awq_matmul_ref(
+        x[e], qweight[e], scales[e], zeros[e], group_size, compute_dtype,
+        input_scale=None if input_scale is None else input_scale[e],
+        out_dtype=out_dtype) for e in range(x.shape[0])])
+
+
+def awq_matmul_experts(x: torch.Tensor, qweight: torch.Tensor,
+                       scales: torch.Tensor, zeros: torch.Tensor,
+                       group_size: int,
+                       compute_dtype: torch.dtype = torch.bfloat16, *,
+                       input_scale: torch.Tensor | None = None,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """K1 over a MoE layer's stacked experts: x ``[E, M, K]`` (expert e's
+    capacity rows) times expert e's packed weight (qweight ``[E, K/8,
+    N]``, scales / zeros ``[E, K/GS, N]``, input_scale ``[E, K]``) ->
+    ``[E, M, N]``, each slice under `awq_matmul`'s rule.
+
+    CPU tensors take `awq_matmul_experts_ref`; CUDA tensors make one
+    launch for all E experts (the expert axis of `csrc/awq_common.cuh`),
+    whose slice e is bit-equal to `awq_matmul` on expert e alone.
+    `EXPERT_COUNTER` counts these launches besides `COUNTER` (a call
+    with no rows launches nothing and counts nothing).
+    """
+    if x.device.type == "cpu":
+        return awq_matmul_experts_ref(x, qweight, scales, zeros, group_size,
+                                      compute_dtype, input_scale=input_scale,
+                                      out_dtype=out_dtype)
+    _check(x.dim() == 3 and qweight.dim() == 3
+           and qweight.shape[0] == x.shape[0],
+           "x must be [E, M, K] beside a qweight of E experts")
+    return _launch_matmul(x, qweight, scales, zeros, group_size,
+                          compute_dtype, input_scale, out_dtype)
 
 
 def awq_gateup_ref(x: torch.Tensor, qw_gate: torch.Tensor,
@@ -169,6 +253,34 @@ def awq_gateup_ref(x: torch.Tensor, qw_gate: torch.Tensor,
     u = awq_matmul_ref(x, qw_up, s_up, z_up, group_size,
                        compute_dtype, input_scale=su, out_dtype=out_dtype)
     return F.silu(g) * u
+
+
+def _launch_gateup(x, weights, group_size, compute_dtype, input_scales,
+                   out_dtype) -> torch.Tensor:
+    """One K3 launch over x ``[E, M, K]`` and E stacked gate/up pairs
+    (E = 1: one GLU front, weights without the leading dim)."""
+    chk = _checker("awq_gateup")
+    vectors = [] if input_scales is None else list(input_scales)
+    chk(len(vectors) in (0, 2), "input_scales takes (gate, up) vectors")
+    e, m, k, n = _check_launch(chk, x, weights, vectors, group_size,
+                               compute_dtype, out_dtype)
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or e == 0:
+        return out
+    lib = load("awq_gateup")
+    (qg, sg, zg), (qu, su, zu) = weights
+    isg, isu = (v.data_ptr() for v in vectors) if vectors else (None, None)
+    err = lib.awq_gateup_f32(
+        x.data_ptr(), qg.data_ptr(), sg.data_ptr(), zg.data_ptr(),
+        qu.data_ptr(), su.data_ptr(), zu.data_ptr(), isg, isu, out.data_ptr(),
+        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
+        m, k, n, group_size, e, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "awq_gateup")
+    GATEUP_COUNTER.count += 1
+    if qg.dim() == 3:
+        GATEUP_EXPERT_COUNTER.count += 1
+    return out
 
 
 def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
@@ -206,50 +318,56 @@ def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
         return awq_gateup_ref(x, qw_gate, s_gate, z_gate, qw_up, s_up, z_up,
                               group_size, compute_dtype,
                               input_scales=input_scales, out_dtype=out_dtype)
-    chk = _checker("awq_gateup")
-    chk(x.device.type == "cuda", f"unsupported device {x.device}")
-    chk(compute_dtype == torch.bfloat16,
-        f"the kernel computes in bf16, got {compute_dtype}")
-    chk(x.dtype in (torch.bfloat16, torch.float32),
-        f"x must be bf16 or f32, got {x.dtype}")
-    chk(out_dtype in (torch.bfloat16, torch.float32),
-        f"out_dtype must be bf16 or f32, got {out_dtype}")
-    chk(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
-    m, k = x.shape
-    n = qw_gate.shape[-1]
-    chk(k % PACK == 0 and group_size % PACK == 0 and k % group_size == 0,
-        f"K={k} must be a multiple of group_size={group_size}, itself a "
-        f"multiple of 8")
-    chk(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
-    vectors = [] if input_scales is None else list(input_scales)
-    chk(len(vectors) in (0, 2), "input_scales takes (gate, up) vectors")
-    for t, name, dtype, shape in (
-            (qw_gate, "qw_gate", torch.int32, (k // PACK, n)),
-            (s_gate, "s_gate", torch.float32, (k // group_size, n)),
-            (z_gate, "z_gate", torch.int8, (k // group_size, n)),
-            (qw_up, "qw_up", torch.int32, (k // PACK, n)),
-            (s_up, "s_up", torch.float32, (k // group_size, n)),
-            (z_up, "z_up", torch.int8, (k // group_size, n)),
-            *((v, "input_scales", torch.float32, (k,)) for v in vectors)):
-        chk(t.device == x.device, f"{name} on {t.device}, x on {x.device}")
-        chk(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-        chk(tuple(t.shape) == shape,
-            f"{name} must be {shape}, got {tuple(t.shape)}")
-        chk(t.is_contiguous(), f"{name} must be contiguous")
-    for v in vectors:
-        chk(v.data_ptr() % 16 == 0, "input_scales must be 16-byte aligned")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    lib = load("awq_gateup")
-    isg, isu = (v.data_ptr() for v in vectors) if vectors else (None, None)
-    err = lib.awq_gateup_f32(
-        x.data_ptr(), qw_gate.data_ptr(), s_gate.data_ptr(),
-        z_gate.data_ptr(), qw_up.data_ptr(), s_up.data_ptr(),
-        z_up.data_ptr(), isg, isu, out.data_ptr(),
-        int(x.dtype == torch.float32), int(out_dtype == torch.bfloat16),
-        m, k, n, group_size, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "awq_gateup")
-    GATEUP_COUNTER.count += 1
-    return out
+    _checker("awq_gateup")(x.dim() == 2, "x must be [M, K]")
+    return _launch_gateup(x[None], [(qw_gate, s_gate, z_gate),
+                                    (qw_up, s_up, z_up)], group_size,
+                          compute_dtype, input_scales, out_dtype)[0]
+
+
+def awq_gateup_experts_ref(x: torch.Tensor, qw_gate: torch.Tensor,
+                           s_gate: torch.Tensor, z_gate: torch.Tensor,
+                           qw_up: torch.Tensor, s_up: torch.Tensor,
+                           z_up: torch.Tensor, group_size: int,
+                           compute_dtype: torch.dtype = torch.float32, *,
+                           input_scales: tuple[torch.Tensor, torch.Tensor]
+                           | None = None,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Plain version of `awq_gateup_experts`: `awq_gateup_ref` on each
+    expert in turn (one expert's dense pair live at a time)."""
+    return torch.stack([awq_gateup_ref(
+        x[e], qw_gate[e], s_gate[e], z_gate[e], qw_up[e], s_up[e], z_up[e],
+        group_size, compute_dtype,
+        input_scales=None if input_scales is None
+        else (input_scales[0][e], input_scales[1][e]),
+        out_dtype=out_dtype) for e in range(x.shape[0])])
+
+
+def awq_gateup_experts(x: torch.Tensor, qw_gate: torch.Tensor,
+                       s_gate: torch.Tensor, z_gate: torch.Tensor,
+                       qw_up: torch.Tensor, s_up: torch.Tensor,
+                       z_up: torch.Tensor, group_size: int,
+                       compute_dtype: torch.dtype = torch.bfloat16, *,
+                       input_scales: tuple[torch.Tensor, torch.Tensor]
+                       | None = None,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """K3 over a MoE layer's stacked experts: x ``[E, M, K]`` and expert
+    e's gate / up pair (each ``[E, ...]`` as in `awq_matmul_experts`) ->
+    ``[E, M, N]``, each slice under `awq_gateup`'s rule.
+
+    CPU tensors take `awq_gateup_experts_ref`; CUDA tensors make one
+    launch for all E experts, whose slice e is bit-equal to `awq_gateup`
+    on expert e alone. `GATEUP_EXPERT_COUNTER` counts these launches
+    besides `GATEUP_COUNTER` (a call with no rows counts nothing).
+    """
+    if x.device.type == "cpu":
+        return awq_gateup_experts_ref(x, qw_gate, s_gate, z_gate, qw_up,
+                                      s_up, z_up, group_size, compute_dtype,
+                                      input_scales=input_scales,
+                                      out_dtype=out_dtype)
+    _checker("awq_gateup")(x.dim() == 3 and qw_gate.dim() == 3
+                           and qw_gate.shape[0] == x.shape[0],
+                           "x must be [E, M, K] beside E gate/up pairs")
+    return _launch_gateup(x, [(qw_gate, s_gate, z_gate), (qw_up, s_up, z_up)],
+                          group_size, compute_dtype, input_scales, out_dtype)

@@ -34,8 +34,8 @@ _L = ctypes.c_longlong
 # C entry point of each source: (function name, argtypes). Every pointer
 # and the stream are c_void_p; each function returns cudaGetLastError().
 SIGNATURES: dict[str, tuple[str, list]] = {
-    "awq_matmul": ("awq_matmul", [_P] * 7 + [_I] * 8 + [_P]),
-    "awq_gateup": ("awq_gateup_f32", [_P] * 10 + [_I] * 7 + [_P]),
+    "awq_matmul": ("awq_matmul", [_P] * 7 + [_I] * 9 + [_P]),
+    "awq_gateup": ("awq_gateup_f32", [_P] * 10 + [_I] * 8 + [_P]),
     "paged_attention": ("paged_attention_chunk_f32",
                         [_P] * 12 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention": ("flash_attention_fwd",

@@ -11,7 +11,8 @@
   * straggler watchdog: per-step wall-clock vs running median; slow
     steps are logged for an external scheduler to re-dispatch.
 
-Meshes are not ported: ``--data-axis`` / ``--model-axis`` above 1 raise.
+Meshes are not ported: ``--data-axis`` / ``--model-axis`` above 1 raise,
+as does an ``--arch`` with MoE or MLA layers (the port serves those).
 Returns ``{"first_loss", "last_loss", "steps"}`` as the reference's
 does, plus ``recoveries`` (failures recovered), ``losses`` and ``step_s``
 (each completed step's loss and synchronized wall time, in order; a step
@@ -70,6 +71,10 @@ def main(argv=None) -> dict:
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.num_experts or cfg.kv_lora_rank:
+        raise NotImplementedError(
+            f"training {cfg.name} (MoE / MLA layers) is not ported yet: "
+            f"the port serves the MoE family (ROADMAP Queue 1)")
     model = Model(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(
         lr=args.lr, warmup_steps=args.warmup, decay_steps=args.steps,

@@ -4,9 +4,10 @@ Entry points mirror the reference's `Model`: `prefill` + `decode_step`
 over the dense cache (`GenerationEngine.generate`) or, with a page table,
 over the page pools (the one-shot serving path), `chunk_step` over the
 paged pools (the chunked serving path), `forward_logits`, and `loss`, the
-chunked-vocab causal-LM loss (AWQ's calibration forward and the train
-step's objective, `training.train_step`). The audio / vision frontends
-are not ported yet.
+chunked-vocab causal-LM loss plus the MoE layers' router aux losses
+(AWQ's calibration forward and the train step's objective,
+`training.train_step`). The audio / vision frontends are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -94,8 +95,8 @@ class Model:
         if labels is None:
             raise ValueError("training batch needs labels")
         x, positions = self._embed(params, batch)
-        x, _ = stack.stack_apply(params["segments"], x, cfg, mode="train",
-                                 positions=positions)
+        x, _, aux = stack.stack_apply(params["segments"], x, cfg,
+                                      mode="train", positions=positions)
         x = norm(params["final_norm"], x, cfg)
         labels = torch.as_tensor(labels, device=x.device).long()
         s = x.shape[1]
@@ -114,7 +115,8 @@ class Model:
             tot = tot + ((logz - ll) * valid).sum()
             cnt = cnt + valid.sum()
         ce = tot / torch.clamp(cnt, min=1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     # ---------------------------------------------------------------- serve
@@ -126,20 +128,26 @@ class Model:
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, kv_quant: str | None = None,
-                         device=None) -> Any:
+                         device=None, *, num_slots: int | None = None,
+                         slot_seq: int | None = None) -> Any:
         """Page pools for the serving engine; ``kv_quant`` ("none" |
-        "int8" | None = follow ``cfg.kv_quant``) picks their storage."""
+        "int8" | None = follow ``cfg.kv_quant``) picks their storage. MLA
+        layers keep their latents dense per slot instead, ``[num_slots,
+        slot_seq, ...]`` in ``dtype``: a model with MLA layers needs
+        both (it raises without them)."""
         return stack.stack_init_paged_cache(self.cfg, num_pages, page_size,
                                             dtype, kv_quant,
-                                            resolve_device(device))
+                                            resolve_device(device),
+                                            num_slots=num_slots,
+                                            slot_seq=slot_seq)
 
     def prefill(self, params, batch: dict, cache: Any):
         """Full-sequence prefill → (cache, last-token logits, next pos [B])."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        x, cache = stack.stack_apply(params["segments"], x, cfg,
-                                     mode="prefill", positions=positions,
-                                     cache=cache)
+        x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
+                                        mode="prefill", positions=positions,
+                                        cache=cache)
         x = norm(params["final_norm"], x, cfg)
         return cache, self._head_logits(params, x[:, -1]), positions[:, -1] + 1
 
@@ -154,9 +162,9 @@ class Model:
         cfg = self.cfg
         x = embed_lookup(params["embed"], token, scale=cfg.scale_embed).to(
             torch_dtype(cfg.activation_dtype))
-        x, cache = stack.stack_apply(params["segments"], x, cfg,
-                                     mode="decode", positions=pos,
-                                     cache=cache, page_table=page_table)
+        x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
+                                        mode="decode", positions=pos,
+                                        cache=cache, page_table=page_table)
         x = norm(params["final_norm"], x, cfg)
         return self._head_logits(params, x), cache
 
@@ -176,10 +184,10 @@ class Model:
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens, scale=cfg.scale_embed).to(
             torch_dtype(cfg.activation_dtype))
-        x, cache = stack.stack_apply(params["segments"], x, cfg,
-                                     mode="chunk", positions=pos,
-                                     cache=cache, page_table=page_table,
-                                     rpos=rpos, amask=amask)
+        x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
+                                        mode="chunk", positions=pos,
+                                        cache=cache, page_table=page_table,
+                                        rpos=rpos, amask=amask)
         x = norm(params["final_norm"], x, cfg)
         c = x.shape[1]
         idx = (sample_idx.long()[:, None]
@@ -193,8 +201,8 @@ class Model:
         """Full logits [B, S, V] (small models / eval only)."""
         cfg = self.cfg
         x, positions = self._embed(params, batch)
-        x, _ = stack.stack_apply(params["segments"], x, cfg, mode="train",
-                                 positions=positions)
+        x, _, _ = stack.stack_apply(params["segments"], x, cfg,
+                                    mode="train", positions=positions)
         x = norm(params["final_norm"], x, cfg)
         return self._head_logits(params, x)
 

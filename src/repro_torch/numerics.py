@@ -36,6 +36,16 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, _wide(a), _wide(b)).to(torch.float32)
 
 
+def einsum_f64(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` in float64 on every device, left in
+    float64. For a chain of products whose rows must not depend on the
+    call's batch or on the length of the axis it sums over, on CUDA too
+    (MLA's absorbed decode, whose keys span the whole cache): the chain
+    stays in float64 and is rounded to float32 once at its end, so a
+    different order of the sums moves only bits that rounding drops."""
+    return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64))
+
+
 # Rows a cuBLAS call takes. At 4 rows cuBLAS serves an f32 product with
 # kernels that spread over many blocks; at 16 it gave the k / v
 # projections' 896 → 128 product one 32 × 128 tile, one block, 51 µs a

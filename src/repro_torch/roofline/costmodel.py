@@ -3,11 +3,14 @@
 The reference package's `roofline/costmodel.py` cut to the serving
 cells of the registered architectures (the port imports nothing of it):
 `cell_costs` counts the FLOPs and bytes of one prefill or decode step
-from the architecture alone, and `disagg_report` turns them into the
-prefill/decode split that `serving.disagg`'s
-``handoff_min_tokens="auto"`` reads. Training cells, the layer kinds
-no registered architecture has, `analytic_terms`, the `SHAPES`
-registry and the HLO analysis are not ported.
+from the architecture alone (full-attention or MLA mixers, GLU or MoE
+MLPs: a MoE layer streams every routed expert's weights once a step and
+computes on the top-k share of its tokens; an MLA layer's cache line is
+its latent, kv_lora + rope values a token), and `disagg_report` turns
+them into the prefill/decode split that `serving.disagg`'s
+``handoff_min_tokens="auto"`` reads. Training cells, sliding-window and
+SSM layers, `analytic_terms`, the `SHAPES` registry and the HLO analysis
+are not ported.
 
 Conventions:
   * activations bf16 (2B), scores/softmax f32 (4B),
@@ -37,6 +40,38 @@ ACT = 2                            # bf16 activations
 F32 = 4
 
 
+def _linear_dims(cfg: ModelConfig, kind) -> list[tuple[int, int]]:
+    """(K, N) of every linear in one block of this kind (a MoE layer's
+    experts, shared experts and router come from `_moe_dims`)."""
+    d = cfg.d_model
+    dims: list[tuple[int, int]] = []
+    if kind.mixer == "attn":
+        dims += [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
+                 (cfg.q_dim, d)]
+    if kind.mixer == "mla":
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        dims += [(d, cfg.num_heads * (nope + rope)),
+                 (d, cfg.kv_lora_rank + rope),
+                 (cfg.kv_lora_rank, cfg.num_heads * (nope + cfg.v_head_dim)),
+                 (cfg.num_heads * cfg.v_head_dim, d)]
+    if kind.mlp == "glu":
+        dims += [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    return dims
+
+
+def _moe_dims(cfg: ModelConfig) -> tuple[list[tuple[int, int]],
+                                         list[tuple[int, int]]]:
+    """(per-routed-expert dims, shared / dense-path dims) for a MoE block."""
+    d = cfg.d_model
+    routed = [(d, cfg.moe_d_ff), (d, cfg.moe_d_ff), (cfg.moe_d_ff, d)]
+    shared = []
+    if cfg.num_shared_experts:
+        sf = cfg.shared_d_ff
+        shared = [(d, sf), (d, sf), (sf, d)]
+    shared.append((d, cfg.num_experts))  # router
+    return routed, shared
+
+
 def _quantizable(k: int, n: int, gs: int = 64) -> bool:
     return k % gs == 0 and n % 8 == 0 and k * n >= 16384
 
@@ -55,9 +90,10 @@ class CellCosts:
 
 def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
     """Global per-step costs for one (arch × shape) serving cell: a
-    prefill or decode step of a decoder whose every layer is full
-    attention + GLU MLP (the registered architectures). Other layer
-    kinds and training steps raise `NotImplementedError`."""
+    prefill or decode step of a decoder whose layers are full-attention
+    or MLA mixers with GLU or MoE MLPs (the registered architectures but
+    gemma3's windowed layers). Other layer kinds and training steps raise
+    `NotImplementedError`."""
     if cell.step not in ("prefill", "decode") or cfg.is_encoder:
         raise NotImplementedError(f"{cell.step!r} cells of {cfg.name} are "
                                   f"not ported")
@@ -65,34 +101,56 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
     decode = cell.step == "decode"
     toks = b if decode else b * s
     c = CellCosts()
-    d = cfg.d_model
-    dims = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.q_dim, d),
-            (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
-    kv_line = 2 * cfg.kv_dim
-    # int8 KV cache: 1 B/elem + f32 scale per (pos, head)
-    kv_byte = (1.0 + F32 / cfg.head_dim) if cfg.kv_quant == "int8" else ACT
+
+    def add_linear(k: int, n: int, tok: float, n_mats: float = 1.0):
+        c.flops += 2.0 * k * n * tok * n_mats
+        c.weight_bytes += k * n * n_mats * \
+            (AWQ_BYTES_PER_W if (quant and _quantizable(k, n)) else 2)
+        c.act_bytes += tok * (k + n) * ACT
+
     for kind in cfg.layer_kinds():
-        if (kind.mixer, kind.mlp, kind.window) != ("attn", "glu", 0):
+        if (kind.mixer not in ("attn", "mla") or kind.window
+                or kind.mlp not in ("glu", "moe")):
             raise NotImplementedError(f"layer kind {kind} is not ported")
-        for k, n in dims:
-            c.flops += 2.0 * k * n * toks
-            c.weight_bytes += k * n * \
-                (AWQ_BYTES_PER_W if (quant and _quantizable(k, n)) else 2)
-            c.act_bytes += toks * (k + n) * ACT
+        if kind.mlp == "moe":
+            routed, shared = _moe_dims(cfg)
+            for k, n in routed:
+                # every expert's weights stream once per step; compute
+                # only on the top_k-dispatched share of tokens
+                add_linear(k, n, toks * cfg.top_k / cfg.num_experts,
+                           n_mats=cfg.num_experts)
+            for k, n in shared:
+                add_linear(k, n, toks)
+        for k, n in _linear_dims(cfg, kind):
+            add_linear(k, n, toks)
+
+        if kind.mixer == "mla":
+            qk_dim = cfg.num_heads * (cfg.qk_nope_head_dim
+                                      + cfg.qk_rope_head_dim)
+            v_dim = cfg.num_heads * cfg.v_head_dim
+            kv_line = cfg.kv_lora_rank + cfg.qk_rope_head_dim   # latent
+        else:
+            qk_dim = v_dim = cfg.q_dim
+            kv_line = 2 * cfg.kv_dim
+        # int8 KV cache: 1 B/elem + f32 scale per (pos, head); MLA's
+        # latents stay in the activations' type
+        kv_byte = ((1.0 + F32 / cfg.head_dim)
+                   if (cfg.kv_quant == "int8" and kind.mixer != "mla")
+                   else ACT)
         if decode:
             # read the whole cache line per step + scores
             c.cache_bytes += b * s * kv_line * kv_byte + b * kv_line * kv_byte
-            c.flops += 2.0 * b * s * (cfg.q_dim + cfg.q_dim)
+            c.flops += 2.0 * b * s * (qk_dim + v_dim)
             c.act_bytes += b * cfg.num_heads * s * F32  # probs
         else:
             # causal S×S scores in f32 (written+read by softmax)
             pairs = s * s / 2
-            c.flops += 2.0 * b * pairs * (cfg.q_dim + cfg.q_dim)
+            c.flops += 2.0 * b * pairs * (qk_dim + v_dim)
             c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32
             c.cache_bytes += b * s * kv_line * ACT  # cache write
 
     # --- embeddings / head ---
-    v = cfg.vocab_size
+    v, d = cfg.vocab_size, cfg.d_model
     c.weight_bytes += v * d * 2 * (1 if cfg.tie_embeddings else 2)
     c.flops += 2.0 * v * d * b
     c.act_bytes += b * v * F32  # logits

@@ -14,7 +14,9 @@
     token-budget dispatch of ``num_slots × c`` positions that packs
     prefill chunks and decode tokens of mixed requests
     (`Model.chunk_step`). ``chunked_prefill=False`` selects the one-shot
-    path: each admission runs a dense `Model.prefill` of the whole prompt
+    path, which is also the default for a model whose cache holds
+    per-slot state (MLA's latents: `_cache_chunkable`); each admission
+    runs a dense `Model.prefill` of the whole prompt
     (kernel K4 on the card), commits its KV into the pages
     (`kv_pager.commit_prefill`) and samples the first token; every step
     then decodes one token for all slots (`Model.decode_step` over the
@@ -327,7 +329,9 @@ class GenerationEngine:
             raise ValueError("spec_decode='draft_model' needs draft_model "
                              "(+ draft_params) or a draft_fn")
         if draft_model is not None and not self._cache_chunkable(
-                draft_model.init_paged_cache(2, page_size, device="meta")):
+                draft_model.init_paged_cache(2, page_size, device="meta",
+                                             num_slots=1,
+                                             slot_seq=page_size)):
             raise ValueError(
                 "draft_model keeps bounded per-slot sequential state "
                 "(ring/SSM/MLA) — the draft cache must be pure dense "
@@ -457,7 +461,8 @@ class GenerationEngine:
         pager = KVPager(self._pager_config())
         self._paged_cache = self.model.init_paged_cache(
             pager.cfg.num_pages, self.page_size, kv_quant=self.kv_quant,
-            device=self.device)
+            device=self.device, num_slots=self.num_slots,
+            slot_seq=pager.cfg.pages_per_slot * self.page_size)
         chunkable = self._cache_chunkable(self._paged_cache)
         chunked = chunkable if self.chunked_prefill is None \
             else self.chunked_prefill
@@ -1229,17 +1234,22 @@ class GenerationEngine:
     def paged_kv_page_bytes(self) -> int:
         """Bytes one physical page costs across all layers (codes + scale
         strips for int8 pools): the unit of the serving memory budget.
-        Before serving starts the pools are laid out on the ``meta``
-        device, so nothing is allocated."""
+        Only page pools count (an MLA layer's dense per-slot latents are
+        not paged), as in the reference. Before serving starts the pools
+        are laid out on the ``meta`` device, so nothing is allocated."""
         if self._scheduler is not None:
             cache = self._paged_cache
             num_pages = self._scheduler.pager.cfg.num_pages
         else:
-            num_pages = self._pager_config().num_pages
+            pcfg = self._pager_config()
+            num_pages = pcfg.num_pages
             cache = self.model.init_paged_cache(
                 num_pages, self.page_size, kv_quant=self.kv_quant,
-                device="meta")
-        return _tensor_bytes(cache) // num_pages
+                device="meta", num_slots=self.num_slots,
+                slot_seq=pcfg.pages_per_slot * self.page_size)
+        return sum(_tensor_bytes(entry.get("kv_pool"))
+                   for layers in cache.values()
+                   for entry in layers) // num_pages
 
     def paged_kv_bytes_per_token(self) -> float:
         """KV bytes per cached token in the page pools (all layers)."""

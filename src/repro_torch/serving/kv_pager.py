@@ -972,7 +972,8 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
     list or an int tensor); the first ``start_page`` of them are aliased
     prefix pages and are not rewritten. The pools update in place; the
     cache is returned, as the reference returns its new one. ``slot``
-    addresses per-slot state, which only the unported entry kinds have.
+    addresses per-slot state: an MLA layer's dense latents (``mla``), whose
+    row ``slot`` takes the prompt's latents at positions 0..S-1.
 
     A windowed layer's prefill cache is a ring of ``min(window, S)``
     slots (`attention.init_kv_cache`), and it is committed as the
@@ -983,12 +984,15 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
     the port does the same (held equal to the reference in
     `tests/test_torch_ring_cache.py`).
     """
-    del slot
     pages = None                      # one host→device copy per commit
     for seg, layers in cache.items():
         for i, entry in enumerate(layers):
             pre_entry = prefill_cache[seg][i]
             for kind_key, leaves in entry.items():
+                if kind_key == "mla":     # dense per-slot latent cache
+                    for k, leaf in leaves.items():
+                        _commit_dense_leaf(leaf, pre_entry["mla"][k], slot)
+                    continue
                 if kind_key != "kv_pool":
                     raise NotImplementedError(
                         f"committing a {kind_key!r} cache entry is not "
@@ -1006,6 +1010,6 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
 def _commit_dense_leaf(slot_cache: torch.Tensor, pre: torch.Tensor,
                        slot: int) -> None:
     """pre [1, S, ...] → slot row prefix of ``slot_cache [num_slots,
-    S_max, ...]``, in place (a draft model's dense per-slot cache)."""
+    S_max, ...]``, in place (MLA latents; a draft model's dense cache)."""
     s = pre.shape[1]
     slot_cache[slot, :s] = pre[0].to(slot_cache.dtype)

@@ -36,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import qwen25_05b
+from repro_torch.configs import deepseek_v2_lite, qwen2_moe_a27b, qwen25_05b
 from repro_torch.core.packing import pack_linear
 from repro_torch.core.pipeline import quantize_params
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
@@ -44,7 +44,7 @@ from repro_torch.core.quantize import QuantConfig, quantize_groupwise
 from repro_torch.kernels import awq_matmul as k1
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.model import Model
 from repro_torch.serving import disagg, kv_pager
 from repro_torch.serving.engine import GenerationEngine
@@ -1480,3 +1480,171 @@ def test_train_step_gradients_on_card_near_cpu(cuda):
         assert np.isfinite(got).all(), path
         lim = 0.05 * float(np.abs(want).max())
         assert float(np.abs(got - want).max()) <= lim, path
+
+
+# ------------------------------------------------------------ MoE family
+
+def _experts(gen, e, k, n, gs=64):
+    """E stacked RTN-packed [K, N] weights with input scales (ones as AWQ
+    leaves a routed expert, plus a non-unit set)."""
+    cfg = QuantConfig(group_size=gs)
+    packs = [pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5, cfg),
+        None, None, cfg) for _ in range(e)]
+    qw, sc, zr = (torch.stack([getattr(p, f) for p in packs])
+                  for f in ("qweight", "scales", "zeros"))
+    return qw, sc, zr, torch.rand(e, k, generator=gen, device="cuda") + 0.5
+
+
+# (E, K, F) at qwen2-moe's and deepseek-v2-lite's widths, E cut to 6 at M
+# above 16 (every expert takes the same kernel)
+MOE_EXPERT_CASES = [(60, 2048, 1408, 1), (60, 2048, 1408, 4),
+                    (64, 2048, 1408, 5), (6, 2048, 1408, 16),
+                    (6, 2048, 1408, 17), (6, 2048, 1408, 200)]
+
+
+@pytest.mark.parametrize("e,k,f,m", MOE_EXPERT_CASES)
+def test_expert_axis_bit_equal_to_single_calls(cuda, e, k, f, m):
+    """K1 (down, F -> K) and K3 (gate / up, K -> F) over E stacked experts:
+    one launch each, expert e's rows bit-equal to a call on expert e
+    alone, and within K1's / K3's tolerance of the per-expert plain
+    version."""
+    g, u, d = (_experts(cuda, e, *kn) for kn in ((k, f), (k, f), (f, k)))
+    x = torch.randn(e, m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    kw = dict(input_scales=(g[3], u[3]), out_dtype=torch.bfloat16)
+    n1, n3 = k1.EXPERT_COUNTER.count, k1.GATEUP_EXPERT_COUNTER.count
+    h = k1.awq_gateup_experts(x, *g[:3], *u[:3], 64, **kw)
+    y = k1.awq_matmul_experts(h, *d[:3], 64, input_scale=d[3],
+                              out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (k1.EXPERT_COUNTER.count, k1.GATEUP_EXPERT_COUNTER.count) == (
+        n1 + 1, n3 + 1)
+    assert h.shape == (e, m, f) and y.shape == (e, m, k)
+    for i in range(e):
+        one = k1.awq_gateup(x[i], *(t[i] for t in g[:3]),
+                            *(t[i] for t in u[:3]), 64,
+                            input_scales=(g[3][i], u[3][i]),
+                            out_dtype=torch.bfloat16)
+        assert torch.equal(h[i], one), i
+        assert torch.equal(y[i], k1.awq_matmul(
+            h[i], *(t[i] for t in d[:3]), 64, input_scale=d[3][i],
+            out_dtype=torch.bfloat16)), i
+    _k3_check(h, k1.awq_gateup_experts_ref(
+        x, *g[:3], *u[:3], 64, torch.bfloat16, **kw))
+    _k1_check(y, k1.awq_matmul_experts_ref(
+        h, *d[:3], 64, torch.bfloat16, input_scale=d[3],
+        out_dtype=torch.bfloat16))
+
+
+def test_expert_axis_no_rows_counts_nothing(cuda):
+    """An E x 0 x K call over stacked experts launches nothing: it returns
+    an empty [E, 0, N] and leaves all four launch counters as they were."""
+    g, u, d = (_experts(cuda, 4, *kn) for kn in ((256, 128), (256, 128),
+                                                 (128, 256)))
+    x = torch.zeros(4, 0, 256, device="cuda", dtype=torch.bfloat16)
+    counters = (k1.COUNTER, k1.GATEUP_COUNTER, k1.EXPERT_COUNTER,
+                k1.GATEUP_EXPERT_COUNTER)
+    before = [c.count for c in counters]
+    h = k1.awq_gateup_experts(x, *g[:3], *u[:3], 64,
+                              input_scales=(g[3], u[3]))
+    y = k1.awq_matmul_experts(h, *d[:3], 64, input_scale=d[3])
+    torch.cuda.synchronize()
+    assert h.shape == (4, 0, 128) and y.shape == (4, 0, 256)
+    assert [c.count for c in counters] == before
+
+
+@pytest.mark.parametrize("k,n", [(10944, 2048), (2048, 576), (512, 4096),
+                                 (2048, 3072)])
+def test_awq_matmul_kernel_deepseek_shapes(cuda, k, n):
+    """deepseek-v2-lite's K1 shapes: the dense layer's down (K 10,944, a
+    short last span of 64), kv_down (N 576), kv_up (K 512) and q_proj;
+    against the plain version, and the rows of M 1024 equal the same rows
+    at M 1 … 64."""
+    w, scale = _k1_linear(cuda, k, n, 64, True)
+    x = torch.randn(1024, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    full, ref = _k1_run(x, w, scale, torch.bfloat16)
+    _k1_check(full, ref)
+    for m in (1, 4, 17, 64):
+        out, ref = _k1_run(x[:m], w, scale, torch.bfloat16)
+        _k1_check(out, ref)
+        assert torch.equal(out, full[:m]), m
+
+
+def test_moe_rows_equal_across_token_counts(cuda):
+    """A qwen2-moe MoE layer at full width (60 experts, top-4, shared
+    experts, RTN int4), bf16 activations: the rows of a call over 1, 4, 5
+    and 16 tokens equal the same rows of a 20-token call bit for bit, as a
+    serving row must whatever its step holds."""
+    cfg = dataclasses.replace(qwen2_moe_a27b.config(), num_layers=1)
+    p, _ = quantize_params({"moe": moe.moe_init(cuda, cfg, device="cuda")})
+    x = torch.randn(20, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    before = k1.GATEUP_EXPERT_COUNTER.count
+    full, _ = moe.moe_apply(p["moe"], x, cfg)
+    assert k1.GATEUP_EXPERT_COUNTER.count == before + 1
+    for t in (1, 4, 5, 16):
+        assert torch.equal(moe.moe_apply(p["moe"], x[:t], cfg)[0],
+                           full[:t]), t
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["float", "int4"])
+def test_mla_decode_rows_equal_across_slots_and_cache_lengths(cuda, packed):
+    """deepseek-v2-lite's absorbed MLA decode at full width, bf16
+    activations, every quantized linear on K1: each row of a 4-slot step
+    over a 96-position latent cache equals bit for bit the same row
+    decoded alone over caches of 96 and of 300 positions (a one-shot
+    engine's slots against generate()'s longer cache)."""
+    cfg = deepseek_v2_lite.config()
+    p = mla.mla_init(cuda, cfg, device="cuda")
+    if packed:
+        p = quantize_params({"mla": p})[0]["mla"]
+    pos = torch.tensor([0, 7, 40, 95], device="cuda")
+    ckv, kpe = (torch.randn(4, 300, w, generator=cuda, device="cuda").to(
+        torch.bfloat16) for w in (cfg.kv_lora_rank, cfg.qk_rope_head_dim))
+    x = torch.randn(4, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+
+    def run(rows, s):
+        cache = {"ckv": ckv[rows, :s].clone(), "kpe": kpe[rows, :s].clone()}
+        with execution_config(ExecutionConfig(offload_min_flops=0)):
+            y, cache = mla.mla_decode(p, cache, x[rows], cfg, pos=pos[rows])
+        return y, cache
+
+    full, cache = run(slice(None), 96)
+    assert full.shape == (4, cfg.d_model) and torch.isfinite(full).all()
+    for s in (96, 300):
+        for i in range(4):
+            y, one = run(slice(i, i + 1), s)
+            assert torch.equal(y[0], full[i]), (s, i)
+            assert torch.equal(one["ckv"][0, :96], cache["ckv"][i]), (s, i)
+
+
+@pytest.mark.parametrize("c", [1, 16])
+def test_paged_attention_kernel_mha_hd128(cuda, c):
+    """K2 at G = 1 and hd 128 with 16 kv heads (qwen2-moe's MHA): one query
+    row a kv head, packed alone into its 8-row group."""
+    b, hkv, hd, page, nblk = 4, 16, 128, 16, 40
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 37, 300, nblk * page - c], dtype=torch.int32,
+                        device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[2, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, 1, hd, generator=cuda, device="cuda")
+    _k2_run(q, pools, table, pos)
+
+
+@pytest.mark.parametrize("s", [64, 300, 1024])
+def test_flash_attention_kernel_mha_hd128(cuda, s):
+    """K4 at G = 1 and hd 128 (qwen2-moe: 16 q over 16 kv heads) on
+    ``transpose(1, 2)`` views, bf16, causal: the launcher's and the
+    one-shot engine's prefills."""
+    q, k, v = (torch.randn(2, s, 16, 128, generator=cuda, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    out = k4.flash_attention(q, k, v, causal=True)
+    ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    _k4_check(out, ref, torch.bfloat16)
