@@ -55,7 +55,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                over each model's 60 / 64 routed experts in one launch
                (the expert axis) at 4, 64 and 1,024 rows an expert, held
                against the plain versions, timed beside them and
-               `torch.bmm` on the dequantized bf16 experts;
+               `torch.bmm` on the dequantized bf16 experts; the SSM
+               family's shapes: K1 at mamba2-130m's and hymba-1.5b's ten
+               (K, N) pairs (N 16 and 24 narrower than one 64-column
+               block) at M 1, 4, 64 and 1,024, K3 at hymba's SiLU front,
+               K2 and K4 at hymba's G 5 (25 q over 5 kv heads, hd 64)
+               with and without its 1,024-token window;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -175,43 +180,54 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                prefill tokens skipped: a pair reports none, as the
                reference's does), and its streams must equal the
                unified fleet's (same placements, same steps);
- 20-25. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
+ 20-27. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
                V 262,144, a 1,024-token window; 12 of its 34 layers, two
                of them global), smollm-360m (8 of 32 layers), gemma-2b (6
-               of 18), glm4-9b (8 of 40), then the MoE family:
+               of 18), glm4-9b (6 of 40), then the MoE family:
                qwen2-moe-a2.7b (60 experts top-4 + 4 shared, 16 heads of
                128) and deepseek-v2-lite-16b (MLA + 64 experts top-6 + 2
-               shared, its first layer dense), each at full width with
+               shared, its first layer dense), then the SSM family:
+               mamba2-130m (24 SSD layers, no attention, no MLP; full
+               size) and hymba-1.5b (attention ∥ SSD, 25 q / 5 kv heads,
+               8 of its 32 layers: global layer 0, 7 windowed), each
+               at full width with
                its depth cut for the time limit (the phase line lists the
                layers), from random weights (seed 0): the launcher's AWQ
                path (``--arch
                <name> --quant awq``: calibration with K4, AWQ search and
                pack of every linear, `generate()` with K4 prefills, and on
-               gemma3 its rings past the window: 2 × 1,100 prompt
-               tokens; the MoE models' routed experts at RTN, on K3 and
-               K1's expert axis); a serve burst (8 greedy requests of 32
+               gemma3 and hymba their rings past the window: 2 × 1,100
+               prompt tokens; the MoE models' routed experts at RTN, on
+               K3 and K1's expert axis; mamba2's 4 × 512 tokens two SSD
+               chunks); a serve burst (8 greedy requests of 32
                new tokens over int8 pages of 16, 4 slots, on the engine's
-               default path: chunked, or one-shot for deepseek's MLA
-               latents; gemma3's prompts include 1,100 and 1,400 tokens,
-               so its windowed layers' K2 reads mask keys that slid out
-               of the window) under the default
+               default path: chunked, or one-shot for the models with
+               per-slot state: deepseek's MLA latents, the SSM states,
+               hymba's rings; gemma3's and hymba's prompts include 1,100
+               and 1,400 tokens, so gemma3's windowed layers' K2 reads
+               mask keys that slid out of the window and hymba's slots'
+               rings wrap; mamba2's include 1,024) under the default
                threshold (this model's serving path: counts from 0) and
                with every quantized linear on K1 / K3, each stream against
                generate() at B 1 (first tokens gated equal by the
                `check` rule: where generate()'s top-2 margin clears 2 ×
                5 % of its logits' scale; streams and near ties reported
-               with logit margins); K1 launched, K2 on the chunked path,
-               K3 on the SiLU models only (gemma's GeGLU fronts are two K1
-               calls), the expert axis on the MoE models; and `check`
-               (deepseek: a one-shot prefill and decode step) /
-               `check_prefill` on a 2-layer cut of the served model
-               (gemma3: its first windowed and first global layer;
-               deepseek: its dense layer and a MoE one) against CPU
+               with logit margins; mamba2's streams all gated equal);
+               K1 launched, K2 where page pools are read (the chunked
+               path, hymba's global layers), K4 in the one-shot path's
+               prefills of attention layers (hymba), K3 on the SiLU GLU
+               models only (gemma's GeGLU fronts are two K1 calls), the
+               expert axis on the MoE models; and `check` (the one-shot
+               models: a prefill and decode step) / `check_prefill` on a
+               2-layer cut of the served model (gemma3: its first
+               windowed and first global layer; hymba: its layer 0 and
+               first windowed one; deepseek: its dense layer and a MoE
+               one) against CPU
                copies, the CPU side taking the card's MoE routing
                (`RouteTie`: routing flips counted and reported);
                gemma3's line adds a profiled decode step of 4 slots at
                contexts ~1,100.
- 26. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
+ 28. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
                bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
                no weight decay: the reference's descent test), per-block
                remat, 20 steps. Gated: every parameter receives a finite
@@ -222,7 +238,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                idle share, top kernels); then a 2-layer full-width cut's
                loss and gradients on the card against CPU copies (5 % of
                each leaf's largest magnitude);
- 27. train_resume — `repro_torch.launch.train.main` at full size
+ 29. train_resume — `repro_torch.launch.train.main` at full size
                (``--steps 8 --batch 8 --seq 512 --ckpt-every 4
                --simulate-failure-at 6``, checkpoints under the
                git-ignored build/, deleted after): one recovery from step
@@ -284,6 +300,7 @@ from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.roofline import costmodel  # noqa: E402
 from repro_torch.serving.disagg import DisaggController  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step  # noqa: E402
@@ -2058,8 +2075,7 @@ def check_prefill(model, params) -> dict:
     if not err <= tol or (clear and not agree):
         raise AssertionError(f"check_prefill: err {err} > {tol} or argmax "
                              f"differs on a clear row")
-    attn_layers = sum(k.mixer == "attn" for k in model.cfg.layer_kinds())
-    if k4.COUNTER.count - before != attn_layers:
+    if k4.COUNTER.count - before != _k4_layers(model.cfg):
         raise AssertionError("check_prefill: the card's prefill did not run "
                              "K4 once per attention layer")
     return dict(max_abs_err=err, tol=tol, argmax_agree=agree,
@@ -2151,17 +2167,34 @@ DENSE_ARCHS = {
                         serve_lens=SERVE_LENS, max_seq=512, chunk=16),
     "gemma-2b": dict(layers=6, batch=4, prompt_len=256,
                      serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "glm4-9b": dict(layers=8, batch=4, prompt_len=256,
+    "glm4-9b": dict(layers=6, batch=4, prompt_len=256,
                     serve_lens=SERVE_LENS, max_seq=512, chunk=16),
     # the MoE family: qwen2-moe (attention + MoE) on the chunked engine,
     # deepseek-v2-lite (MLA + MoE, its first layer dense) on the one-shot
     # engine; the launcher's batch of 4 x 256 tokens is 1,024, the most a
-    # MoE layer takes dropless
-    "qwen2-moe-a2.7b": dict(layers=8, batch=4, prompt_len=256,
+    # MoE layer takes dropless. glm4-9b and these two run 6 layers, which
+    # leaves the SSM family's phases room in the time limit
+    "qwen2-moe-a2.7b": dict(layers=6, batch=4, prompt_len=256,
                             serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "deepseek-v2-lite-16b": dict(layers=8, batch=4, prompt_len=256,
+    "deepseek-v2-lite-16b": dict(layers=6, batch=4, prompt_len=256,
                                  serve_lens=SERVE_LENS, max_seq=512,
                                  chunk=16),
+    # the SSM and hybrid families, both on the one-shot engine (per-slot
+    # SSM state). mamba2-130m at full size: the launcher's 512-token
+    # prompts are two SSD chunks of 256, the 1,024-token serve prompt
+    # four; attention-free, its linears take one path at M 1 and 4, so
+    # every stream must equal generate()'s (``streams_gated``).
+    # hymba-1.5b at full width, 8 of its 32 layers (global layer 0, then
+    # 7 windowed, as the published stack opens; at 16 layers the whole
+    # script came within seconds of 900 s on an H100): the launcher's
+    # 1,100-token prompts wrap generate()'s rings and take the SSD's
+    # single-chunk fallback; the serve prompts wrap the slots' rings
+    "mamba2-130m": dict(layers=None, batch=4, prompt_len=512,
+                        serve_lens=[16, 200, 45, 120, 77, 190, 33, 1024],
+                        max_seq=2048, chunk=16, streams_gated=True),
+    "hymba-1.5b": dict(layers=8, batch=2, prompt_len=1100,
+                       serve_lens=[1100, 1400, 64, 300, 1024, 17, 700, 200],
+                       max_seq=2048, chunk=64),
 }
 # K1 (K, N) of the new models' linears (smollm q/o, k/v, gate/up, down;
 # gemma-2b q/o, k/v, gate/up, down; gemma3 q, k/v, o, gate/up, down; glm4
@@ -2177,11 +2210,21 @@ DENSE_K1 = [(960, 960), (960, 320), (960, 2560), (2560, 960),
             (5632, 2048), (2048, 3072), (2048, 576), (512, 4096),
             (10944, 2048), (2816, 2048)]
 DENSE_K3 = [(960, 2560), (4096, 13696),
-            (2048, 5632), (2048, 10944), (2048, 2816)]
+            (2048, 5632), (2048, 10944), (2048, 2816),
+            # hymba's SiLU front
+            (1600, 5504)]
+# K1 (K, N) of the SSM family at a decode step's M 1 and 4, a chunk's 64
+# and a prefill's 1,024: mamba2's wz / wx, wb / wc, wdt, out_proj; hymba's
+# q / o, k / v, its SSM's wz / wx, wb / wc, out_proj and its down (N 16
+# and 24 fill less than one of K1's 64-column blocks)
+SSM_K1 = [(768, 1536), (768, 128), (768, 24), (1536, 768),
+          (1600, 1600), (1600, 320), (1600, 3200), (1600, 16),
+          (3200, 1600), (5504, 1600)]
 # K2: model, Hkv, G, hd, window
 DENSE_K2 = [("gemma3-4b", 4, 2, 256, 0), ("gemma3-4b", 4, 2, 256, 1024),
             ("gemma-2b", 1, 8, 256, 0), ("glm4-9b", 2, 16, 128, 0),
-            ("smollm-360m", 5, 3, 64, 0), ("qwen2-moe-a2.7b", 16, 1, 128, 0)]
+            ("smollm-360m", 5, 3, 64, 0), ("qwen2-moe-a2.7b", 16, 1, 128, 0),
+            ("hymba-1.5b", 5, 5, 64, 0), ("hymba-1.5b", 5, 5, 64, 1024)]
 # K4: model, B, S, H, Hkv, hd, window (causal, bf16)
 DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
             ("gemma3-4b", 1, 1400, 8, 4, 256, 1024),
@@ -2189,7 +2232,12 @@ DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
             ("gemma-2b", 4, 256, 8, 1, 256, 0),
             ("glm4-9b", 4, 256, 32, 2, 128, 0),
             ("smollm-360m", 4, 256, 15, 5, 64, 0),
-            ("qwen2-moe-a2.7b", 4, 256, 16, 16, 128, 0)]
+            ("qwen2-moe-a2.7b", 4, 256, 16, 16, 128, 0),
+            # hymba (G 5): the engine's longest one-shot prefill on a
+            # global and a windowed layer, the launcher's batch
+            ("hymba-1.5b", 1, 1400, 25, 5, 64, 0),
+            ("hymba-1.5b", 1, 1400, 25, 5, 64, 1024),
+            ("hymba-1.5b", 2, 1100, 25, 5, 64, 1024)]
 # K1 / K3 over a MoE layer's routed experts (the expert axis): model, E,
 # d_model, expert d_ff; K3 takes d_model -> d_ff, K1 d_ff -> d_model
 EXPERT_SHAPES = [("qwen2-moe-a2.7b", 60, 2048, 1408),
@@ -2459,12 +2507,15 @@ def check_expert_kernels(gen) -> dict:
 
 
 def check_dense_kernels(gen) -> dict:
-    """K1 - K4 at the other dense models' shapes, each held against its
-    plain version (K1 / K3 at the model's call, M 4 and 1024; K2 at C 1
-    and 16; K4 at the prefills the launcher and the engine give it)."""
+    """K1 - K4 at the other models' shapes, each held against its plain
+    version (K1 / K3 at the model's call, M 4 and 1024, the SSM family's
+    K1 also at M 1 and 64; K2 at C 1 and 16; K4 at the prefills the
+    launcher and the engine give it)."""
     return dict(
         awq_matmul=[_k1_shape(gen, k, n, m) for k, n in DENSE_K1
-                    for m in (4, 1024)],
+                    for m in (4, 1024)]
+        + [_k1_shape(gen, k, n, m) for k, n in SSM_K1
+           for m in (1, 4, 64, 1024)],
         awq_gateup=[_k3_shape(gen, k, n, m) for k, n in DENSE_K3
                     for m in (4, 1024)],
         paged_attention_chunk=[_k2_shape(gen, *case, c) for case in DENSE_K2
@@ -2496,26 +2547,47 @@ def _depth(arch: str, layers):
 
 def _linear_counts(cfg) -> tuple[int, int, int]:
     """(quantized, kept float, routed-expert) linears the pipeline gives
-    this model at its published widths: per layer the mixer's 4 and the
-    GLU's 3, or on a MoE layer the shared experts' 3 and the routed
-    experts' 3 stacked leaves (their router and ``shared_gate`` stay
-    float), and an untied head (float)."""
+    this model at its published widths: per layer the mixer's (attention
+    or MLA 4, SSD 6, hymba both) and the GLU's 3, each quantized where
+    the pipeline's rule takes its (K, N) (K a multiple of 64, N of 8, K·N
+    at least 16,384: hymba's ``wdt`` 1600 -> 50 stays float); on a MoE
+    layer the shared experts' 3 and the routed experts' 3 stacked leaves
+    (their router and ``shared_gate`` stay float); an untied head
+    (float)."""
     quant = skip = routed = 0
     for kind in cfg.layer_kinds():
-        quant += 7
+        for k, n in costmodel._linear_dims(cfg, kind):
+            if costmodel._quantizable(k, n, GS):
+                quant += 1
+            else:
+                skip += 1
         if kind.mlp == "moe":
             routed += 3
-            quant += 3 * bool(cfg.num_shared_experts)
+            quant += 3 + 3 * bool(cfg.num_shared_experts)
             skip += 1 + cfg.shared_expert_gate
     return quant, skip + (not cfg.tie_embeddings), routed
+
+
+def _k4_layers(cfg) -> int:
+    """Layers whose full-sequence attention runs K4 (MLA's products and
+    the SSD are tensor code)."""
+    return sum(k.mixer in ("attn", "hymba") for k in cfg.layer_kinds())
+
+
+def _uses_k3(cfg) -> bool:
+    """Whether the model's dense GLU fronts run on K3 (SiLU only: gemma's
+    GeGLU fronts are two K1 calls; mamba2 has no MLP)."""
+    return cfg.act == "silu" and any(k.mlp in ("glu", "moe")
+                                     for k in cfg.layer_kinds())
 
 
 def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
     """The launcher's AWQ path for one model: calibrate, AWQ search and
     pack every linear (a MoE layer's routed experts at RTN, as no forward
-    records them), generate() (K4 prefills on attention layers, rings on
-    windowed ones; a MoE layer's experts on K3 and K1's expert axis).
-    Returns (phase fields, the AWQ params, the model)."""
+    records them), generate() (K4 prefills on attention layers, hymba's
+    included, rings on windowed ones; a MoE layer's experts on K3 and
+    K1's expert axis; the SSD as tensor code). Returns (phase fields, the
+    AWQ params, the model)."""
     args = ["--arch", arch, "--quant", "awq", "--batch", str(spec["batch"]),
             "--prompt-len", str(spec["prompt_len"]), "--max-new", "32"]
     gc.collect()
@@ -2548,8 +2620,8 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
                              f"({len(routed)} routed), {len(rep.skipped)} "
                              f"kept float; want {n_quant} ({n_routed}), "
                              f"{n_skip}")
-    glu_k3 = cfg.act == "silu"
-    attn_layers = sum(k.mixer == "attn" for k in cfg.layer_kinds())
+    glu_k3 = _uses_k3(cfg)
+    attn_layers = _k4_layers(cfg)
     gen_l = by_step["generate"]
     k4_ok = (by_step["calibrate"]["flash_attention"] >= attn_layers
              and gen_l["flash_attention"] >= attn_layers
@@ -2572,6 +2644,8 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
                   cfg.num_shared_experts] if cfg.num_experts else None),
         mla=([cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
               cfg.v_head_dim] if cfg.kv_lora_rank else None),
+        ssm=([cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim,
+              cfg.ssm_chunk] if cfg.family in ("ssm", "hybrid") else None),
         window=cfg.sliding_window, total_s=total_s,
         calibrate_s=out["calib_s"], awq_s=out["awq_s"],
         quantized=len(rep.quantized), calibrated=len(rep.calibrated),
@@ -2607,16 +2681,18 @@ def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
 
 def dense_serve(arch: str, model, params, spec: dict) -> dict:
     """8 greedy requests of 32 new tokens through the engine's default path
-    (the chunked one over int8 pools, 4 slots, pages of 16; an MLA model
-    the one-shot one over its dense per-slot latents), under the default
-    threshold (this model's serving path: counts from 0 here, read after)
-    and with every quantized linear on K1 / K3; each stream against the
-    port's own
-    generate() at B 1 under the same config: first tokens gated,
-    whole streams reported with the first differing position and
-    generate()'s logit margin there. The first tokens are held by the
-    `check` rule: the engine's comes from its last prefill chunk over
-    the int8 pages, generate()'s from its K4 prefill over bf16 K/V."""
+    (the chunked one over int8 pools, 4 slots, pages of 16; a model with
+    per-slot state the one-shot one: MLA's dense latents, SSM states,
+    hymba's windowed rings, hymba's global layers over int8 pools), under
+    the default threshold (this model's serving path: counts from 0 here,
+    read after) and with every quantized linear on K1 / K3; each stream
+    against the port's own generate() at B 1 under the same config:
+    first tokens gated, whole streams reported with the first differing
+    position and generate()'s logit margin there (with
+    ``streams_gated``, every stream gated equal). The first tokens are
+    held by the `check` rule: the engine's comes from its last prefill
+    chunk over the int8 pages, generate()'s from its K4 prefill over bf16
+    K/V (on the one-shot path both from the same dense prefill)."""
     cfg = model.cfg
     prompts = dense_prompts(cfg.vocab_size, spec["serve_lens"])
     kw = dict(num_slots=4, page_size=16, max_seq=spec["max_seq"],
@@ -2684,25 +2760,37 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
                     logit_margin=_logit_margin(model, params, p, ref, i,
                                                int(got[i]),
                                                max_seq=spec["max_seq"])))
-        want_k3 = cfg.act == "silu"
-        # K2 reads the pools of the chunked path; an MLA model's one-shot
-        # prefills and decodes run no attention kernel (the reference's
-        # MLA products are plain tensor code)
+        # K2 reads the page pools (every attention layer's on the chunked
+        # path; on the one-shot path hymba's global layers', none for MLA
+        # or mamba2); K4 runs the one-shot path's dense prefills of
+        # attention layers (hymba's), none on the chunked path (K2 reads
+        # its prefill chunks) and none for MLA (tensor code)
+        pooled = any("kv_pool" in e for lyr in eng._paged_cache.values()
+                     for e in lyr)
         if not (launches["awq_matmul"] > 0
-                and (launches["paged_attention_chunk"] > 0) == chunked
-                and chunked == (cfg.kv_lora_rank == 0)
-                and (launches["awq_gateup"] > 0) == want_k3
+                and (launches["paged_attention_chunk"] > 0) == pooled
+                and chunked == (cfg.kv_lora_rank == 0
+                                and cfg.family not in ("ssm", "hybrid"))
+                and (launches["awq_gateup"] > 0) == _uses_k3(cfg)
                 and (launches["awq_gateup_experts"] > 0)
                 == (launches["awq_matmul_experts"] > 0)
                 == bool(cfg.num_experts)
-                and launches["flash_attention"] == 0):
+                and (launches["flash_attention"] > 0)
+                == (not chunked and _k4_layers(cfg) > 0)):
             raise AssertionError(f"{arch} serve {name}: kernels {launches}, "
                                  f"chunked {chunked}")
+        # windowed layers read the pools through K2 on the chunked path;
+        # hymba's keep per-slot rings (tensor code, no K2)
         if cfg.sliding_window and not (
-                windowed > 0 and max(map(len, prompts)) > cfg.sliding_window):
+                (windowed > 0) == chunked
+                and max(map(len, prompts)) > cfg.sliding_window):
             raise AssertionError(f"{arch} serve {name}: {windowed} windowed "
                                  f"K2 calls, prompts up to "
                                  f"{max(map(len, prompts))}")
+        if spec.get("streams_gated") and identical != len(rids):
+            raise AssertionError(f"{arch} serve {name}: {identical} of "
+                                 f"{len(rids)} streams equal generate()'s: "
+                                 f"{mismatches}")
         st = eng.stats()
         res[name] = dict(
             path="chunked" if chunked else "one-shot",
@@ -2735,9 +2823,12 @@ def _first_margin(model, params, prompt, max_seq: int) -> tuple[float, float]:
 
 
 def _cut_two_layers(model, params):
-    """A 2-layer model of ``model``'s widths and its params: the first
-    windowed layer then the first global one where the model has both
-    (gemma3-4b: layers 0 and 5), else layers 0 and 1."""
+    """A 2-layer model of ``model``'s widths and its params: where the
+    model has windowed and global layers, one of each in the order the
+    config's rule puts them at 2 layers (gemma3-4b, global every 6: its
+    first windowed then first global layer, 0 and 5; hymba, global
+    layers listed from 0: its layer 0 then its first windowed one), else
+    layers 0 and 1."""
     cfg = model.cfg
     kinds = cfg.layer_kinds()
     where = []                                   # layer -> (segment, index)
@@ -2745,12 +2836,18 @@ def _cut_two_layers(model, params):
         where += [(f"seg_{si}", i) for i in range(n)]
     windowed = [i for i, k in enumerate(kinds) if k.window]
     full = [i for i, k in enumerate(kinds) if not k.window]
-    if windowed and full:
+    if windowed and full and cfg.global_layers:
+        pick = [full[0], windowed[0]]
+        cut = dataclasses.replace(cfg, num_layers=2)
+    elif windowed and full:
         pick = [windowed[0], full[0]]
         cut = dataclasses.replace(cfg, num_layers=2, global_every=2)
     else:
         pick = [0, 1]
         cut = dataclasses.replace(cfg, num_layers=2)
+    if list(cut.layer_kinds()) != [kinds[i] for i in pick]:
+        raise AssertionError(f"2-layer cut of {cfg.name}: kinds "
+                             f"{cut.layer_kinds()} are not layers {pick}'s")
     cm = Model(cut)
     layers = [params["segments"][where[i][0]][where[i][1]] for i in pick]
     segs, j = {}, 0
@@ -2762,7 +2859,8 @@ def _cut_two_layers(model, params):
 
 def cross_check_decode(model, params) -> dict:
     """The one-shot path's counterpart of `cross_check`, for a model
-    whose cache is per-slot state (MLA latents): a prefill of 4 prompts
+    whose cache is per-slot state (MLA latents, SSM states, hymba's
+    rings): a prefill of 4 prompts
     of 16 tokens into the dense cache (step 0), then one decode step over
     the card's cache (step 1), on the card vs CPU copies (plain
     versions), held by the same rule: logits at 5% of their largest
@@ -2809,16 +2907,19 @@ def cross_check_decode(model, params) -> dict:
 def dense_check(arch: str, model, params) -> dict:
     """The CPU checks at a depth the host can run: a 2-layer cut of the
     served AWQ model, one chunk step pair (`cross_check`; the one-shot
-    prefill and decode step, `cross_check_decode`, for an MLA model) and
-    one prefill (`check_prefill`) on the card against CPU copies."""
+    prefill and decode step, `cross_check_decode`, for a model with
+    per-slot state) and one prefill (`check_prefill`) on the card against
+    CPU copies."""
     cm, cp, pick = _cut_two_layers(model, params)
-    check = (cross_check_decode if model.cfg.kv_lora_rank else cross_check)
+    chunkable = GenerationEngine._cache_chunkable(cm.init_paged_cache(
+        2, 16, device="meta", num_slots=1, slot_seq=16))
+    check = cross_check if chunkable else cross_check_decode
     return dict(layers=pick, check=check(cm, cp),
                 check_prefill=check_prefill(cm, cp))
 
 
 def dense_models() -> tuple[dict, dict]:
-    """Phases 20-25: each model's launcher, serve burst and CPU check.
+    """Phases 20-27: each model's launcher, serve burst and CPU check.
     Returns (per-model fields, per-model launches of K1 - K4)."""
     _count_windowed_k2()
     out, launches = {}, {}

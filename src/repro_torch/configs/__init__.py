@@ -1,7 +1,8 @@
 """Architecture registry of the port: the paper's qwen2.5-0.5b, the
 reference's other dense decoders (smollm-360m, gemma-2b, gemma3-4b,
-glm4-9b) and its MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b, MLA
-+ MoE).
+glm4-9b), its MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b, MLA
++ MoE), its SSM (mamba2-130m, attention-free Mamba-2 SSD) and its hybrid
+(hymba-1.5b, attention beside SSD in every layer).
 
 Each config module exposes ``config()`` (the published dims) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).
@@ -12,8 +13,8 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs import (deepseek_v2_lite, gemma3_4b, gemma_2b,
-                                 glm4_9b, qwen2_moe_a27b, qwen25_05b,
-                                 smollm_360m)
+                                 glm4_9b, hymba_15b, mamba2_130m,
+                                 qwen2_moe_a27b, qwen25_05b, smollm_360m)
 from repro_torch.configs.base import LayerKind, ModelConfig  # noqa: F401
 
 _REGISTRY: dict[str, tuple[Callable, Callable]] = {
@@ -24,6 +25,8 @@ _REGISTRY: dict[str, tuple[Callable, Callable]] = {
     "qwen2-moe-a2.7b": (qwen2_moe_a27b.config, qwen2_moe_a27b.smoke_config),
     "deepseek-v2-lite-16b": (deepseek_v2_lite.config,
                              deepseek_v2_lite.smoke_config),
+    "hymba-1.5b": (hymba_15b.config, hymba_15b.smoke_config),
+    "mamba2-130m": (mamba2_130m.config, mamba2_130m.smoke_config),
     "qwen25-05b": (qwen25_05b.config, qwen25_05b.smoke_config),
 }
 

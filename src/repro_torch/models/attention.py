@@ -30,7 +30,7 @@ from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, linear, rmsnorm, rope_cos_sin
-from repro_torch.numerics import einsum_f32
+from repro_torch.numerics import einsum_f32, einsum_f64
 
 
 def attn_init(gen, cfg, dtype=torch.float32, device=None):
@@ -107,9 +107,17 @@ def _cache_probs_dtype(v_dtype: torch.dtype, adt: torch.dtype) -> torch.dtype:
     return v_dtype if v_dtype.itemsize < adt.itemsize else torch.float32
 
 
+def _einsum_rows(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum_f32`` whose rows do not depend on the batch on CUDA either:
+    f64 on every device, rounded once to f32 (on the CPU the same bits
+    as `einsum_f32`)."""
+    return einsum_f64(eq, a, b).to(torch.float32)
+
+
 def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
           scale: float, vis: torch.Tensor | None = None,
-          probs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+          probs_dtype: torch.dtype = torch.float32,
+          exact_rows: bool = False) -> torch.Tensor:
     """Grouped scaled-dot-product attention over full key rows.
 
     q [B, C, Hkv, G, hd]; k/v [B, S, Hkv, hd]; *_pos [B, C]/[B, S] absolute
@@ -120,9 +128,12 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     positional mask; rows whose mask is empty then give exactly 0. Both
     masks feed the same softmax, so a row sees the same bits under either
     when they show it the same keys (a tree verify row's chain nodes and
-    the sequential decode rows they stand for).
+    the sequential decode rows they stand for). With ``exact_rows`` the two
+    products run in f64 (`_einsum_rows`): a row's bits then do not depend
+    on how many rows share the call, on the card too.
     """
-    scores = einsum_f32("bqkgd,bskd->bkgqs", q, k) * scale
+    ein = _einsum_rows if exact_rows else einsum_f32
+    scores = ein("bqkgd,bskd->bkgqs", q, k) * scale
     neg = torch.full_like(scores, -1e30)
     if vis is not None:
         vism = vis[:, None, None, :, :]
@@ -137,7 +148,7 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
             mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
         scores = torch.where(mask[:, None, None, :, :], scores, neg)
         probs = torch.softmax(scores, dim=-1)
-    out = einsum_f32("bkgqs,bskd->bqkgd", probs.to(probs_dtype), v)
+    out = ein("bkgqs,bskd->bqkgd", probs.to(probs_dtype), v)
     return out.to(v.dtype)
 
 
@@ -251,8 +262,10 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
 
     A windowed layer writes slot ``pos % window`` of its ring and attends
     over the positions the ring holds (`_ring_positions`) under the
-    causal window mask; a full layer writes slot ``pos`` and attends over
-    ``k <= pos``."""
+    causal window mask, its products in f64 rounded once (``exact_rows``:
+    a hymba engine keeps one ring row a slot, and a slot's row must not
+    depend on the step's slot count); a full layer writes slot ``pos``
+    and attends over ``k <= pos``."""
     b = x.shape[0]
     q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
     bidx = torch.arange(b, device=x.device)
@@ -279,7 +292,8 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
     out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=bool(window),
                 window=window, scale=cfg.head_dim ** -0.5,
-                probs_dtype=_cache_probs_dtype(cv.dtype, adt))
+                probs_dtype=_cache_probs_dtype(cv.dtype, adt),
+                exact_rows=bool(window))
     return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
 
 

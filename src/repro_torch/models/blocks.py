@@ -1,19 +1,24 @@
-"""Transformer block assembly: mixer (attn / MLA) + MLP (glu / plain /
-moe), pre-norm residual wiring, per-kind caches.
+"""Transformer block assembly: mixer (attn / MLA / mamba / hymba) + MLP
+(glu / plain / moe / none), pre-norm residual wiring, per-kind caches.
 
 `block_apply` is mode-polymorphic, as in the reference:
   * mode="train"   — full-sequence forward, no cache.
   * mode="prefill" — full-sequence forward, fills the dense decode cache
-    (K/V, or MLA's latents).
+    (K/V or a windowed layer's ring, MLA's latents, an SSM layer's conv
+    caches and state).
   * mode="decode"  — single token [B, D] against the dense cache, or
     against the page pools when the cache holds ``kv_pool`` (the one-shot
-    engine's decode step; ``page_table`` routes its reads and writes; an
-    MLA layer's latents stay dense per slot beside them).
+    engine's decode step; ``page_table`` routes its reads and writes;
+    per-slot state — MLA's latents, SSM states, hymba's windowed rings —
+    stays dense per slot beside them).
   * mode="chunk"   — token-budget block [B, C, D] against the paged pools
     (serving's unified prefill/decode step). Only pure paged-attention
-    blocks take it: MLA's latents are per-slot sequential state, served
-    on the one-shot path.
-The Mamba and Hymba mixers are not ported.
+    blocks take it: per-slot state is sequential, served on the one-shot
+    path.
+
+Hymba (arXiv:2411.13676) blocks run attention and the Mamba-2 SSD branch
+in parallel on the same normed input, each branch's output normed again,
+then averaged.
 """
 from __future__ import annotations
 
@@ -25,15 +30,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import activation, linear, norm
-
-
-def _mixer(kind: LayerKind) -> str:
-    if kind.mixer not in ("attn", "mla"):
-        raise NotImplementedError(
-            f"block kind {kind.tag!r} is not ported yet (the {kind.mixer} "
-            f"mixer)")
-    return kind.mixer
 
 
 def mlp_init(gen, cfg, dtype=torch.float32, device=None):
@@ -49,10 +47,18 @@ def mlp_init(gen, cfg, dtype=torch.float32, device=None):
 def block_init(gen, cfg, kind: LayerKind, dtype=torch.float32, device=None):
     kw = dict(norm_type=cfg.norm_type, dtype=dtype, plus_one=cfg.rms_plus_one,
               device=device)
-    mixer = (attn_mod.attn_init if _mixer(kind) == "attn"
-             else mla_mod.mla_init)
-    p = {"pre_norm": layers.norm_init(cfg.d_model, **kw),
-         "attn": mixer(gen, cfg, dtype, device=device)}
+    p = {"pre_norm": layers.norm_init(cfg.d_model, **kw)}
+    if kind.mixer in ("attn", "hymba"):
+        p["attn"] = attn_mod.attn_init(gen, cfg, dtype, device=device)
+    elif kind.mixer == "mla":
+        p["attn"] = mla_mod.mla_init(gen, cfg, dtype, device=device)
+    elif kind.mixer != "mamba":
+        raise ValueError(f"unknown mixer {kind.mixer!r}")
+    if kind.mixer in ("mamba", "hymba"):
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, dtype, device=device)
+    if kind.mixer == "hymba":
+        p["attn_out_norm"] = layers.norm_init(cfg.d_model, **kw)
+        p["ssm_out_norm"] = layers.norm_init(cfg.d_model, **kw)
     if kind.mlp != "none":
         p["mlp_norm"] = layers.norm_init(cfg.d_model, **kw)
         if kind.mlp == "moe":
@@ -64,11 +70,16 @@ def block_init(gen, cfg, kind: LayerKind, dtype=torch.float32, device=None):
 
 def init_block_cache(cfg, kind: LayerKind, batch: int, max_seq: int,
                      dtype=torch.bfloat16, device=None):
-    if _mixer(kind) == "mla":
-        return {"mla": mla_mod.init_mla_cache(cfg, batch, max_seq, dtype,
-                                              device=device)}
-    return {"kv": attn_mod.init_kv_cache(cfg, batch, max_seq, kind.window,
-                                         dtype, device=device)}
+    c = {}
+    if kind.mixer in ("attn", "hymba"):
+        c["kv"] = attn_mod.init_kv_cache(cfg, batch, max_seq, kind.window,
+                                         dtype, device=device)
+    if kind.mixer == "mla":
+        c["mla"] = mla_mod.init_mla_cache(cfg, batch, max_seq, dtype,
+                                          device=device)
+    if kind.mixer in ("mamba", "hymba"):
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, device=device)
+    return c
 
 
 def init_block_cache_paged(cfg, kind: LayerKind, num_pages: int,
@@ -76,18 +87,32 @@ def init_block_cache_paged(cfg, kind: LayerKind, num_pages: int,
                            kv_quant: str | None = None, device=None, *,
                            num_slots: int | None = None,
                            slot_seq: int | None = None):
-    """Per-layer serving cache: one shared page pool (``kv_pool``) for an
-    attention layer; an MLA layer's latents stay dense, ``[num_slots,
-    slot_seq, ...]`` in ``dtype`` (both required for such a layer, which
-    the others ignore)."""
-    if _mixer(kind) == "mla":
-        if num_slots is None or slot_seq is None:
-            raise ValueError("an MLA layer's serving cache is dense per "
-                             "slot: pass num_slots and slot_seq")
-        return {"mla": mla_mod.init_mla_cache(
-            cfg, num_slots, slot_seq, dtype, device=device)}
-    return {"kv_pool": attn_mod.init_paged_kv_cache(
-        cfg, num_pages, page_size, dtype, kv_quant=kv_quant, device=device)}
+    """Per-layer serving cache. Full attention (an attention layer, global
+    or windowed; a hymba global layer) shares one page pool
+    (``kv_pool``, in ``kv_quant``'s storage). Bounded per-slot state stays
+    dense with the slot as its batch dim: an MLA layer's latents
+    ``[num_slots, slot_seq, ...]`` in ``dtype``, a windowed hymba layer's
+    ring ``kv`` of ``min(window, slot_seq)`` positions (in the config's
+    own KV regime), an SSM layer's conv caches and state (f32). A layer
+    with per-slot state needs ``num_slots`` and ``slot_seq`` (it raises
+    without them); the others ignore them."""
+    if kind.mixer != "attn" and (num_slots is None or slot_seq is None):
+        raise ValueError(f"a {kind.tag!r} layer's serving cache keeps "
+                         f"per-slot state: pass num_slots and slot_seq")
+    c = {}
+    if kind.mixer == "attn" or (kind.mixer == "hymba" and not kind.window):
+        c["kv_pool"] = attn_mod.init_paged_kv_cache(
+            cfg, num_pages, page_size, dtype, kv_quant=kv_quant,
+            device=device)
+    if kind.mixer == "hymba" and kind.window:
+        c["kv"] = attn_mod.init_kv_cache(cfg, num_slots, slot_seq,
+                                         kind.window, dtype, device=device)
+    if kind.mixer == "mla":
+        c["mla"] = mla_mod.init_mla_cache(cfg, num_slots, slot_seq, dtype,
+                                          device=device)
+    if kind.mixer in ("mamba", "hymba"):
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, num_slots, device=device)
+    return c
 
 
 def _fused_gateup(mp, cfg) -> bool:
@@ -110,31 +135,53 @@ def _mlp_apply(p, x, cfg, kind: LayerKind, name=None):
     return linear(mp["down"], h, nm("down"))
 
 
+def _hymba_merge(p, ya, ys, cfg):
+    """Hymba's fusion: each branch normed on its own, then averaged."""
+    return (norm(p["attn_out_norm"], ya, cfg)
+            + norm(p["ssm_out_norm"], ys, cfg)) * 0.5
+
+
 def _mixer_train(p, h, cfg, kind: LayerKind, positions, name):
-    sub = (lambda s: name(f"attn/{s}")) if name else None
+    def sub(prefix):
+        return (lambda s: name(f"{prefix}/{s}")) if name else None
+
     if kind.mixer == "mla":
         return mla_mod.mla_attention(p["attn"], h, cfg, positions=positions,
-                                     name=sub)
-    return attn_mod.attention(p["attn"], h, cfg, positions=positions,
-                              window=kind.window, causal=not cfg.is_encoder,
-                              name=sub)
+                                     name=sub("attn"))
+    if kind.mixer == "mamba":
+        return ssm_mod.ssm_mixer(p["ssm"], h, cfg, name=sub("ssm"))
+    ya = attn_mod.attention(p["attn"], h, cfg, positions=positions,
+                            window=kind.window, causal=not cfg.is_encoder,
+                            name=sub("attn"))
+    if kind.mixer == "attn":
+        return ya
+    ys = ssm_mod.ssm_mixer(p["ssm"], h, cfg, name=sub("ssm"))
+    return _hymba_merge(p, ya, ys, cfg)
 
 
 def _prefill_cache(p, h, cfg, kind: LayerKind, positions, cache):
-    """Recompute the prefilled tokens' K/V (or latents) into the cache."""
+    """Recompute the prefilled tokens' K/V (or latents) and, for an SSM
+    branch, its conv inputs and final state into the cache (in place;
+    its linears run unnamed, outside the calibration capture)."""
+    cache = dict(cache)
     if kind.mixer == "mla":
         c, k_pe = mla_mod._project_latent(p["attn"], h, cfg, positions, None)
-        return {"mla": mla_mod.fill_mla_cache_from_prefill(cache["mla"], c,
-                                                           k_pe)}
-    _, k, v = attn_mod._project_qkv(p["attn"], h, cfg, positions, kind.window)
-    return {"kv": attn_mod.fill_cache_from_prefill(cache["kv"], k, v,
-                                                   positions, kind.window)}
+        cache["mla"] = mla_mod.fill_mla_cache_from_prefill(cache["mla"], c,
+                                                           k_pe)
+    if kind.mixer in ("attn", "hymba"):
+        _, k, v = attn_mod._project_qkv(p["attn"], h, cfg, positions,
+                                        kind.window)
+        cache["kv"] = attn_mod.fill_cache_from_prefill(
+            cache["kv"], k, v, positions, kind.window)
+    if kind.mixer in ("mamba", "hymba"):
+        cache["ssm"] = ssm_mod.fill_ssm_cache_from_prefill(
+            cache["ssm"], p["ssm"], h, cfg)
+    return cache
 
 
-def _mixer_decode(p, cache, h, cfg, kind: LayerKind, pos, page_table):
-    if kind.mixer == "mla":
-        y, mc = mla_mod.mla_decode(p["attn"], cache["mla"], h, cfg, pos=pos)
-        return y, {"mla": mc}
+def _attn_decode(p, cache, h, cfg, kind: LayerKind, pos, page_table):
+    """Full-attention decode over the page pools (``kv_pool``) or the
+    dense cache / ring (``kv``) -> (y, {that key: its cache})."""
     if "kv_pool" in cache:
         y, pool = attn_mod.attention_decode_paged(
             p["attn"], cache["kv_pool"], page_table, h, cfg, pos=pos,
@@ -143,6 +190,20 @@ def _mixer_decode(p, cache, h, cfg, kind: LayerKind, pos, page_table):
     y, kv = attn_mod.attention_decode(p["attn"], cache["kv"], h, cfg, pos=pos,
                                       window=kind.window)
     return y, {"kv": kv}
+
+
+def _mixer_decode(p, cache, h, cfg, kind: LayerKind, pos, page_table):
+    if kind.mixer == "mla":
+        y, mc = mla_mod.mla_decode(p["attn"], cache["mla"], h, cfg, pos=pos)
+        return y, {"mla": mc}
+    if kind.mixer == "mamba":
+        y, sc = ssm_mod.ssm_decode(p["ssm"], cache["ssm"], h, cfg)
+        return y, {"ssm": sc}
+    ya, out = _attn_decode(p, cache, h, cfg, kind, pos, page_table)
+    if kind.mixer == "attn":
+        return ya, out
+    ys, out["ssm"] = ssm_mod.ssm_decode(p["ssm"], cache["ssm"], h, cfg)
+    return _hymba_merge(p, ya, ys, cfg), out
 
 
 def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,

@@ -131,10 +131,13 @@ class Model:
                          device=None, *, num_slots: int | None = None,
                          slot_seq: int | None = None) -> Any:
         """Page pools for the serving engine; ``kv_quant`` ("none" |
-        "int8" | None = follow ``cfg.kv_quant``) picks their storage. MLA
-        layers keep their latents dense per slot instead, ``[num_slots,
-        slot_seq, ...]`` in ``dtype``: a model with MLA layers needs
-        both (it raises without them)."""
+        "int8" | None = follow ``cfg.kv_quant``) picks their storage.
+        Per-slot state stays dense beside them (`blocks.
+        init_block_cache_paged`): MLA latents ``[num_slots, slot_seq,
+        ...]`` in ``dtype``, SSM conv caches and states, a windowed hymba
+        layer's ring; a model with such layers needs both ``num_slots``
+        and ``slot_seq`` (it raises without them). mamba2's cache has no
+        page pool at all."""
         return stack.stack_init_paged_cache(self.cfg, num_pages, page_size,
                                             dtype, kv_quant,
                                             resolve_device(device),

@@ -1,0 +1,238 @@
+"""Mamba-2 (SSD, state-space duality) mixer: chunked train/prefill and
+O(1) recurrent decode.
+
+The minimal SSD form of arXiv:2405.21060, as the reference writes it:
+scalar decay per head (A = -exp(a_log)), per-head dt through softplus,
+grouped B/C (``ssm_ngroups``), a short depthwise causal conv on x / B / C,
+a gated RMSNorm on the output. Projections (wz / wx / wb / wc / wdt,
+out_proj) are separate linears, so the AWQ pipeline sees one matrix per
+role and a quantized model runs them through `layers.linear` (K1 on the
+card).
+
+Chunked algorithm (chunk length Q = ``min(ssm_chunk, S)``, one chunk of
+S when S is not a multiple of it): within a chunk the token mixing is
+the quadratic, decay-masked form; across chunks a loop carries the
+``[nh, hd, ds]`` state. Decode is the recurrence h <- h·exp(dA) + dt·B⊗x:
+attention-free, constant state. As in the reference, all of it is
+tensor code (the reference has no kernel for the SSD). The contractions
+run through `numerics`: f64 on the CPU rounded once to f32, f32 on the
+card; decode's state read ``h·C`` is f64 on every device, rounded once,
+so a slot's row does not depend on how many slots the step holds.
+Caches update in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models.layers import linear
+from repro_torch.numerics import einsum_f32, einsum_f64
+
+
+def ssm_init(gen, cfg, dtype=torch.float32, device=None):
+    """The reference's distributions: N(0, 1/K) projections, conv kernels
+    N(0, 1/dc²) with zero bias, ``a_log = log(linspace(1, 16, nh))``,
+    zero ``dt_bias`` and unit ``ssm_d`` (those three in f32)."""
+    d = cfg.d_model
+    di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    gdim = cfg.ssm_ngroups * ds
+    dc = cfg.ssm_conv
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def conv(c):
+        k = torch.randn((dc, c), generator=gen, device=device) / dc
+        return {"k": k.to(dtype), "b": torch.zeros((c,), **kw)}
+
+    return {
+        "wz": layers.linear_init(gen, d, di, **kw),
+        "wx": layers.linear_init(gen, d, di, **kw),
+        "wb": layers.linear_init(gen, d, gdim, **kw),
+        "wc": layers.linear_init(gen, d, gdim, **kw),
+        "wdt": layers.linear_init(gen, d, nh, **kw),
+        "conv_x": conv(di),
+        "conv_b": conv(gdim),
+        "conv_c": conv(gdim),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "ssm_d": torch.ones((nh,), **f32),
+        "out_norm": layers.norm_init(di, **kw),
+        "out_proj": layers.linear_init(gen, di, d, **kw),
+    }
+
+
+def _causal_conv(u: torch.Tensor, kern: dict) -> torch.Tensor:
+    """Depthwise causal conv1d + silu. u [B, S, C], kernel [dc, C]; the
+    result takes the promoted type of u and the kernel."""
+    dc, s = kern["k"].shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, dc - 1, 0))
+    out = sum(pad[:, i:i + s] * kern["k"][i] for i in range(dc))
+    return F.silu(out + kern["b"])
+
+
+def _conv_step(u1: torch.Tensor, conv_cache: torch.Tensor, kern: dict):
+    """One-token causal conv. u1 [B, C]; cache [B, dc-1, C] (past
+    pre-conv inputs, f32). Returns (silu output [B, C], the window's
+    last dc-1 inputs). The taps are summed one after another, so a row's
+    bits do not depend on the batch."""
+    window = torch.cat([conv_cache, u1[:, None].to(conv_cache.dtype)], dim=1)
+    out = sum(window[:, i] * kern["k"][i] for i in range(window.shape[1]))
+    return F.silu(out + kern["b"]), window[:, 1:]
+
+
+def _project(p, x_in, nm, keys=("wz", "wx", "wb", "wc")):
+    """The mixer's front linears on x_in [..., D] (z, and the pre-conv x /
+    B / C inputs, as ``keys`` lists them), then dt [..., nh] f32."""
+    outs = [linear(p[k], x_in, nm(k)) for k in keys]
+    dt = F.softplus(linear(p["wdt"], x_in, nm("wdt")).to(torch.float32)
+                    + p["dt_bias"])
+    return (*outs, dt)
+
+
+def _heads(x: torch.Tensor, n: int, w: int, rep: int = 1) -> torch.Tensor:
+    """[..., n·w] -> f32 [..., n·rep, w] (each of the n groups repeated
+    over rep heads)."""
+    h = x.reshape(*x.shape[:-1], n, w).to(torch.float32)
+    return h.repeat_interleave(rep, dim=-2) if rep > 1 else h
+
+
+def ssd_chunked(xh, bh, ch, dt, a_log, chunk: int) -> torch.Tensor:
+    """The chunked SSD scan without the D skip. xh [B, S, nh, hd]; bh / ch
+    [B, S, nh, ds]; dt [B, S, nh] (all f32) -> y [B, S, nh, hd] f32.
+
+    Q = ``min(chunk, S)``, a single chunk when S is not a multiple of it.
+    The exponent of the intra-chunk decay is masked before ``exp`` (as
+    in the reference: exp of an anti-causal entry would overflow). The
+    ``[B, nc, Q, Q, nh]`` decay and score tensors are formed one at a
+    time, in place (at Q 1,400 and 50 heads each is 392 MB)."""
+    b, s, nh, hd = xh.shape
+    da = dt * -torch.exp(a_log)
+    q = min(chunk, s)
+    if s % q:
+        q = s                                     # fallback: single chunk
+    nc = s // q
+    xc, bc, cc, dac, dtc = (t.reshape(b, nc, q, *t.shape[2:])
+                            for t in (xh, bh, ch, da, dt))
+    seg = torch.cumsum(dac, dim=2)                          # [B, nc, Q, nh]
+
+    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    decay = seg[:, :, :, None, :] - seg[:, :, None, :, :]   # [B,nc,Qi,Qj,nh]
+    decay.masked_fill_(~causal[:, :, None], -1e30).exp_()
+    scores = einsum_f32("bnihs,bnjhs->bnijh", cc, bc)
+    scores.mul_(decay)
+    del decay
+    scores.mul_(dtc[:, :, None])
+    y = einsum_f32("bnijh,bnjhd->bnihd", scores, xc)
+    del scores
+
+    # chunk states, then the inter-chunk recurrence over them
+    decay_to_end = torch.exp(seg[:, :, -1:] - seg)          # [B, nc, Q, nh]
+    state_c = einsum_f32("bnjhs,bnjhd->bnhds",
+                         bc * (dtc * decay_to_end)[..., None], xc)
+    chunk_decay = torch.exp(seg[:, :, -1])                  # [B, nc, nh]
+    h = torch.zeros_like(state_c[:, 0])
+    h_prev = []
+    for n in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + state_c[:, n]
+    y_inter = einsum_f32("bnihs,bnhds->bnihd", cc * torch.exp(seg)[..., None],
+                         torch.stack(h_prev, dim=1))
+    return (y + y_inter).reshape(b, s, nh, hd)
+
+
+def _out(p, y, xh, z, x_dtype, cfg):
+    """D skip, then the gated RMSNorm: y / xh [..., nh, hd] f32 ->
+    [..., di] in x's type."""
+    y = y + xh * p["ssm_d"][:, None]
+    y = y.reshape(*y.shape[:-2], cfg.d_inner).to(x_dtype)
+    return layers.rmsnorm(p["out_norm"], y * F.silu(z), eps=cfg.norm_eps)
+
+
+def ssm_mixer(p, x_in: torch.Tensor, cfg, name=None) -> torch.Tensor:
+    """Train/prefill SSD. x_in [B, S, D] -> [B, S, D]. ``name`` (local ->
+    capture name, or None) labels the six projections for calibration
+    (``wz`` … ``out_proj``)."""
+    nm = (lambda s: None) if name is None else name
+    ds, nh, hd = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ng = cfg.ssm_ngroups
+    z, ux, ub, uc, dt = _project(p, x_in, nm)
+    xh = _heads(_causal_conv(ux, p["conv_x"]), nh, hd)
+    bh = _heads(_causal_conv(ub, p["conv_b"]), ng, ds, nh // ng)
+    ch = _heads(_causal_conv(uc, p["conv_c"]), ng, ds, nh // ng)
+    y = ssd_chunked(xh, bh, ch, dt, p["a_log"], cfg.ssm_chunk)
+    y = _out(p, y, xh, z, x_in.dtype, cfg)
+    return linear(p["out_proj"], y, nm("out_proj"))
+
+
+def final_state(p, ux, ub, dt, cfg) -> torch.Tensor:
+    """The state after a prefill, from its pre-conv x / B inputs ``ux`` /
+    ``ub`` [B, S, *] and dt [B, S, nh]: one decay-to-end over the whole
+    sequence, as the reference's prefill computes it -> [B, nh, hd, ds]
+    f32."""
+    ds, nh, hd = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ng = cfg.ssm_ngroups
+    xh = _heads(_causal_conv(ux, p["conv_x"]), nh, hd)
+    bh = _heads(_causal_conv(ub, p["conv_b"]), ng, ds, nh // ng)
+    seg = torch.cumsum(dt * -torch.exp(p["a_log"]), dim=1)     # [B, S, nh]
+    decay_to_end = torch.exp(seg[:, -1:] - seg)
+    return einsum_f32("bjhs,bjhd->bhds", bh * (dt * decay_to_end)[..., None],
+                      xh)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_ssm_cache(cfg, batch: int, device=None):
+    """Conv caches (the last dc-1 pre-conv inputs) and the state, all f32
+    whatever the cache dtype of the attention beside it."""
+    di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    gdim = cfg.ssm_ngroups * ds
+    dc = cfg.ssm_conv
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"conv_x": torch.zeros((batch, dc - 1, di), **f32),
+            "conv_b": torch.zeros((batch, dc - 1, gdim), **f32),
+            "conv_c": torch.zeros((batch, dc - 1, gdim), **f32),
+            "state": torch.zeros((batch, nh, cfg.ssm_headdim, ds), **f32)}
+
+
+def fill_ssm_cache_from_prefill(cache, p, h, cfg):
+    """A prefill's conv caches and final state into ``cache``, in place,
+    from the block's normed input h [B, S, D] (its linears unnamed): the
+    conv caches take the last dc-1 pre-conv inputs (a prompt shorter than
+    that keeps the zeros, as the reference does)."""
+    dc = cfg.ssm_conv
+    ux, ub, uc, dt = _project(p, h, lambda s: None, ("wx", "wb", "wc"))
+    if h.shape[1] >= dc - 1:
+        for key, u in (("conv_x", ux), ("conv_b", ub), ("conv_c", uc)):
+            cache[key].copy_(u[:, h.shape[1] - (dc - 1):])
+    cache["state"].copy_(final_state(p, ux, ub, dt, cfg))
+    return cache
+
+
+def ssm_decode(p, cache, x_in: torch.Tensor, cfg, name=None):
+    """One-token recurrence. x_in [B, D] -> (y [B, D], cache updated in
+    place). Every operation is elementwise or per row but the state read,
+    ``h·C`` over ds, which runs in f64 (rounded once): a row's bits do not
+    depend on the batch, on the card too."""
+    nm = (lambda s: None) if name is None else name
+    ds, nh, hd = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ng = cfg.ssm_ngroups
+    z, ux, ub, uc, dt = _project(p, x_in, nm)
+    x, cx = _conv_step(ux, cache["conv_x"], p["conv_x"])
+    bb, cb = _conv_step(ub, cache["conv_b"], p["conv_b"])
+    cc, ccs = _conv_step(uc, cache["conv_c"], p["conv_c"])
+    xh = _heads(x, nh, hd)                                   # [B, nh, hd]
+    bh = _heads(bb, ng, ds, nh // ng)                        # [B, nh, ds]
+    ch = _heads(cc, ng, ds, nh // ng)
+    da = torch.exp(dt * -torch.exp(p["a_log"]))              # [B, nh]
+    h = (cache["state"] * da[:, :, None, None]
+         + (dt[:, :, None, None] * bh[:, :, None, :]) * xh[..., None])
+    y = einsum_f64("bhds,bhs->bhd", h, ch).to(torch.float32)
+    y = _out(p, y, xh, z, x_in.dtype, cfg)
+    out = linear(p["out_proj"], y, nm("out_proj"))
+    for key, new in (("conv_x", cx), ("conv_b", cb), ("conv_c", ccs),
+                     ("state", h)):
+        cache[key].copy_(new)
+    return out, cache

@@ -3,13 +3,15 @@
 The reference package's `roofline/costmodel.py` cut to the serving
 cells of the registered architectures (the port imports nothing of it):
 `cell_costs` counts the FLOPs and bytes of one prefill or decode step
-from the architecture alone (full-attention or MLA mixers, GLU or MoE
-MLPs: a MoE layer streams every routed expert's weights once a step and
-computes on the top-k share of its tokens; an MLA layer's cache line is
-its latent, kv_lora + rope values a token), and `disagg_report` turns
-them into the prefill/decode split that `serving.disagg`'s
-``handoff_min_tokens="auto"`` reads. Training cells, sliding-window and
-SSM layers, `analytic_terms`, the `SHAPES` registry and the HLO analysis
+from the architecture alone (full-attention, sliding-window, MLA, Mamba-2
+SSD or hymba's attention ∥ SSD mixers; GLU, MoE or no MLP: a MoE layer
+streams every routed expert's weights once a step and computes on the
+top-k share of its tokens; an MLA layer's cache line is its latent,
+kv_lora + rope values a token; a windowed layer reads ``min(window, S)``
+positions; an SSM layer reads and writes its f32 state once a decode
+step), and `disagg_report` turns them into the prefill/decode split that
+`serving.disagg`'s ``handoff_min_tokens="auto"`` reads. Training cells,
+plain MLPs, `analytic_terms`, the `SHAPES` registry and the HLO analysis
 are not ported.
 
 Conventions:
@@ -45,7 +47,7 @@ def _linear_dims(cfg: ModelConfig, kind) -> list[tuple[int, int]]:
     experts, shared experts and router come from `_moe_dims`)."""
     d = cfg.d_model
     dims: list[tuple[int, int]] = []
-    if kind.mixer == "attn":
+    if kind.mixer in ("attn", "hymba"):
         dims += [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
                  (cfg.q_dim, d)]
     if kind.mixer == "mla":
@@ -54,6 +56,10 @@ def _linear_dims(cfg: ModelConfig, kind) -> list[tuple[int, int]]:
                  (d, cfg.kv_lora_rank + rope),
                  (cfg.kv_lora_rank, cfg.num_heads * (nope + cfg.v_head_dim)),
                  (cfg.num_heads * cfg.v_head_dim, d)]
+    if kind.mixer in ("mamba", "hymba"):
+        di, gd = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+        dims += [(d, di), (d, di), (d, gd), (d, gd), (d, cfg.ssm_nheads),
+                 (di, d)]
     if kind.mlp == "glu":
         dims += [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
     return dims
@@ -90,10 +96,10 @@ class CellCosts:
 
 def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
     """Global per-step costs for one (arch × shape) serving cell: a
-    prefill or decode step of a decoder whose layers are full-attention
-    or MLA mixers with GLU or MoE MLPs (the registered architectures but
-    gemma3's windowed layers). Other layer kinds and training steps raise
-    `NotImplementedError`."""
+    prefill or decode step of a decoder whose layers are attention
+    (global or windowed), MLA, SSD or hymba mixers with GLU, MoE or no
+    MLPs (every registered architecture). Other layer kinds (a plain
+    MLP) and training steps raise `NotImplementedError`."""
     if cell.step not in ("prefill", "decode") or cfg.is_encoder:
         raise NotImplementedError(f"{cell.step!r} cells of {cfg.name} are "
                                   f"not ported")
@@ -109,8 +115,7 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
         c.act_bytes += tok * (k + n) * ACT
 
     for kind in cfg.layer_kinds():
-        if (kind.mixer not in ("attn", "mla") or kind.window
-                or kind.mlp not in ("glu", "moe")):
+        if kind.mlp not in ("glu", "moe", "none"):
             raise NotImplementedError(f"layer kind {kind} is not ported")
         if kind.mlp == "moe":
             routed, shared = _moe_dims(cfg)
@@ -124,30 +129,19 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
         for k, n in _linear_dims(cfg, kind):
             add_linear(k, n, toks)
 
-        if kind.mixer == "mla":
-            qk_dim = cfg.num_heads * (cfg.qk_nope_head_dim
-                                      + cfg.qk_rope_head_dim)
-            v_dim = cfg.num_heads * cfg.v_head_dim
-            kv_line = cfg.kv_lora_rank + cfg.qk_rope_head_dim   # latent
-        else:
-            qk_dim = v_dim = cfg.q_dim
-            kv_line = 2 * cfg.kv_dim
-        # int8 KV cache: 1 B/elem + f32 scale per (pos, head); MLA's
-        # latents stay in the activations' type
-        kv_byte = ((1.0 + F32 / cfg.head_dim)
-                   if (cfg.kv_quant == "int8" and kind.mixer != "mla")
-                   else ACT)
-        if decode:
-            # read the whole cache line per step + scores
-            c.cache_bytes += b * s * kv_line * kv_byte + b * kv_line * kv_byte
-            c.flops += 2.0 * b * s * (qk_dim + v_dim)
-            c.act_bytes += b * cfg.num_heads * s * F32  # probs
-        else:
-            # causal S×S scores in f32 (written+read by softmax)
-            pairs = s * s / 2
-            c.flops += 2.0 * b * pairs * (qk_dim + v_dim)
-            c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32
-            c.cache_bytes += b * s * kv_line * ACT  # cache write
+        if kind.mixer in ("attn", "hymba", "mla"):
+            _attention_costs(c, cfg, kind, b, s, decode)
+        if kind.mixer in ("mamba", "hymba"):
+            nh, hd, ds = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+            if decode:
+                c.cache_bytes += 2.0 * b * nh * hd * ds * F32  # state rw
+                c.flops += 2.0 * 3 * b * nh * hd * ds
+            else:
+                q = min(cfg.ssm_chunk, s)
+                # intra-chunk quadratic + state build/apply
+                c.flops += (2.0 * b * s * q * nh * (ds + hd) / 2
+                            + 4.0 * b * s * nh * hd * ds)
+                c.act_bytes += b * s * nh * (hd + 2 * ds) * F32
 
     # --- embeddings / head ---
     v, d = cfg.vocab_size, cfg.d_model
@@ -155,6 +149,37 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
     c.flops += 2.0 * v * d * b
     c.act_bytes += b * v * F32  # logits
     return c
+
+
+def _attention_costs(c: CellCosts, cfg: ModelConfig, kind, b: int, s: int,
+                     decode: bool) -> None:
+    """One attention (or MLA) layer's score and cache traffic; a windowed
+    layer sees ``ctx = min(window, S)`` positions."""
+    if kind.mixer == "mla":
+        qk_dim = cfg.num_heads * (cfg.qk_nope_head_dim
+                                  + cfg.qk_rope_head_dim)
+        v_dim = cfg.num_heads * cfg.v_head_dim
+        kv_line = cfg.kv_lora_rank + cfg.qk_rope_head_dim   # latent
+    else:
+        qk_dim = v_dim = cfg.q_dim
+        kv_line = 2 * cfg.kv_dim
+    ctx = min(kind.window, s) if kind.window else s
+    # int8 KV cache: 1 B/elem + f32 scale per (pos, head); MLA's latents
+    # stay in the activations' type
+    kv_byte = ((1.0 + F32 / cfg.head_dim)
+               if (cfg.kv_quant == "int8" and kind.mixer != "mla")
+               else ACT)
+    if decode:
+        # read the whole cache line per step + scores
+        c.cache_bytes += b * ctx * kv_line * kv_byte + b * kv_line * kv_byte
+        c.flops += 2.0 * b * ctx * (qk_dim + v_dim)
+        c.act_bytes += b * cfg.num_heads * ctx * F32  # probs
+    else:
+        # causal S×ctx scores in f32 (written+read by softmax)
+        pairs = min((s * ctx) if kind.window else (s * ctx / 2), s * s / 2)
+        c.flops += 2.0 * b * pairs * (qk_dim + v_dim)
+        c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32
+        c.cache_bytes += b * ctx * kv_line * ACT  # cache write
 
 
 # ---------------------------------------------------------------------------

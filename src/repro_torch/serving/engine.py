@@ -15,8 +15,9 @@
     prefill chunks and decode tokens of mixed requests
     (`Model.chunk_step`). ``chunked_prefill=False`` selects the one-shot
     path, which is also the default for a model whose cache holds
-    per-slot state (MLA's latents: `_cache_chunkable`); each admission
-    runs a dense `Model.prefill` of the whole prompt
+    per-slot state (MLA's latents, SSM states, hymba's windowed rings:
+    `_cache_chunkable`; mamba2's cache has no page pool at all); each
+    admission runs a dense `Model.prefill` of the whole prompt
     (kernel K4 on the card), commits its KV into the pages
     (`kv_pager.commit_prefill`) and samples the first token; every step
     then decodes one token for all slots (`Model.decode_step` over the

@@ -136,10 +136,12 @@ Preemption spill/restore (`spill` / `restore`):
 
 Device-side commit (the one-shot prefill path): `commit_prefill` writes
 one request's dense prefill cache into the page pools, quantizing on
-commit for int8 pools with the chunk step's codec. Only ``kv_pool``
-entries are ported (a windowed attention layer has one too: the paged
-read masks what slid out of the window); hymba's per-slot ring (``kv``),
-MLA and SSM entries raise.
+commit for int8 pools with the chunk step's codec (a windowed attention
+layer has a pool too: the paged read masks what slid out of the window).
+Per-slot state is written whole at the slot's row: MLA's latents
+(``mla``), a windowed hymba layer's dense ring (``kv``, zero-padded past a
+prompt shorter than the window) and an SSM layer's conv caches and state
+(``ssm``), so nothing of the slot's previous occupant survives.
 """
 from __future__ import annotations
 
@@ -972,8 +974,13 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
     list or an int tensor); the first ``start_page`` of them are aliased
     prefix pages and are not rewritten. The pools update in place; the
     cache is returned, as the reference returns its new one. ``slot``
-    addresses per-slot state: an MLA layer's dense latents (``mla``), whose
-    row ``slot`` takes the prompt's latents at positions 0..S-1.
+    addresses per-slot state, written in place as the reference writes it:
+    an MLA layer's dense latents (``mla``), whose row ``slot`` takes the
+    prompt's latents at positions 0..S-1; a windowed hymba layer's ring
+    (``kv``), whose whole row takes the prefill's ring, zero-padded past
+    a prompt shorter than the ring (`_commit_ring_leaf`); an SSM layer's
+    conv caches and state (``ssm``), every leaf at ``slot``. Any other
+    entry raises.
 
     A windowed layer's prefill cache is a ring of ``min(window, S)``
     slots (`attention.init_kv_cache`), and it is committed as the
@@ -993,10 +1000,16 @@ def commit_prefill(cache, prefill_cache, slot, phys_pages, *,
                     for k, leaf in leaves.items():
                         _commit_dense_leaf(leaf, pre_entry["mla"][k], slot)
                     continue
+                if kind_key == "kv":      # sliding-window ring, per slot
+                    for k, leaf in leaves.items():
+                        _commit_ring_leaf(leaf, pre_entry["kv"][k], slot)
+                    continue
+                if kind_key == "ssm":     # per-slot recurrent state
+                    for k, leaf in leaves.items():
+                        leaf[slot] = pre_entry["ssm"][k][0].to(leaf.dtype)
+                    continue
                 if kind_key != "kv_pool":
-                    raise NotImplementedError(
-                        f"committing a {kind_key!r} cache entry is not "
-                        f"ported to repro_torch yet")
+                    raise ValueError(f"unknown cache entry {kind_key!r}")
                 pre_kv = _adapt_kv_quant(pre_entry["kv"], leaves)
                 if pages is None:
                     pages = torch.as_tensor(phys_pages, dtype=torch.long,
@@ -1013,3 +1026,14 @@ def _commit_dense_leaf(slot_cache: torch.Tensor, pre: torch.Tensor,
     S_max, ...]``, in place (MLA latents; a draft model's dense cache)."""
     s = pre.shape[1]
     slot_cache[slot, :s] = pre[0].to(slot_cache.dtype)
+
+
+def _commit_ring_leaf(slot_cache: torch.Tensor, pre: torch.Tensor,
+                      slot: int) -> None:
+    """pre [1, S <= W, ...] (a prefill's ring) -> the whole row ``slot`` of
+    ``slot_cache [num_slots, W, ...]``, in place. For S < W the prefill's
+    ring holds position p at ring slot p; the rest of the row is zeroed,
+    so the slot's previous occupant leaves nothing behind."""
+    s = pre.shape[1]
+    slot_cache[slot, :s] = pre[0].to(slot_cache.dtype)
+    slot_cache[slot, s:] = 0

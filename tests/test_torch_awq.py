@@ -32,6 +32,18 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.core.packing import PackedLinear
 from repro_torch.core.quantize import QuantConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 EPS_TIE = 1e-5
 CAND = dict(rtol=2e-6, atol=0)
 

@@ -28,6 +28,17 @@ from repro_torch.kernels import awq_matmul as k1
 from repro_torch.numerics import matmul_f32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _packed(k, n, gs, seed):
     w = jax.random.normal(jax.random.PRNGKey(seed), (k, n)) * 0.1
     cfg = JQuantConfig(group_size=gs)

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import deepseek_v2_lite, qwen2_moe_a27b, qwen25_05b
+from repro_torch.configs import (deepseek_v2_lite, hymba_15b, mamba2_130m,
+                                 qwen2_moe_a27b, qwen25_05b)
 from repro_torch.core.packing import pack_linear
 from repro_torch.core.pipeline import quantize_params
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
@@ -44,7 +45,7 @@ from repro_torch.core.quantize import QuantConfig, quantize_groupwise
 from repro_torch.kernels import awq_matmul as k1
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import attention, blocks, layers, mla, moe
 from repro_torch.models.model import Model
 from repro_torch.serving import disagg, kv_pager
 from repro_torch.serving.engine import GenerationEngine
@@ -1648,3 +1649,168 @@ def test_flash_attention_kernel_mha_hd128(cuda, s):
                                  v.contiguous(), causal=True)
     torch.cuda.synchronize()
     _k4_check(out, ref, torch.bfloat16)
+
+
+# ----------------------------------------- the SSM and hybrid families
+
+# K1 (K, N) of mamba2-130m (wz / wx, wb / wc, wdt, out_proj) and
+# hymba-1.5b (q / o, k / v, the SSM's wz / wx, its wb / wc, its out_proj,
+# the MLP's down): N 16 and 24 fill less than one 64-column block
+K1_SSM = [(768, 1536), (768, 128), (768, 24), (1536, 768),
+          (1600, 1600), (1600, 320), (1600, 3200), (1600, 16),
+          (3200, 1600), (5504, 1600)]
+
+
+@pytest.mark.parametrize("k,n", K1_SSM)
+def test_awq_matmul_kernel_ssm_shapes(cuda, k, n):
+    """K1 at the two models' shapes, M 1, 4, 64 and 1,024, both outputs,
+    against its plain version; the rows of each smaller M equal the same
+    rows of the 1,024-row call (the column guards of the decode and the
+    wide forms)."""
+    w, scale = _k1_linear(cuda, k, n, 64, True)
+    x = torch.randn(1024, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        full, ref = _k1_run(x, w, scale, out_dtype)
+        _k1_check(full, ref)
+        for m in (1, 4, 64):
+            part, ref = _k1_run(x[:m].contiguous(), w, scale, out_dtype)
+            _k1_check(part, ref)
+            assert torch.equal(part, full[:m]), (m, out_dtype)
+
+
+def test_awq_gateup_kernel_hymba_shape(cuda):
+    """K3 at hymba's SiLU front (1600 -> 5504), M 1, 4, 64 and 1,024."""
+    args, scales = _k3_pair(cuda, 1600, 5504, 64, True)
+    x = torch.randn(1024, 1600, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        full = k1.awq_gateup(x, *args, **kw)
+        _k3_check(full, k1.awq_gateup_ref(x, *args, torch.bfloat16, **kw))
+        for m in (1, 4, 64):
+            part = k1.awq_gateup(x[:m].contiguous(), *args, **kw)
+            assert torch.equal(part, full[:m]), m
+
+
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_paged_attention_kernel_hymba_g5(cuda, window, c):
+    """K2 at hymba's grouping, 5 kv heads of 5 query heads (G 5), hd 64,
+    over slots of 96 pages of 16 (contexts up to 1,536), with and without
+    a window."""
+    b, hkv, g, hd, page, nblk = 4, 5, 5, 64, 16, 96
+    npages = b * nblk + 1
+    pools = _k2_pools(cuda, npages, page, hkv, hd)
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([16, 700, 1400, nblk * page - c], dtype=torch.int32,
+                        device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[0, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    before = k2.COUNTER.count
+    out = _k2_run(q, pools, table, pos, window=window)
+    assert k2.COUNTER.count == before + 1
+    assert out[2].abs().sum() > 0
+
+
+# b, h, hkv, s, hd, causal, window: hymba's prefills (25 q over 5 kv
+# heads, G 5): the engine's longest one-shot prompt on a global and a
+# windowed layer, the launcher's batch, the calibration forward
+K4_HYMBA = [(1, 25, 5, 1400, 64, True, 0), (1, 25, 5, 1400, 64, True, 1024),
+            (2, 25, 5, 1100, 64, True, 1024), (2, 25, 5, 64, 64, True, 1024)]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,hd,causal,window", K4_HYMBA)
+def test_flash_attention_kernel_hymba_g5(cuda, b, h, hkv, s, hd, causal,
+                                         window):
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _k4_inputs(cuda, b, h, hkv, s, hd, torch.bfloat16))
+    before = k4.COUNTER.count
+    out = k4.flash_attention(q, k, v, causal=causal, window=window)
+    ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k4.COUNTER.count == before + 1
+    _k4_check(out, ref, torch.bfloat16)
+
+
+def _ssm_block(gen, name: str, packed: bool):
+    """A full-width block of ``name`` (mamba2's, or hymba's first windowed
+    one), bf16 activations, float or RTN int4 (every quantizable linear),
+    and a dense cache of 5 slots holding random state (hymba's ring full,
+    positions past its window)."""
+    cfg = (mamba2_130m if name == "mamba2-130m" else hymba_15b).config()
+    kind = [k for k in cfg.layer_kinds() if k.window or k.mixer == "mamba"][0]
+    p = blocks.block_init(gen, cfg, kind, device="cuda")
+    if packed:
+        p = quantize_params({"block": p})[0]["block"]
+    cache = blocks.init_block_cache(cfg, kind, 5, 2048, torch.bfloat16,
+                                    device="cuda")
+    for entry in cache.values():
+        for key, leaf in entry.items():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda")
+                       * (0.3 if key in ("state", "conv_x") else 1.0))
+    return cfg, kind, p, cache
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["float", "int4"])
+@pytest.mark.parametrize("name", ["mamba2-130m", "hymba-1.5b"])
+def test_ssm_decode_rows_equal_across_slots(cuda, name, packed):
+    """A decode step of a full-width mamba2 or hymba block (SSD recurrence,
+    conv steps, gated norm; hymba's ring attention and branch norms
+    beside it), every quantized linear on K1: each row of a 5-slot step,
+    output and new state, equals bit for bit the same row in a 4-slot
+    step and alone (a one-shot engine's slots against generate()'s
+    B 1)."""
+    cfg, kind, p, cache = _ssm_block(cuda, name, packed)
+    x = torch.randn(5, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([1100, 1500, 1030, 2000, 1200], dtype=torch.int32,
+                       device="cuda")
+
+    def run(rows):
+        c = {e: {k: v[rows].clone() for k, v in leaves.items()}
+             for e, leaves in cache.items()}
+        with execution_config(ExecutionConfig(offload_min_flops=0)):
+            y, c, _ = blocks.block_apply(p, x[rows], cfg, kind, mode="decode",
+                                         positions=pos[rows], cache=c)
+        return y, c
+
+    full, fc = run(slice(None))
+    assert torch.isfinite(full).all()
+    for rows in [slice(0, 4)] + [slice(i, i + 1) for i in range(5)]:
+        y, c = run(rows)
+        assert torch.equal(y, full[rows]), rows
+        for e, leaves in c.items():
+            for k, v in leaves.items():
+                assert torch.equal(v, fc[e][k][rows]), (rows, e, k)
+
+
+def test_hymba_ring_decode_rows_equal_across_slots(cuda):
+    """hymba's windowed attention decode over per-slot rings of 1,024
+    positions (5 kv heads, G 5, hd 64), float weights: each row of a
+    5-slot step equals bit for bit the same row in a 4-slot step and
+    alone, the rings written at ``pos % window``."""
+    cfg = hymba_15b.config()
+    p = attention.attn_init(cuda, cfg, device="cuda")
+    ring = attention.init_kv_cache(cfg, 5, 2048, cfg.sliding_window,
+                                   torch.bfloat16, device="cuda")
+    for leaf in ring.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=cuda, device="cuda"))
+    x = torch.randn(5, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([1100, 1500, 1030, 2000, 700], dtype=torch.int32,
+                       device="cuda")
+
+    def run(rows):
+        c = {k: v[rows].clone() for k, v in ring.items()}
+        return attention.attention_decode(p, c, x[rows], cfg, pos=pos[rows],
+                                          window=cfg.sliding_window)
+
+    full, fc = run(slice(None))
+    for rows in [slice(0, 4)] + [slice(i, i + 1) for i in range(5)]:
+        y, c = run(rows)
+        assert torch.equal(y, full[rows]), rows
+        assert all(torch.equal(c[k], fc[k][rows]) for k in c), rows

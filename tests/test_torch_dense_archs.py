@@ -46,6 +46,18 @@ from repro_torch.core.quantize import QuantConfig
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import GenerationEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 ARCHS = ["smollm-360m", "gemma-2b", "gemma3-4b", "glm4-9b"]
 F32 = dict(rtol=2e-5, atol=2e-5)
 CLEAR_MARGIN = 5e-3

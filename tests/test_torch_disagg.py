@@ -44,6 +44,17 @@ from repro_torch.serving.engine import GenerationEngine
 from repro_torch.serving.router import Router
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 # ---------------------------------------------------------------------------
 # Pager-level export/adopt accounting, port and reference side by side
 # ---------------------------------------------------------------------------
@@ -425,14 +436,15 @@ def test_cell_costs_equal_reference(size):
 
 
 def test_cell_costs_raises_outside_the_registered_kinds():
-    """Training cells and layer kinds no registered architecture has are
-    not ported: they raise, and never count as a dense layer."""
+    """Training cells and layer kinds no registered architecture has (a
+    plain MLP) are not ported: they raise, and never count as a dense
+    layer."""
     cfg = tconfigs.get_smoke_config("qwen25-05b")
     with pytest.raises(NotImplementedError, match="not ported"):
         tcost.cell_costs(cfg, tcost.serving_cell("train", 64), False)
-    windowed = dataclasses.replace(cfg, sliding_window=16)
+    plain = dataclasses.replace(cfg, mlp_type="plain")
     with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(windowed, tcost.serving_cell("decode", 64), False)
+        tcost.cell_costs(plain, tcost.serving_cell("decode", 64), False)
 
 
 @pytest.mark.parametrize("kw", [dict(decode_batch=128, context=4096),

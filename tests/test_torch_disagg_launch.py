@@ -8,8 +8,22 @@ import importlib.util
 import pathlib
 import re
 
+import pytest
+import torch
+
 import repro.launch.serve as jserve
 from repro_torch.launch import serve as tserve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def test_disagg_fleet_launch_matches_jax(capsys):

@@ -20,6 +20,18 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as k4
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 
 CASES = [

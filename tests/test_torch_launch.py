@@ -21,6 +21,18 @@ from repro.core import pipeline as jpipe
 from repro_torch.configs import qwen25_05b as tcfgs
 from repro_torch.launch import serve as tserve
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 FLAGS = ["--smoke", "--batch", "2", "--prompt-len", "16", "--max-new", "4"]
 
 

@@ -35,6 +35,18 @@ from repro_torch.core.packing import PackedLinear
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
 from repro_torch.models.model import Model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 TOL_BF16_CACHE = dict(rtol=5e-3, atol=5e-3)
 

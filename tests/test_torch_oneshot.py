@@ -34,6 +34,18 @@ from repro_torch.models.model import Model
 from repro_torch.serving import kv_pager as tkv
 from repro_torch.serving.engine import GenerationEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 TOL_F32 = dict(rtol=2e-5, atol=2e-5)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
 F32 = ExecutionConfig(compute_dtype=torch.float32)
@@ -126,8 +138,8 @@ def test_commit_prefill_refuses_unported_entries(parity):
     _, tm, params = parity
     pool = tm.init_paged_cache(4, 8, device="cpu")
     pre = tm.init_cache(1, 8, device="cpu")
-    pool["seg_0"][0] = {"kv": pool["seg_0"][0]["kv_pool"]}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    pool["seg_0"][0] = {"mystery": pool["seg_0"][0]["kv_pool"]}
+    with pytest.raises(ValueError, match="unknown cache entry"):
         tkv.commit_prefill(pool, pre, 0, [1], page_size=8)
 
 

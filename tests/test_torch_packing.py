@@ -16,6 +16,17 @@ from repro_torch.core import packing as tpack
 from repro_torch.core import quantize as tquant
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("k,n", [(64, 8), (128, 136), (896, 128)])
 def test_pack_unpack_bit_exact(k, n):
     rng = np.random.default_rng(k + n)

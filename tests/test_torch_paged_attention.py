@@ -18,6 +18,18 @@ from repro.kernels import ref as jref
 from repro.models.attention import _kv_quantize
 from repro_torch.kernels import paged_attention as k2
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 B, HKV, G, HD, P, NBLK, NPAGES = 3, 2, 7, 64, 8, 4, 16
 
 

@@ -44,6 +44,18 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.model import Model
 from repro_torch.serving import kv_pager as tkv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 F32 = dict(rtol=2e-5, atol=2e-5)
 INT8 = dict(rtol=1e-3, atol=1e-3)
 WINDOW = 32

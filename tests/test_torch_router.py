@@ -24,6 +24,18 @@ from repro_torch.serving.engine import GenerationEngine
 from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import SchedulerStats
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 KW = dict(max_seq=96, num_slots=4, page_size=8, prefill_chunk=8)
 
 

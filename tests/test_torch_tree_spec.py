@@ -22,6 +22,17 @@ from repro_torch.serving.disagg import DisaggController
 from repro_torch.serving.engine import GenerationEngine, SamplerConfig
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the suite's workers share
+    the machine's cores, and many small ops otherwise spin on
+    oversubscribed thread pools, many times slower than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def model_params():
     cfg = qwen25_05b.smoke_config()
