@@ -60,7 +60,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                (K, N) pairs (N 16 and 24 narrower than one 64-column
                block) at M 1, 4, 64 and 1,024, K3 at hymba's SiLU front,
                K2 and K4 at hymba's G 5 (25 q over 5 kv heads, hd 64)
-               with and without its 1,024-token window;
+               with and without its 1,024-token window; the encoder's
+               and the VLM's: K1 at hubert-xlarge's four and
+               phi-3-vision's two (K, N) at M 1, 4, 64 and 2,048, K3 at
+               phi-3-vision's 3072 -> 8192, K2 at its 32 kv heads of 96
+               (C 1 and 16, contexts up to 456), K4 at hubert's
+               bidirectional forward (16 heads of 80, B 2 x S 1,024) and
+               phi-3-vision's prefill with images (32 heads of 96, S
+               456), each in bf16 and in f32;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -180,16 +187,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                prefill tokens skipped: a pair reports none, as the
                reference's does), and its streams must equal the
                unified fleet's (same placements, same steps);
- 20-27. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
-               V 262,144, a 1,024-token window; 12 of its 34 layers, two
-               of them global), smollm-360m (8 of 32 layers), gemma-2b (6
-               of 18), glm4-9b (6 of 40), then the MoE family:
+ 20-29. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
+               V 262,144, a 1,024-token window; 6 of its 34 layers, one
+               of them global), smollm-360m (4 of 32 layers), gemma-2b (4
+               of 18), glm4-9b (4 of 40), then the MoE family:
                qwen2-moe-a2.7b (60 experts top-4 + 4 shared, 16 heads of
-               128) and deepseek-v2-lite-16b (MLA + 64 experts top-6 + 2
-               shared, its first layer dense), then the SSM family:
-               mamba2-130m (24 SSD layers, no attention, no MLP; full
-               size) and hymba-1.5b (attention ∥ SSD, 25 q / 5 kv heads,
-               8 of its 32 layers: global layer 0, 7 windowed), each
+               128; 4 of 24 layers) and deepseek-v2-lite-16b (MLA + 64
+               experts top-6 + 2 shared, its first layer dense; 4 of 27),
+               then the SSM family:
+               mamba2-130m (SSD layers, no attention, no MLP; 12 of its
+               24) and hymba-1.5b (attention ∥ SSD, 25 q / 5 kv heads,
+               4 of its 32 layers: global layer 0, 3 windowed), each
                at full width with
                its depth cut for the time limit (the phase line lists the
                layers), from random weights (seed 0): the launcher's AWQ
@@ -226,8 +234,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                copies, the CPU side taking the card's MoE routing
                (`RouteTie`: routing flips counted and reported);
                gemma3's line adds a profiled decode step of 4 slots at
-               contexts ~1,100.
- 28. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
+               contexts ~1,100; smollm's, glm4's, qwen2-moe's and
+               hymba's lines add `oneshot_bf16`: the serve prompts
+               through the one-shot engine over bf16 pools with every
+               quantized linear on K1 / K3, all 8 streams gated equal to
+               generate()'s at B 1 (ROADMAP Queue 3). Then the encoder,
+               hubert-xlarge at full size (48 layers, d 1,280, 16 heads
+               of 80, bidirectional, plain GELU MLP of 5,120, a head over
+               504 codewords): the launcher (calibration over stub frame
+               features [2, 64, 512], AWQ and pack of 289 linears,
+               ``frame_proj`` at RTN; an encoder ends there), its
+               serving output on the pipeline's features of B 2 x S
+               1,024 (`forward_logits` and a timed `Model.prefill`,
+               bit-equal; K4 once a layer, every call bidirectional; K1
+               on every quantized linear; frames/s and peak memory) and
+               `check_prefill` of a 2-layer cut over 64 frames; and the
+               VLM, phi-3-vision-4.2b at full width, 8 of its 32 layers
+               (32 heads of 96, SiLU GLU of 8,192, V 32,064): the
+               launcher (calibration over tokens [2, 64] and 256 stub
+               patches a sequence; 56 quantized, ``patch_proj`` and the
+               head float; text-only generate()), `generate()` with
+               images (B 2, 256 patches + 200 tokens, K4 at S 456, 32
+               new tokens from position 456), the chunked engine over
+               the text as above, and `check` (a prefill with images and
+               a decode step at position 272) and `check_prefill` with
+               images on a 2-layer cut.
+ 30. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
                bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
                no weight decay: the reference's descent test), per-block
                remat, 20 steps. Gated: every parameter receives a finite
@@ -238,7 +270,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                idle share, top kernels); then a 2-layer full-width cut's
                loss and gradients on the card against CPU copies (5 % of
                each leaf's largest magnitude);
- 29. train_resume — `repro_torch.launch.train.main` at full size
+ 31. train_resume — `repro_torch.launch.train.main` at full size
                (``--steps 8 --batch 8 --seq 512 --ckpt-every 4
                --simulate-failure-at 6``, checkpoints under the
                git-ignored build/, deleted after): one recovery from step
@@ -2046,42 +2078,69 @@ def check_awq_macro(params, report) -> dict:
 
 
 # ----------------------------------------------------------------- phase 17
+def _check_batch(cfg, rng, b: int, s: int) -> dict:
+    """A seeded CPU batch of ``b`` sequences of ``s`` positions: tokens
+    (drawn first), for a vision model then its stub patch embeddings
+    (``num_patches`` of them, prepended by the model: the sequence holds
+    ``num_patches + s`` positions); for an encoder stub frame features
+    in place of the tokens."""
+    if cfg.frontend == "audio":
+        return {"features": torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32))}
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32))}
+    if cfg.frontend == "vision":
+        batch["images"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_patches, cfg.frontend_dim)).astype(np.float32))
+    return batch
+
+
 def check_prefill(model, params) -> dict:
-    """One full-sequence prefill (B 1, S 64) on the launcher's AWQ-packed
-    weights, on the card (K4 attention, K1 projections) and on CPU copies
-    (plain versions). The bf16 activations round differently once the
-    sums run in another order, and the differences grow over 24 layers,
-    so the last position's logits are held at 5% of their largest
-    magnitude, as `cross_check` holds a chunk step, and the argmax must
-    agree if the top-2 margin clears that tolerance. A MoE model's CPU
-    side takes the card's routing (`RouteTie`)."""
+    """One full-sequence prefill (B 1, S 64; a vision model's 256 image
+    patches before the 64 tokens; an encoder's 64 frames) on the
+    launcher's AWQ-packed weights, on the card (K4 attention, K1
+    projections) and on CPU copies (plain versions). The bf16 activations
+    round differently once the sums run in another order, and the
+    differences grow over 24 layers, so the last position's logits (an
+    encoder's at every frame) are held at 5% of their largest magnitude,
+    as `cross_check` holds a chunk step, and the argmax must agree where
+    the top-2 margin clears that tolerance. A MoE model's CPU side takes
+    the card's routing (`RouteTie`)."""
     rng = np.random.default_rng(SEED + 3)
-    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, 64))
-                            .astype(np.int32))
+    cfg = model.cfg
+    batch = _check_batch(cfg, rng, 1, 64)
+    n_pos = 64 + (cfg.num_patches if "images" in batch else 0)
     prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
     before = k4.COUNTER.count
     logits, tie = {}, RouteTie()
     for d in ("cuda", "cpu"):
         with torch.no_grad(), _device_side(tie, d):
-            cache = model.init_cache(1, 64, device=d)
-            _, lg, _ = model.prefill(prm[d], {"tokens": toks.to(d)}, cache)
-        logits[d] = lg.float().cpu()
+            cache = model.init_cache(1, n_pos, device=d)
+            _, lg, _ = model.prefill(
+                prm[d], {k: v.to(d) for k, v in batch.items()}, cache)
+        logits[d] = lg.float().cpu().reshape(-1, lg.shape[-1])
     ref, got = logits["cpu"], logits["cuda"]
     err = float((got - ref).abs().max())
     tol = 0.05 * float(ref.abs().max())
-    top2 = torch.topk(ref, 2, dim=-1).values[0]
-    clear = bool(top2[0] - top2[1] > 2 * tol)
-    agree = bool(got.argmax() == ref.argmax())
-    if not err <= tol or (clear and not agree):
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    agree = got.argmax(-1) == ref.argmax(-1)
+    if not err <= tol or not bool(agree[clear].all()):
         raise AssertionError(f"check_prefill: err {err} > {tol} or argmax "
                              f"differs on a clear row")
-    if k4.COUNTER.count - before != _k4_layers(model.cfg):
+    if k4.COUNTER.count - before != _k4_layers(cfg):
         raise AssertionError("check_prefill: the card's prefill did not run "
                              "K4 once per attention layer")
-    return dict(max_abs_err=err, tol=tol, argmax_agree=agree,
-                margin_clear=clear,
-                **({"routing": tie.report()} if model.cfg.num_experts
-                   else {}))
+    out = dict(max_abs_err=err, tol=tol, argmax_agree=bool(agree.all()),
+               margin_clear=bool(clear.all()),
+               **({"routing": tie.report()} if cfg.num_experts else {}))
+    if cfg.is_encoder:          # every frame's logits: report them all
+        out.update(frames=int(agree.numel()),
+                   frames_argmax_agree=int(agree.sum()),
+                   frames_margin_clear=int(clear.sum()))
+    if "images" in batch:
+        out["positions"] = n_pos
+    return out
 
 
 # ----------------------------------------------------------------- phase 18
@@ -2158,43 +2217,60 @@ def fleet(disagg: bool = False, unified_streams=None) -> dict:
 # rings; gemma's GeGLU fronts are two K1 calls (no K3), as in the reference.
 DENSE_ARCHS = {
     # depth: layers run (None = all), every model at full width, its depth
-    # cut for the time limit; the CPU check runs 2 of them. gemma3-4b's 12
-    # of 34 keep windowed layers and two global ones (global every 6)
-    "gemma3-4b": dict(layers=12, batch=2, prompt_len=1100,
+    # cut for the time limit; the CPU check runs 2 of them. gemma3-4b's 6
+    # of 34 keep five windowed layers and a global one (global every 6)
+    "gemma3-4b": dict(layers=6, batch=2, prompt_len=1100,
                       serve_lens=[1100, 1400, 64, 300, 900, 17, 700, 200],
                       max_seq=2048, chunk=64),
-    "smollm-360m": dict(layers=8, batch=4, prompt_len=256,
-                        serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "gemma-2b": dict(layers=6, batch=4, prompt_len=256,
+    # ``oneshot_bf16``: ROADMAP Queue 3's check (`oneshot_bf16`) on the
+    # four models whose engine streams parted from generate() under K1/K3
+    "smollm-360m": dict(layers=4, batch=4, prompt_len=256,
+                        serve_lens=SERVE_LENS, max_seq=512, chunk=16,
+                        oneshot_bf16=True),
+    "gemma-2b": dict(layers=4, batch=4, prompt_len=256,
                      serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "glm4-9b": dict(layers=6, batch=4, prompt_len=256,
-                    serve_lens=SERVE_LENS, max_seq=512, chunk=16),
+    "glm4-9b": dict(layers=4, batch=4, prompt_len=256,
+                    serve_lens=SERVE_LENS, max_seq=512, chunk=16,
+                    oneshot_bf16=True),
     # the MoE family: qwen2-moe (attention + MoE) on the chunked engine,
     # deepseek-v2-lite (MLA + MoE, its first layer dense) on the one-shot
     # engine; the launcher's batch of 4 x 256 tokens is 1,024, the most a
-    # MoE layer takes dropless. glm4-9b and these two run 6 layers, which
-    # leaves the SSM family's phases room in the time limit
-    "qwen2-moe-a2.7b": dict(layers=6, batch=4, prompt_len=256,
-                            serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "deepseek-v2-lite-16b": dict(layers=6, batch=4, prompt_len=256,
+    # MoE layer takes dropless. Both run 4 layers (deepseek: its dense
+    # layer and 3 MoE ones)
+    "qwen2-moe-a2.7b": dict(layers=4, batch=4, prompt_len=256,
+                            serve_lens=SERVE_LENS, max_seq=512, chunk=16,
+                            oneshot_bf16=True),
+    "deepseek-v2-lite-16b": dict(layers=4, batch=4, prompt_len=256,
                                  serve_lens=SERVE_LENS, max_seq=512,
                                  chunk=16),
     # the SSM and hybrid families, both on the one-shot engine (per-slot
-    # SSM state). mamba2-130m at full size: the launcher's 512-token
-    # prompts are two SSD chunks of 256, the 1,024-token serve prompt
-    # four; attention-free, its linears take one path at M 1 and 4, so
-    # every stream must equal generate()'s (``streams_gated``).
-    # hymba-1.5b at full width, 8 of its 32 layers (global layer 0, then
-    # 7 windowed, as the published stack opens; at 16 layers the whole
-    # script came within seconds of 900 s on an H100): the launcher's
-    # 1,100-token prompts wrap generate()'s rings and take the SSD's
-    # single-chunk fallback; the serve prompts wrap the slots' rings
-    "mamba2-130m": dict(layers=None, batch=4, prompt_len=512,
+    # SSM state). mamba2-130m at full width, 12 of its 24 layers: the
+    # launcher's 512-token prompts are two SSD chunks of 256, the
+    # 1,024-token serve prompt four; attention-free, its linears take one
+    # path at M 1 and 4, so every stream must equal generate()'s
+    # (``streams_gated``). hymba-1.5b at full width, 4 of its 32 layers
+    # (global layer 0, then 3 windowed, as the published stack opens):
+    # the launcher's 1,100-token prompts wrap generate()'s rings and take
+    # the SSD's single-chunk fallback; the serve prompts wrap the slots'
+    # rings. With the encoder's and the VLM's phases the whole script
+    # took 962 s on an H100 at the depths before these cuts (gemma3 12,
+    # smollm 8, gemma-2b 6, mamba2 24, hymba 8): every cut here is of
+    # depth, for the time limit
+    "mamba2-130m": dict(layers=12, batch=4, prompt_len=512,
                         serve_lens=[16, 200, 45, 120, 77, 190, 33, 1024],
                         max_seq=2048, chunk=16, streams_gated=True),
-    "hymba-1.5b": dict(layers=8, batch=2, prompt_len=1100,
+    "hymba-1.5b": dict(layers=4, batch=2, prompt_len=1100,
                        serve_lens=[1100, 1400, 64, 300, 1024, 17, 700, 200],
-                       max_seq=2048, chunk=64),
+                       max_seq=2048, chunk=64, oneshot_bf16=True),
+    # the encoder, at full size: the launcher (calibration over the
+    # pipeline's features [2, 64, 512], AWQ and pack; no decode step),
+    # then its serving output, the forward over B 2 x S 1,024 frames
+    "hubert-xlarge": dict(layers=None, forward=(2, 1024)),
+    # the VLM at full width, 8 of its 32 layers: the launcher (calibration
+    # over tokens [2, 64] and patches [2, 256, 1024]; text-only
+    # generate()), generate() with images, the chunked engine over text
+    "phi-3-vision-4.2b": dict(layers=8, batch=2, prompt_len=256,
+                              serve_lens=SERVE_LENS, max_seq=512, chunk=16),
 }
 # K1 (K, N) of the new models' linears (smollm q/o, k/v, gate/up, down;
 # gemma-2b q/o, k/v, gate/up, down; gemma3 q, k/v, o, gate/up, down; glm4
@@ -2211,8 +2287,8 @@ DENSE_K1 = [(960, 960), (960, 320), (960, 2560), (2560, 960),
             (10944, 2048), (2816, 2048)]
 DENSE_K3 = [(960, 2560), (4096, 13696),
             (2048, 5632), (2048, 10944), (2048, 2816),
-            # hymba's SiLU front
-            (1600, 5504)]
+            # hymba's SiLU front, phi-3-vision's
+            (1600, 5504), (3072, 8192)]
 # K1 (K, N) of the SSM family at a decode step's M 1 and 4, a chunk's 64
 # and a prefill's 1,024: mamba2's wz / wx, wb / wc, wdt, out_proj; hymba's
 # q / o, k / v, its SSM's wz / wx, wb / wc, out_proj and its down (N 16
@@ -2238,6 +2314,27 @@ DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
             ("hymba-1.5b", 1, 1400, 25, 5, 64, 0),
             ("hymba-1.5b", 1, 1400, 25, 5, 64, 1024),
             ("hymba-1.5b", 2, 1100, 25, 5, 64, 1024)]
+# the encoder and the vision frontend: K1 (K, N) of hubert-xlarge (q / k /
+# v / o, up, down, frame_proj) and phi-3-vision (q / k / v / o, down) at a
+# decode step's M 1 and 4, a chunk's 64 and hubert's forward of 2 x 1,024
+FRONTEND_K1 = [(1280, 1280), (1280, 5120), (5120, 1280), (512, 1280),
+               (3072, 3072), (8192, 3072)]
+FRONTEND_K1_ROWS = (1, 4, 64, 2048)
+# K2: phi-3-vision's decode and chunk steps (32 kv heads of 96, G 1) over
+# contexts up to 456 (256 patches + 200 tokens)
+FRONTEND_K2 = [("phi-3-vision-4.2b", 32, 1, 96, 0)]
+FRONTEND_K2_ENDS = (17, 200, 300, 456)
+# K4: model, B, S, H, Hkv, hd, window, causal, type: hubert's forward
+# (bidirectional, bf16 and the f32 body), phi-3-vision's generate()
+# prefill with images (S 456)
+FRONTEND_K4 = [("hubert-xlarge", 2, 1024, 16, 16, 80, 0, False,
+                torch.bfloat16),
+               ("hubert-xlarge", 2, 1024, 16, 16, 80, 0, False,
+                torch.float32),
+               ("phi-3-vision-4.2b", 2, 456, 32, 32, 96, 0, True,
+                torch.bfloat16),
+               ("phi-3-vision-4.2b", 2, 456, 32, 32, 96, 0, True,
+                torch.float32)]
 # K1 / K3 over a MoE layer's routed experts (the expert axis): model, E,
 # d_model, expert d_ff; K3 takes d_model -> d_ff, K1 d_ff -> d_model
 EXPERT_SHAPES = [("qwen2-moe-a2.7b", 60, 2048, 1408),
@@ -2336,10 +2433,12 @@ def _k3_shape(gen, k, n, m) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def _k2_shape(gen, arch, hkv, g, hd, window, c) -> dict:
-    """K2 over 4 slots of 96 pages of 16 (contexts 17 … 1,500, past
-    gemma3's window), a padding row's tail, C query tokens a row."""
-    b, page, nblk = 4, 16, 96
+def _k2_shape(gen, arch, hkv, g, hd, window, c,
+              ends=(17, 700, 1100, 1500), nblk=96) -> dict:
+    """K2 over 4 slots of ``nblk`` pages of 16 whose last query tokens sit
+    at ``ends`` (17 … 1,500 by default, past gemma3's window), a padding
+    row's tail, C query tokens a row."""
+    b, page = 4, 16
     npages = b * nblk + 1
     copies = max(1, COLD_BYTES // (2 * npages * page * hkv * (hd + 4)))
     pools = []
@@ -2352,7 +2451,7 @@ def _k2_shape(gen, arch, hkv, g, hd, window, c) -> dict:
         pools.append((kp, ks, vp, vs))
     table = (torch.randperm(npages - 1, generator=gen, device="cuda")
              + 1).to(torch.int32).reshape(b, nblk)
-    base = torch.tensor([17, 700, 1100, 1500 - c], dtype=torch.int32,
+    base = torch.tensor([*ends[:3], ends[3] - c], dtype=torch.int32,
                         device="cuda")
     pos = base[:, None] + torch.arange(c, dtype=torch.int32,
                                        device="cuda")[None]
@@ -2395,31 +2494,36 @@ def _k2_shape(gen, arch, hkv, g, hd, window, c) -> dict:
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def _k4_shape(gen, arch, b, s, h, hkv, hd, window) -> dict:
+def _k4_shape(gen, arch, b, s, h, hkv, hd, window, causal=True,
+              dtype=torch.bfloat16) -> dict:
     q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
-               .to(torch.bfloat16).transpose(1, 2) for n in (h, hkv, hkv))
-    kw = dict(causal=True, window=window)
+               .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+    kw = dict(causal=causal, window=window)
     out = k4.flash_attention(q, k, v, **kw)
     ref = k4.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
-    lim = 1e-5 + torch.finfo(torch.bfloat16).eps * ref.float().abs()
+    lim = 1e-5 + torch.finfo(dtype).eps * ref.float().abs()
     if not bool((err <= lim).all()):
-        raise AssertionError(f"K4 {arch} S={s} hd={hd} window={window}: err "
-                             f"exceeds 1e-5 + eps|ref| by "
-                             f"{float((err - lim).max())}")
+        raise AssertionError(f"K4 {arch} S={s} hd={hd} window={window} "
+                             f"causal={causal} {dtype}: err exceeds 1e-5 + "
+                             f"eps|ref| by {float((err - lim).max())}")
     ms = time_ms(lambda i: k4.flash_attention(q, k, v, **kw), 1)
     plain = time_ms(lambda i: k4.flash_attention_ref(q, k, v, **kw), 1,
                     iters=5)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    mask = k4.visibility(s, causal=True, window=window, device="cuda")
+    mask = k4.visibility(s, causal=causal, window=window, device="cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=causal)
     lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1)
     pair_flops = 2 * hd * h * b * int(mask.sum())
-    b_ms, b_by = bound(q.nbytes + k.nbytes + v.nbytes + out.nbytes,
-                       (3 * pair_flops, BF16_OPS_PER_S))
+    # bf16 / f16: QK^T plus PV's two halves on tensor cores; f32: both
+    # products on the CUDA cores
+    work = ((3 * pair_flops, BF16_OPS_PER_S) if dtype != torch.float32
+            else (2 * pair_flops, F32_OPS_PER_S))
+    b_ms, b_by = bound(q.nbytes + k.nbytes + v.nbytes + out.nbytes, work)
     return dict(model=arch, b=b, s=s, h=h, hkv=hkv, hd=hd, window=window,
+                causal=causal, dtype=str(dtype).split(".")[-1],
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
@@ -2509,18 +2613,25 @@ def check_expert_kernels(gen) -> dict:
 def check_dense_kernels(gen) -> dict:
     """K1 - K4 at the other models' shapes, each held against its plain
     version (K1 / K3 at the model's call, M 4 and 1024, the SSM family's
-    K1 also at M 1 and 64; K2 at C 1 and 16; K4 at the prefills the
-    launcher and the engine give it)."""
+    K1 also at M 1 and 64, the encoder's and the VLM's at M 1, 4, 64 and
+    2,048; K2 at C 1 and 16; K4 at the prefills the launcher and the
+    engine give it, hubert's bidirectional forward at hd 80 and
+    phi-3-vision's prefill with images at hd 96 also in f32)."""
     return dict(
         awq_matmul=[_k1_shape(gen, k, n, m) for k, n in DENSE_K1
                     for m in (4, 1024)]
         + [_k1_shape(gen, k, n, m) for k, n in SSM_K1
-           for m in (1, 4, 64, 1024)],
+           for m in (1, 4, 64, 1024)]
+        + [_k1_shape(gen, k, n, m) for k, n in FRONTEND_K1
+           for m in FRONTEND_K1_ROWS],
         awq_gateup=[_k3_shape(gen, k, n, m) for k, n in DENSE_K3
                     for m in (4, 1024)],
         paged_attention_chunk=[_k2_shape(gen, *case, c) for case in DENSE_K2
-                               for c in (1, 16)],
-        flash_attention=[_k4_shape(gen, *case) for case in DENSE_K4],
+                               for c in (1, 16)]
+        + [_k2_shape(gen, *case, c, ends=FRONTEND_K2_ENDS, nblk=32)
+           for case in FRONTEND_K2 for c in (1, 16)],
+        flash_attention=[_k4_shape(gen, *case) for case in DENSE_K4]
+        + [_k4_shape(gen, *case) for case in FRONTEND_K4],
         tolerance="K1 / K2 / K4 as on Qwen2.5's shapes (kernel_shapes' "
                   "tolerance fields); K1 also holds its M rows equal to the "
                   "same rows of a 2M launch; K3 gated on its f32 output, "
@@ -2548,13 +2659,21 @@ def _depth(arch: str, layers):
 def _linear_counts(cfg) -> tuple[int, int, int]:
     """(quantized, kept float, routed-expert) linears the pipeline gives
     this model at its published widths: per layer the mixer's (attention
-    or MLA 4, SSD 6, hymba both) and the GLU's 3, each quantized where
-    the pipeline's rule takes its (K, N) (K a multiple of 64, N of 8, K·N
-    at least 16,384: hymba's ``wdt`` 1600 -> 50 stays float); on a MoE
-    layer the shared experts' 3 and the routed experts' 3 stacked leaves
-    (their router and ``shared_gate`` stay float); an untied head
-    (float)."""
+    or MLA 4, SSD 6, hymba both) and the MLP's (a GLU's 3, a plain MLP's
+    2: hubert's up and down), each quantized where the pipeline's rule
+    takes its (K, N) (K a multiple of 64, N of 8, K·N at least 16,384:
+    hymba's ``wdt`` 1600 -> 50 stays float); on a MoE layer the shared
+    experts' 3 and the routed experts' 3 stacked leaves (their router and
+    ``shared_gate`` stay float); an untied head (float); a frontend's
+    projection: hubert's ``frame_proj`` (512 -> d_model) quantized by the
+    same rule, phi-3-vision's ``patch_proj`` float (the pipeline excludes
+    it by name)."""
     quant = skip = routed = 0
+    if cfg.frontend == "audio" and costmodel._quantizable(
+            cfg.frontend_dim, cfg.d_model, GS):
+        quant += 1
+    elif cfg.frontend != "none":
+        skip += 1
     for kind in cfg.layer_kinds():
         for k, n in costmodel._linear_dims(cfg, kind):
             if costmodel._quantizable(k, n, GS):
@@ -2576,7 +2695,8 @@ def _k4_layers(cfg) -> int:
 
 def _uses_k3(cfg) -> bool:
     """Whether the model's dense GLU fronts run on K3 (SiLU only: gemma's
-    GeGLU fronts are two K1 calls; mamba2 has no MLP)."""
+    GeGLU fronts are two K1 calls; hubert's plain GELU MLP is two K1
+    calls; mamba2 has no MLP)."""
     return cfg.act == "silu" and any(k.mlp in ("glu", "moe")
                                      for k in cfg.layer_kinds())
 
@@ -2588,8 +2708,10 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
     included, rings on windowed ones; a MoE layer's experts on K3 and
     K1's expert axis; the SSD as tensor code). Returns (phase fields, the
     AWQ params, the model)."""
-    args = ["--arch", arch, "--quant", "awq", "--batch", str(spec["batch"]),
-            "--prompt-len", str(spec["prompt_len"]), "--max-new", "32"]
+    args = ["--arch", arch, "--quant", "awq"]
+    if "forward" not in spec:       # an encoder's launcher generates nothing
+        args += ["--batch", str(spec["batch"]), "--prompt-len",
+                 str(spec["prompt_len"]), "--max-new", "32"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2603,18 +2725,23 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
         total_s = time.perf_counter() - t0
     launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
     rep, by_step = out["report"], out["launches"]
-    toks = out["tokens"]
-    if out["shape"] != [spec["batch"], 32] or not (
-            (toks >= 0) & (toks < cfg.vocab_size)).all():
-        raise AssertionError(f"{arch} launch: bad tokens {out['shape']}")
+    if not cfg.is_encoder:      # an encoder's launcher ends after the pack
+        toks = out["tokens"]
+        if out["shape"] != [spec["batch"], 32] or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch} launch: bad tokens "
+                                 f"{out['shape']}")
     # every linear of a layer is quantized at the published widths (the
     # pipeline keeps K·N < 16,384 in float, which only smoke widths meet),
-    # and every one but the routed experts calibrated
+    # and every one but the routed experts and hubert's frame_proj (the
+    # capture never sees the frontend) calibrated
     n_quant, n_skip, n_routed = _linear_counts(cfg)
     routed = [p for p in rep.quantized if "/experts/" in p]
+    uncalibrated = set(routed) | {p for p in rep.quantized
+                                  if p.startswith("frontend/")}
     if not (len(rep.quantized) == n_quant and len(rep.skipped) == n_skip
             and len(routed) == n_routed
-            and set(rep.calibrated) == set(rep.quantized) - set(routed)):
+            and set(rep.calibrated) == set(rep.quantized) - uncalibrated):
         raise AssertionError(f"{arch} launch: {len(rep.calibrated)} of "
                              f"{len(rep.quantized)} linears calibrated "
                              f"({len(routed)} routed), {len(rep.skipped)} "
@@ -2622,13 +2749,23 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
                              f"{n_skip}")
     glu_k3 = _uses_k3(cfg)
     attn_layers = _k4_layers(cfg)
-    gen_l = by_step["generate"]
-    k4_ok = (by_step["calibrate"]["flash_attention"] >= attn_layers
-             and gen_l["flash_attention"] >= attn_layers
-             if attn_layers else launches["flash_attention"] == 0)
+    if cfg.is_encoder:
+        # the calibration forward (float weights): K4 once a layer, all
+        # bidirectional; no K1 before the pack
+        gen_l = None
+        k4_ok = by_step["calibrate"]["flash_attention"] == attn_layers
+        if not (k4_ok and launches["awq_matmul"] == 0
+                and launches["paged_attention_chunk"] == 0):
+            raise AssertionError(f"{arch} launch: kernels {by_step}")
+    else:
+        gen_l = by_step["generate"]
+        k4_ok = (by_step["calibrate"]["flash_attention"] >= attn_layers
+                 and gen_l["flash_attention"] >= attn_layers
+                 if attn_layers else launches["flash_attention"] == 0)
     experts_ok = ((launches["awq_matmul_experts"] > 0
                    and launches["awq_gateup_experts"] > 0) == (n_routed > 0))
-    if not (k4_ok and experts_ok and gen_l["awq_matmul"] > 0
+    if gen_l is not None and not (
+            k4_ok and experts_ok and gen_l["awq_matmul"] > 0
             and (gen_l["awq_gateup"] > 0) == glu_k3):
         raise AssertionError(f"{arch} launch: kernels {by_step}, expert "
                              f"axis {launches} (K3 "
@@ -2646,32 +2783,43 @@ def dense_launch(arch: str, spec: dict) -> tuple[dict, dict, Model]:
               cfg.v_head_dim] if cfg.kv_lora_rank else None),
         ssm=([cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim,
               cfg.ssm_chunk] if cfg.family in ("ssm", "hybrid") else None),
+        frontend=([cfg.frontend, cfg.frontend_dim, cfg.num_patches]
+                  if cfg.frontend != "none" else None),
         window=cfg.sliding_window, total_s=total_s,
         calibrate_s=out["calib_s"], awq_s=out["awq_s"],
         quantized=len(rep.quantized), calibrated=len(rep.calibrated),
         skipped=len(rep.skipped), compression_ratio=rep.compression_ratio,
         fp16_bytes=out["fp16_bytes"], awq_macro_bytes=out["macro_bytes"],
-        generate_s=out["generate_s"], tokens_per_s=out["tokens_per_s"],
+        generate_s=out.get("generate_s"),
+        tokens_per_s=out.get("tokens_per_s"),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, launches_by_step=by_step,
-        sample=toks[0][:8].tolist())
+        sample=(None if cfg.is_encoder else out["tokens"][0][:8].tolist()))
     return fields, out["params"], Model(cfg)
 
 
 K2_WINDOWED = {"calls": 0}
+K4_BIDIRECTIONAL = {"calls": 0}
 
 
 def _count_windowed_k2() -> None:
-    """Count K2 calls made with a window (the wrapper's own counter counts
-    every launch)."""
+    """Count K2 calls made with a window and K4 calls made with
+    ``causal=False`` (the wrappers' own counters count every launch)."""
     plain_call = k2.paged_attention_chunk
+    plain_k4 = k4.flash_attention
 
     def call(*args, window: int = 0, **kw):
         if window:
             K2_WINDOWED["calls"] += 1
         return plain_call(*args, window=window, **kw)
 
+    def call_k4(*args, causal: bool = True, **kw):
+        if not causal:
+            K4_BIDIRECTIONAL["calls"] += 1
+        return plain_k4(*args, causal=causal, **kw)
+
     k2.paged_attention_chunk = call
+    k4.flash_attention = call_k4
 
 
 def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
@@ -2697,7 +2845,7 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
     prompts = dense_prompts(cfg.vocab_size, spec["serve_lens"])
     kw = dict(num_slots=4, page_size=16, max_seq=spec["max_seq"],
               prefill_chunk=spec["chunk"], kv_quant="int8")
-    res = {}
+    res, refs_by = {}, {}
     for name, ecfg in (("default", qlinear.ExecutionConfig()),
                        ("all_kernel", ALL_KERNEL)):
         with qlinear.execution_config(ecfg):
@@ -2732,6 +2880,7 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
             refs = [eng.generate({"tokens": p[None]}, 32)[0]
                     for p in prompts]
             generate_s = time.perf_counter() - t0
+            refs_by[name] = refs
             identical, mismatches, first_ties = 0, [], []
             for rid, p, ref in zip(rids, prompts, refs):
                 got = out[rid]
@@ -2806,7 +2955,51 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
             first_token_near_ties=first_ties, mismatches=mismatches)
         del eng
         gc.collect()
+    if spec.get("oneshot_bf16"):
+        res["oneshot_bf16"] = oneshot_bf16(arch, model, params, spec,
+                                           prompts, refs_by["all_kernel"])
     return dict(prompt_lens=list(spec["serve_lens"]), **res)
+
+
+def oneshot_bf16(arch: str, model, params, spec: dict, prompts,
+                 refs) -> dict:
+    """ROADMAP Queue 3's check: the serve prompts (32 new tokens each)
+    through the one-shot engine over bf16 pools (``kv_quant="none"``,
+    ``chunked_prefill=False``, 4 slots, pages of 16) with every quantized
+    linear on K1 / K3 (no linear changes path with M), each stream
+    against ``refs``, `generate()` at B 1 under the same config
+    (`dense_serve`'s): both sides take the first token from the same
+    dense prefill and keep bf16 K/V, so what is left to part a stream is
+    an op whose row depends on the step's row count or the cache's
+    length. Every stream is gated equal; the first differing position of
+    each other stream is reported."""
+    cfg = model.cfg
+    with qlinear.execution_config(ALL_KERNEL):
+        eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                               max_seq=spec["max_seq"], kv_quant="none",
+                               chunked_prefill=False)
+        reset_counts()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, 32) for p in prompts]
+        out = eng.drain()
+        serve_s = time.perf_counter() - t0
+        launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
+    check_streams(f"{arch} oneshot_bf16", out, rids, cfg.vocab_size)
+    diffs = _first_diffs([out[r] for r in rids], refs)
+    identical = sum(d is None for d in diffs)
+    if eng._scheduler._run_batch is not None or any(
+            "ks" in e.get("kv_pool", {}) for lyr in eng._paged_cache.values()
+            for e in lyr):
+        raise AssertionError(f"{arch} oneshot_bf16: not the one-shot path "
+                             f"over bf16 pools")
+    del eng
+    gc.collect()
+    if identical != len(rids):
+        raise AssertionError(f"{arch} oneshot_bf16: {identical} of "
+                             f"{len(rids)} streams equal generate()'s "
+                             f"(first differing positions {diffs})")
+    return dict(requests=len(rids), identical_streams=identical,
+                first_diffs=diffs, serve_s=serve_s, launches=launches)
 
 
 @torch.no_grad()
@@ -2860,19 +3053,29 @@ def _cut_two_layers(model, params):
 def cross_check_decode(model, params) -> dict:
     """The one-shot path's counterpart of `cross_check`, for a model
     whose cache is per-slot state (MLA latents, SSM states, hymba's
-    rings): a prefill of 4 prompts
-    of 16 tokens into the dense cache (step 0), then one decode step over
-    the card's cache (step 1), on the card vs CPU copies (plain
-    versions), held by the same rule: logits at 5% of their largest
-    magnitude, argmax equal on rows whose top-2 margin clears that. The
-    CPU side takes the card's MoE routing (`RouteTie`)."""
+    rings) or whose prompts hold images (phi-3-vision: 256 patches before
+    the tokens, so the decode step runs at position 272): a prefill of 4
+    prompts of 16 tokens into the dense cache (step 0), then one decode
+    step over the card's cache (step 1), on the card vs CPU copies
+    (plain versions), held by the same rule: logits at 5% of their
+    largest magnitude, argmax equal on rows whose top-2 margin clears
+    that. The CPU side takes the card's MoE routing (`RouteTie`)."""
     prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
+    cfg = model.cfg
     rng = np.random.default_rng(SEED + 1)
-    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 16))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
                             .astype(np.int32))
-    nxt = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, 4)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, 4)
                            .astype(np.int32))
-    caches = {d: model.init_cache(4, 32, device=d) for d in ("cuda", "cpu")}
+    batch = {"tokens": toks}
+    # a vision model's prompts hold image patches first: the decode step
+    # runs at position num_patches + 16
+    span = cfg.num_patches if cfg.frontend == "vision" else 0
+    if span:
+        batch["images"] = torch.from_numpy(rng.standard_normal(
+            (4, span, cfg.frontend_dim)).astype(np.float32))
+    caches = {d: model.init_cache(4, span + 32, device=d)
+              for d in ("cuda", "cpu")}
     res = {}
     for step in (0, 1):
         if step == 1:      # both sides read the card's cache
@@ -2881,12 +3084,17 @@ def cross_check_decode(model, params) -> dict:
         for d in ("cuda", "cpu"):
             with torch.no_grad(), _device_side(tie, d):
                 if step == 0:
-                    caches[d], lg, _ = model.prefill(
-                        prm[d], {"tokens": toks.to(d)}, caches[d])
+                    caches[d], lg, nxt_pos = model.prefill(
+                        prm[d], {k: v.to(d) for k, v in batch.items()},
+                        caches[d])
+                    if int(nxt_pos[0]) != span + 16:
+                        raise AssertionError(f"cross-check decode: next "
+                                             f"position {nxt_pos.tolist()}")
                 else:
                     lg, caches[d] = model.decode_step(
                         prm[d], caches[d], nxt.to(d),
-                        torch.full((4,), 16, dtype=torch.int32, device=d))
+                        torch.full((4,), span + 16, dtype=torch.int32,
+                                   device=d))
             logits[d] = lg.float().cpu()
         ref, got = logits["cpu"], logits["cuda"]
         err = float((got - ref).abs().max())
@@ -2908,30 +3116,153 @@ def dense_check(arch: str, model, params) -> dict:
     """The CPU checks at a depth the host can run: a 2-layer cut of the
     served AWQ model, one chunk step pair (`cross_check`; the one-shot
     prefill and decode step, `cross_check_decode`, for a model with
-    per-slot state) and one prefill (`check_prefill`) on the card against
-    CPU copies."""
+    per-slot state and for phi-3-vision, whose prefill takes images) and
+    one prefill (`check_prefill`) on the card against CPU copies."""
     cm, cp, pick = _cut_two_layers(model, params)
     chunkable = GenerationEngine._cache_chunkable(cm.init_paged_cache(
         2, 16, device="meta", num_slots=1, slot_seq=16))
-    check = cross_check if chunkable else cross_check_decode
+    check = (cross_check if chunkable and cm.cfg.frontend == "none"
+             else cross_check_decode)
     return dict(layers=pick, check=check(cm, cp),
                 check_prefill=check_prefill(cm, cp))
 
 
+@torch.no_grad()
+def encoder_forward(model, params, spec: dict) -> dict:
+    """hubert-xlarge's serving output on the card: `forward_logits`, then
+    a timed `Model.prefill` (its KV cache sized at the batch's S, as the
+    reference writes one for an encoder too), on the data pipeline's
+    seeded features batch of B × S frames (2 × 1,024: about 20 s of 50 Hz
+    frames each), from 0 counts each. Gated: logits ``[B, S, 504]``,
+    finite, the two bit-equal (the same kernels on the same input); K4
+    once a layer, every call with ``causal=False``; K1 on every quantized
+    linear (289 in `forward_logits`; the prefill re-projects q, k and v
+    for its cache: 3 more a layer); no K2, no K3."""
+    cfg = model.cfg
+    b, s = spec["forward"]
+    feats = make_dataset(cfg, b, s, seed=SEED).batch_at(0)["features"]
+    batch = {"features": torch.from_numpy(feats).to("cuda")}
+    n_quant = _linear_counts(cfg)[0]
+    layers = _k4_layers(cfg)
+    names = [*COUNTERS, *EXPERT_COUNTERS]
+    runs = {}
+    for run in ("forward_logits", "prefill"):
+        _reset_peak()
+        reset_counts()
+        K4_BIDIRECTIONAL["calls"] = 0
+        t0 = time.perf_counter()
+        if run == "prefill":
+            cache = model.init_cache(b, s, device="cuda")
+            _, logits, nxt = model.prefill(params, batch, cache)
+            del cache
+        else:
+            logits = model.forward_logits(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[run] = dict(logits=logits, seconds=secs,
+                         frames_per_s=b * s / secs,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         launches=read_counts(names),
+                         k4_bidirectional=K4_BIDIRECTIONAL["calls"])
+    fl, pf = runs["forward_logits"], runs["prefill"]
+    if not (pf["logits"].shape == (b, s, cfg.vocab_size)
+            and bool(torch.isfinite(pf["logits"]).all())
+            and int(nxt[0]) == s):
+        raise AssertionError(f"encoder forward: logits "
+                             f"{tuple(pf['logits'].shape)}, next {nxt}")
+    equal = torch.equal(fl["logits"], pf["logits"])
+    if not equal:
+        raise AssertionError(f"encoder forward: forward_logits and prefill "
+                             f"differ by {float((fl['logits'] - pf['logits']).abs().max())}")
+    for run, want_k1 in (("forward_logits", n_quant),
+                         ("prefill", n_quant + 3 * layers)):
+        got = runs[run]
+        if not (got["launches"]["flash_attention"] == layers
+                == got["k4_bidirectional"]
+                and got["launches"]["awq_matmul"] == want_k1
+                and got["launches"]["paged_attention_chunk"] == 0
+                and got["launches"]["awq_gateup"] == 0):
+            raise AssertionError(f"encoder {run}: kernels "
+                                 f"{got['launches']}, {got['k4_bidirectional']}"
+                                 f" bidirectional K4 (want K4 {layers}, "
+                                 f"K1 {want_k1})")
+    am = pf["logits"].argmax(-1)
+    return dict(
+        batch=b, frames=s, logits_shape=list(pf["logits"].shape),
+        logits_bit_equal=equal, codewords_used=int(am.unique().numel()),
+        **{run: {k: v for k, v in r.items() if k != "logits"}
+           for run, r in runs.items()})
+
+
+@torch.no_grad()
+def vision_generate(model, params) -> dict:
+    """`generate()` with images: the data pipeline's seeded batch of B 2
+    (256 stub patch embeddings + 200 text tokens each: K4 at S 456 in
+    every layer of the prefill), 32 greedy new tokens from position 456
+    on, ``max_seq`` 512, from 0 counts. Gated: tokens in the vocabulary,
+    K4 once a layer, K1 and K3 launched, no K2 (the dense cache)."""
+    cfg = model.cfg
+    batch = make_dataset(cfg, 2, 200, seed=SEED).batch_at(0)
+    del batch["labels"]
+    eng = GenerationEngine(model, params, max_seq=512)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate(batch, 32)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
+    if toks.shape != (2, 32) or not ((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"vision generate: bad tokens {toks.shape}")
+    if not (launches["flash_attention"] == _k4_layers(cfg)
+            and launches["awq_matmul"] > 0 and launches["awq_gateup"] > 0
+            and launches["paged_attention_chunk"] == 0):
+        raise AssertionError(f"vision generate: kernels {launches}")
+    return dict(batch=2, patches=cfg.num_patches, text_tokens=200,
+                new_tokens=32, prefill_positions=cfg.num_patches + 200,
+                generate_s=secs, tokens_per_s=toks.size / secs,
+                launches=launches, sample=toks[0][:8].tolist())
+
+
 def dense_models() -> tuple[dict, dict]:
-    """Phases 20-27: each model's launcher, serve burst and CPU check.
-    Returns (per-model fields, per-model launches of K1 - K4)."""
+    """Phases 20-29: each model's launcher, serve burst and CPU check (the
+    encoder: its launcher, forward and prefill check; phi-3-vision adds
+    `generate()` with images). Returns (per-model fields, per-model
+    launches of K1 - K4)."""
     _count_windowed_k2()
     out, launches = {}, {}
     for arch, spec in DENSE_ARCHS.items():
         t = time.perf_counter()
         launched, params, model = dense_launch(arch, spec)
+        names = (*COUNTERS, *EXPERT_COUNTERS)
+        if model.cfg.is_encoder:
+            forward = encoder_forward(model, params, spec)
+            cm, cp, pick = _cut_two_layers(model, params)
+            fields = dict(launch=launched, forward=forward, layers=pick,
+                          check_prefill=check_prefill(cm, cp),
+                          phase_s=time.perf_counter() - t)
+            phase(arch, **fields)
+            out[arch] = fields
+            launches[arch] = {
+                n: launched["launches"][n]
+                + sum(forward[r]["launches"][n]
+                      for r in ("forward_logits", "prefill"))
+                for n in names}
+            del params, model, cm, cp
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        images = (vision_generate(model, params)
+                  if model.cfg.frontend == "vision" else None)
         served = dense_serve(arch, model, params, spec)
         checked = dense_check(arch, model, params)
         prof = (profile_dense_decode(model, params)
                 if arch == "gemma3-4b" else None)
         fields = dict(launch=launched, serve=served, **checked,
                       phase_s=time.perf_counter() - t)
+        if images is not None:
+            fields["generate_images"] = images
         if prof is not None:
             fields["profile_decode_step"] = prof
         phase(arch, **fields)
@@ -2939,11 +3270,43 @@ def dense_models() -> tuple[dict, dict]:
         launches[arch] = {
             n: launched["launches"][n] + served["default"]["launches"][n]
             + served["all_kernel"]["launches"][n]
-            for n in (*COUNTERS, *EXPERT_COUNTERS)}
+            + (images["launches"][n] if images else 0)
+            + (served["oneshot_bf16"]["launches"][n]
+               if "oneshot_bf16" in served else 0)
+            for n in names}
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
     return out, launches
+
+
+def _model_summary(f: dict) -> dict:
+    """One model's phase line cut to the summary's numbers."""
+    out = dict(phase_s=f["phase_s"], layers=f["launch"]["layers"],
+               launch_s=f["launch"]["total_s"],
+               launch_peak_mem_bytes=f["launch"]["peak_mem_bytes"],
+               check_prefill=[f["check_prefill"]["max_abs_err"],
+                              f["check_prefill"]["tol"]])
+    if "forward" in f:                  # the encoder
+        out.update({run: {k: f["forward"][run][k] for k in (
+            "seconds", "frames_per_s", "peak_mem_bytes", "launches",
+            "k4_bidirectional")} for run in ("forward_logits", "prefill")})
+        return out
+    out.update(
+        generate_tokens_per_s=f["launch"]["tokens_per_s"],
+        **{f"serve_{name}": {k: f["serve"][name][k] for k in (
+            "decode_step_ms", "decode_tokens_per_s", "serve_s",
+            "identical_streams", "peak_mem_bytes", "k2_windowed_calls")}
+           for name in ("default", "all_kernel")},
+        check=[f["check"]["step1"]["max_abs_err"],
+               f["check"]["step1"]["tol"]])
+    if "oneshot_bf16" in f["serve"]:
+        out["oneshot_bf16"] = {k: f["serve"]["oneshot_bf16"][k] for k in (
+            "identical_streams", "first_diffs")}
+    if "generate_images" in f:
+        out["generate_images"] = {k: f["generate_images"][k] for k in (
+            "generate_s", "tokens_per_s", "launches")}
+    return out
 
 
 def profile_dense_decode(model, params, steps: int = 6) -> dict:
@@ -3536,20 +3899,7 @@ def main() -> None:
         check_prefill=[prefilled["max_abs_err"], prefilled["tol"]],
         oneshot_identity={name: [r["identical_streams"], r["requests"]]
                           for name, r in identity.items()},
-        **{arch: dict(
-            phase_s=f["phase_s"], layers=f["launch"]["layers"],
-            launch_s=f["launch"]["total_s"],
-            launch_peak_mem_bytes=f["launch"]["peak_mem_bytes"],
-            generate_tokens_per_s=f["launch"]["tokens_per_s"],
-            **{f"serve_{name}": {k: f["serve"][name][k] for k in (
-                "decode_step_ms", "decode_tokens_per_s", "serve_s",
-                "identical_streams", "peak_mem_bytes",
-                "k2_windowed_calls")} for name in ("default", "all_kernel")},
-            check=[f["check"]["step1"]["max_abs_err"],
-                   f["check"]["step1"]["tol"]],
-            check_prefill=[f["check_prefill"]["max_abs_err"],
-                           f["check_prefill"]["tol"]])
-           for arch, f in dense.items()},
+        **{arch: _model_summary(f) for arch, f in dense.items()},
         fleet={k: served_fleet[k] for k in (
             "fleet_s", "tokens_per_s", "requests", "generated",
             "prefill_tokens_skipped", "placements", "affinity_hits",

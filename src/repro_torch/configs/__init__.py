@@ -1,8 +1,13 @@
-"""Architecture registry of the port: the paper's qwen2.5-0.5b, the
+"""Architecture registry of the port: every config of the reference's
+registry under the reference's names. The paper's qwen2.5-0.5b, the
 reference's other dense decoders (smollm-360m, gemma-2b, gemma3-4b,
 glm4-9b), its MoE family (qwen2-moe-a2.7b; deepseek-v2-lite-16b, MLA
-+ MoE), its SSM (mamba2-130m, attention-free Mamba-2 SSD) and its hybrid
-(hymba-1.5b, attention beside SSD in every layer).
++ MoE), its SSM (mamba2-130m, attention-free Mamba-2 SSD), its hybrid
+(hymba-1.5b, attention beside SSD in every layer), its encoder
+(hubert-xlarge: stub frame features through ``frame_proj``, a
+bidirectional stack, a head over 504 codewords) and its VLM
+(phi-3-vision-4.2b: stub patch embeddings through ``patch_proj``,
+prepended to the tokens of a phi3-mini decoder).
 
 Each config module exposes ``config()`` (the published dims) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).
@@ -13,8 +18,9 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs import (deepseek_v2_lite, gemma3_4b, gemma_2b,
-                                 glm4_9b, hymba_15b, mamba2_130m,
-                                 qwen2_moe_a27b, qwen25_05b, smollm_360m)
+                                 glm4_9b, hubert_xlarge, hymba_15b,
+                                 mamba2_130m, phi3_vision, qwen2_moe_a27b,
+                                 qwen25_05b, smollm_360m)
 from repro_torch.configs.base import LayerKind, ModelConfig  # noqa: F401
 
 _REGISTRY: dict[str, tuple[Callable, Callable]] = {
@@ -26,7 +32,9 @@ _REGISTRY: dict[str, tuple[Callable, Callable]] = {
     "deepseek-v2-lite-16b": (deepseek_v2_lite.config,
                              deepseek_v2_lite.smoke_config),
     "hymba-1.5b": (hymba_15b.config, hymba_15b.smoke_config),
+    "hubert-xlarge": (hubert_xlarge.config, hubert_xlarge.smoke_config),
     "mamba2-130m": (mamba2_130m.config, mamba2_130m.smoke_config),
+    "phi-3-vision-4.2b": (phi3_vision.config, phi3_vision.smoke_config),
     "qwen25-05b": (qwen25_05b.config, qwen25_05b.smoke_config),
 }
 

@@ -55,6 +55,13 @@
 //     the second wave pairs heavy tiles with light ones.
 //   - Any S works: rows and keys past S are zero-filled by the copy and
 //     masked in-kernel.
+//   - Head dims 64, 80, 96, 128 and 256 are built (hubert-xlarge's 80,
+//     phi-3-vision's 96): a k-chunk is 16 dims and an output tile 8, so
+//     80 and 96 take 5 and 6 k-chunks and 10 and 12 output tiles; a row's
+//     10 or 12 16-byte chunks do not divide the block's 128 threads, so
+//     the copy numbers a tile's chunks row by row and walks them in whole
+//     passes of the block (MK x CH is a multiple of 128 at every built
+//     dim).
 // Inputs are read and the output written through their strides (head dim
 // contiguous, 16-byte aligned rows; the wrapper checks), so the caller's
 // [B, S, H, hd] projections need no transpose copy.
@@ -69,7 +76,9 @@
 // f32 inputs, which only the tests pass, take a CUDA-core body of their
 // own (f32 has no exact tensor-core product): a block of 4 warps owns 32
 // rows, 8 per warp in registers, over 32-key tiles converted into shared
-// memory. This is dispatch by type: a bf16 or f16 call never takes it.
+// memory; lane l keeps output dims l + 32 j, the last j partly (hd 80: dims
+// 64..79 on lanes 0..15). This is dispatch by type: a bf16 or f16 call
+// never takes it.
 // The TPU version's 128 x 128 blocking and (bq, 128) replicated m / l
 // scratch are not carried over; wgmma and TMA are left for later work.
 #include <cuda_bf16.h>
@@ -188,8 +197,9 @@ __device__ __forceinline__ void mma<__half>(float (&d)[4],
 // 2 * tig + {0, 1}; an A operand holds the same rows at columns
 // 2 * tig + {0, 1} (a0 / a1) and 2 * tig + 8 + {0, 1} (a2 / a3).
 // copy stages of the K / V ring: three at hd 64 (64 KB of shared memory),
-// two at hd 128 (the tests' width; 122 KB would leave one block an SM) and
-// at hd 256 (165 KB: one block of 8 warps an SM)
+// two at hd 80 and 96 (55 and 65 KB: four and three blocks an SM; a third
+// stage would leave two), at hd 128 (the tests' width; 122 KB would leave
+// one block an SM) and at hd 256 (165 KB: one block of 8 warps an SM)
 template <int HD> __host__ __device__ constexpr int stages() {
   return HD == 64 ? 3 : 2;
 }
@@ -253,21 +263,24 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_first = (k_lo / MK) * MK;
   const int n_tiles = (k_hi - t_first + MK - 1) / MK;
 
-  // Copies: a pass of the block's threads covers RPP rows of a tile, each
-  // thread one 16-byte chunk at a fixed (row, column) of the pass.
-  constexpr int RPP = NTH / CH;
+  // Copies: a tile is MK x CH 16-byte chunks, numbered row by row; pass p
+  // of the block's threads copies chunks p * NTH + tid. CH need not divide
+  // NTH (hd 80: 10 chunks a row, hd 96: 12), but MK * CH is a multiple of
+  // NTH at every built head dim, so every pass is whole and every chunk of
+  // all 64 rows is copied once. Where CH divides NTH this is the fixed
+  // (row, column) a thread keeps from pass to pass.
+  static_assert(MK * CH % NTH == 0, "a tile's chunks fill whole passes");
   constexpr uint32_t TILE = MK * LD * sizeof(T);      // bytes of a tile
-  const int st_r = tid / CH, st_c = (tid % CH) * 8;
-  const uint32_t st_off = (st_r * LD + st_c) * sizeof(T);
   // copy rows [r0, r0 + 64) of one operand into the tile at dst
   auto stage = [&](uint32_t dst, const T* src, long long stride, int r0) {
-    const T* g = src + (long long)(r0 + st_r) * stride + st_c;
 #pragma unroll
-    for (int p = 0; p < MK / RPP; ++p) {
-      const bool ok = r0 + st_r + p * RPP < S;
-      cp_async16(dst + st_off + p * RPP * LD * sizeof(T), ok ? g : src,
+    for (int p = 0; p < MK * CH / NTH; ++p) {
+      const int i = p * NTH + tid;
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = r0 + r < S;
+      cp_async16(dst + (r * LD + c) * sizeof(T),
+                 ok ? src + (long long)(r0 + r) * stride + c : src,
                  ok ? 16 : 0);
-      g += RPP * stride;
     }
   };
   const uint32_t q_s = smem_u32(Qs), k_s = smem_u32(Ks), v_s = smem_u32(Vs);
@@ -555,13 +568,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_hi = causal ? min(S, q0 + n_rows) : S;
 
   const int row0 = warp * RW;           // this warp's first row in the tile
-  float m[RW], l[RW], acc[RW][HD / 32];
+  // lane owns output dims lane + 32 j, j < ND; at hd 80 the last j holds
+  // dims 64..79 on lanes 0..15 only (own(j) says whether this lane has one)
+  constexpr int ND = (HD + 31) / 32;
+  auto own = [&](int j) { return HD % 32 == 0 || lane + 32 * j < HD; };
+  float m[RW], l[RW], acc[RW][ND];
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     m[r] = NEG;
     l[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < HD / 32; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < ND; ++j) acc[r][j] = 0.f;
   }
   // positions of this warp's rows: the first and the last that exist
   const int wp_first = q0 + row0;
@@ -622,7 +639,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] = l[r] * alpha + warp_sum(p);
       m[r] = m_new;
 #pragma unroll
-      for (int j = 0; j < HD / 32; ++j) acc[r][j] *= alpha;
+      for (int j = 0; j < ND; ++j) acc[r][j] *= alpha;
       Pw[r * KT + lane] = p;
     }
     __syncwarp();
@@ -630,16 +647,17 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // acc += p @ V: lane owns dims lane + 32 j
 #pragma unroll 2
     for (int kk = 0; kk < KT; kk += 4) {
-      float vr[4][HD / 32];
+      float vr[4][ND];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int j = 0; j < HD / 32; ++j) vr[e][j] = Vs[(kk + e) * HD + lane + 32 * j];
+        for (int j = 0; j < ND; ++j)
+          vr[e][j] = own(j) ? Vs[(kk + e) * HD + lane + 32 * j] : 0.f;
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pw + r * KT + kk);
 #pragma unroll
-        for (int j = 0; j < HD / 32; ++j) {
+        for (int j = 0; j < ND; ++j) {
           acc[r][j] = fmaf(p4.x, vr[0][j], acc[r][j]);
           acc[r][j] = fmaf(p4.y, vr[1][j], acc[r][j]);
           acc[r][j] = fmaf(p4.z, vr[2][j], acc[r][j]);
@@ -660,7 +678,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     float* orow = ob + (q0 + row0 + r) * os.s;
 #pragma unroll
-    for (int j = 0; j < HD / 32; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
+    for (int j = 0; j < ND; ++j)
+      if (own(j)) orow[lane + 32 * j] = acc[r][j] * inv;
   }
 }
 
@@ -699,6 +718,8 @@ LaunchFn pick_hd(int dtype) {
 
 LaunchFn pick(int dtype, int HD) {
   if (HD == 64) return pick_hd<64>(dtype);
+  if (HD == 80) return pick_hd<80>(dtype);
+  if (HD == 96) return pick_hd<96>(dtype);
   if (HD == 128) return pick_hd<128>(dtype);
   if (HD == 256) return pick_hd<256>(dtype);
   return nullptr;
@@ -709,7 +730,7 @@ LaunchFn pick(int dtype, int HD) {
 // Plain C entry point (loaded with ctypes). dtype: 0 f32, 1 bf16, 2 f16 (q,
 // k, v and o alike). lse: null, or a contiguous f32 [B, H, S] array. Strides are in elements for the batch, head and
 // sequence dims; the head dim is contiguous. The caller has checked shapes,
-// dtypes, H % Hkv == 0, hd in {64, 128, 256}, S >= 1 and, for bf16 / f16,
+// dtypes, H % Hkv == 0, hd in {64, 80, 96, 128, 256}, S >= 1 and, for bf16 / f16,
 // 16-byte aligned pointers and strides. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,

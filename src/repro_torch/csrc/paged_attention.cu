@@ -40,8 +40,9 @@
 //     while V's codes land. The codes are dequantized where they are used:
 //     K in the score loop, with the key scale applied after the dot
 //     product (s = ks * (q . codes)); V as code * scale, the plain
-//     version's rounding. K's 16-byte chunks are stored XOR-swizzled, so
-//     the lanes' reads of their own keys hit no bank twice.
+//     version's rounding. K's 16-byte chunks are stored permuted within
+//     the key's row (an XOR swizzle; a rotation at hd 96), so the lanes'
+//     reads of their own keys hit no bank twice.
 //   - Each block writes its rows' partial (m, l, acc) to f32 scratch that
 //     the wrapper allocates; a second kernel merges the partials of each
 //     row in span order (no atomics), so the output is bit-identical from
@@ -51,7 +52,8 @@
 // treated as masked. The TPU version's row padding to 8 and its 128-lane
 // replicated m / l scratch are not carried over: C·G = 7·C rows work as
 // they are. Tensor cores (for a bf16 pool) are left for later work.
-// Head dims 64, 128 and 256 are built. At 256 a block holds 8 x 8 f32
+// Head dims 64, 96, 128 and 256 are built (96: phi-3-vision's; each lane
+// keeps 3 of a row's output dims). At 256 a block holds 8 x 8 f32
 // accumulators a lane and needs about 109 KB of shared memory (two blocks
 // an SM); the query rows of any group size (G 3 to 16 in the registered
 // models) tile the same way, 8 of the C·G rows a block.
@@ -111,17 +113,21 @@ __device__ __forceinline__ int slot_keys(const int32_t* pos, int b, int C,
 }
 
 // A key's row of K codes is HD / 16 chunks of 16 bytes; chunk c of key t is
-// stored at chunk c ^ swz(t), so the 8 lanes of a quarter warp, each reading
-// chunk c of its own key, hit 8 different 16-byte bank groups (of the 8 in
-// 128 bytes). At hd 64 (4 chunks a key) two keys share 128 bytes, so the
-// XOR takes t / 2; at hd 128 and 256 (8 and 16 chunks) a key's row spans
-// whole bank rows, so chunk c of every key falls in bank group c % 8 and
-// the XOR takes t % 8, which keeps c ^ swz(t) inside the row.
+// stored at chunk chunk_at(c, t) of the row, a permutation of the row's chunks
+// chosen so that the 8 lanes of a quarter warp, each reading chunk c of its
+// own key, hit 8 different 16-byte bank groups (of the 8 in 128 bytes). At
+// hd 64 (4 chunks a key) two keys share 128 bytes, so it is c ^ (t / 2) % 4;
+// at hd 128 and 256 (8 and 16 chunks) a key's row spans whole bank rows, so
+// chunk c of every key falls in bank group c % 8 and it is c ^ t % 8. At hd
+// 96 (6 chunks, not a power of two) an XOR would leave the row (5 ^ 2 = 7):
+// there keys t and t + 4 start in the same bank group (6 t mod 8), and a
+// rotation by one chunk for t / 4 odd, (c + (t / 4) % 2) % 6, parts them.
 template <int HD>
-__device__ __forceinline__ int swz(int t) {
+__device__ __forceinline__ int chunk_at(int c, int t) {
   constexpr int CH = HD / 16;
-  if constexpr (CH >= 8) return t % 8;
-  else return (t / (8 / CH)) % CH;
+  if constexpr (CH == 6) return (c + (t / 4) % 2) % CH;
+  else if constexpr (CH >= 8) return c ^ (t % 8);
+  else return c ^ ((t / (8 / CH)) % CH);
 }
 
 template <int HD>
@@ -203,7 +209,7 @@ paged_partial_kernel(const float* __restrict__ q,
   const int nb = ok ? 16 : 0;
 #pragma unroll
   for (int c = 0; c < CH; ++c)
-    cp_async16(smem_u32(Kc + key * HD + (c ^ swz<HD>(key)) * 16),
+    cp_async16(smem_u32(Kc + key * HD + chunk_at<HD>(c, key) * 16),
                k_pool + src * HD + c * 16, nb);
   cp_async4(smem_u32(Ksc + key), ks + src, ok ? 4 : 0);
   cp_async_commit();
@@ -244,7 +250,7 @@ paged_partial_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int4 raw =
-          *reinterpret_cast<const int4*>(Kc + key * HD + (c ^ swz<HD>(key)) * 16);
+          *reinterpret_cast<const int4*>(Kc + key * HD + chunk_at<HD>(c, key) * 16);
       const int w4[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -423,7 +429,7 @@ int launch(const void* q, const void* k_pool, const void* ks,
 
 // Plain C entry point (loaded with ctypes): the partial pass, then the
 // merge pass, on one stream. amask may be null (the default in-span rule). The caller has checked shapes, dtypes and
-// contiguity, hd in {64, 128, 256} and the grid's limits, and passes f32
+// contiguity, hd in {64, 96, 128, 256} and the grid's limits, and passes f32
 // scratch of ceil(n_blocks * P / 128) * B * Hkv * C * G rows: part_ml
 // (m, l: 2 floats a row) and part_acc (hd floats a row). Returns
 // cudaGetLastError().
@@ -437,6 +443,10 @@ extern "C" int paged_attention_chunk_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (HD == 64)
     return launch<64>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
+                      part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,
+                      window, scale, s);
+  if (HD == 96)
+    return launch<96>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
                       part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,
                       window, scale, s);
   if (HD == 128)

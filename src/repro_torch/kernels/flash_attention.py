@@ -46,7 +46,8 @@ COUNTER = LaunchCounter()
 BWD_COUNTER = LaunchCounter()
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
+HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims K4 is built for
+BWD_HEAD_DIMS = (64, 128, 256)      # ... and K4b
 
 
 def visibility(s: int, *, causal: bool, window: int,
@@ -156,13 +157,16 @@ def _check_rows(tensors) -> None:
         _check(_rows_aligned(t), f"{name}'s rows must be 16-byte aligned")
 
 
-def _check_qkv(q, k, v) -> None:
+def _check_qkv(q, k, v, head_dims=HEAD_DIMS) -> None:
     """What both CUDA kernels take: q, k and v of one type among f32 /
-    bf16 / f16 on one card, hd 64, 128 or 256, H a multiple of Hkv."""
+    bf16 / f16 on one card, a head dim the kernel is built for
+    (``head_dims``: K4's `HEAD_DIMS`, K4b's `BWD_HEAD_DIMS`), H a
+    multiple of Hkv."""
     b, h, s, hd = q.shape
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
     _check(q.dtype in _DTYPES, f"unsupported dtype {q.dtype}")
-    _check(hd in HEAD_DIMS, f"head_dim {hd} (kernel built for 64, 128, 256)")
+    _check(hd in head_dims, f"head_dim {hd} (kernel built for "
+                            f"{', '.join(map(str, head_dims))})")
     hkv = k.shape[1]
     _check(hkv > 0 and h % hkv == 0, f"H={h} is not a multiple of Hkv={hkv}")
     for t, name in ((k, "k"), (v, "v")):
@@ -202,7 +206,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     """K4b: (dq, dk, dv) of `flash_attention` at (q, k, v), given its
     output ``o``, its ``lse`` (f32 ``[B, H, S]``) and the output's gradient
     ``do``. CPU tensors take `flash_attention_bwd_ref`; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (o and do of q's type and shape, every
+    ``csrc/flash_attention_bwd.cu`` (hd 64, 128 or 256; o and do of q's
+    type and shape, every
     operand's head dim contiguous and, for bf16 / f16, every row of all
     eight operands 16-byte aligned) and raise on anything else: bf16 and
     f16 on tensor cores in two launches, f32 on the CUDA cores in three.
@@ -212,7 +217,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
                                        causal=causal, window=window)
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, BWD_HEAD_DIMS)
     for t, name in ((o, "o"), (do, "do")):
         _check(t.device == q.device and t.dtype == q.dtype
                and t.shape == q.shape, f"{name} must match q")
@@ -270,8 +275,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B, H, S, hd]``, k/v ``[B, Hkv, S, hd]`` → ``[B, H, S, hd]``.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the
-    kernel (q, k and v of one type among f32 / bf16 / f16, hd 64, 128 or
-    256, the head dim contiguous) and raise on anything else. bf16 and f16
+    kernel (q, k and v of one type among f32 / bf16 / f16, hd 64, 80, 96,
+    128 or 256, the head dim contiguous) and raise on anything else. bf16 and f16
     run on tensor cores, whose 16-byte copies want every row 16-byte
     aligned (pointer and strides); f32 runs on the CUDA cores. With grad
     enabled and an input that requires it, the call goes through

@@ -34,7 +34,7 @@ SPAN = 128               # keys per block of the partial pass
 _KW = 32                 # keys per warp (4 warps a block)
 _RW = 8                  # query rows per block
 _GRID_YZ = 65535         # CUDA's limit on gridDim.y and gridDim.z
-HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
+HEAD_DIMS = (64, 96, 128, 256)  # head dims the kernel is built for
 
 
 def default_amask(pos: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -191,7 +191,7 @@ def paged_attention_chunk(q, k_pool, ks, v_pool, vs, page_table, pos, *,
 
     CPU tensors take `paged_attention_chunk_ref`; CUDA tensors launch the
     kernel (f32 q, int8 pools, f32 strips, int32 tables / positions, hd 64,
-    128 or 256) and raise on anything else.
+    96, 128 or 256) and raise on anything else.
     """
     b, c, hkv, g, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
@@ -208,7 +208,8 @@ def paged_attention_chunk(q, k_pool, ks, v_pool, vs, page_table, pos, *,
         amask = amask.view(torch.uint8)
     n_pages, page_size = k_pool.shape[0], k_pool.shape[1]
     n_blocks = page_table.shape[1]
-    _check(hd in HEAD_DIMS, f"head_dim {hd} (kernel built for 64, 128, 256)")
+    _check(hd in HEAD_DIMS, f"head_dim {hd} (kernel built for "
+                            f"{', '.join(map(str, HEAD_DIMS))})")
     _check(b * hkv <= _GRID_YZ and -(-c * g // _RW) <= _GRID_YZ,
            f"B·Hkv = {b * hkv} or C·G = {c * g} rows exceed the grid")
     for t, name, dtype, shape in (

@@ -6,7 +6,14 @@ reference's classic launcher runs it: float init → calibration forward
 AWQ search + int4 GS-64 pack of every quantizable linear →
 `GenerationEngine.generate` (prefill through K4, projections through
 K1, each GLU front through K3). ``--quant none`` serves the float model through the same
-`generate()`.
+`generate()`. A vision model (phi-3-vision) calibrates on tokens plus
+stub patch embeddings and then generates from text prompts, as the
+reference's launcher does. An encoder (hubert-xlarge) calibrates on stub
+frame features, quantizes and packs, and ends there: it has no decode
+step (its serving output is `Model.prefill`'s logits at every frame), so
+the launcher prints that and returns the quantization report (the
+reference's launcher goes on to a token prompt and fails on the
+features batch).
 
 With ``--replicas N`` the launcher serves a continuous-batching
 **fleet** instead (`serve_fleet`): N `GenerationEngine` replicas (or,
@@ -26,6 +33,10 @@ paths):
       --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --replicas 2 [--disagg]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hubert-xlarge \\
+      --quant awq
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi-3-vision-4.2b --quant awq --batch 2 --prompt-len 256
 """
 from __future__ import annotations
 
@@ -132,6 +143,12 @@ def main(argv=None) -> dict:
         print(f"[serve] AWQ_MACRO-serialized size {macro_bytes/1e6:.2f} MB")
         res.update(report=report, calib_s=t1 - t0, awq_s=t2 - t1,
                    macro_bytes=macro_bytes, captured_linears=len(cap.stats))
+
+    if cfg.is_encoder:
+        print(f"[serve] {cfg.name} is encoder-only: no autoregressive "
+              f"decode step (serve it through Model.prefill / "
+              f"forward_logits)")
+        return {"params": params, **res}
 
     if args.replicas > 0:
         fleet = serve_fleet(model, params, args, device)

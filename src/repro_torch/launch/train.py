@@ -71,12 +71,14 @@ def main(argv=None) -> dict:
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    if cfg.num_experts or cfg.kv_lora_rank or cfg.family in ("ssm",
-                                                              "hybrid"):
+    if (cfg.num_experts or cfg.kv_lora_rank or cfg.is_encoder
+            or cfg.frontend != "none"
+            or cfg.family in ("ssm", "hybrid")):
         raise NotImplementedError(
-            f"training {cfg.name} (MoE / MLA / SSM layers) is not ported "
-            f"yet: the port serves the MoE, SSM and hybrid families "
-            f"(ROADMAP Queue 1)")
+            f"training {cfg.name} (MoE / MLA / SSM layers, an encoder or a "
+            f"frontend) is not ported yet: the port serves the MoE, SSM, "
+            f"hybrid, encoder and vision families (ROADMAP Queue 1, item "
+            f"3)")
     model = Model(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(
         lr=args.lr, warmup_steps=args.warmup, decay_steps=args.steps,

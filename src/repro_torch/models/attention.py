@@ -107,32 +107,37 @@ def _cache_probs_dtype(v_dtype: torch.dtype, adt: torch.dtype) -> torch.dtype:
     return v_dtype if v_dtype.itemsize < adt.itemsize else torch.float32
 
 
-def _einsum_rows(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum_f32`` whose rows do not depend on the batch on CUDA either:
-    f64 on every device, rounded once to f32 (on the CPU the same bits
-    as `einsum_f32`)."""
-    return einsum_f64(eq, a, b).to(torch.float32)
-
-
 def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
           scale: float, vis: torch.Tensor | None = None,
-          probs_dtype: torch.dtype = torch.float32,
-          exact_rows: bool = False) -> torch.Tensor:
-    """Grouped scaled-dot-product attention over full key rows.
+          probs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Grouped scaled-dot-product attention over full key rows: every
+    cache read of a decode or serving step that K2 does not take (the
+    dense decode cache and its rings, bf16 page pools, the CPU).
 
     q [B, C, Hkv, G, hd]; k/v [B, S, Hkv, hd]; *_pos [B, C]/[B, S] absolute
     positions (k_pos < 0 ⇒ invalid slot). Returns [B, C, Hkv, G, hd] in
-    v's dtype. Scores are f32; probabilities are rounded to
-    ``probs_dtype`` (the caller's choice, `_cache_probs_dtype`) before the
-    value product. An explicit ``vis [B, C, S]`` mask overrides the
-    positional mask; rows whose mask is empty then give exactly 0. Both
-    masks feed the same softmax, so a row sees the same bits under either
-    when they show it the same keys (a tree verify row's chain nodes and
-    the sequential decode rows they stand for). With ``exact_rows`` the two
-    products run in f64 (`_einsum_rows`): a row's bits then do not depend
-    on how many rows share the call, on the card too.
+    v's dtype; the probabilities are rounded to ``probs_dtype`` (the
+    caller's choice, `_cache_probs_dtype`) before the value product. A
+    row's bits depend neither on how many rows share the call nor on how
+    many masked keys its row holds. On the CPU the two products run in
+    f64 rounded once to f32 (`einsum_f32`) and the softmax in f32: the
+    plain K4's arithmetic, so a chunked prefill over bf16 pages gives
+    `generate()`'s K4 prefill bits. On the card the f32 products
+    (cuBLAS) and the softmax pick their kernels, and with them the order
+    of their sums, from the batch and the key count: a one-shot engine's
+    decode rows over bf16 pages (4 slots,
+    keys up to the context bucket) parted from `generate()`'s (B 1, keys
+    up to max_seq) in 3 of 8 glm4-9b, 3 of 8 qwen2-moe-a2.7b and 2 of 8
+    hymba-1.5b streams on an H100 (`scripts/queue3_oneshot_bf16.py`,
+    which runs both). There the scores, the softmax and the value product stay in
+    f64 (`einsum_f64`) and the output is rounded once to f32. An explicit
+    ``vis [B, C, S]`` mask overrides the positional mask; rows whose mask
+    is empty then give exactly 0. Both masks feed the same softmax, so a
+    row sees the same bits under either when they show it the same keys
+    (a tree verify row's chain nodes and the sequential decode rows they
+    stand for).
     """
-    ein = _einsum_rows if exact_rows else einsum_f32
+    ein = einsum_f64 if q.device.type == "cuda" else einsum_f32
     scores = ein("bqkgd,bskd->bkgqs", q, k) * scale
     neg = torch.full_like(scores, -1e30)
     if vis is not None:
@@ -149,7 +154,7 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         scores = torch.where(mask[:, None, None, :, :], scores, neg)
         probs = torch.softmax(scores, dim=-1)
     out = ein("bkgqs,bskd->bqkgd", probs.to(probs_dtype), v)
-    return out.to(v.dtype)
+    return out.to(torch.float32).to(v.dtype)
 
 
 def attention(p, x, cfg, *, positions, window: int = 0,
@@ -262,10 +267,11 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
 
     A windowed layer writes slot ``pos % window`` of its ring and attends
     over the positions the ring holds (`_ring_positions`) under the
-    causal window mask, its products in f64 rounded once (``exact_rows``:
-    a hymba engine keeps one ring row a slot, and a slot's row must not
-    depend on the step's slot count); a full layer writes slot ``pos``
-    and attends over ``k <= pos``."""
+    causal window mask; a full layer writes slot ``pos`` and attends over
+    ``k <= pos``. Through `_sdpa`, a slot's row depends neither on the
+    step's slot count nor on the cache's length, so `generate()`'s rows
+    equal a one-shot engine's (a hymba engine keeps one ring row a slot;
+    its global layers and every other model's read bf16 pages)."""
     b = x.shape[0]
     q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
     bidx = torch.arange(b, device=x.device)
@@ -292,8 +298,7 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
     out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=bool(window),
                 window=window, scale=cfg.head_dim ** -0.5,
-                probs_dtype=_cache_probs_dtype(cv.dtype, adt),
-                exact_rows=bool(window))
+                probs_dtype=_cache_probs_dtype(cv.dtype, adt))
     return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
 
 

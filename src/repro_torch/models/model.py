@@ -1,13 +1,24 @@
-"""Top-level decoder model: token embedding → stack → (tied) f32 head.
+"""Top-level model: embeddings / frontends → stack → (tied) f32 head.
+
+One class serves every config, as in the reference:
+
+  * decoder LMs      — token embedding → causal stack → (tied) head;
+  * encoder (hubert) — stub frame features ``[B, S, frontend_dim]`` →
+                       ``frame_proj`` → bidirectional stack → a head over
+                       the codebook vocabulary at every frame;
+  * vlm (phi3-v)     — stub patch embeddings → ``patch_proj``, prepended
+                       to the token embeddings (labels masked over the
+                       image span); decode is a plain LM step once
+                       prefilled, at positions after the image span.
 
 Entry points mirror the reference's `Model`: `prefill` + `decode_step`
 over the dense cache (`GenerationEngine.generate`) or, with a page table,
 over the page pools (the one-shot serving path), `chunk_step` over the
 paged pools (the chunked serving path), `forward_logits`, and `loss`, the
-chunked-vocab causal-LM loss plus the MoE layers' router aux losses
-(AWQ's calibration forward and the train step's objective,
-`training.train_step`). The audio / vision frontends are not ported
-yet.
+chunked-vocab causal-LM (or masked-unit) loss plus the MoE layers' router
+aux losses (AWQ's calibration forward and the train step's objective,
+`training.train_step`). The frontend linears run unnamed, so the
+calibration capture records nothing for them, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,12 +37,6 @@ from repro_torch.numerics import free_rows, matmul_f32_rows
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.frontend != "none" or self.cfg.is_encoder:
-            raise NotImplementedError(
-                f"{self.cfg.name}: encoder and frontend models are not "
-                f"ported yet")
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator | None = None, device=None) -> dict:
@@ -52,6 +57,11 @@ class Model:
                                            plus_one=cfg.rms_plus_one,
                                            device=device),
         }
+        if cfg.frontend != "none":
+            proj = "frame_proj" if cfg.frontend == "audio" else "patch_proj"
+            params["frontend"] = {proj: layers.linear_init(
+                gen, cfg.frontend_dim, cfg.d_model, bias=True, dtype=dtype,
+                device=device)}
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.linear_init(
                 gen, cfg.d_model, cfg.vocab_size, dtype=dtype, device=device)
@@ -59,15 +69,38 @@ class Model:
 
     # ------------------------------------------------------------ embeddings
     def _embed(self, params, batch: dict):
-        """→ (x [B, S, D], positions [B, S])."""
+        """→ (x [B, S, D], positions [B, S], labels or None).
+
+        audio: ``frame_proj(features)``; vision with ``images`` in the
+        batch: ``patch_proj(images)`` before the token embeddings, and the
+        labels (when given) padded with -1 over the image span; positions
+        ``arange(S)`` over the whole sequence. The frontend linears run
+        unnamed (no calibration capture), as one product each
+        (`numerics.free_rows`: a full-sequence input)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], batch["tokens"],
-                         scale=cfg.scale_embed).to(
-                             torch_dtype(cfg.activation_dtype))
+        adt = torch_dtype(cfg.activation_dtype)
+        labels = batch.get("labels")
+        if cfg.frontend == "audio":
+            with free_rows():
+                x = linear(params["frontend"]["frame_proj"],
+                           batch["features"].to(adt))
+        else:
+            x = embed_lookup(params["embed"], batch["tokens"],
+                             scale=cfg.scale_embed).to(adt)
+            if cfg.frontend == "vision" and "images" in batch:
+                with free_rows():
+                    img = linear(params["frontend"]["patch_proj"],
+                                 batch["images"].to(adt))
+                x = torch.cat([img, x], dim=1)
+                if labels is not None:
+                    labels = torch.as_tensor(labels, device=x.device)
+                    pad = torch.full(img.shape[:2], -1, dtype=labels.dtype,
+                                     device=x.device)
+                    labels = torch.cat([pad, labels], dim=1)
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        return x, positions
+        return x, positions, labels
 
     def _head_logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits; the head (tied: the embedding table; untied:
@@ -83,18 +116,19 @@ class Model:
 
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Chunked-vocab causal-LM loss: tokens / labels ``[B, S]``,
-        labels < 0 ignored. The f32 logits are formed ``logits_chunk``
+        """Chunked-vocab causal-LM loss: tokens / labels ``[B, S]``
+        (hubert: features and codeword labels; phi3-v: labels over the
+        text, padded over the image span by `_embed`), labels < 0
+        ignored. The f32 logits are formed ``logits_chunk``
         positions at a time, never as one [B, S, V]. Differentiable: the
         train step calls ``backward()`` on it, and the attention of every
         layer runs K4 forward and K4b backward on the card. The head runs
         inside `numerics.free_rows` (one product a chunk): a training
         forward's rows are never held against serving rows."""
         cfg = self.cfg
-        labels = batch.get("labels")
-        if labels is None:
+        if batch.get("labels") is None:
             raise ValueError("training batch needs labels")
-        x, positions = self._embed(params, batch)
+        x, positions, labels = self._embed(params, batch)
         x, _, aux = stack.stack_apply(params["segments"], x, cfg,
                                       mode="train", positions=positions)
         x = norm(params["final_norm"], x, cfg)
@@ -145,13 +179,21 @@ class Model:
                                             slot_seq=slot_seq)
 
     def prefill(self, params, batch: dict, cache: Any):
-        """Full-sequence prefill → (cache, last-token logits, next pos [B])."""
+        """Full-sequence prefill → (cache, logits, next pos [B]): the last
+        position's logits ``[B, V]``, or an encoder's at every frame
+        ``[B, S, V]``. The cache must hold the whole sequence (a vision
+        batch's image span included); an encoder's is written too, as in
+        the reference, so size it at the batch's S."""
         cfg = self.cfg
-        x, positions = self._embed(params, batch)
+        x, positions, _ = self._embed(params, batch)
         x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
                                         mode="prefill", positions=positions,
                                         cache=cache)
         x = norm(params["final_norm"], x, cfg)
+        if cfg.is_encoder:
+            with free_rows():
+                logits = self._head_logits(params, x)
+            return cache, logits, positions[:, -1] + 1
         return cache, self._head_logits(params, x[:, -1]), positions[:, -1] + 1
 
     def decode_step(self, params, cache: Any, token: torch.Tensor,
@@ -201,13 +243,16 @@ class Model:
         return (logits[:, 0] if num_logits == 1 else logits), cache
 
     def forward_logits(self, params, batch: dict) -> torch.Tensor:
-        """Full logits [B, S, V] (small models / eval only)."""
+        """Full logits [B, S, V] (small models / eval only; an encoder's
+        serving output). The head is one product, as in an encoder's
+        `prefill` (`numerics.free_rows`), so the two give the same bits."""
         cfg = self.cfg
-        x, positions = self._embed(params, batch)
+        x, positions, _ = self._embed(params, batch)
         x, _, _ = stack.stack_apply(params["segments"], x, cfg,
                                     mode="train", positions=positions)
         x = norm(params["final_norm"], x, cfg)
-        return self._head_logits(params, x)
+        with free_rows():
+            return self._head_logits(params, x)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -4,15 +4,18 @@ The reference package's `roofline/costmodel.py` cut to the serving
 cells of the registered architectures (the port imports nothing of it):
 `cell_costs` counts the FLOPs and bytes of one prefill or decode step
 from the architecture alone (full-attention, sliding-window, MLA, Mamba-2
-SSD or hymba's attention ∥ SSD mixers; GLU, MoE or no MLP: a MoE layer
+SSD or hymba's attention ∥ SSD mixers; GLU, plain, MoE or no MLP; an
+encoder's head over every frame of a prefill: a MoE layer
 streams every routed expert's weights once a step and computes on the
 top-k share of its tokens; an MLA layer's cache line is its latent,
 kv_lora + rope values a token; a windowed layer reads ``min(window, S)``
 positions; an SSM layer reads and writes its f32 state once a decode
 step), and `disagg_report` turns them into the prefill/decode split that
 `serving.disagg`'s ``handoff_min_tokens="auto"`` reads. Training cells,
-plain MLPs, `analytic_terms`, the `SHAPES` registry and the HLO analysis
-are not ported.
+`analytic_terms`, the `SHAPES` registry and the HLO analysis are not
+ported. As in the reference, a prefill prices a bidirectional (encoder)
+layer's score work at the causal pair count ``S · ctx / 2``, and the
+frontend projections are not counted.
 
 Conventions:
   * activations bf16 (2B), scores/softmax f32 (4B),
@@ -62,6 +65,8 @@ def _linear_dims(cfg: ModelConfig, kind) -> list[tuple[int, int]]:
                  (di, d)]
     if kind.mlp == "glu":
         dims += [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    elif kind.mlp == "plain":
+        dims += [(d, cfg.d_ff), (cfg.d_ff, d)]
     return dims
 
 
@@ -96,13 +101,18 @@ class CellCosts:
 
 def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
     """Global per-step costs for one (arch × shape) serving cell: a
-    prefill or decode step of a decoder whose layers are attention
-    (global or windowed), MLA, SSD or hymba mixers with GLU, MoE or no
-    MLPs (every registered architecture). Other layer kinds (a plain
-    MLP) and training steps raise `NotImplementedError`."""
-    if cell.step not in ("prefill", "decode") or cfg.is_encoder:
+    prefill or decode step whose layers are attention (global or
+    windowed), MLA, SSD or hymba mixers with GLU, plain, MoE or no MLPs
+    (every registered architecture); an encoder's prefill runs its head
+    at every frame. Training steps raise `NotImplementedError`, and an
+    encoder's decode cells `ValueError`, with the words of the
+    reference's ``skipped_cells``."""
+    if cell.step not in ("prefill", "decode"):
         raise NotImplementedError(f"{cell.step!r} cells of {cfg.name} are "
                                   f"not ported")
+    if cfg.is_encoder and cell.step == "decode":
+        raise ValueError(f"{cfg.name}: encoder-only: no autoregressive "
+                         f"decode step")
     b, s = cell.global_batch, cell.seq_len
     decode = cell.step == "decode"
     toks = b if decode else b * s
@@ -115,8 +125,6 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
         c.act_bytes += tok * (k + n) * ACT
 
     for kind in cfg.layer_kinds():
-        if kind.mlp not in ("glu", "moe", "none"):
-            raise NotImplementedError(f"layer kind {kind} is not ported")
         if kind.mlp == "moe":
             routed, shared = _moe_dims(cfg)
             for k, n in routed:
@@ -143,11 +151,14 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
                             + 4.0 * b * s * nh * hd * ds)
                 c.act_bytes += b * s * nh * (hd + 2 * ds) * F32
 
-    # --- embeddings / head ---
+    # --- embeddings / head (an encoder's at every frame, its untied
+    # head's table counted once, as the reference counts it) ---
     v, d = cfg.vocab_size, cfg.d_model
-    c.weight_bytes += v * d * 2 * (1 if cfg.tie_embeddings else 2)
-    c.flops += 2.0 * v * d * b
-    c.act_bytes += b * v * F32  # logits
+    c.weight_bytes += v * d * 2 * (2 if not cfg.tie_embeddings
+                                   and not cfg.is_encoder else 1)
+    head_toks = toks if cfg.is_encoder else b
+    c.flops += 2.0 * v * d * head_toks
+    c.act_bytes += head_toks * v * F32  # logits
     return c
 
 

@@ -314,6 +314,10 @@ class GenerationEngine:
                  draft_model=None, draft_params=None, draft_fn=None,
                  mesh=None, preemption: bool = False,
                  admission: str = "reserved"):
+        if model.cfg.is_encoder:
+            raise ValueError(f"{model.cfg.name} is encoder-only: no "
+                             f"autoregressive decode step (serve it through "
+                             f"Model.prefill / forward_logits)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving (mesh) is not ported to repro_torch "
@@ -395,16 +399,36 @@ class GenerationEngine:
         self._paged_cache = None
 
     # -------------------------------------------------------- static batch
+    def _prefill_batch(self, batch: dict, max_new_tokens: int):
+        """(the batch on the engine's device, B, a dense cache for it): the
+        whole batch goes to `Model.prefill`, a vision batch's ``images``
+        included, and B is its first value's, as in the reference. The
+        cache must hold the prompt (after the image span, at ``num_patches
+        + S``) and the ``max_new_tokens - 1`` tokens fed back after it: a
+        vision prompt that does not fit raises rather than being cut."""
+        dev = {k: torch.as_tensor(
+                   v if isinstance(v, torch.Tensor) else np.asarray(v),
+                   dtype=torch.int32 if k == "tokens" else None,
+                   device=self.device) for k, v in batch.items()}
+        b = next(iter(dev.values())).shape[0]
+        if "images" in dev:
+            need = (dev["images"].shape[1] + dev["tokens"].shape[1]
+                    + max_new_tokens - 1)
+            if need > self.max_seq:
+                raise ValueError(
+                    f"max_seq {self.max_seq} does not hold the image span "
+                    f"({dev['images'].shape[1]} patches), the "
+                    f"{dev['tokens'].shape[1]}-token prompt and "
+                    f"{max_new_tokens - 1} fed-back tokens ({need})")
+        return dev, b, self.model.init_cache(b, self.max_seq,
+                                             device=self.device)
+
     @torch.no_grad()
     def generate(self, batch: dict, max_new_tokens: int,
                  gen: torch.Generator | None = None) -> np.ndarray:
         """Host-loop generation with EOS early-exit. Returns [B, max_new]."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int32, device=self.device)
-        b = tokens.shape[0]
-        cache = self.model.init_cache(b, self.max_seq, device=self.device)
-        cache, logits, pos = self.model.prefill(self.params,
-                                                {"tokens": tokens}, cache)
+        dev, b, cache = self._prefill_batch(batch, max_new_tokens)
+        cache, logits, pos = self.model.prefill(self.params, dev, cache)
         token = sample(logits, self.sampler, gen)
         out = [token.cpu().numpy()]
         finished = np.zeros(b, bool)
@@ -427,12 +451,8 @@ class GenerationEngine:
         exit, and the tokens stay on the device until one copy at the end,
         the counterpart of the reference's ``lax.scan``. Returns
         [B, max_new]; equal to `generate` when no stream meets EOS."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int32, device=self.device)
-        b = tokens.shape[0]
-        cache = self.model.init_cache(b, self.max_seq, device=self.device)
-        cache, logits, pos = self.model.prefill(self.params,
-                                                {"tokens": tokens}, cache)
+        dev, b, cache = self._prefill_batch(batch, max_new_tokens)
+        cache, logits, pos = self.model.prefill(self.params, dev, cache)
         out = torch.empty((b, max_new_tokens), dtype=torch.int32,
                           device=self.device)
         token = sample(logits, self.sampler, gen)

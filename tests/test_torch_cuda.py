@@ -36,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import (deepseek_v2_lite, hymba_15b, mamba2_130m,
-                                 qwen2_moe_a27b, qwen25_05b)
+from repro_torch.configs import (deepseek_v2_lite, glm4_9b, hymba_15b,
+                                 mamba2_130m, qwen2_moe_a27b, qwen25_05b)
 from repro_torch.core.packing import pack_linear
 from repro_torch.core.pipeline import quantize_params
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
@@ -601,13 +601,15 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
 K4_MASKS = [(True, 0), (True, 128), (False, 0)]   # causal, window, bidir
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 80, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("s", [1, 15, 63, 64, 65, 1000])
 def test_flash_attention_kernel_edges(cuda, s, dtype, hd):
     """S around the 64-row / 64-key tiles and a long ragged one, each
-    type and head dim, Qwen2.5's 14 q / 2 kv heads, every mask."""
+    type and head dim (80 and 96: a row's 10 and 12 16-byte chunks do
+    not divide the copy's 128 threads; 80: the f32 body's lanes keep 2.5
+    dims each), Qwen2.5's 14 q / 2 kv heads, every mask."""
     q, k, v = _k4_inputs(cuda, 1, 14, 2, s, hd, dtype)
     for causal, window in K4_MASKS:
         out = k4.flash_attention(q, k, v, causal=causal, window=window)
@@ -1814,3 +1816,208 @@ def test_hymba_ring_decode_rows_equal_across_slots(cuda):
         y, c = run(rows)
         assert torch.equal(y, full[rows]), rows
         assert all(torch.equal(c[k], fc[k][rows]) for k in c), rows
+
+
+# ------------------------------- the encoder and the vision frontend
+
+# K4 at hubert-xlarge's (16 heads of 80, bidirectional) and phi-3-vision's
+# (32 heads of 96, causal) widths, each under both masks
+K4_FRONTEND = [(16, 80), (32, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1000, 1023])
+@pytest.mark.parametrize("h,hd", K4_FRONTEND)
+def test_flash_attention_kernel_hd80_hd96(cuda, h, hd, s, causal, dtype):
+    """K4 at head dims 80 and 96, MHA, S 1,000 and 1,023 (every 64-row
+    tile but the last whole, so rows 60 … 63 of each tile are live), bf16
+    and f32, on ``transpose(1, 2)`` views of [B, S, H, hd] projections as
+    `attention()` passes them: every element within the K4 tolerance of
+    the plain version, one launch, the output in q's layout."""
+    b = 2
+    q, k, v = (torch.randn(b, s, h, hd, generator=cuda, device="cuda")
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    before = k4.COUNTER.count
+    out = k4.flash_attention(q, k, v, causal=causal)
+    ref = k4.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal)
+    torch.cuda.synchronize()
+    assert k4.COUNTER.count == before + 1
+    assert out.stride() == q.stride()
+    _k4_check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("hd", [80, 96])
+def test_flash_attention_kernel_hd80_hd96_deterministic(cuda, hd):
+    """Two calls give the same bits, and each batch row's output equals a
+    B 1 call's (the encoder's forward against `check_prefill`'s B 1)."""
+    q, k, v = _k4_inputs(cuda, 2, 16, 16, 1023, hd, torch.bfloat16)
+    runs = [k4.flash_attention(q, k, v, causal=False) for _ in range(2)]
+    one = k4.flash_attention(q[1:].contiguous(), k[1:].contiguous(),
+                             v[1:].contiguous(), causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][1:], one)
+
+
+def test_flash_attention_bwd_refuses_head_dims_it_is_not_built_for(cuda):
+    """K4b is built for hd 64, 128 and 256 only: at 80 and 96 its wrapper
+    raises rather than launching (training the two models is not
+    ported)."""
+    for hd in (80, 96):
+        q, k, v = _k4_inputs(cuda, 1, 2, 2, 64, hd, torch.bfloat16)
+        out, lse = k4._forward(q, k, v, hd ** -0.5, True, 0, True)
+        with pytest.raises(ValueError, match="head_dim"):
+            k4.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
+
+
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("window", [0, 128])
+def test_paged_attention_kernel_phi3_hd96(cuda, window, c):
+    """K2 at phi-3-vision's 32 kv heads of 96 (G 1), over slots of 32
+    pages of 16 (contexts up to 512, the engine's max_seq), with and
+    without a window: its 6 chunks of 16 bytes a key row stay inside the
+    row (a rotation, not an XOR)."""
+    b, hkv, g, hd, page, nblk = 4, 32, 1, 96, 16, 32
+    npages = b * nblk + 1
+    pools = _k2_pools(cuda, npages, page, hkv, hd)
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([16, 200, 456, nblk * page - c], dtype=torch.int32,
+                        device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[0, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    before = k2.COUNTER.count
+    out = _k2_run(q, pools, table, pos, window=window)
+    assert k2.COUNTER.count == before + 1
+    assert out[3].abs().sum() > 0
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_paged_attention_kernel_hd96_tree_rows(cuda, window):
+    """A token-tree verify row at hd 96 (Hkv 4, G 2): logical positions,
+    the ancestor closure as ``amask``, one node that sees nothing (0)."""
+    parents = [-1, 0, 1, 2, 0, 4, 1, 6]
+    c, b, hkv, g, hd, page, nblk = len(parents), 3, 4, 2, 96, 16, 32
+    anc = torch.zeros(c, c, dtype=torch.bool)
+    depth = [0] * c
+    for j, par in enumerate(parents):
+        if par >= 0:
+            anc[j], depth[j] = anc[par], depth[par] + 1
+        anc[j, j] = True
+    pools = _k2_pools(cuda, b * nblk + 1, page, hkv, hd)
+    table = (torch.randperm(b * nblk, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 137, 300], dtype=torch.int32, device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    rpos = (base[:, None] + torch.tensor(depth, dtype=torch.int32,
+                                         device="cuda")[None]).contiguous()
+    amask = anc[None].repeat(b, 1, 1).cuda()
+    amask[0, 5] = False
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    out = _k2_run(q, pools, table, pos, rpos=rpos, amask=amask,
+                  window=window)
+    assert not out[0, 5].any() and out[1].abs().sum() > 0
+
+
+# K1 (K, N) of hubert-xlarge (q / k / v / o, up, down, frame_proj) and
+# phi-3-vision (q / k / v / o, down)
+K1_FRONTEND = [(1280, 1280), (1280, 5120), (5120, 1280), (512, 1280),
+               (3072, 3072), (8192, 3072)]
+
+
+@pytest.mark.parametrize("k,n", K1_FRONTEND)
+def test_awq_matmul_kernel_frontend_model_shapes(cuda, k, n):
+    """K1 at the two models' shapes, M 1, 4, 64 and 2,048 (hubert's
+    forward of B 2 × S 1,024), both outputs, against its plain version;
+    the rows of each smaller M equal the same rows of the 2,048-row
+    call."""
+    w, scale = _k1_linear(cuda, k, n, 64, True)
+    x = torch.randn(2048, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        full, ref = _k1_run(x, w, scale, out_dtype)
+        _k1_check(full, ref)
+        for m in (1, 4, 64):
+            part, ref = _k1_run(x[:m].contiguous(), w, scale, out_dtype)
+            _k1_check(part, ref)
+            assert torch.equal(part, full[:m]), (m, out_dtype)
+
+
+def _k3_past_tolerance(out, ref) -> int:
+    """Elements of a bf16 K3 output past `_k3_check`'s four bf16 ulps."""
+    err = (out.float() - ref.float()).abs()
+    lim = 1e-5 * float(ref.float().abs().max()) + 2 ** -6 * ref.float().abs()
+    return int((err > lim).sum())
+
+
+def test_awq_gateup_kernel_phi3_shape(cuda):
+    """K3 at phi-3-vision's SiLU front (3072 -> 8192), M 1, 4, 64 and
+    1,024, rows equal across M in both outputs. The f32 output is held at
+    `_k3_check`'s tolerance everywhere. The bf16 output rounds g to bf16
+    before silu, and over 8.4 M elements a g a few f32 ulps from a bf16
+    midpoint rounds the other way, which silu's slope carries past four
+    bf16 ulps of the product (ROADMAP, Reference caveats,
+    "Cross-framework numerics"; chip_smoke.py counts them): at most one
+    element in 10^5 may be past them."""
+    args, scales = _k3_pair(cuda, 3072, 8192, 64, True)
+    x = torch.randn(1024, 3072, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        full = k1.awq_gateup(x, *args, **kw)
+        ref = k1.awq_gateup_ref(x, *args, torch.bfloat16, **kw)
+        if out_dtype == torch.float32:
+            _k3_check(full, ref)
+        else:
+            assert _k3_past_tolerance(full, ref) <= full.numel() // 10**5
+        for m in (1, 4, 64):
+            part = k1.awq_gateup(x[:m].contiguous(), *args, **kw)
+            assert torch.equal(part, full[:m]), m
+
+
+@pytest.mark.parametrize("cfg", [glm4_9b.config(), qwen2_moe_a27b.config()],
+                         ids=["glm4-9b", "qwen2-moe-a2.7b"])
+def test_decode_attention_rows_equal_across_slots_and_lengths(cuda, cfg):
+    """A full-width attention layer's decode read over bf16 pages (the
+    one-shot engine's `attention_decode_paged`, 24 pages of 16 a slot):
+    each row of a 5-slot step equals bit for bit the same row in a
+    4-slot step and alone, and the row `attention_decode` gives over a
+    dense cache of 512 positions holding the same keys (`generate()` at
+    B 1). glm4-9b (32 q over 2 kv heads of 128) and qwen2-moe-a2.7b (16
+    heads of 128): in f32 on the card these rows parted, and with them 3
+    of 8 greedy streams of each (`scripts/queue3_oneshot_bf16.py`)."""
+    p = attention.attn_init(cuda, cfg, device="cuda")
+    hkv, hd, page, nblk = cfg.num_kv_heads, cfg.head_dim, 16, 24
+    npages = 5 * nblk + 1
+    pool = {k: torch.randn(npages, page, hkv, hd, generator=cuda,
+                           device="cuda").to(torch.bfloat16)
+            for k in ("k", "v")}
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(5, nblk)
+    x = torch.randn(5, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([100, 300, 57, 383, 200], dtype=torch.int32,
+                       device="cuda")
+
+    def paged(rows):
+        pl = {k: v.clone() for k, v in pool.items()}
+        return attention.attention_decode_paged(
+            p, pl, table[rows].contiguous(), x[rows], cfg, pos=pos[rows])[0]
+
+    full = paged(slice(None))
+    assert torch.isfinite(full.float()).all()
+    for rows in [slice(0, 4)] + [slice(i, i + 1) for i in range(5)]:
+        assert torch.equal(paged(rows), full[rows]), rows
+    for i in range(5):
+        cache = {k: torch.zeros(1, 512, hkv, hd, dtype=torch.bfloat16,
+                                device="cuda") for k in ("k", "v")}
+        for k in cache:
+            cache[k][0, :nblk * page] = pool[k][table[i].long()].reshape(
+                nblk * page, hkv, hd)
+        y, _ = attention.attention_decode(p, cache, x[i:i + 1], cfg,
+                                          pos=pos[i:i + 1])
+        assert torch.equal(y, full[i:i + 1]), i

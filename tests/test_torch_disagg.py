@@ -436,15 +436,26 @@ def test_cell_costs_equal_reference(size):
 
 
 def test_cell_costs_raises_outside_the_registered_kinds():
-    """Training cells and layer kinds no registered architecture has (a
-    plain MLP) are not ported: they raise, and never count as a dense
-    layer."""
+    """Training cells are not ported and raise, as does an encoder's
+    decode cell (the reference's registry skips it: no decode step); a
+    plain MLP (hubert-xlarge's kind) prices its two linears as the
+    reference does, never as a GLU's three."""
     cfg = tconfigs.get_smoke_config("qwen25-05b")
     with pytest.raises(NotImplementedError, match="not ported"):
         tcost.cell_costs(cfg, tcost.serving_cell("train", 64), False)
     plain = dataclasses.replace(cfg, mlp_type="plain")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(plain, tcost.serving_cell("decode", 64), False)
+    jplain = dataclasses.replace(jconfigs.get_smoke_config("qwen25-05b"),
+                                 mlp_type="plain")
+    cell = ("decode", 64, 1)
+    c = tcost.cell_costs(plain, tcost.serving_cell(*cell), False)
+    a = jcost.cell_costs(jplain, jcost.serving_cell(*cell), False)
+    assert dataclasses.asdict(c) == {k: getattr(a, k)
+                                     for k in dataclasses.asdict(c)}
+    assert c.flops < tcost.cell_costs(cfg, tcost.serving_cell(*cell),
+                                      False).flops
+    encoder = tconfigs.get_smoke_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="no autoregressive decode step"):
+        tcost.cell_costs(encoder, tcost.serving_cell("decode", 64), False)
 
 
 @pytest.mark.parametrize("kw", [dict(decode_batch=128, context=4096),

@@ -48,6 +48,12 @@ CASES = [
     (1, 8, 4, 192, 256, True, 64, 64, 64),
     (1, 8, 1, 128, 256, True, 0, 64, 64),
     (1, 16, 1, 128, 128, True, 0, 64, 64),
+    # hubert-xlarge (MHA, hd 80, bidirectional) and phi-3-vision (MHA,
+    # hd 96, causal), each also with the other mask
+    (1, 4, 4, 128, 80, False, 0, 64, 64),
+    (2, 2, 2, 192, 80, True, 0, 64, 64),
+    (1, 4, 4, 128, 96, True, 0, 64, 64),
+    (2, 2, 2, 192, 96, False, 0, 64, 64),
 ]
 
 

@@ -208,9 +208,10 @@ def test_kernel_spans_over_a_long_slot(window):
 
 
 # the other dense models' (Hkv, G, hd, window): gemma3's global and windowed
-# layers, gemma-2b (MQA), glm4, smollm
+# layers, gemma-2b (MQA), glm4, smollm; phi-3-vision (MHA at hd 96: 32 kv
+# heads, G 1), and hd 96 under a window
 NEW_SHAPES = [(4, 2, 256, 0), (4, 2, 256, 6), (1, 8, 256, 0), (2, 16, 128, 0),
-              (5, 3, 64, 0)]
+              (5, 3, 64, 0), (32, 1, 96, 0), (4, 1, 96, 6)]
 
 
 @pytest.mark.parametrize("hkv,g,hd,window", NEW_SHAPES)
