@@ -67,7 +67,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                (C 1 and 16, contexts up to 456), K4 at hubert's
                bidirectional forward (16 heads of 80, B 2 x S 1,024) and
                phi-3-vision's prefill with images (32 heads of 96, S
-               456), each in bf16 and in f32;
+               456), each in bf16 and in f32; K2-TP
+               (paged_attention_chunk_sharded: K2 once a shard of a 2-way
+               mesh on one card) at K2's three Qwen cases, its shards
+               joined bit-equal to one K2 launch over both heads, timed
+               beside it, its plain version and SDPA;
   4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
@@ -156,6 +160,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                launches a step, and tokens emitted per verify row;
  15. check   — one unified `chunk_step` on the card (K1 + K2) against the
                same step on CPU copies (plain versions);
+ 15b. tp     — tensor-parallel serving on one card: the serve phase's 8
+               requests through `GenerationEngine(mesh=...)` over a 2-way
+               ``model`` mesh whose shards share cuda:0 (`serving_mesh(2,
+               devices=[cuda:0, cuda:0])`; each shard its q / kv heads,
+               its half of the int8 pools, K2-TP reading them), under the
+               default threshold and with every quantized linear on K1 /
+               K3. Gated: K2-TP launched, each shard's pool bytes half the
+               unsharded engine's, first tokens equal to the serve phase's
+               where generate()'s margin clears the `check` rule, no page
+               in use; the `check` phase's two steps on the mesh within its
+               rule against its CPU logits (K2-TP once a layer a step); a
+               spill → restore round trip on the mesh bit-exact (the
+               strips are the shards' pieces joined, in pinned memory); the
+               `disagg` traffic with a mesh-2 prefill side and an
+               unsharded decode side, whose wire bytes must equal the
+               unsharded pair's. Streams equal to the unsharded engine's
+               are counted, not gated (row-parallel sums change the bf16
+               function, as in the reference). A decode step of 4 slots
+               is profiled beside the `profile` phase's unsharded one;
  16. launch  — the launcher's AWQ path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --batch 4 --prompt-len 256 --max-new 32``:
@@ -192,10 +215,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                of them global), smollm-360m (4 of 32 layers), gemma-2b (4
                of 18), glm4-9b (4 of 40), then the MoE family:
                qwen2-moe-a2.7b (60 experts top-4 + 4 shared, 16 heads of
-               128; 4 of 24 layers) and deepseek-v2-lite-16b (MLA + 64
-               experts top-6 + 2 shared, its first layer dense; 4 of 27),
+               128; 2 of 24 layers) and deepseek-v2-lite-16b (MLA + 64
+               experts top-6 + 2 shared, its first layer dense; 2 of 27),
                then the SSM family:
-               mamba2-130m (SSD layers, no attention, no MLP; 12 of its
+               mamba2-130m (SSD layers, no attention, no MLP; 6 of its
                24) and hymba-1.5b (attention ∥ SSD, 25 q / 5 kv heads,
                4 of its 32 layers: global layer 0, 3 windowed), each
                at full width with
@@ -328,6 +351,7 @@ from repro_torch.kernels import paged_attention as k2  # noqa: E402
 from repro_torch.bridge import state_to_arrays  # noqa: E402
 from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.data.pipeline import make_dataset  # noqa: E402
+from repro_torch.distributed import serving_mesh, shard_params  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -360,12 +384,15 @@ T_START = time.perf_counter()
 # each kernel wrapper's launch count (one per launch of its kernel)
 COUNTERS = {"awq_matmul": k1.COUNTER, "paged_attention_chunk": k2.COUNTER,
             "awq_gateup": k1.GATEUP_COUNTER, "flash_attention": k4.COUNTER}
+# K2-TP: calls that launched K2 once a shard (each shard's launch also
+# counts under paged_attention_chunk)
+TP_COUNTERS = {"paged_attention_chunk_sharded": k2.TP_COUNTER}
 # K1's and K3's launches over a MoE layer's stacked experts (the expert
 # axis; each is counted under its kernel's name too)
 EXPERT_COUNTERS = {"awq_matmul_experts": k1.EXPERT_COUNTER,
                    "awq_gateup_experts": k1.GATEUP_EXPERT_COUNTER}
 # K4b launches only on the train path
-ALL_COUNTERS = {**COUNTERS, **EXPERT_COUNTERS,
+ALL_COUNTERS = {**COUNTERS, **EXPERT_COUNTERS, **TP_COUNTERS,
                 "flash_attention_bwd": k4.BWD_COUNTER}
 
 
@@ -825,11 +852,42 @@ def _k2_inputs(gen, c: int, tree: bool = False):
     return q, pools, table, pos, kw
 
 
+def _k2_yardstick(q, pools, table, pos, kw) -> tuple[float, float, str]:
+    """(library ms, bound ms, bound by) of one K2 call: SDPA over K/V
+    already gathered and dequantized (bf16), with the visibility as a
+    boolean mask — not the same function — and the bound on the bytes
+    this data needs (q, out, and for every row the int8 codes + f32
+    scales of the keys its queries can see, per kv head) and its f32
+    operations."""
+    b, c, hkv, g, hd = q.shape
+    s_slot = table.shape[1] * 16
+    vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, **kw)
+    mask = vis[:, None].expand(b, hkv * g, c, s_slot)
+    kv = []
+    for kp, ks, vp, vs in pools:
+        kk = (kp.float() * ks[..., None])[table.long()].reshape(
+            b, s_slot, hkv, hd).transpose(1, 2).to(torch.bfloat16)
+        vv = (vp.float() * vs[..., None])[table.long()].reshape(
+            b, s_slot, hkv, hd).transpose(1, 2).to(torch.bfloat16)
+        kv.append((kk.contiguous(), vv.contiguous()))
+    qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, c, hd).to(
+        torch.bfloat16)
+    lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qs, *kv[i], attn_mask=mask, enable_gqa=True), len(pools))
+    keys = int(vis.any(dim=1).sum())             # (row, key) pairs
+    visible = int(vis.sum())                     # (query, key) pairs
+    nbytes = (2 * q.nbytes + keys * hkv * (2 * hd + 8)
+              + table.nbytes + pos.nbytes
+              + sum(t.nbytes for t in kw.values()
+                    if isinstance(t, torch.Tensor)))
+    b_ms, b_by = bound(nbytes, (4 * visible * hkv * g * hd, F32_OPS_PER_S))
+    return lib, b_ms, b_by
+
+
 def check_k2(gen) -> tuple[dict, dict]:
     per_c = []
     for case, c in (("decode", 1), ("chunk", 16), ("tree", 8)):
         q, pools, table, pos, kw = _k2_inputs(gen, c, tree=case == "tree")
-        b, _, hkv, g, hd = q.shape
         copies = len(pools)
 
         def run(i, fn):
@@ -843,8 +901,7 @@ def check_k2(gen) -> tuple[dict, dict]:
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
         if not err <= tol:
             raise AssertionError(f"K2 {case} C={c}: err {err} > {tol}")
-        s_slot = table.shape[1] * 16
-        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, **kw)
+        vis = k2.chunk_visibility_ref(pos, s_slot=table.shape[1] * 16, **kw)
         empty = ~vis.any(dim=-1)                     # padding + empty rows
         if case == "tree" and not bool(empty[0, 5]):
             raise AssertionError("K2 tree: row 0 node 5 should see nothing")
@@ -854,30 +911,7 @@ def check_k2(gen) -> tuple[dict, dict]:
         ms = time_ms(lambda i: run(i, k2.paged_attention_chunk), copies)
         plain = time_ms(lambda i: run(i, k2.paged_attention_chunk_ref),
                         copies, iters=10)
-        # yardstick: SDPA over K/V already gathered and dequantized (bf16),
-        # with the visibility as a boolean mask — not the same function
-        mask = vis[:, None].expand(b, hkv * g, c, s_slot)
-        kv = []
-        for kp, ks, vp, vs in pools:
-            kk = (kp.float() * ks[..., None])[table.long()].reshape(
-                b, s_slot, hkv, hd).transpose(1, 2).to(torch.bfloat16)
-            vv = (vp.float() * vs[..., None])[table.long()].reshape(
-                b, s_slot, hkv, hd).transpose(1, 2).to(torch.bfloat16)
-            kv.append((kk.contiguous(), vv.contiguous()))
-        qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, c, hd).to(
-            torch.bfloat16)
-        lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            qs, *kv[i], attn_mask=mask, enable_gqa=True), copies)
-        # bytes this data needs: q, out, and for every row the int8 codes
-        # + f32 scales of the keys its queries can see, per kv head
-        keys = int(vis.any(dim=1).sum())             # (row, key) pairs
-        visible = int(vis.sum())                     # (query, key) pairs
-        nbytes = (2 * q.nbytes + keys * hkv * (2 * hd + 8)
-                  + table.nbytes + pos.nbytes
-                  + sum(t.nbytes for t in kw.values()
-                        if isinstance(t, torch.Tensor)))
-        b_ms, b_by = bound(nbytes,
-                           (4 * visible * hkv * g * hd, F32_OPS_PER_S))
+        lib, b_ms, b_by = _k2_yardstick(q, pools, table, pos, kw)
         per_c.append(dict(case=case, c=c, max_abs_err=err, tol=tol, ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by))
@@ -899,6 +933,96 @@ def check_k2(gen) -> tuple[dict, dict]:
         tolerance="per shape: 1e-5 x max(1, max|plain|) (shapes[].tol)",
         library_call="torch SDPA over gathered, dequantized bf16 K/V with "
                      "a boolean mask (not the same function)",
+        shapes=per_c)
+    return entry, detail
+
+
+def _split_heads(t: torch.Tensor, dim: int, n: int) -> list[torch.Tensor]:
+    """``t`` cut into n pieces along ``dim``, each its own contiguous
+    allocation (a shard's stripe)."""
+    return [p.contiguous() for p in torch.chunk(t, n, dim=dim)]
+
+
+def tp_mesh():
+    """The tp checks' 2-way ``model`` mesh, both shards on cuda:0."""
+    return serving_mesh(2, devices=["cuda:0", "cuda:0"])
+
+
+def check_k2_tp(gen) -> tuple[dict, dict]:
+    """K2-TP at Qwen2.5's decode shape cut over a 2-way mesh (Hkv 2 → 1
+    kv head a shard, G 7, hd 64, B 4, contexts to 512 with padding rows):
+    C 1 and 16, and C 8 with a token tree's mask, logical positions and
+    a window. Its shards joined over heads must equal one K2 launch over
+    both heads bit for bit (K2's blocks are per slot and kv head), and
+    its plain version within K2's tolerance. Timed beside K2 over all
+    heads (the same work and bytes, so the same bound) and SDPA over the
+    gathered heads."""
+    mesh = tp_mesh()
+    per_c = []
+    for case, c in (("decode", 1), ("chunk", 16), ("tree", 8)):
+        q, pools, table, pos, kw = _k2_inputs(gen, c, tree=case == "tree")
+        copies = len(pools)
+        cut = [([_split_heads(q, 2, 2)] + [
+            _split_heads(t, dim, 2) for t, dim in zip(pl, (-2, -1, -2, -1))])
+               for pl in pools]
+
+        def tp(i, fn=k2.paged_attention_chunk_sharded):
+            return fn(*cut[i], table, pos, mesh=mesh, **kw)
+
+        def whole(i):
+            kp, ks, vp, vs = pools[i]
+            return k2.paged_attention_chunk(q, kp, ks, vp, vs, table, pos,
+                                            **kw)
+
+        before = (k2.TP_COUNTER.count, k2.COUNTER.count)
+        outs = tp(0)
+        torch.cuda.synchronize()
+        if (k2.TP_COUNTER.count - before[0],
+                k2.COUNTER.count - before[1]) != (1, 2):
+            raise AssertionError("K2-TP: one call must launch K2 once a "
+                                 "shard and count one K2-TP launch")
+        joined = torch.cat(outs, dim=2)
+        full = whole(0)
+        torch.cuda.synchronize()
+        if not torch.equal(joined, full):
+            raise AssertionError(f"K2-TP {case}: shards joined differ from "
+                                 f"K2 over all heads by "
+                                 f"{float((joined - full).abs().max())}")
+        ref = torch.cat(tp(0, k2.paged_attention_chunk_sharded_ref), dim=2)
+        err = float((joined - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"K2-TP {case} C={c}: err {err} > {tol}")
+        ms = time_ms(tp, copies)
+        k2_ms = time_ms(whole, copies)
+        plain = time_ms(lambda i: tp(i, k2.paged_attention_chunk_sharded_ref),
+                        copies, iters=10)
+        # K2's bytes and operations over both heads: the shards split them
+        lib, b_ms, b_by = _k2_yardstick(q, pools, table, pos, kw)
+        per_c.append(dict(case=case, c=c, max_abs_err=err, tol=tol,
+                          bit_equal_to_k2=True, ms=ms, k2_all_heads_ms=k2_ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by))
+    dec = per_c[0]
+    entry = dict(
+        name="paged_attention_chunk_sharded", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:255",
+        max_abs_err=max(s["max_abs_err"] for s in per_c),
+        ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+        bound_by=dec["bound_by"], library_ms=dec["library_ms"])
+    detail = dict(
+        at="decode, C=1, B=4, contexts 137/300/511 + a padding row, "
+           "Hkv 2 over a 2-way mesh on one card (1 kv head a shard)",
+        design="K2 launched once a shard on its KV-head stripe (each "
+               "stripe its own contiguous pool), tables and positions "
+               "replicated; no new CUDA: the wrapper "
+               "src/repro_torch/kernels/paged_attention.py",
+        tolerance="bit-equal to K2 over all heads; 1e-5 x max(1, "
+                  "max|plain|) against its plain version",
+        library_call="torch SDPA over gathered, dequantized bf16 K/V of "
+                     "both heads with a boolean mask (not the same "
+                     "function)",
         shapes=per_c)
     return entry, detail
 
@@ -989,17 +1113,10 @@ def check_streams(label: str, out: dict, rids, vocab: int,
             raise AssertionError(f"{label}: request {rid}: bad stream {toks}")
 
 
-def serve(model, params) -> dict:
-    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
-                           max_seq=512, prefill_chunk=16, kv_quant="int8")
-    prompts = serve_prompts(model.cfg.vocab_size)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the serve path's kernels (K4 is not on it)
-    names = ("awq_matmul", "awq_gateup", "paged_attention_chunk")
-    # the main path: counts start at 0 here and are read right after
-    reset_counts()
-    qlinear.COUNTS.kernel = qlinear.COUNTS.generic = 0
+def _serve_burst(eng, prompts, names) -> dict:
+    """Submit ``prompts`` (32 new tokens each) and step ``eng`` until
+    idle: each step's host time, and the launches of ``names`` in steps
+    with decode rows only and in steps with prefill rows."""
     t0 = time.perf_counter()
     rids = [eng.submit(p, 32) for p in prompts]
     decode_s, decode_tokens, decode_steps, steps, prefilled = 0.0, 0, 0, 0, 0
@@ -1022,8 +1139,27 @@ def serve(model, params) -> dict:
             into[n] += v - before[n]
         prefilled = now
     out = eng.drain()
-    total_s = time.perf_counter() - t0
-    launches = read_counts(names)
+    return dict(rids=rids, out=out, serve_s=time.perf_counter() - t0,
+                steps=steps, decode_s=decode_s, decode_tokens=decode_tokens,
+                decode_steps=decode_steps, decode_launches=decode_launches,
+                prefill_launches=prefill_launches,
+                launches=read_counts(names))
+
+
+def serve(model, params) -> dict:
+    eng = GenerationEngine(model, params, num_slots=4, page_size=16,
+                           max_seq=512, prefill_chunk=16, kv_quant="int8")
+    prompts = serve_prompts(model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the serve path's kernels (K4 is not on it)
+    names = ("awq_matmul", "awq_gateup", "paged_attention_chunk")
+    # the main path: counts start at 0 here and are read right after
+    reset_counts()
+    qlinear.COUNTS.kernel = qlinear.COUNTS.generic = 0
+    run = _serve_burst(eng, prompts, names)
+    rids, out, launches = run["rids"], run["out"], run["launches"]
+    decode_steps, steps = run["decode_steps"], run["steps"]
     paths = {"kernel": qlinear.COUNTS.kernel,
              "generic": qlinear.COUNTS.generic}
     check_streams("serve", out, rids, model.cfg.vocab_size)
@@ -1032,19 +1168,20 @@ def serve(model, params) -> dict:
                              f"{launches}")
     st = eng.stats()
     return dict(requests=len(rids), generated=32 * len(rids), steps=steps,
-                dispatches=st.dispatches, serve_s=total_s,
-                decode_tokens_per_s=decode_tokens / decode_s,
+                dispatches=st.dispatches, serve_s=run["serve_s"],
+                decode_tokens_per_s=run["decode_tokens"] / run["decode_s"],
                 decode_steps=decode_steps,
-                decode_step_ms=1e3 * decode_s / max(1, decode_steps),
+                decode_step_ms=1e3 * run["decode_s"] / max(1, decode_steps),
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
                 kv_pool_bytes=st.kv_pool_bytes, weight_bytes=st.weight_bytes,
                 launches=launches,
-                launches_per_decode_step={n: v / max(1, decode_steps)
-                                          for n, v in decode_launches.items()},
+                launches_per_decode_step={
+                    n: v / max(1, decode_steps)
+                    for n, v in run["decode_launches"].items()},
                 prefill_steps=steps - decode_steps,
-                launches_in_decode_steps=decode_launches,
-                launches_in_prefill_steps=prefill_launches,
-                qlinear_calls=paths)
+                launches_in_decode_steps=run["decode_launches"],
+                launches_in_prefill_steps=run["prefill_launches"],
+                qlinear_calls=paths, streams=[out[r] for r in rids])
 
 
 # -------------------------------------------------------------- phases 5-7
@@ -1504,7 +1641,7 @@ def disagg(model, params) -> dict:
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         kv_pool_bytes_per_side=ctrl.decode.stats().kv_pool_bytes,
         launches=launches, launches_by_side=side_launches,
-        identical_streams=len(streams),
+        identical_streams=len(streams), unified_streams=refs,
         auto=dict(handoff_min_tokens=auto.handoff_min_tokens,
                   split_report=rep))
 
@@ -1938,32 +2075,59 @@ def _device_side(tie: RouteTie, d: str):
     return tie.record() if d == "cuda" else tie.force()
 
 
-def cross_check(model, params) -> dict:
+def _check_inputs(vocab: int) -> list:
+    """The `check` phase's two unified steps: (tokens, positions, sample
+    indices) of a prefill chunk (C 16, one row padded from 10) and of a
+    decode step (C 1), over page table rows 1-16."""
+    rng = np.random.default_rng(SEED + 1)
+    toks_a = torch.from_numpy(rng.integers(0, vocab, (4, 16))
+                              .astype(np.int32))
+    pos_a = torch.arange(16, dtype=torch.int32)[None].repeat(4, 1)
+    pos_a[3, 10:] = -1
+    sidx_a = torch.tensor([15, 15, 15, 9], dtype=torch.int32)
+    toks_b = torch.from_numpy(rng.integers(0, vocab, (4, 1))
+                              .astype(np.int32))
+    pos_b = torch.tensor([[16], [16], [16], [10]], dtype=torch.int32)
+    sidx_b = torch.zeros(4, dtype=torch.int32)
+    return [(toks_a, pos_a, sidx_a), (toks_b, pos_b, sidx_b)]
+
+
+CHECK_TABLE = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+
+
+def _check_rule(step: int, got: torch.Tensor, ref: torch.Tensor,
+                label: str = "cross-check") -> dict:
+    """Logits within 5 % of the CPU's largest magnitude, and the argmax
+    equal on every row whose top-2 margin clears twice that."""
+    err = float((got - ref).abs().max())
+    tol = 0.05 * float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    agree = (got.argmax(-1) == ref.argmax(-1))
+    if not err <= tol or not bool(agree[clear].all()):
+        raise AssertionError(f"{label} step {step}: err {err} > {tol} or "
+                             f"argmax differs on clear rows")
+    return dict(max_abs_err=err, tol=tol, clear_rows=int(clear.sum()),
+                argmax_agree=int(agree.sum()))
+
+
+def cross_check(model, params, cpu_logits: list | None = None) -> dict:
     """One prefill chunk (C=16) and one decode step (C=1) of the unified
     chunk step on the card vs CPU copies (plain versions). bf16
     activations round differently once K2 dequantizes K/V in f32 (card)
     instead of to bf16 (CPU gather path), so logits are held at 5% of
     their largest magnitude, and the argmax must agree on rows whose
     top-2 margin clears that tolerance. A MoE model's CPU side takes the
-    card's routing (`RouteTie`)."""
+    card's routing (`RouteTie`). The CPU's logits of each step are
+    appended to ``cpu_logits`` where it is given (the `tp` phase holds
+    its sharded steps to them)."""
     cpu_params = tree_to(params, "cpu")
-    rng = np.random.default_rng(SEED + 1)
-    table = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
-    toks_a = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 16))
-                              .astype(np.int32))
-    pos_a = torch.arange(16, dtype=torch.int32)[None].repeat(4, 1)
-    pos_a[3, 10:] = -1
-    sidx_a = torch.tensor([15, 15, 15, 9], dtype=torch.int32)
-    toks_b = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 1))
-                              .astype(np.int32))
-    pos_b = torch.tensor([[16], [16], [16], [10]], dtype=torch.int32)
-    sidx_b = torch.zeros(4, dtype=torch.int32)
     pools = {d: model.init_paged_cache(17, 16, kv_quant="int8", device=d)
              for d in ("cuda", "cpu")}
     prm = {"cuda": params, "cpu": cpu_params}
     res = {}
-    for step, (toks, pos, sidx) in enumerate(((toks_a, pos_a, sidx_a),
-                                              (toks_b, pos_b, sidx_b))):
+    for step, (toks, pos, sidx) in enumerate(
+            _check_inputs(model.cfg.vocab_size)):
         if step == 1:      # both sides read the card's committed pages
             pools["cpu"] = tree_to(pools["cuda"], "cpu")
         logits, tie = {}, RouteTie()
@@ -1971,23 +2135,232 @@ def cross_check(model, params) -> dict:
             with torch.no_grad(), _device_side(tie, d):
                 lg, pools[d] = model.chunk_step(
                     prm[d], pools[d], toks.to(d), pos.to(d), sidx.to(d),
-                    page_table=table.to(d))
+                    page_table=CHECK_TABLE.to(d))
             logits[d] = lg.float().cpu()
-        ref, got = logits["cpu"], logits["cuda"]
-        err = float((got - ref).abs().max())
-        tol = 0.05 * float(ref.abs().max())
-        top2 = torch.topk(ref, 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        agree = (got.argmax(-1) == ref.argmax(-1))
-        if not err <= tol or not bool(agree[clear].all()):
-            raise AssertionError(f"cross-check step {step}: err {err} > "
-                                 f"{tol} or argmax differs on clear rows")
-        res[f"step{step}"] = dict(max_abs_err=err, tol=tol,
-                                  clear_rows=int(clear.sum()),
-                                  argmax_agree=int(agree.sum()))
+        res[f"step{step}"] = _check_rule(step, logits["cuda"],
+                                         logits["cpu"])
+        if cpu_logits is not None:
+            cpu_logits.append(logits["cpu"])
         if model.cfg.num_experts:
             res[f"step{step}"]["routing"] = tie.report()
     return res
+
+
+# ------------------------------------------------------------- phase tp
+def _tp_check(model, params, cpu_logits) -> dict:
+    """The `check` phase's two chunk steps on the card under the 2-way
+    mesh (their own pools, striped), held to the `check` phase's CPU
+    logits by the same rule; K2-TP must launch once a layer a step."""
+    mesh = tp_mesh()
+    shards = shard_params(params, mesh, model.cfg)
+    pools = model.init_paged_cache(17, 16, kv_quant="int8", mesh=mesh)
+    res = {}
+    for step, (toks, pos, sidx) in enumerate(
+            _check_inputs(model.cfg.vocab_size)):
+        before = k2.TP_COUNTER.count
+        with torch.no_grad():
+            lg, pools = model.chunk_step(
+                shards, pools, toks.cuda(), pos.cuda(), sidx.cuda(),
+                page_table=CHECK_TABLE.cuda(), mesh=mesh)
+        res[f"step{step}"] = _check_rule(step, lg.float().cpu(),
+                                         cpu_logits[step], "tp check")
+        launched = k2.TP_COUNTER.count - before
+        if launched != model.cfg.num_layers:
+            raise AssertionError(f"tp check step {step}: K2-TP launched "
+                                 f"{launched} times, want one a layer")
+    return res
+
+
+def _tp_preempt(model, params, prompts) -> dict:
+    """A spill → restore round trip on the 2-way mesh: the four longest
+    serve prompts (8 new tokens) on a preempting engine, the last one
+    still on a slot preempted by hand once a first token is out. Gated: the spilled strips are the shards'
+    KV-head pieces joined, in pinned host memory, and the restored pages
+    equal them bit for bit; one restore, no page left in use."""
+    eng = GenerationEngine(model, params, mesh=tp_mesh(), preemption=True,
+                           **SERVE_KW)
+    longest = [prompts[i] for i in SLO_LONG]
+    rids = [eng.submit(p, 8) for p in longest]
+    sched = eng._scheduler
+    spill, restore = sched._spill_fn, sched._restore_fn
+    seen = {"spills": 0, "restores": 0, "bytes": 0}
+
+    def joined(ids):
+        ids = torch.as_tensor(ids, device="cuda")
+        return {seg: {leaf: torch.cat(
+                    [torch.stack([e["kv_pool"][leaf][ids] for e in c[seg]])
+                     for c in eng._paged_cache],
+                    dim=-2 if leaf in ("k", "v") else -1).cpu()
+                      for leaf in c0[0]["kv_pool"]}
+                for seg, c0 in eng._paged_cache[0].items()}
+
+    def watched_spill(ids):
+        want = joined(ids)
+        handle = spill(ids)
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+        for seg, leaves in want.items():
+            for leaf, t in leaves.items():
+                got = handle["strips"][seg][leaf]
+                if not got.is_pinned() or not torch.equal(got, t):
+                    raise AssertionError(f"tp preempt: strip {seg}/{leaf} "
+                                         f"is not the shards' pieces "
+                                         f"joined in pinned memory")
+                seen["bytes"] += got.numel() * got.element_size()
+        seen["spills"] += 1
+        return handle
+
+    def watched_restore(handle, fresh):
+        restore(handle, fresh)
+        got = joined(fresh)
+        for seg, leaves in handle["strips"].items():
+            for leaf, t in leaves.items():
+                if not torch.equal(got[seg][leaf], t):
+                    raise AssertionError(f"tp preempt: restored {seg}/"
+                                         f"{leaf} differs from its strip")
+        seen["restores"] += 1
+
+    sched._spill_fn, sched._restore_fn = watched_spill, watched_restore
+    while not eng.step():               # until a first token is out
+        pass
+    if not any(eng.preempt(r) for r in reversed(rids)):
+        raise AssertionError("tp preempt: no request held a slot")
+    out = eng.drain()
+    check_streams("tp preempt", out, rids, model.cfg.vocab_size, n=8)
+    st = eng.stats()
+    if (seen["spills"], seen["restores"], st.restores) != (1, 1, 1) \
+            or st.pager.pages_used or st.spilled_pages != st.restored_pages:
+        raise AssertionError(f"tp preempt: {seen}, restores {st.restores}, "
+                             f"pages in use {st.pager.pages_used}")
+    return dict(spills=seen["spills"], restores=st.restores,
+                spilled_pages=st.spilled_pages, spilled_bytes=seen["bytes"],
+                restore_ms_mean=st.restore_ms_mean, round_trip_exact=True)
+
+
+def _tp_disagg(model, params, prompts, want_wire: int, refs) -> dict:
+    """The `disagg` phase's traffic with its prefill side on the 2-way
+    mesh and its decode side unsharded, every quantized linear on K1 /
+    K3: the handoffs' wire bytes must equal the unsharded pair's (the
+    strips leave the mesh whole), no page may stay in use; streams equal
+    to the unified engine's are counted."""
+    with qlinear.execution_config(ALL_KERNEL):
+        ctrl = DisaggController(model, params, prefill_mesh=tp_mesh(),
+                                handoff_min_tokens=DISAGG_MIN_TOKENS,
+                                **SERVE_KW)
+        before = read_counts(TP_COUNTERS)
+        crids = [ctrl.submit(p, 32) for p in prompts]
+        got = ctrl.drain()
+        launched = read_counts(TP_COUNTERS)
+    check_streams("tp disagg", got, crids, model.cfg.vocab_size)
+    st = ctrl.stats()
+    in_use = [e.engine._scheduler.pager.pages_in_use
+              for e in (ctrl.prefill, ctrl.decode)]
+    if st.wire_bytes != want_wire or in_use != [0, 0]:
+        raise AssertionError(f"tp disagg: wire bytes {st.wire_bytes}, the "
+                             f"unsharded pair's {want_wire}; pages in use "
+                             f"{in_use}")
+    diffs = _first_diffs([got[r] for r in crids], refs)
+    return dict(prefill_model_axis=ctrl.prefill.stats().model_axis,
+                decode_model_axis=ctrl.decode.stats().model_axis,
+                handoffs=st.handoffs, direct=st.direct,
+                wire_bytes=st.wire_bytes, unsharded_wire_bytes=want_wire,
+                identical_streams=sum(d is None for d in diffs),
+                first_diffs=diffs,
+                launches={n: launched[n] - before[n] for n in TP_COUNTERS})
+
+
+def tp(model, params, served: dict, unified_refs, cpu_logits, prof,
+       want_wire: int) -> dict:
+    """Tensor-parallel serving on one card: Qwen2.5-0.5B at full size,
+    RTN int4, int8 pages of 16, 4 slots, the serve phase's 8 prompts (32
+    new each) through `GenerationEngine(mesh=...)` over a 2-way mesh whose
+    two shards share cuda:0 (`serving_mesh(2, devices=[cuda:0, cuda:0])`:
+    the card cannot show a speedup from tensor parallelism, only the
+    function, K2-TP's launches and the per-shard bytes). Gated: K2-TP
+    launched, per-shard pool bytes half the unsharded engine's, first
+    tokens equal to the serve phase's where generate()'s margin is clear
+    (the `check` rule), the `check` phase's steps within its rule, a
+    spill → restore round trip bit-exact, a mesh-2 → mesh-1 handoff whose
+    wire bytes are the unsharded pair's, no page left in use. Counted:
+    streams equal to the unsharded engine's under the default threshold
+    and with every quantized linear on K1 / K3 (row-parallel sums change
+    the bf16 function, as in the reference). Profiled: a decode step of
+    4 slots, beside the unsharded one of the `profile` phase."""
+    mesh = tp_mesh()
+    prompts = serve_prompts(model.cfg.vocab_size)
+    names = SLO_NAMES + tuple(TP_COUNTERS)
+    runs = {}
+    for name, ecfg, refs in (
+            ("default", qlinear.ExecutionConfig(), served["streams"]),
+            ("all_kernel", ALL_KERNEL, unified_refs)):
+        eng = GenerationEngine(model, params, mesh=mesh, **SERVE_KW)
+        with qlinear.execution_config(ecfg):
+            _reset_peak()
+            # the main path: counts start at 0 here and are read right after
+            reset_counts()
+            run = _serve_burst(eng, prompts, names)
+        check_streams(f"tp {name}", run["out"], run["rids"],
+                      model.cfg.vocab_size)
+        streams = [run["out"][r] for r in run["rids"]]
+        st = eng.stats()
+        if min(run["launches"].values()) <= 0 or st.pager.pages_used:
+            raise AssertionError(f"tp {name}: a kernel never ran "
+                                 f"({run['launches']}) or pages stay in "
+                                 f"use ({st.pager.pages_used})")
+        if (st.model_axis, st.kv_pool_bytes) != (2, served["kv_pool_bytes"]) \
+                or 2 * st.kv_pool_bytes_per_device != st.kv_pool_bytes:
+            raise AssertionError(f"tp {name}: pool bytes {st.kv_pool_bytes} "
+                                 f"/ {st.kv_pool_bytes_per_device} a shard, "
+                                 f"unsharded {served['kv_pool_bytes']}")
+        first_ties = []
+        for rid, p, got, ref in zip(run["rids"], prompts, streams, refs):
+            if got[0] != ref[0]:
+                margin, scale = _first_margin(model, params, p, 512)
+                if margin > 2 * 0.05 * scale:
+                    raise AssertionError(
+                        f"tp {name}: request {rid}: first token {got[0]} "
+                        f"!= the unsharded engine's {ref[0]}, margin "
+                        f"{margin} of scale {scale}")
+                first_ties.append(dict(request=rid, margin=margin,
+                                       scale=scale))
+        diffs = _first_diffs(streams, refs)
+        runs[name] = dict(
+            serve_s=run["serve_s"], steps=run["steps"],
+            decode_steps=run["decode_steps"],
+            decode_tokens_per_s=run["decode_tokens"] / run["decode_s"],
+            decode_step_ms=1e3 * run["decode_s"]
+            / max(1, run["decode_steps"]),
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=run["launches"],
+            launches_per_decode_step={
+                n: v / max(1, run["decode_steps"])
+                for n, v in run["decode_launches"].items()},
+            identical_streams=sum(d is None for d in diffs),
+            first_diffs=diffs, first_token_ties=first_ties,
+            kv_pool_bytes=st.kv_pool_bytes,
+            kv_pool_bytes_per_device=st.kv_pool_bytes_per_device)
+        del eng
+    checked = _tp_check(model, params, cpu_logits)
+    preempted = _tp_preempt(model, params, prompts)
+    handed = _tp_disagg(model, params, prompts, want_wire, unified_refs)
+    eng = GenerationEngine(model, params, mesh=mesh, **SERVE_KW)
+    rng = np.random.default_rng(SEED + 2)
+    for p in [rng.integers(0, model.cfg.vocab_size, 100).astype(np.int32)
+              for _ in range(4)]:
+        eng.submit(p, 64)
+    while eng.stats().prefill_tokens < 400:     # land every prompt
+        eng.step()
+    eng.step()
+    profiled = dict(slots=4, context=100, **_profile_steps(eng, 6))
+    del eng
+    gc.collect()
+    return dict(
+        mesh="2-way model axis, both shards on cuda:0", **runs,
+        check=checked, preempt=preempted, disagg=handed,
+        profile_decode_step=profiled,
+        profile_decode_step_unsharded={k: prof[k] for k in (
+            "step_ms", "profiled_step_ms", "device_busy_ms",
+            "device_idle_share", "device_launches", "by_kernel")})
 
 
 # ----------------------------------------------------------------- phase 16
@@ -2235,16 +2608,19 @@ DENSE_ARCHS = {
     # the MoE family: qwen2-moe (attention + MoE) on the chunked engine,
     # deepseek-v2-lite (MLA + MoE, its first layer dense) on the one-shot
     # engine; the launcher's batch of 4 x 256 tokens is 1,024, the most a
-    # MoE layer takes dropless. Both run 4 layers (deepseek: its dense
-    # layer and 3 MoE ones)
-    "qwen2-moe-a2.7b": dict(layers=4, batch=4, prompt_len=256,
+    # MoE layer takes dropless. Both run 2 layers (deepseek: its dense
+    # layer and a MoE one; 4 before the tp phase came: cut for the time
+    # limit)
+    "qwen2-moe-a2.7b": dict(layers=2, batch=4, prompt_len=256,
                             serve_lens=SERVE_LENS, max_seq=512, chunk=16,
                             oneshot_bf16=True),
-    "deepseek-v2-lite-16b": dict(layers=4, batch=4, prompt_len=256,
+    "deepseek-v2-lite-16b": dict(layers=2, batch=4, prompt_len=256,
                                  serve_lens=SERVE_LENS, max_seq=512,
                                  chunk=16),
     # the SSM and hybrid families, both on the one-shot engine (per-slot
-    # SSM state). mamba2-130m at full width, 12 of its 24 layers: the
+    # SSM state). mamba2-130m at full width, 6 of its 24 layers (12
+    # before the tp phase came, 24 before the encoder's and the VLM's
+    # phases): the
     # launcher's 512-token prompts are two SSD chunks of 256, the
     # 1,024-token serve prompt four; attention-free, its linears take one
     # path at M 1 and 4, so every stream must equal generate()'s
@@ -2256,7 +2632,7 @@ DENSE_ARCHS = {
     # took 962 s on an H100 at the depths before these cuts (gemma3 12,
     # smollm 8, gemma-2b 6, mamba2 24, hymba 8): every cut here is of
     # depth, for the time limit
-    "mamba2-130m": dict(layers=12, batch=4, prompt_len=512,
+    "mamba2-130m": dict(layers=6, batch=4, prompt_len=512,
                         serve_lens=[16, 200, 45, 120, 77, 190, 33, 1024],
                         max_seq=2048, chunk=16, streams_gated=True),
     "hymba-1.5b": dict(layers=4, batch=2, prompt_len=1100,
@@ -3751,9 +4127,11 @@ def main() -> None:
     k3_entry, k3_detail = check_k3(gen)
     k4_entry, k4_detail = check_k4(gen)
     k4b_entry, k4b_detail = check_k4b(gen)
+    k2tp_entry, k2tp_detail = check_k2_tp(gen)
     kernels = [k1_entry, k2_entry, k3_entry, k4_entry]
     phase("kernel_shapes", awq_matmul=k1_detail,
           paged_attention_chunk=k2_detail, awq_gateup=k3_detail,
+          paged_attention_chunk_sharded=k2tp_detail,
           flash_attention=k4_detail, flash_attention_bwd=k4b_detail,
           dense_models=check_dense_kernels(gen),
           moe_experts=check_expert_kernels(gen))
@@ -3768,7 +4146,7 @@ def main() -> None:
           d_model=cfg.d_model, quantized_linears=len(report.quantized),
           group_size=GS, init_quantize_s=time.perf_counter() - t)
     served = serve(model, params)
-    phase("serve", **served)
+    phase("serve", **{k: v for k, v in served.items() if k != "streams"})
     oneshot = serve_oneshot(model, params)
     phase("serve_oneshot", **oneshot)
     identity = oneshot_identity(model, params)
@@ -3780,6 +4158,7 @@ def main() -> None:
     optimistic_run = optimistic(model, params, refs)
     phase("optimistic", **optimistic_run)
     disagged = disagg(model, params)
+    unified_refs = disagged.pop("unified_streams")
     phase("disagg", **disagged)
     srefs = spec_refs(model, params)
     ngrammed = spec_ngram(model, params, srefs)
@@ -3793,8 +4172,12 @@ def main() -> None:
                  drafted["all_kernel"]]
     prof = profile(model, params)
     phase("profile", **prof)
-    checked = cross_check(model, params)
+    cpu_logits = []
+    checked = cross_check(model, params, cpu_logits)
     phase("check", **checked)
+    tensor_parallel = tp(model, params, served, unified_refs, cpu_logits,
+                         prof, disagged["wire_bytes"])
+    phase("tp", **tensor_parallel)
     del params
     torch.cuda.empty_cache()
 
@@ -3814,7 +4197,15 @@ def main() -> None:
                                                res["default"]))
                              + disagged["launches"][kernel]
                              + sum(run["launches"][kernel]
-                                   for run in spec_runs))
+                                   for run in spec_runs)
+                             + sum(tensor_parallel[run]["launches"][kernel]
+                                   for run in ("default", "all_kernel")))
+    # K2-TP on the mesh's serving runs and handoffs
+    k2tp_entry["launches"] = (
+        sum(tensor_parallel[run]["launches"]["paged_attention_chunk_sharded"]
+            for run in ("default", "all_kernel"))
+        + tensor_parallel["disagg"]["launches"][
+            "paged_attention_chunk_sharded"])
     k4_entry["launches"] = (launched["launches"]["flash_attention"]
                             + oneshot["launches"]["flash_attention"]
                             + drafted["all_kernel"]["launches"][
@@ -3856,7 +4247,7 @@ def main() -> None:
     k4_entry["launches"] += by_path["flash_attention"]
     k4_entry["launches_train"] = by_path["flash_attention"]
     k4b_entry["launches"] = by_path["flash_attention_bwd"]
-    kernels.append(k4b_entry)
+    kernels += [k4b_entry, k2tp_entry]
 
     phase("summary", gpu=smi, script_s=time.perf_counter() - t_start,
           **{k: served[k] for k in (
@@ -3890,6 +4281,15 @@ def main() -> None:
            for label, res in (("spec_ngram", ngrammed), ("spec_tree", treed),
                               ("spec_draft", drafted))},
         check={s: [v["max_abs_err"], v["tol"]] for s, v in checked.items()},
+        tp={k: {f: tensor_parallel[k][f] for f in (
+            "serve_s", "decode_step_ms", "decode_tokens_per_s",
+            "identical_streams", "kv_pool_bytes_per_device")}
+            for k in ("default", "all_kernel")},
+        tp_profile_decode_step={k: tensor_parallel["profile_decode_step"][k]
+                                for k in ("step_ms", "profiled_step_ms",
+                                          "device_busy_ms",
+                                          "device_idle_share",
+                                          "device_launches")},
         launch={k: launched[k] for k in (
             "calibrate_s", "awq_s", "calibrated", "compression_ratio",
             "awq_macro_bytes", "tokens_per_s", "peak_mem_bytes",

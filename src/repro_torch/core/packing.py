@@ -60,6 +60,10 @@ class PackedLinear:
       input_scale: [K] float32 — AWQ inverse activation scale (ones for RTN).
       bias:        [N] or None.
       group_size:  rows of W per (scale, zero) pair.
+      shards:      1, or n for one shard of a linear split n ways over K
+                   or N (tensor-parallel serving): the unsharded product
+                   is n times this one's, and the hybrid threshold
+                   counts that (`qlinear_apply`).
     """
 
     qweight: torch.Tensor
@@ -68,6 +72,7 @@ class PackedLinear:
     input_scale: torch.Tensor
     bias: torch.Tensor | None
     group_size: int
+    shards: int = 1
 
     @property
     def k(self) -> int:

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core.packing import PackedLinear, dequantize_packed
 from repro_torch.kernels import awq_matmul as k1
-from repro_torch.numerics import matmul_f32_rows
+from repro_torch.numerics import matmul_wide_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,43 +80,75 @@ def _resolve_impl(impl: str, x: torch.Tensor) -> str:
     return "kernel" if x.device.type == "cuda" else "ref"
 
 
+def _qlinear_rows(p: PackedLinear, x2: torch.Tensor, impl: str,
+                  cfg: ExecutionConfig, out_dtype: torch.dtype | None
+                  ) -> torch.Tensor:
+    """``(x2 * input_scale) [M, K] @ dequant(qweight)`` without the bias,
+    rounded to ``out_dtype``, or left unrounded for ``out_dtype=None``
+    (K1's f32; the generic path's `numerics.matmul_wide_rows`). The
+    hybrid threshold counts the unsharded product (``p.shards``)."""
+    m, k = x2.shape
+    if impl == "kernel" and 2.0 * m * k * p.n * p.shards \
+            < cfg.offload_min_flops:
+        impl = "ref"  # hybrid threshold: tiny GEMV stays on the generic path
+    if impl == "kernel":
+        COUNTS.kernel += 1
+        return k1.awq_matmul(x2.contiguous(), p.qweight, p.scales, p.zeros,
+                             p.group_size, compute_dtype=cfg.compute_dtype,
+                             input_scale=p.input_scale,
+                             out_dtype=out_dtype or torch.float32)
+    COUNTS.generic += 1
+    if p.input_scale is not None:
+        x2 = x2.to(torch.float32) * p.input_scale[None, :]
+    w = dequantize_packed(p, cfg.compute_dtype)
+    y = matmul_wide_rows(x2.to(cfg.compute_dtype), w)
+    return y if out_dtype is None else y.to(torch.float32).to(out_dtype)
+
+
 def qlinear_apply(p: PackedLinear, x: torch.Tensor, impl: str | None = None,
-                  cfg: ExecutionConfig | None = None) -> torch.Tensor:
+                  cfg: ExecutionConfig | None = None, *,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``y = (x * input_scale) @ dequant(qweight) + bias``.
 
-    ``x`` [..., K]; returns [..., N] in x.dtype. The casts follow the
-    reference: x → f32, times ``input_scale``, → ``compute_dtype``; the
-    product comes out in f32, is cast to x.dtype, and the bias is added
-    in that dtype. The kernel route hands x, ``input_scale`` and the
+    ``x`` [..., K]; returns [..., N] in ``out_dtype`` (default x.dtype).
+    The casts follow the reference: x → f32, times ``input_scale`` (none
+    for a linear whose input arrives scaled), → ``compute_dtype``; the
+    product comes out in f32, is cast to the output dtype, and the bias is
+    added in that dtype. The kernel route hands x, ``input_scale`` and the
     output dtype to K1, which makes the same roundings itself.
     """
     cfg = cfg if cfg is not None else _EXEC
     impl = _resolve_impl(impl or cfg.impl, x)
-    orig_dtype = x.dtype
-    lead = x.shape[:-1]
-    k = x.shape[-1]
-    x2 = x.reshape(-1, k)
-
-    m = x2.shape[0]
-    flops = 2.0 * m * k * p.n
-    if impl == "kernel" and flops < cfg.offload_min_flops:
-        impl = "ref"  # hybrid threshold: tiny GEMV stays on the generic path
-
-    if impl == "kernel":
-        COUNTS.kernel += 1
-        y = k1.awq_matmul(x2.contiguous(), p.qweight, p.scales, p.zeros,
-                          p.group_size, compute_dtype=cfg.compute_dtype,
-                          input_scale=p.input_scale, out_dtype=orig_dtype)
-    else:
-        COUNTS.generic += 1
-        x2 = (x2.to(torch.float32) * p.input_scale[None, :]).to(
-            cfg.compute_dtype)
-        w = dequantize_packed(p, cfg.compute_dtype)
-        y = matmul_f32_rows(x2, w).to(orig_dtype)
-
+    out_dtype = out_dtype or x.dtype
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = _qlinear_rows(p, x.reshape(-1, k), impl, cfg, out_dtype)
     if p.bias is not None:
-        y = y + p.bias.to(orig_dtype)
+        y = y + p.bias.to(out_dtype)
     return y.reshape(*lead, p.n)
+
+
+def qlinear_partial(p: PackedLinear, x: torch.Tensor,
+                    impl: str | None = None,
+                    cfg: ExecutionConfig | None = None) -> torch.Tensor:
+    """One shard's partial product of a row-parallel linear, ``(x *
+    input_scale) @ dequant(qweight)`` over its K slice, unrounded and
+    without the bias: the shards' partials are summed in shard order,
+    then rounded and biased once (`models.layers.linear_tp`)."""
+    cfg = cfg if cfg is not None else _EXEC
+    impl = _resolve_impl(impl or cfg.impl, x)
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = _qlinear_rows(p, x.reshape(-1, k), impl, cfg, None)
+    return y.reshape(*lead, p.n)
+
+
+def qlinear_prescale(p: PackedLinear, x: torch.Tensor,
+                     cfg: ExecutionConfig | None = None) -> torch.Tensor:
+    """``x`` times ``input_scale`` in f32, rounded to ``compute_dtype``:
+    `qlinear_apply`'s first step, on its own. A shard whose input is split
+    over K but whose weight is split over N takes it on its K slice
+    before the slices are joined (`models.layers.linear_tp`)."""
+    cfg = cfg if cfg is not None else _EXEC
+    return (x.to(torch.float32) * p.input_scale).to(cfg.compute_dtype)
 
 
 def fusable_gateup(gate, up, act: str) -> bool:
@@ -144,7 +176,7 @@ def qgateup_apply(gate: PackedLinear, up: PackedLinear, x: torch.Tensor,
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     if impl == "kernel" and 2.0 * x2.shape[0] * k * 2 * gate.n \
-            < cfg.offload_min_flops:
+            * gate.shards < cfg.offload_min_flops:
         impl = "ref"
     if impl == "kernel":
         COUNTS.kernel += 1

@@ -1,0 +1,338 @@
+"""Tensor-parallel serving: a ``model`` mesh over torch devices, the
+sharding rules, and the explicit collectives between shards.
+
+The reference serves a tensor-parallel model from ONE controller (one
+scheduler, one host pager, page tables replicated) and lets GSPMD place
+the work: weights split by `param_pspec`, page pools striped over KV
+heads by `paged_cache_pspec`, spill and handoff strips leaving the mesh
+whole. The port keeps that architecture and spells the placement out:
+
+  * a `Mesh` is a grid of torch devices with named axes; serving reads
+    only its ``model`` axis (`model_devices`);
+  * `shard_tree` turns an unsharded params or pool tree into one tree a
+    shard, each on its shard's device: a leaf whose rule names
+    ``"model"`` at dim d is cut into n equal pieces along d, each its own
+    contiguous allocation (kernel K2 takes only contiguous, 16-byte
+    aligned pools); any other leaf is replicated;
+  * every layer runs its shard-local function on each shard, and the
+    reductions and gathers between shards are explicit, in shard order
+    0 … n−1: `all_sum` (row-parallel partials) and `concat` (heads,
+    vocab slices, column-parallel outputs). A replicated activation is
+    one tensor on the first shard's device, copied to another device
+    where a shard reads it.
+
+The rules are the reference's (`distributed/sharding.py`), copied leaf
+for leaf, and return the same specs: a tuple with ``"model"`` at the
+split dim and None elsewhere, right-aligned like a PartitionSpec, so a
+stacked reference leaf's spec is the port's per-layer leaf's with a
+leading None. A MoE layer's experts have no rule here: the engine
+refuses MoE under a mesh first (ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.packing import PACK, PackedLinear
+from repro_torch.core.quantize import QuantConfig
+
+
+class Mesh:
+    """Devices on a grid with named axes, as far as serving reads a mesh:
+    ``axis_names``, ``shape`` (axis name → size) and ``devices`` (an
+    object array of `torch.device`, one dim per axis). Several shards may
+    share a device (the card phase co-locates two on ``cuda:0``)."""
+
+    def __init__(self, devices, axis_names):
+        arr = np.empty(np.shape(np.asarray(devices, dtype=object)),
+                       dtype=object)
+        for idx, d in np.ndenumerate(np.asarray(devices, dtype=object)):
+            arr[idx] = torch.device(d)
+        axis_names = tuple(axis_names)
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"devices of shape {arr.shape} for axes "
+                             f"{axis_names}")
+        self.devices = arr
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, arr.shape))
+
+
+def model_devices(mesh: Mesh) -> list[torch.device]:
+    """The devices along the ``model`` axis, in shard order. Serving runs
+    one replica of the model axis: every other axis must have size 1."""
+    others = {a: s for a, s in mesh.shape.items() if a != "model" and s > 1}
+    if others:
+        raise NotImplementedError(
+            f"serving over mesh axes {others} besides 'model' is not "
+            f"ported (data-parallel replicas are a Router of engines; "
+            f"ROADMAP, Queue 1)")
+    ax = mesh.axis_names.index("model")
+    idx = tuple(slice(None) if i == ax else 0
+                for i in range(len(mesh.axis_names)))
+    return list(mesh.devices[idx])
+
+
+def serving_mesh(model: int | None = None, devices=None) -> Mesh:
+    """A 1-D ``('model',)`` mesh over the first ``model`` devices.
+
+    ``devices`` defaults to this machine's CUDA cards; asking for more
+    shards than there are raises, as the reference's does (``model=None``
+    takes them all). An explicit ``devices`` list may repeat a device:
+    that is how shards share one card (or the CPU) — nothing wraps
+    around on its own."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices) if model is None else model
+    if n < 1 or n > len(devices):
+        raise ValueError(f"serving_mesh(model={model}): have "
+                         f"{len(devices)} devices")
+    return Mesh(devices[:n], ("model",))
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (path-based), the reference's
+# ---------------------------------------------------------------------------
+
+# Column-parallel (shard output/N dim) vs row-parallel (shard input/K dim).
+_COL_LINEARS = ("wq", "wk", "wv", "gate", "up", "wz", "wx", "wb", "wc",
+                "wdt", "q_proj", "kv_down", "kv_up", "patch_proj",
+                "frame_proj")
+_ROW_LINEARS = ("wo", "down", "out_proj")
+
+
+def _linear_axes(parent: str, k: int, n: int, mesh: Mesh, cfg=None
+                 ) -> tuple[str | None, str | None]:
+    """(K-axis, N-axis) sharding for a linear named ``parent``."""
+    msize = mesh.shape.get("model", 1)
+    if parent in _ROW_LINEARS:
+        return ("model" if k % msize == 0 else None), None
+    if parent in _COL_LINEARS:
+        # attention projections shard only when whole heads land on a shard
+        if cfg is not None and parent in ("wq", "wk", "wv"):
+            heads = cfg.num_heads if parent == "wq" else cfg.num_kv_heads
+            if heads % msize != 0:
+                return None, None
+        return None, ("model" if n % msize == 0 else None)
+    return None, None
+
+
+def _pad(shape: tuple, tail: list) -> tuple:
+    return (None,) * (len(shape) - len(tail)) + tuple(tail)
+
+
+def param_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
+    """Spec of one param leaf addressed by its tree path (float linears
+    ``.../<name>/w``, `PackedLinear` fields ``.../<name>/qweight`` etc.,
+    embeddings, norms). A packed row-parallel linear whose K-shard would
+    not hold whole quant groups flips to column-parallel; a packed
+    linear's ``bias`` has no rule (replicated), as in the reference."""
+    shape = tuple(leaf.shape)
+    parts = path.split("/")
+    leafname = parts[-1]
+    parent = parts[-2] if len(parts) >= 2 else ""
+    msize = mesh.shape.get("model", 1)
+
+    if "embed" in path and leafname == "table":
+        v, d = shape[-2], shape[-1]
+        if v % msize == 0:
+            return _pad(shape, ["model", None])
+        if d % msize == 0:
+            return _pad(shape, [None, "model"])
+        return (None,) * len(shape)
+
+    if parent == "lm_head" and leafname == "w":
+        return _pad(shape, [None, "model" if shape[-1] % msize == 0
+                            else None])
+
+    if leafname in ("w", "qweight", "scales", "zeros") and len(shape) >= 2:
+        k_ax, n_ax = _linear_axes(parent, shape[-2], shape[-1], mesh, cfg)
+        if leafname != "w" and k_ax is not None:
+            # a K-shard must hold whole dequant groups (the AWQ_MACRO
+            # invariant), else the linear flips to column-parallel
+            gs = (getattr(cfg, "quant_group_size", None)
+                  or QuantConfig().group_size)
+            k_full = shape[-2] * (PACK if leafname == "qweight" else gs)
+            if (k_full // msize) % gs != 0:
+                k_ax = None
+                n_ax = "model" if shape[-1] % msize == 0 else None
+        if k_ax and shape[-2] % msize != 0:
+            k_ax = None
+        return _pad(shape, [k_ax, n_ax])
+
+    if leafname == "input_scale":
+        k_ax, _ = _linear_axes(parent, shape[-1], 0, mesh, cfg)
+        return _pad(shape, [k_ax if shape[-1] % msize == 0 else None])
+
+    if leafname == "b" and len(parts) >= 2:
+        _, n_ax = _linear_axes(parent, 0, shape[-1], mesh, cfg)
+        return _pad(shape, [n_ax if shape[-1] % msize == 0 else None])
+
+    return (None,) * len(shape)  # norms, scalars, ...
+
+
+def paged_cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
+    """Spec of a serving page-pool leaf: codes ``[N, P, Hkv, hd]`` and
+    scale strips ``[N, P, Hkv]`` stripe over KV heads; page ids index the
+    unsplit leading dim, so the host pager stays device-agnostic. Head
+    counts that do not divide fall back to replication (the engine
+    refuses such meshes first); per-slot state is replicated."""
+    shape = tuple(leaf.shape)
+    leafname = path.split("/")[-1]
+    msize = mesh.shape.get("model", 1)
+    if leafname in ("k", "v") and len(shape) >= 2 and shape[-2] % msize == 0:
+        return _pad(shape, ["model", None])
+    if leafname in ("ks", "vs") and shape and shape[-1] % msize == 0:
+        return _pad(shape, ["model"])
+    return (None,) * len(shape)
+
+
+def split_dim(spec: tuple) -> int | None:
+    """The (negative) dim a spec splits over ``model``, or None."""
+    return (spec.index("model") - len(spec)) if "model" in spec else None
+
+
+# ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+def _shard_leaf(t: torch.Tensor, dim: int | None,
+                devices: list[torch.device]) -> list[torch.Tensor]:
+    """One piece a shard: a fresh contiguous allocation for a split leaf
+    (zeros for a ``meta`` leaf: a pool laid out without storage), the
+    leaf itself (moved) for a replicated one."""
+    n = len(devices)
+    if dim is None:
+        if t.device.type == "meta":
+            return [torch.zeros(t.shape, dtype=t.dtype, device=d)
+                    for d in devices]
+        return [t.to(d) for d in devices]
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n}")
+    size = t.shape[dim] // n
+    out = []
+    for s, d in enumerate(devices):
+        piece = t.narrow(dim, s * size, size)
+        buf = torch.zeros(piece.shape, dtype=t.dtype, device=d) \
+            if t.device.type == "meta" else \
+            torch.empty(piece.shape, dtype=t.dtype, device=d).copy_(piece)
+        out.append(buf)
+    return out
+
+
+def shard_tree(tree: Any, mesh: Mesh, rule, cfg=None) -> list:
+    """One tree a shard of the ``model`` axis: every tensor leaf placed by
+    ``rule(path, leaf, mesh, cfg)`` (`param_pspec` or
+    `paged_cache_pspec`); dicts, lists and `PackedLinear`s keep their
+    structure (a split `PackedLinear` records ``shards = n``)."""
+    devices = model_devices(mesh)
+    n = len(devices)
+
+    def walk(node, path):
+        if isinstance(node, torch.Tensor):
+            return _shard_leaf(node, split_dim(rule(path, node, mesh, cfg)),
+                               devices)
+        if isinstance(node, dict):
+            kids = {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+            return [{k: v[s] for k, v in kids.items()} for s in range(n)]
+        if isinstance(node, list):
+            kids = [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+            return [[v[s] for v in kids] for s in range(n)]
+        if isinstance(node, PackedLinear):
+            fields = {f: walk(getattr(node, f), f"{path}/{f}")
+                      for f in ("qweight", "scales", "zeros", "input_scale",
+                                "bias") if getattr(node, f) is not None}
+            split = any(split_dim(rule(f"{path}/{f}", getattr(node, f), mesh,
+                                       cfg)) is not None for f in fields)
+            return [dataclasses.replace(
+                node, **{f: v[s] for f, v in fields.items()},
+                shards=n if split else 1) for s in range(n)]
+        return [node] * n
+
+    return walk(tree, "")
+
+
+def shard_params(params: dict, mesh: Mesh, cfg=None) -> list[dict]:
+    """`shard_tree` of a served params tree under `param_pspec`, made
+    runnable shard by shard: where a `PackedLinear`'s words split over N
+    but the rule leaves its ``scales`` / ``zeros`` / ``bias`` whole (a
+    K/GS or bias it does not cut, as in the reference, whose GSPMD
+    slices them in place), each shard keeps its own columns of them."""
+    shards = shard_tree(params, mesh, param_pspec, cfg)
+
+    def fix(nodes):
+        first = nodes[0]
+        if isinstance(first, dict):
+            for k in first:
+                fix([t[k] for t in nodes])
+        elif isinstance(first, list):
+            for i in range(len(first)):
+                fix([t[i] for t in nodes])
+        elif isinstance(first, PackedLinear):
+            for s, p in enumerate(nodes):
+                for f in ("scales", "zeros", "bias"):
+                    t = getattr(p, f)
+                    if t is not None and t.shape[-1] != p.n:
+                        setattr(p, f, t.narrow(-1, s * p.n, p.n).contiguous())
+
+    fix(shards)
+    return shards
+
+
+# ---------------------------------------------------------------------------
+# Collectives: explicit, in shard order
+# ---------------------------------------------------------------------------
+
+def all_sum(parts: list[torch.Tensor], devices: list[torch.device]
+            ) -> torch.Tensor:
+    """Σ parts in shard order 0 … n−1, on the first shard's device."""
+    acc = parts[0].to(devices[0])
+    for p in parts[1:]:
+        acc = acc + p.to(devices[0])
+    return acc
+
+
+def concat(parts: list[torch.Tensor], dim: int,
+           devices: list[torch.device]) -> torch.Tensor:
+    """The shards' pieces joined along ``dim`` in shard order, on the
+    first shard's device."""
+    if len(parts) == 1:
+        return parts[0].to(devices[0])
+    return torch.cat([p.to(devices[0]) for p in parts], dim=dim)
+
+
+def split(t: torch.Tensor, dim: int, devices: list[torch.device]
+          ) -> list[torch.Tensor]:
+    """``t`` cut into one contiguous piece a shard along ``dim``, each on
+    its shard's device (the inverse of `concat`)."""
+    n = len(devices)
+    size = t.shape[dim] // n
+    return [t.narrow(dim, s * size, size).to(d).contiguous()
+            for s, d in enumerate(devices)]
+
+
+def strip_gather(parts: list[torch.Tensor], dim: int | None,
+                 devices: list[torch.device]) -> torch.Tensor:
+    """A spill or handoff strip leaving the mesh: the shards' pieces of
+    one pool leaf's pages joined over KV heads (``dim`` from
+    `paged_cache_pspec`), so the host tier and the wire image hold one
+    whole, mesh-agnostic copy (the reference's `spill_sharding` /
+    `handoff_sharding`: replicated out of the mesh)."""
+    return parts[0].to(devices[0]) if dim is None \
+        else concat(parts, dim, devices)
+
+
+def strip_scatter(strip: torch.Tensor, dim: int | None,
+                  devices: list[torch.device]) -> list[torch.Tensor]:
+    """A whole strip entering the mesh, re-striped over KV heads: each
+    shard gets its heads' piece on its device (the same strip adopts on
+    any mesh, or none)."""
+    if dim is None:
+        return [strip.to(d) for d in devices]
+    return split(strip, dim, devices)

@@ -20,16 +20,26 @@ spans' partial softmax states in span order in a second pass: two
 launches per call, counted as one. `paged_attention_partials_ref` and
 `paged_attention_merge_ref` are the plain versions of the two passes,
 for any split of the keys; tests use them, the main path does not.
+
+K2-TP, `paged_attention_chunk_sharded`, is the reference's
+`paged_attention_chunk_sharded` (`kernels/paged_attention.py:255-301`):
+K2 under a ``model`` mesh, launched once a shard on that shard's stripe
+of KV heads. KV heads are independent throughout (the online softmax,
+the masks and the dequant all run per (slot, kv head)), so a shard runs
+the unmodified kernel and nothing crosses shards inside it. No new CUDA:
+the work and the bytes are K2's, cut by heads.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import model_devices
 from repro_torch.kernels.build import LaunchCounter, check, load
 from repro_torch.numerics import einsum_f32
 
 NEG_INF = -1e30
 COUNTER = LaunchCounter()
+TP_COUNTER = LaunchCounter()      # K2-TP calls that launched K2 per shard
 SPAN = 128               # keys per block of the partial pass
 _KW = 32                 # keys per warp (4 warps a block)
 _RW = 8                  # query rows per block
@@ -262,3 +272,64 @@ def paged_attention(q, k_pool, ks, v_pool, vs, page_table, pos, *,
                                 page_table, pos[:, None], scale=scale,
                                 window=window)
     return out[:, 0]
+
+
+def _per_shard(devices, page_table, pos, rpos, amask):
+    """The replicated operands, copied to each shard's device."""
+    for d in devices:
+        yield dict(page_table=page_table.to(d), pos=pos.to(d),
+                   rpos=None if rpos is None else rpos.to(d),
+                   amask=None if amask is None else amask.to(d))
+
+
+def paged_attention_chunk_sharded_ref(q, k_pool, ks, v_pool, vs, page_table,
+                                      pos, *, mesh, scale: float | None = None,
+                                      rpos=None, amask=None,
+                                      window: int = 0) -> list:
+    """Plain version of K2-TP: `paged_attention_chunk_ref` on each
+    shard's heads (same operands as `paged_attention_chunk_sharded`)."""
+    return [paged_attention_chunk_ref(qs, kp, kss, vp, vss, scale=scale,
+                                      window=window, **rep)
+            for qs, kp, kss, vp, vss, rep in zip(
+                q, k_pool, ks, v_pool, vs,
+                _per_shard(model_devices(mesh), page_table, pos, rpos,
+                           amask))]
+
+
+def paged_attention_chunk_sharded(q, k_pool, ks, v_pool, vs, page_table,
+                                  pos, *, mesh, scale: float | None = None,
+                                  rpos=None, amask=None,
+                                  window: int = 0) -> list:
+    """K2-TP: the chunk kernel over the KV-head stripes of a ``model``
+    mesh.
+
+    ``q``, ``k_pool``, ``ks``, ``v_pool``, ``vs`` are lists in shard order,
+    shard s's on its device: q ``[B, C, Hkv/n, G, hd]`` (its kv heads'
+    query groups), pools ``[N, P, Hkv/n, hd]`` and strips ``[N, P,
+    Hkv/n]`` (`distributed.sharding.paged_cache_pspec`'s stripes, each
+    its own allocation). ``page_table``, ``pos``, ``rpos`` and ``amask``
+    are replicated (page ids and mask bits are device-agnostic) and are
+    copied to each shard's device. Returns one ``[B, C, Hkv/n, G, hd]``
+    output a shard; joined along dim 2 in shard order they are the whole
+    heads' output, bit for bit K2's over all heads (its blocks are per
+    slot and kv head). At ``model`` 1 this is `paged_attention_chunk`.
+    CPU tensors take `paged_attention_chunk_sharded_ref`; CUDA tensors
+    launch K2 once a shard and raise on what K2 does not take.
+    """
+    devices = model_devices(mesh)
+    for name, t in (("q", q), ("k_pool", k_pool), ("ks", ks),
+                    ("v_pool", v_pool), ("vs", vs)):
+        _check(len(t) == len(devices),
+               f"K2-TP: {name} holds {len(t)} shards, the mesh "
+               f"{len(devices)}")
+    if q[0].device.type == "cpu":
+        return paged_attention_chunk_sharded_ref(
+            q, k_pool, ks, v_pool, vs, page_table, pos, mesh=mesh,
+            scale=scale, rpos=rpos, amask=amask, window=window)
+    outs = [paged_attention_chunk(qs, kp, kss, vp, vss, scale=scale,
+                                  window=window, **rep)
+            for qs, kp, kss, vp, vss, rep in zip(
+                q, k_pool, ks, v_pool, vs,
+                _per_shard(devices, page_table, pos, rpos, amask))]
+    TP_COUNTER.count += 1
+    return outs

@@ -20,9 +20,12 @@ With ``--replicas N`` the launcher serves a continuous-batching
 with ``--disagg``, `DisaggController` prefill/decode pairs) sharing the
 one params tree, each engine with its own page pools, behind the
 prefix-affinity `serving.router.Router`, built from
-`launch.specs.FleetSpec`. Tensor-parallel (``--mesh-axis`` > 1) replicas
-are not ported and raise; without ``--replicas`` the fleet flags are
-ignored, as the reference ignores them.
+`launch.specs.FleetSpec`. ``--mesh-axis N`` > 1 serves each replica
+(each side of a pair) tensor-parallel over N shards: N cards, or, with
+``--device cpu``, N shards sharing the CPU; the model's KV heads must
+divide N (the qwen25-05b smoke config has one: take ``--arch glm4-9b``).
+Without ``--replicas`` the fleet flags are ignored, as the reference
+ignores them.
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
 paths):
@@ -33,6 +36,8 @@ paths):
       --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --replicas 2 [--disagg]
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --arch glm4-9b --replicas 2 --mesh-axis 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hubert-xlarge \\
       --quant awq
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -95,18 +100,14 @@ def main(argv=None) -> dict:
                     help="serve a Router fleet of N replicas instead of "
                          "one static-batch engine (0 = classic path)")
     ap.add_argument("--mesh-axis", type=int, default=1,
-                    help="per-replica tensor-parallel width (only 1 is "
-                         "ported)")
+                    help="per-replica tensor-parallel width (that many "
+                         "cards; shards share the CPU with --device cpu)")
     ap.add_argument("--disagg", action="store_true",
                     help="each replica is a prefill/decode engine pair")
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     help="drain_replica step budget (seconds) for elastic "
                          "scale-down")
     args = ap.parse_args(argv)
-    if args.replicas > 0 and args.mesh_axis > 1:
-        raise NotImplementedError(
-            "fleet replicas with --mesh-axis > 1 (tensor parallelism) are "
-            "not ported to repro_torch yet")
     device = resolve_device(args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke

@@ -4,14 +4,15 @@ A copy of the reference package's `ReplicaSpec` and `FleetSpec`
 (`launch/specs.py`); the ShapeDtypeStruct helpers beside them there
 belong to the JAX dry run and have no counterpart here. A replica is one
 `GenerationEngine` or, with ``disagg=True``, a `DisaggController`
-prefill/decode pair. Tensor-parallel widths (``mesh_axis``,
-``prefill_mesh_axis``, ``decode_mesh_axis`` > 1) are not ported and raise
-`NotImplementedError`.
+prefill/decode pair. A width above 1 (``mesh_axis``,
+``prefill_mesh_axis``, ``decode_mesh_axis``) serves that engine over a
+`distributed.serving_mesh` of that many shards.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.distributed.sharding import serving_mesh
 from repro_torch.serving.disagg import DisaggController
 from repro_torch.serving.engine import GenerationEngine
 from repro_torch.serving.router import Router
@@ -21,8 +22,9 @@ from repro_torch.serving.router import Router
 class ReplicaSpec:
     """One serving replica, declaratively.
 
-    ``mesh_axis`` is the replica's tensor-parallel width (1 = unsharded);
-    ``disagg=True`` serves the replica as a `DisaggController`
+    ``mesh_axis`` is the replica's tensor-parallel width (1 = unsharded;
+    the machine must hold ``mesh_axis`` cards, or, for params on the CPU,
+    the shards share it); ``disagg=True`` serves the replica as a `DisaggController`
     prefill/decode pair with per-side widths instead of one
     `GenerationEngine`. ``engine_kwargs`` forward verbatim to the engine
     constructor(s) — shape, KV quant, preemption knobs.
@@ -36,15 +38,22 @@ class ReplicaSpec:
     def build(self, model, params, **overrides):
         """Construct the replica this spec describes."""
         kw = {**self.engine_kwargs, **overrides}
-        widths = ((self.prefill_mesh_axis, self.decode_mesh_axis)
-                  if self.disagg else (self.mesh_axis,))
-        if max(widths) > 1:
-            raise NotImplementedError(
-                f"tensor-parallel replicas (mesh axes {widths}) are not "
-                f"ported to repro_torch yet")
+        device = params["embed"]["table"].device
+
+        def mesh(width: int):
+            if width <= 1:
+                return None
+            # CUDA: the first `width` cards (too few raise); the CPU is
+            # one device, which the shards share
+            return serving_mesh(width, devices=[device] * width
+                                if device.type == "cpu" else None)
+
         if self.disagg:
-            return DisaggController(model, params, **kw)
-        return GenerationEngine(model, params, **kw)
+            return DisaggController(
+                model, params, prefill_mesh=mesh(self.prefill_mesh_axis),
+                decode_mesh=mesh(self.decode_mesh_axis), **kw)
+        return GenerationEngine(model, params, mesh=mesh(self.mesh_axis),
+                                **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,9 +23,12 @@ signatures match the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.device import torch_dtype
+from repro_torch.distributed.sharding import model_devices
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
@@ -324,6 +327,85 @@ def init_paged_kv_cache(cfg, num_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _chunk_index(page_table, pos, rpos, amask, window: int, page_size: int):
+    """The chunk's replicated index math: RoPE positions, the ancestor
+    mask with the window's in-span bound folded in, and each token's
+    (physical page, offset) write target, padding at scratch page 0."""
+    valid = pos >= 0
+    logical = pos if rpos is None else rpos
+    rope_pos = torch.where(valid, logical, torch.zeros_like(logical))
+    if amask is not None and window:
+        # a supplied ancestor mask is authoritative for in-span keys (the
+        # kernel applies ``window`` only to committed pages), so fold the
+        # in-span locality bound in here, once, above both read paths
+        amask = (amask.to(torch.bool)
+                 & (rope_pos[:, None, :] > rope_pos[:, :, None] - window))
+    slot_pos = torch.where(valid, pos, torch.zeros_like(pos)).long()
+    phys = torch.gather(page_table.long(), 1, slot_pos // page_size)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))  # → scratch page 0
+    offset = torch.where(valid, slot_pos % page_size,
+                         torch.zeros_like(slot_pos))
+    return rope_pos, amask, phys.reshape(-1), offset.reshape(-1)
+
+
+def _chunk_write(p, pool, x, cfg, rope_pos, fp, fo, window: int):
+    """Project the chunk's q / k / v, scatter k and v into the pool (int8
+    pools quantize each token, `_kv_quantize`); returns q grouped ``[B,
+    C, Hkv, G, hd]``."""
+    b, c, _ = x.shape
+    q, k1, v1 = _project_qkv(p, x, cfg, rope_pos, window)  # [B, C, H(kv), hd]
+    kv_shape = (b * c, cfg.num_kv_heads, cfg.head_dim)
+    if "ks" in pool:
+        k1, ks1 = _kv_quantize(k1)
+        v1, vs1 = _kv_quantize(v1)
+        pool["ks"].index_put_((fp, fo), ks1.reshape(b * c, cfg.num_kv_heads))
+        pool["vs"].index_put_((fp, fo), vs1.reshape(b * c, cfg.num_kv_heads))
+    pool["k"].index_put_((fp, fo), k1.reshape(kv_shape).to(pool["k"].dtype))
+    pool["v"].index_put_((fp, fo), v1.reshape(kv_shape).to(pool["v"].dtype))
+    g = cfg.num_heads // cfg.num_kv_heads
+    return q.reshape(b, c, cfg.num_kv_heads, g, cfg.head_dim)
+
+
+def _k2_args(page_table, pos, rpos, amask):
+    """K2's replicated operands, contiguous and int32."""
+    return dict(page_table=page_table.contiguous(),
+                pos=pos.to(torch.int32).contiguous(),
+                rpos=None if rpos is None
+                else rpos.to(torch.int32).contiguous(),
+                amask=None if amask is None else amask.contiguous())
+
+
+def _chunk_read_gather(pool, page_table, qg, cfg, pos, rpos, amask,
+                       window: int) -> torch.Tensor:
+    """The gather-based read: page table → logical ``[B, S_slot, Hkv,
+    hd]`` view (dequantized to the activation dtype for int8 pools), then
+    masked attention; returns ``[B, C, q_dim]``."""
+    b, c = pos.shape
+    page_size = pool["k"].shape[1]
+    s_slot = page_table.shape[1] * page_size
+    tbl = page_table.long()
+    ck = pool["k"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
+    cv = pool["v"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
+    adt = torch_dtype(cfg.activation_dtype)
+    if "ks" in pool:
+        ks = pool["ks"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
+        vs = pool["vs"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
+        ck = _kv_dequant(ck, ks, adt)
+        cv = _kv_dequant(cv, vs, adt)
+    k_pos = torch.arange(s_slot, device=qg.device)[None, :].expand(b, s_slot)
+    probs_dtype = _cache_probs_dtype(cv.dtype, adt)
+    if rpos is None and amask is None and not window:
+        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
+                    scale=cfg.head_dim ** -0.5, probs_dtype=probs_dtype)
+    else:
+        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, rpos=rpos,
+                                      amask=amask, window=window)
+        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
+                    scale=cfg.head_dim ** -0.5, vis=vis,
+                    probs_dtype=probs_dtype)
+    return out.reshape(b, c, cfg.q_dim)
+
+
 def attention_chunk_paged(p, pool, page_table, x, cfg, *, pos, rpos=None,
                           amask=None, window: int = 0):
     """Token-budget chunk step against a paged KV pool — the unified
@@ -347,68 +429,63 @@ def attention_chunk_paged(p, pool, page_table, x, cfg, *, pos, rpos=None,
     off-TPU semantics, mirrored exactly).
     """
     b, c, _ = x.shape
-    page_size = pool["k"].shape[1]
-    valid = pos >= 0
-    logical = pos if rpos is None else rpos
-    rope_pos = torch.where(valid, logical, torch.zeros_like(logical))
-    if amask is not None and window:
-        # a supplied ancestor mask is authoritative for in-span keys (the
-        # kernel applies ``window`` only to committed pages), so fold the
-        # in-span locality bound in here, once, above both read paths
-        amask = (amask.to(torch.bool)
-                 & (rope_pos[:, None, :] > rope_pos[:, :, None] - window))
-    q, k1, v1 = _project_qkv(p, x, cfg, rope_pos, window)  # [B, C, H(kv), hd]
-    slot_pos = torch.where(valid, pos, torch.zeros_like(pos)).long()
-    phys = torch.gather(page_table.long(), 1, slot_pos // page_size)
-    phys = torch.where(valid, phys, torch.zeros_like(phys))  # → scratch page 0
-    offset = torch.where(valid, slot_pos % page_size,
-                         torch.zeros_like(slot_pos))
-    fp, fo = phys.reshape(-1), offset.reshape(-1)
-    quant = "ks" in pool
-    kv_shape = (b * c, cfg.num_kv_heads, cfg.head_dim)
-    if quant:
-        k1, ks1 = _kv_quantize(k1)
-        v1, vs1 = _kv_quantize(v1)
-        pool["ks"].index_put_((fp, fo), ks1.reshape(b * c, cfg.num_kv_heads))
-        pool["vs"].index_put_((fp, fo), vs1.reshape(b * c, cfg.num_kv_heads))
-    pool["k"].index_put_((fp, fo), k1.reshape(kv_shape).to(pool["k"].dtype))
-    pool["v"].index_put_((fp, fo), v1.reshape(kv_shape).to(pool["v"].dtype))
-
-    g = cfg.num_heads // cfg.num_kv_heads
-    adt = torch_dtype(cfg.activation_dtype)
-    qg = q.reshape(b, c, cfg.num_kv_heads, g, cfg.head_dim)
-    if quant and x.device.type == "cuda":
+    rope_pos, amask, fp, fo = _chunk_index(page_table, pos, rpos, amask,
+                                           window, pool["k"].shape[1])
+    qg = _chunk_write(p, pool, x, cfg, rope_pos, fp, fo, window)
+    if "ks" in pool and x.device.type == "cuda":
         out = k2.paged_attention_chunk(
             qg.to(torch.float32).contiguous(), pool["k"], pool["ks"],
-            pool["v"], pool["vs"], page_table.contiguous(),
-            pos.to(torch.int32).contiguous(),
-            rpos=None if rpos is None else rpos.to(torch.int32).contiguous(),
-            amask=None if amask is None else amask.contiguous(),
-            window=window, scale=cfg.head_dim ** -0.5)
+            pool["v"], pool["vs"], window=window,
+            scale=cfg.head_dim ** -0.5, **_k2_args(page_table, pos, rpos,
+                                                    amask))
+        adt = torch_dtype(cfg.activation_dtype)
         return linear(p["wo"], out.reshape(b, c, cfg.q_dim).to(adt)), pool
+    out = _chunk_read_gather(pool, page_table, qg, cfg, pos, rpos, amask,
+                             window)
+    return linear(p["wo"], out), pool
 
-    # gather-based read: page table → logical [B, S_slot, Hkv, hd] view
-    s_slot = page_table.shape[1] * page_size
-    tbl = page_table.long()
-    ck = pool["k"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
-    cv = pool["v"][tbl].reshape(b, s_slot, cfg.num_kv_heads, cfg.head_dim)
-    if quant:
-        ks = pool["ks"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
-        vs = pool["vs"][tbl].reshape(b, s_slot, cfg.num_kv_heads)
-        ck = _kv_dequant(ck, ks, adt)
-        cv = _kv_dequant(cv, vs, adt)
-    k_pos = torch.arange(s_slot, device=x.device)[None, :].expand(b, s_slot)
-    probs_dtype = _cache_probs_dtype(cv.dtype, adt)
-    if rpos is None and amask is None and not window:
-        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
-                    scale=cfg.head_dim ** -0.5, probs_dtype=probs_dtype)
+
+def attention_chunk_paged_tp(ps, pools, page_table, x, cfg, *, mesh, pos,
+                             rpos=None, amask=None, window: int = 0):
+    """`attention_chunk_paged` under a ``model`` mesh (the reference's
+    mesh branch): shard s holds heads ``[s·H/n, (s+1)·H/n)`` and kv heads
+    ``[s·Hkv/n, …)`` — its column-parallel ``wq / wk / wv``, its
+    KV-head stripe of the pool ``pools[s]`` — and runs the chunk with a
+    shard-local config: projects its heads, scatters into its own pool,
+    reads. Int8 pools on the card read through K2-TP
+    (`kernels.paged_attention.paged_attention_chunk_sharded`: K2 on each
+    shard's heads); bf16 pools and the CPU take the gather path per
+    shard. ``wo`` (row-parallel, or column-parallel where a packed K-shard
+    would split quant groups) consumes the head-sharded output
+    (`layers.linear_tp`). ``x`` and the index operands are replicated;
+    returns (y [B, C, D] on the first shard's device, pools)."""
+    devices = model_devices(mesh)
+    n = len(devices)
+    b, c, _ = x.shape
+    lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               num_kv_heads=cfg.num_kv_heads // n)
+    rope_pos, amask, fp, fo = _chunk_index(page_table, pos, rpos, amask,
+                                           window, pools[0]["k"].shape[1])
+    qs = [_chunk_write(p, pool, x.to(d), lcfg, rope_pos.to(d), fp.to(d),
+                       fo.to(d), window)
+          for p, pool, d in zip(ps, pools, devices)]
+    if "ks" in pools[0] and x.device.type == "cuda":
+        outs = k2.paged_attention_chunk_sharded(
+            [q.to(torch.float32).contiguous() for q in qs],
+            [pl["k"] for pl in pools], [pl["ks"] for pl in pools],
+            [pl["v"] for pl in pools], [pl["vs"] for pl in pools],
+            mesh=mesh, window=window, scale=cfg.head_dim ** -0.5,
+            **_k2_args(page_table, pos, rpos, amask))
+        adt = torch_dtype(cfg.activation_dtype)
+        outs = [o.reshape(b, c, lcfg.q_dim).to(adt) for o in outs]
     else:
-        vis = k2.chunk_visibility_ref(pos, s_slot=s_slot, rpos=rpos,
-                                      amask=amask, window=window)
-        out = _sdpa(qg, ck, cv, pos, k_pos, causal=True, window=0,
-                    scale=cfg.head_dim ** -0.5, vis=vis,
-                    probs_dtype=probs_dtype)
-    return linear(p["wo"], out.reshape(b, c, cfg.q_dim)), pool
+        outs = [_chunk_read_gather(
+                    pool, page_table.to(d), q, lcfg, pos.to(d),
+                    None if rpos is None else rpos.to(d),
+                    None if amask is None else amask.to(d), window)
+                for pool, q, d in zip(pools, qs, devices)]
+    return layers.linear_tp([p["wo"] for p in ps], outs, devices,
+                            cfg.q_dim, cfg.d_model), pools
 
 
 def attention_decode_paged(p, pool, page_table, x, cfg, *, pos,

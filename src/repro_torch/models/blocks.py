@@ -26,12 +26,13 @@ import torch
 
 from repro_torch.configs.base import LayerKind
 from repro_torch.core.qlinear import fusable_gateup, qgateup_apply
+from repro_torch.distributed.sharding import model_devices
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import activation, linear, norm
+from repro_torch.models.layers import activation, linear, linear_tp, norm
 
 
 def mlp_init(gen, cfg, dtype=torch.float32, device=None):
@@ -241,3 +242,60 @@ def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
     else:
         y2 = _mlp_apply(p, h2, cfg, kind, name)
     return x + y2, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the serving engine under a ``model`` mesh)
+# ---------------------------------------------------------------------------
+
+def _mlp_apply_tp(mps: list, x, cfg, kind: LayerKind, devices: list):
+    """The dense MLP over the shards: ``gate`` / ``up`` column-parallel
+    (each shard its d_ff slice: K3 on the local N where the pair is
+    fusable), the activation per shard, ``down`` row-parallel (or flipped,
+    `layers.linear_tp`). Replicated x in and out."""
+    d, f = cfg.d_model, cfg.d_ff
+    if kind.mlp == "glu" and _fused_gateup(mps[0], cfg) \
+            and mps[0]["gate"].n < f:
+        h = [qgateup_apply(mp["gate"], mp["up"], x.to(dv))
+             for mp, dv in zip(mps, devices)]
+    elif kind.mlp == "glu" and _fused_gateup(mps[0], cfg):
+        h = qgateup_apply(mps[0]["gate"], mps[0]["up"], x)
+    else:
+        up = linear_tp([mp["up"] for mp in mps], x, devices, d, f)
+        if kind.mlp == "glu":
+            gate = linear_tp([mp["gate"] for mp in mps], x, devices, d, f)
+            h = ([activation(cfg.act, g) * u for g, u in zip(gate, up)]
+                 if isinstance(up, list) else activation(cfg.act, gate) * up)
+        else:
+            h = ([activation(cfg.act, u) for u in up]
+                 if isinstance(up, list) else activation(cfg.act, up))
+    return linear_tp([mp["down"] for mp in mps], h, devices, f, d)
+
+
+def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
+                   caches: list, page_table, rpos=None, amask=None):
+    """`block_apply` in chunk mode under a ``model`` mesh: ``ps`` and
+    ``caches`` hold one block's params and pool a shard. The norms are
+    replicated (computed once); the mixer runs per shard and its ``wo``
+    partials are summed; the MLP runs per shard and its ``down`` partials
+    are summed. Returns the replicated x; the pools update in place.
+    Only a dense attention block (``attn`` mixer, ``glu`` or ``plain``
+    MLP) takes this path."""
+    if kind.mixer != "attn" or "kv_pool" not in caches[0]:
+        raise ValueError(
+            f"chunked execution needs a pure paged-attention cache; "
+            f"{kind.tag!r} keeps per-slot sequential state: serve it "
+            f"through the one-shot prefill path")
+    if kind.mlp not in ("glu", "plain"):
+        raise NotImplementedError(
+            f"a {kind.mlp!r} MLP under a mesh is not ported (ROADMAP, "
+            f"Queue 1: MoE under a mesh)")
+    devices = model_devices(mesh)
+    h = norm(ps[0]["pre_norm"], x, cfg)
+    y, _ = attn_mod.attention_chunk_paged_tp(
+        [p["attn"] for p in ps], [c["kv_pool"] for c in caches], page_table,
+        h, cfg, mesh=mesh, pos=positions, rpos=rpos, amask=amask,
+        window=kind.window)
+    x = x + y
+    h2 = norm(ps[0]["mlp_norm"], x, cfg)
+    return x + _mlp_apply_tp([p["mlp"] for p in ps], h2, cfg, kind, devices)

@@ -7,6 +7,7 @@ Float linears record their input when a `CalibrationCapture` is active
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -14,8 +15,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import calibration
 from repro_torch.core.packing import PackedLinear
-from repro_torch.core.qlinear import qlinear_apply
-from repro_torch.numerics import matmul_f32_rows
+from repro_torch.core.qlinear import (qlinear_apply, qlinear_partial,
+                                      qlinear_prescale)
+from repro_torch.distributed.sharding import all_sum, concat, split
+from repro_torch.numerics import matmul_f32_rows, matmul_wide_rows
 
 
 # ---------------------------------------------------------------------- init
@@ -66,6 +69,97 @@ def linear(p, x: torch.Tensor, name: str | None = None) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+# ------------------------------------------------------- tensor parallelism
+# Under a ``model`` mesh a linear's weight is one piece a shard (lists in
+# shard order), and an activation is either replicated (one tensor, on
+# the first shard's device) or split over its last dim (a list of the
+# shards' pieces). `linear_tp` maps one to the other by the weight's
+# split, which it reads off the shard's shape against the unsharded
+# ``(k, n)``.
+
+def _kn(p) -> tuple[int, int]:
+    if isinstance(p, PackedLinear):
+        return p.k, p.n
+    return p["w"].shape[-2], p["w"].shape[-1]
+
+
+def linear_partial(p, x: torch.Tensor) -> torch.Tensor:
+    """One shard's unrounded partial product of a row-parallel linear,
+    without its bias (`numerics.matmul_wide_rows`; a `PackedLinear`'s:
+    `qlinear_partial`)."""
+    if isinstance(p, PackedLinear):
+        return qlinear_partial(p, x)
+    return matmul_wide_rows(x, p["w"].to(x.dtype))
+
+
+def linear_tp(ps: list, x, devices: list, k: int, n: int):
+    """``linear`` over the shards of a ``[k, n]`` linear.
+
+      * column-parallel (N split): replicated ``x`` in, one output piece
+        a shard out (a list; each shard adds its bias slice);
+      * row-parallel (K split): the input's pieces (a replicated ``x`` is
+        cut), partial products summed in shard order, rounded once to
+        ``x``'s dtype, the bias added once: a replicated output;
+      * a packed row-parallel linear flipped to N (a K-shard would split
+        quant groups): its input arrives split over K, so each shard
+        scales its own slice (`qlinear_prescale`), the slices are joined,
+        every shard computes its N columns of the whole input, and the
+        columns are joined: a replicated output;
+      * replicated: one call on the whole input.
+    """
+    pk, pn = _kn(ps[0])
+    split_in = isinstance(x, list)
+    if pn < n and split_in:
+        dt = x[0].dtype
+        scaled = concat([qlinear_prescale(p, xi) for p, xi in zip(ps, x)],
+                        -1, devices)
+        outs = [qlinear_apply(dataclasses.replace(p, input_scale=None),
+                              scaled.to(d), out_dtype=dt)
+                for p, d in zip(ps, devices)]
+        return concat(outs, -1, devices)
+    if pn < n:
+        return [linear(p, x.to(d)) for p, d in zip(ps, devices)]
+    if pk < k:
+        if not split_in:
+            x = split(x, -1, devices)
+        dt = x[0].dtype
+        y = all_sum([linear_partial(p, xi) for p, xi in zip(ps, x)],
+                    devices).to(torch.float32).to(dt)
+        bias = ps[0].bias if isinstance(ps[0], PackedLinear) \
+            else ps[0].get("b")
+        return y if bias is None else y + bias.to(dt)
+    if split_in:
+        x = concat(x, -1, devices)
+    return linear(ps[0], x)
+
+
+def embed_lookup_tp(tables: list, tokens: torch.Tensor, devices: list,
+                    vocab: int, d_model: int, *, scale: bool = False
+                    ) -> torch.Tensor:
+    """`embed_lookup` over a sharded table: vocab-parallel (each shard
+    looks up the tokens in its rows, zeros elsewhere, and the pieces are
+    summed: exact, one term is non-zero), split over d (the pieces are
+    joined), or replicated. Returns the replicated ``[..., D]``."""
+    t0 = tables[0]
+    if t0.shape[0] < vocab:
+        rows = t0.shape[0]
+        parts = []
+        for s, (t, d) in enumerate(zip(tables, devices)):
+            local = tokens.to(d).long() - s * rows
+            hit = (local >= 0) & (local < rows)
+            x = t[local.clamp(0, rows - 1)]
+            parts.append(torch.where(hit[..., None], x, torch.zeros_like(x)))
+        x = all_sum(parts, devices)
+    elif t0.shape[1] < d_model:
+        x = concat([t[tokens.to(d).long()] for t, d in zip(tables, devices)],
+                   -1, devices)
+    else:
+        x = t0[tokens.long()]
+    if scale:
+        x = x * math.sqrt(d_model)
+    return x
 
 
 def _staged_mean(t: torch.Tensor) -> torch.Tensor:

@@ -29,9 +29,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models import layers, stack
-from repro_torch.models.layers import embed_lookup, linear, norm
-from repro_torch.numerics import free_rows, matmul_f32_rows
+from repro_torch.distributed.sharding import (all_sum, concat, model_devices,
+                                              paged_cache_pspec, shard_tree,
+                                              split)
+from repro_torch.models import blocks, layers, stack
+from repro_torch.models.layers import (embed_lookup, embed_lookup_tp, linear,
+                                       linear_tp, norm)
+from repro_torch.numerics import free_rows, matmul_f32_rows, matmul_wide_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +118,29 @@ class Model:
             return matmul_f32_rows(x, params["embed"]["table"].t())
         return linear(params["lm_head"], x.to(torch.float32))
 
+    def _head_logits_tp(self, params: list, x: torch.Tensor,
+                        devices: list) -> torch.Tensor:
+        """`_head_logits` over the shards: each shard's vocab slice of the
+        (tied or untied) head, logits joined in shard order. The products
+        sum over d, which no shard splits, so each slice's bits are the
+        unsharded head's; a table split over d instead sums the shards'
+        partial products, rounded once."""
+        cfg = self.cfg
+        if not cfg.tie_embeddings:
+            y = linear_tp([p["lm_head"] for p in params], x.to(torch.float32),
+                          devices, cfg.d_model, cfg.vocab_size)
+            return concat(y, -1, devices) if isinstance(y, list) else y
+        tables = [p["embed"]["table"] for p in params]
+        if tables[0].shape[0] < cfg.vocab_size:
+            return concat([matmul_f32_rows(x.to(d), t.t())
+                           for t, d in zip(tables, devices)], -1, devices)
+        if tables[0].shape[1] < cfg.d_model:
+            xs = split(x, -1, devices)
+            return all_sum([matmul_wide_rows(xi, t.t())
+                            for xi, t in zip(xs, tables)],
+                           devices).to(torch.float32)
+        return matmul_f32_rows(x, tables[0].t())
+
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
         """Chunked-vocab causal-LM loss: tokens / labels ``[B, S]``
@@ -163,7 +190,7 @@ class Model:
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype=torch.bfloat16, kv_quant: str | None = None,
                          device=None, *, num_slots: int | None = None,
-                         slot_seq: int | None = None) -> Any:
+                         slot_seq: int | None = None, mesh=None) -> Any:
         """Page pools for the serving engine; ``kv_quant`` ("none" |
         "int8" | None = follow ``cfg.kv_quant``) picks their storage.
         Per-slot state stays dense beside them (`blocks.
@@ -171,7 +198,15 @@ class Model:
         ...]`` in ``dtype``, SSM conv caches and states, a windowed hymba
         layer's ring; a model with such layers needs both ``num_slots``
         and ``slot_seq`` (it raises without them). mamba2's cache has no
-        page pool at all."""
+        page pool at all. Under a ``mesh`` (``device`` is then unused):
+        one cache a shard of its ``model`` axis, each pool striped over KV
+        heads by `distributed.sharding.paged_cache_pspec` and allocated on
+        its shard's device."""
+        if mesh is not None:
+            layout = stack.stack_init_paged_cache(
+                self.cfg, num_pages, page_size, dtype, kv_quant, "meta",
+                num_slots=num_slots, slot_seq=slot_seq)
+            return shard_tree(layout, mesh, paged_cache_pspec)
         return stack.stack_init_paged_cache(self.cfg, num_pages, page_size,
                                             dtype, kv_quant,
                                             resolve_device(device),
@@ -217,7 +252,7 @@ class Model:
                    pos: torch.Tensor, sample_idx: torch.Tensor,
                    page_table: torch.Tensor, num_logits: int = 1,
                    rpos: torch.Tensor | None = None,
-                   amask: torch.Tensor | None = None):
+                   amask: torch.Tensor | None = None, mesh=None):
         """One token-budget step of the serving engine.
 
         tokens / pos ``[B, C]`` (``-1`` = padding), sample_idx ``[B]`` (the
@@ -225,21 +260,46 @@ class Model:
         ``[B, pages_per_slot]``. Returns (logits [B, V] for ``num_logits ==
         1``, else [B, num_logits, V]; cache) — the full ``[B, C, V]``
         logits are never materialized.
+
+        Under a ``mesh``, ``params`` and ``cache`` are one tree a shard of
+        its ``model`` axis (`distributed.sharding.shard_params`,
+        `init_paged_cache(mesh=...)`); the other operands and the logits
+        lie on the first shard's device. Only dense attention decoders
+        serve under a mesh (`blocks.block_apply_tp`).
         """
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens, scale=cfg.scale_embed).to(
-            torch_dtype(cfg.activation_dtype))
-        x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
-                                        mode="chunk", positions=pos,
-                                        cache=cache, page_table=page_table,
-                                        rpos=rpos, amask=amask)
-        x = norm(params["final_norm"], x, cfg)
+        adt = torch_dtype(cfg.activation_dtype)
+        if mesh is None:
+            x = embed_lookup(params["embed"], tokens,
+                             scale=cfg.scale_embed).to(adt)
+            x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
+                                            mode="chunk", positions=pos,
+                                            cache=cache,
+                                            page_table=page_table,
+                                            rpos=rpos, amask=amask)
+            x = norm(params["final_norm"], x, cfg)
+        else:
+            devices = model_devices(mesh)
+            x = embed_lookup_tp([p["embed"]["table"] for p in params],
+                                tokens, devices, cfg.vocab_size, cfg.d_model,
+                                scale=cfg.scale_embed).to(adt)
+            with free_rows(False):
+                for si, (kind, n) in enumerate(cfg.segments()):
+                    seg = stack.seg_name(si)
+                    for i in range(n):
+                        x = blocks.block_apply_tp(
+                            [p["segments"][seg][i] for p in params], x, cfg,
+                            kind, mesh=mesh, positions=pos,
+                            caches=[c[seg][i] for c in cache],
+                            page_table=page_table, rpos=rpos, amask=amask)
+            x = norm(params[0]["final_norm"], x, cfg)
         c = x.shape[1]
         idx = (sample_idx.long()[:, None]
                + torch.arange(num_logits, device=x.device)[None, :])
         idx = torch.clip(idx, 0, c - 1)
         x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
-        logits = self._head_logits(params, x)               # [B, R, V]
+        logits = (self._head_logits(params, x) if mesh is None
+                  else self._head_logits_tp(params, x, model_devices(mesh)))
         return (logits[:, 0] if num_logits == 1 else logits), cache
 
     def forward_logits(self, params, batch: dict) -> torch.Tensor:

@@ -72,17 +72,12 @@ def free_rows(on: bool = True):
         _FREE_ROWS = prev
 
 
-def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in float32 with each row's bits independent of how many
-    rows the call holds: on CUDA the rows go through cuBLAS in blocks of
-    `ROW_BLOCK` (the last one zero-padded), so every row meets the same
-    kernel at the same shape whether it is one of 1 (`generate`), of 4 (a
-    decode step of 4 slots) or of 20 (a verify step of 4 rows × 5
-    positions). ``b``
-    is widened once for all blocks. On the CPU, and inside `free_rows`,
-    `matmul_f32`."""
+def matmul_wide_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`matmul_f32_rows` before its one rounding to float32: float64 on
+    the CPU, float32 on CUDA. A row-parallel linear's shards sum these
+    partial products and round once, as the unsharded product does."""
     if a.device.type != "cuda" or _FREE_ROWS:
-        return matmul_f32(a, b)
+        return torch.matmul(_wide(a), _wide(b))
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k).to(torch.float32)
     m = a2.shape[0]
@@ -92,3 +87,15 @@ def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             for i in range(0, a2.shape[0], ROW_BLOCK)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:m].reshape(*lead, b.shape[-1])
+
+
+def matmul_f32_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 with each row's bits independent of how many
+    rows the call holds: on CUDA the rows go through cuBLAS in blocks of
+    `ROW_BLOCK` (the last one zero-padded), so every row meets the same
+    kernel at the same shape whether it is one of 1 (`generate`), of 4 (a
+    decode step of 4 slots) or of 20 (a verify step of 4 rows × 5
+    positions). ``b``
+    is widened once for all blocks. On the CPU, and inside `free_rows`,
+    `matmul_f32`."""
+    return matmul_wide_rows(a, b).to(torch.float32)

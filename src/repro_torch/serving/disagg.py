@@ -31,9 +31,13 @@ token) — and runs them as SEPARATE engines with different batch shapes:
     engine.
 
 On one card both engines share the weights and the device's stream;
-each holds its own page pools. Meshes (per-side tensor parallelism) are
-not ported. Greedy streams through the controller are token-identical to
-the unified engine's.
+each holds its own page pools. Each side may run its own ``model`` mesh
+(``prefill_mesh`` / ``decode_mesh``, tensor parallelism as in
+`GenerationEngine(mesh=...)`): a handoff's strips leave the prefill mesh
+whole (KV heads joined) and re-stripe over the decode mesh on adopt, so
+the wire image carries no trace of either mesh and its bytes are the
+unsharded pair's. Greedy streams through the controller are
+token-identical to the unified engine's.
 """
 from __future__ import annotations
 
@@ -93,8 +97,8 @@ class PrefillEngine:
     the first sampled token parks the slot, and `collect_handoffs`
     exports parked slots as `KVHandoff`s (the device→host copy runs
     without blocking — call `wire` to materialize, ideally after
-    dispatching decode-side work). ``mesh`` other than None raises
-    `NotImplementedError`, as the engine's does.
+    dispatching decode-side work). ``mesh`` shards it as the engine's
+    does.
     """
 
     def __init__(self, model, params, *, mesh=None, **kw):
@@ -231,8 +235,8 @@ class DisaggController:
     Per-engine shape/feature kwargs come from ``**engine_kwargs`` (both
     sides) with `_SPEC_KWARGS` stripped for the prefill side. Both
     engines share ``params`` and each holds its own page pools.
-    ``prefill_mesh`` / ``decode_mesh`` other than None raise
-    `NotImplementedError` (meshes are not ported).
+    ``prefill_mesh`` / ``decode_mesh`` shard each side over its own
+    ``model`` mesh (or none); the two may differ.
     """
 
     def __init__(self, model, params, *, prefill_mesh=None, decode_mesh=None,

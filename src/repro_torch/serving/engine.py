@@ -57,8 +57,21 @@
     sequential decode's; sampled rows use residual acceptance with the
     engine's seeded `torch.Generator`. ``spec_adaptive=True`` walks
     ``spec_k`` (and the tree's fanout) from the measured acceptance.
-
-Not ported yet (raises `NotImplementedError`): meshes.
+  * tensor parallelism — ``GenerationEngine(mesh=...)`` (chunked path,
+    dense attention decoders) serves the model over a mesh's ``model``
+    axis from this one controller, as the reference does: one scheduler
+    and host pager, page tables replicated; weights split by
+    `distributed.sharding.param_pspec` (column-parallel q / k / v / gate
+    / up, row-parallel o / down, a vocab-parallel embedding and tied
+    head), page pools striped over KV heads by `paged_cache_pspec`, each
+    shard's on its device; every layer runs per shard with explicit sums
+    and joins between shards (`Model.chunk_step(mesh=...)`; int8 pools on
+    the card read through K2-TP). Spill and handoff strips leave the mesh
+    whole and re-stripe on the way in, so a strip adopts on any mesh.
+    ``self.params`` stays unsharded: `generate()` keeps its single-device
+    path. A mesh's first device must hold the params; an explicit device
+    list may repeat a device (`distributed.serving_mesh`). MoE under a
+    mesh raises `NotImplementedError` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -69,6 +82,10 @@ import torch
 
 from repro_torch.bridge import host_numpy
 from repro_torch.core.packing import PackedLinear
+from repro_torch.distributed.sharding import (model_devices,
+                                              paged_cache_pspec,
+                                              shard_params, split_dim,
+                                              strip_gather, strip_scatter)
 from repro_torch.serving.kv_pager import (KVPager, PagerConfig, PagerStats,
                                           _commit_dense_leaf, commit_prefill)
 from repro_torch.serving.scheduler import Request, Scheduler, SchedulerStats
@@ -89,7 +106,8 @@ class EngineStats:
     """One structured serving snapshot: the reference's fields, in its
     order. Pager occupancy, dispatch / packing accounting, speculative
     acceptance, preemption and the host KV tier, and the memory footprint
-    of the page pools and weights (one device: ``model_axis`` 1)."""
+    of the page pools (all shards', and one shard's under a mesh) and of
+    the weights."""
     pager: PagerStats
     # dispatch / packing
     dispatches: int               # steps issued
@@ -318,10 +336,25 @@ class GenerationEngine:
             raise ValueError(f"{model.cfg.name} is encoder-only: no "
                              f"autoregressive decode step (serve it through "
                              f"Model.prefill / forward_logits)")
+        # tensor-parallel serving over the mesh's `model` axis; an
+        # indivisible head count fails HERE, not inside a kernel
+        self._mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving (mesh) is not ported to repro_torch "
-                "yet")
+            if "model" not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh axes {mesh.axis_names} carry no 'model' axis — "
+                    f"serving tensor parallelism shards over 'model' "
+                    f"(see distributed.serving_mesh)")
+            msize = mesh.shape["model"]
+            has_attn = any(kind.mixer in ("attn", "hymba")
+                           for kind, _ in model.cfg.segments())
+            if msize > 1 and has_attn \
+                    and model.cfg.num_kv_heads % msize != 0:
+                raise ValueError(
+                    f"num_kv_heads={model.cfg.num_kv_heads} is not "
+                    f"divisible by the {msize}-way 'model' mesh axis — "
+                    f"page pools shard over KV heads; choose a mesh size "
+                    f"that divides Hkv (or mesh=None)")
         # speculative decoding: "ngram" (prompt-lookup self-drafter, no
         # second model) or "draft_model" (greedy small-model drafter —
         # pass draft_model + draft_params, or a custom draft_fn)
@@ -378,6 +411,12 @@ class GenerationEngine:
         self.params = params
         self.cfg = model.cfg
         self.device = params["embed"]["table"].device
+        if mesh is not None and model_devices(mesh)[0] != self.device:
+            raise ValueError(
+                f"the mesh's first device {model_devices(mesh)[0]} must "
+                f"hold the params (on {self.device}): replicated operands "
+                f"and the logits live there")
+        self._params_run = params
         self.max_seq = max_seq or model.cfg.max_seq_len
         self.sampler = sampler
         self.eos_id = eos_id
@@ -478,13 +517,18 @@ class GenerationEngine:
                            pages_per_slot=pages_per_slot,
                            optimistic=self.admission == "optimistic")
 
+    def _cache_layout(self, pcfg: PagerConfig, **where):
+        """The paged cache for ``pcfg``, on ``where`` (``device=`` or
+        ``mesh=``)."""
+        return self.model.init_paged_cache(
+            pcfg.num_pages, self.page_size, kv_quant=self.kv_quant,
+            num_slots=self.num_slots,
+            slot_seq=pcfg.pages_per_slot * self.page_size, **where)
+
     def _serving_init(self) -> Scheduler:
         pager = KVPager(self._pager_config())
-        self._paged_cache = self.model.init_paged_cache(
-            pager.cfg.num_pages, self.page_size, kv_quant=self.kv_quant,
-            device=self.device, num_slots=self.num_slots,
-            slot_seq=pager.cfg.pages_per_slot * self.page_size)
-        chunkable = self._cache_chunkable(self._paged_cache)
+        layout = self._cache_layout(pager.cfg, device="meta")
+        chunkable = self._cache_chunkable(layout)
         chunked = chunkable if self.chunked_prefill is None \
             else self.chunked_prefill
         if chunked and not chunkable:
@@ -496,11 +540,37 @@ class GenerationEngine:
             raise ValueError(
                 "spec_decode requires the chunked serving path (verify "
                 "runs are multi-token rows of the unified chunk dispatch)")
+        if self._mesh is not None and not chunked:
+            raise ValueError(
+                "mesh-sharded serving requires the chunked (token-budget) "
+                "path: archs with bounded per-slot sequential state "
+                "(ring/SSM/MLA) and the one-shot baseline stay "
+                "single-device — pass mesh=None")
         if self.preemption and not chunked:
             raise ValueError(
                 "preemption requires the chunked serving path: restore "
                 "re-enters the unified chunk dispatch at the commit "
                 "watermark, which one-shot prefill does not track")
+        if self._mesh is not None and any(
+                kind.mlp == "moe" for kind, _ in self.cfg.segments()):
+            raise NotImplementedError(
+                "MoE under a mesh is not ported (ROADMAP, Queue 1: the "
+                "reference shards the experts' F dim over 'model')")
+        if self._mesh is None:
+            self._paged_cache = self._cache_layout(pager.cfg,
+                                                   device=self.device)
+        else:
+            self._paged_cache = self._cache_layout(pager.cfg,
+                                                   mesh=self._mesh)
+            self._params_run = shard_params(self.params, self._mesh,
+                                            self.cfg)
+        # the dim each pool leaf's strips join and split over (None
+        # without a mesh): the rule read on the unsharded layout
+        self._strip_dims = {
+            (seg, leaf): None if self._mesh is None else split_dim(
+                paged_cache_pspec(leaf, t, self._mesh))
+            for seg, layers in layout.items()
+            for leaf, t in layers[0].get("kv_pool", {}).items()}
         self._gen = torch.Generator(device=self.device).manual_seed(self._seed)
         self._tables_version = -1
         self._tables_dev = None
@@ -599,7 +669,8 @@ class GenerationEngine:
             self.tree_moves += int(out[:, 2].sum())
             return out[:, 0], out[:, 1], out[:, 3:]
         logits, self._paged_cache = self.model.chunk_step(
-            self.params, self._paged_cache, *args, page_table=page_table)
+            self._params_run, self._paged_cache, *args, page_table=page_table,
+            mesh=self._mesh)
         out = self._sample_rows(logits, temps, topks).cpu().numpy()
         if n_draft is None:
             return out
@@ -663,9 +734,9 @@ class GenerationEngine:
         """One chunk step gathering ``spec_k + 1`` logits a row:
         ``[B, spec_k + 1, V]`` f32; the pools update in place."""
         logits, self._paged_cache = self.model.chunk_step(
-            self.params, self._paged_cache, tokens, pos, sample_idx,
+            self._params_run, self._paged_cache, tokens, pos, sample_idx,
             page_table=page_table, num_logits=self.spec_k + 1, rpos=rpos,
-            amask=amask)
+            amask=amask, mesh=self._mesh)
         return logits
 
     def _spec_greedy(self, page_table, tokens, pos, sample_idx, n_draft):
@@ -755,10 +826,13 @@ class GenerationEngine:
         sp = torch.where(live, torch.gather(pt, 1, src // ps), 0).reshape(-1)
         dp = torch.where(live, torch.gather(pt, 1, dst // ps), 0).reshape(-1)
         so, do = (src % ps).reshape(-1), (dst % ps).reshape(-1)
-        for layers in self._paged_cache.values():
-            for entry in layers:
-                for leaf in entry["kv_pool"].values():
-                    leaf.index_put_((dp, do), leaf[sp, so])
+        for _, cache in self._shard_caches():
+            for layers in cache.values():
+                for entry in layers:
+                    for leaf in entry["kv_pool"].values():
+                        d = leaf.device
+                        leaf.index_put_((dp.to(d), do.to(d)),
+                                        leaf[sp.to(d), so.to(d)])
         return live.sum(1).to(torch.int32)
 
     def _tree_greedy(self, page_table, tokens, pos, sample_idx, n_draft,
@@ -941,12 +1015,22 @@ class GenerationEngine:
         return nodes
 
     # --- host-memory page tier (preemption spill/restore) -----------------
+    def _shard_caches(self) -> list:
+        """(device, paged cache) of every shard: one without a mesh."""
+        if self._mesh is None:
+            return [(self.device, self._paged_cache)]
+        return list(zip(model_devices(self._mesh), self._paged_cache))
+
     def _pool_leaves(self):
-        """(seg, leaf name, [per-layer pool tensors]) for every pool leaf
-        of the paged cache: codes and, for int8 pools, scale strips."""
-        for seg, layers in self._paged_cache.items():
+        """(seg, leaf name, the dim a mesh stripes it over or None, and a
+        shard's [per-layer pool tensors] for every shard) for every pool
+        leaf of the paged cache: codes and, for int8 pools, scale
+        strips."""
+        caches = [c for _, c in self._shard_caches()]
+        for seg, layers in caches[0].items():
             for leaf in layers[0]["kv_pool"]:
-                yield seg, leaf, [e["kv_pool"][leaf] for e in layers]
+                yield seg, leaf, self._strip_dims[seg, leaf], [
+                    [e["kv_pool"][leaf] for e in c[seg]] for c in caches]
 
     def _exec_spill(self, phys_ids: list[int]) -> dict:
         """Scheduler spill hook: gather ``phys_ids``'s pool bytes BEFORE the
@@ -955,12 +1039,18 @@ class GenerationEngine:
         in place), and each leaf's ``[L, n, P, ...]`` strip is copied into
         pinned host memory without blocking; ``event`` marks the copies'
         completion for a host reader (`handoff_wire`). Int8 pools leave
-        as stored: codes plus scale strips, never re-inflated."""
+        as stored: codes plus scale strips, never re-inflated. Under a
+        mesh each strip leaves whole: the shards' KV-head pieces joined
+        (`distributed.sharding.strip_gather`)."""
         dev = self.device
+        devices = [d for d, _ in self._shard_caches()]
         ids = torch.as_tensor(phys_ids, dtype=torch.long, device=dev)
         strips: dict = {}
-        for seg, leaf, pools in self._pool_leaves():
-            g = torch.stack([pool.index_select(0, ids) for pool in pools])
+        for seg, leaf, dim, shard_pools in self._pool_leaves():
+            g = strip_gather([torch.stack([pool.index_select(0, ids.to(d))
+                                           for pool in pools])
+                              for d, pools in zip(devices, shard_pools)],
+                             dim, devices)
             if dev.type == "cuda":
                 host = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
                 host.copy_(g, non_blocking=True)
@@ -975,14 +1065,20 @@ class GenerationEngine:
     def _scatter(self, strips: dict, fresh_ids: list[int]) -> None:
         """Write host strips ``{seg: {leaf: [L, n, ...]}}`` (tensors, or a
         wire image's numpy arrays) into pages ``fresh_ids`` of every pool
-        leaf, one host→device copy each."""
+        leaf, one host→device copy each; under a mesh the whole strip is
+        re-striped over KV heads on the way in
+        (`distributed.sharding.strip_scatter`)."""
         dev = self.device
+        devices = [d for d, _ in self._shard_caches()]
         ids = torch.as_tensor(fresh_ids, dtype=torch.long, device=dev)
-        for seg, leaf, pools in self._pool_leaves():
-            src = torch.as_tensor(strips[seg][leaf]).view(pools[0].dtype)
-            src = src.to(dev, non_blocking=True)
-            for layer, pool in enumerate(pools):
-                pool.index_copy_(0, ids, src[layer])
+        for seg, leaf, dim, shard_pools in self._pool_leaves():
+            src = torch.as_tensor(strips[seg][leaf]).view(
+                shard_pools[0][0].dtype)
+            pieces = strip_scatter(src.to(dev, non_blocking=True), dim,
+                                   devices)
+            for d, piece, pools in zip(devices, pieces, shard_pools):
+                for layer, pool in enumerate(pools):
+                    pool.index_copy_(0, ids.to(d), piece[layer])
 
     def _exec_restore(self, handle: dict, fresh_ids: list[int]) -> None:
         """Scheduler restore hook: scatter the parked strips into the
@@ -1198,7 +1294,7 @@ class GenerationEngine:
             pager_stats = self._scheduler.pager.stats()
             spec_k_now = self._scheduler.spec_k_cur
             fanout_now = self._scheduler.fanout_cur
-        pool_bytes = self.paged_kv_page_bytes() * pager_stats.pages_total
+        pool_bytes, per_shard = self._pool_bytes()
         valid = st.dispatched_positions - st.padded_positions
         fixed_total = valid + st.padded_positions_fixed
         return EngineStats(
@@ -1224,9 +1320,10 @@ class GenerationEngine:
             restored_pages=st.restored_pages,
             pages_spilled_now=pager_stats.pages_spilled,
             restore_ms_mean=st.restore_time_s * 1e3 / max(st.restores, 1),
-            model_axis=1,
+            model_axis=(1 if self._mesh is None
+                        else int(self._mesh.shape.get("model", 1))),
             kv_pool_bytes=pool_bytes,
-            kv_pool_bytes_per_device=pool_bytes,
+            kv_pool_bytes_per_device=per_shard,
             kv_bytes_per_token=self.paged_kv_bytes_per_token(),
             weight_bytes=self.weight_stream_bytes(),
             weight_bytes_per_token=self.weight_bytes_per_token(
@@ -1252,25 +1349,30 @@ class GenerationEngine:
         return len(self._scheduler.pager.match_prefix(tokens, prefix_id))
 
     # --------------------------------------------------- capacity accounting
+    def _pool_bytes(self) -> tuple[int, int]:
+        """(all shards', one shard's) page-pool bytes over all layers, from
+        the pools' layout on the ``meta`` device (nothing is allocated).
+        Only page pools count (an MLA layer's dense per-slot latents are
+        not paged), as in the reference; a pool leaf a mesh stripes holds
+        1/n of its bytes on a shard."""
+        pcfg = self._pager_config()
+        total = per_shard = 0
+        n = 1 if self._mesh is None else self._mesh.shape["model"]
+        for layers in self._cache_layout(pcfg, device="meta").values():
+            for entry in layers:
+                for leaf, t in entry.get("kv_pool", {}).items():
+                    nbytes = _tensor_bytes(t)
+                    total += nbytes
+                    striped = self._mesh is not None and split_dim(
+                        paged_cache_pspec(leaf, t, self._mesh)) is not None
+                    per_shard += nbytes // n if striped else nbytes
+        return total, per_shard
+
     def paged_kv_page_bytes(self) -> int:
         """Bytes one physical page costs across all layers (codes + scale
-        strips for int8 pools): the unit of the serving memory budget.
-        Only page pools count (an MLA layer's dense per-slot latents are
-        not paged), as in the reference. Before serving starts the pools
-        are laid out on the ``meta`` device, so nothing is allocated."""
-        if self._scheduler is not None:
-            cache = self._paged_cache
-            num_pages = self._scheduler.pager.cfg.num_pages
-        else:
-            pcfg = self._pager_config()
-            num_pages = pcfg.num_pages
-            cache = self.model.init_paged_cache(
-                num_pages, self.page_size, kv_quant=self.kv_quant,
-                device="meta", num_slots=self.num_slots,
-                slot_seq=pcfg.pages_per_slot * self.page_size)
-        return sum(_tensor_bytes(entry.get("kv_pool"))
-                   for layers in cache.values()
-                   for entry in layers) // num_pages
+        strips for int8 pools), all shards together: the unit of the
+        serving memory budget."""
+        return self._pool_bytes()[0] // self._pager_config().num_pages
 
     def paged_kv_bytes_per_token(self) -> float:
         """KV bytes per cached token in the page pools (all layers)."""

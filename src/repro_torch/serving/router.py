@@ -2,9 +2,12 @@
 
 A numpy copy of the reference package's `serving/router.py` (host code,
 the whole class). `Router` owns a list of **replicas** — each a
-`GenerationEngine` or a `serving.disagg.DisaggController` prefill/decode
-pair — and exposes the engine's ``submit() / step() / collect() /
-drain()`` surface.
+`GenerationEngine` (optionally tensor-parallel over its own ``model``
+mesh, `distributed.serving_mesh`) or a `serving.disagg.DisaggController`
+prefill/decode pair — and exposes the engine's ``submit() / step() /
+collect() / drain()`` surface. A sharded replica answers the same
+queries (its page tables and prefix index live on the one host), so
+placement does not see the mesh.
 
 Placement: within one engine, prefix sharing turns duplicate prompt
 prefixes into aliased pages and skipped prefill; across a fleet that only

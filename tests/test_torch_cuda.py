@@ -2021,3 +2021,142 @@ def test_decode_attention_rows_equal_across_slots_and_lengths(cuda, cfg):
         y, _ = attention.attention_decode(p, cache, x[i:i + 1], cfg,
                                           pos=pos[i:i + 1])
         assert torch.equal(y, full[i:i + 1]), i
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _k2_tp_case(cuda, case: str):
+    """Qwen2.5's decode shape (Hkv 2, G 7, hd 64, page 16, B 4, contexts
+    to 512 with a padding row), C 1 and 16; C 8 with a token tree's
+    ancestor mask, logical positions and a 128-token window."""
+    b, hkv, g, hd, page, nblk = 4, 2, 7, 64, 16, 32
+    c = {"decode": 1, "chunk": 16, "tree": 8}[case]
+    npages = b * nblk + 1
+    kp = torch.randint(-127, 128, (npages, page, hkv, hd), generator=cuda,
+                       device="cuda", dtype=torch.int8)
+    vp = torch.randint(-127, 128, (npages, page, hkv, hd), generator=cuda,
+                       device="cuda", dtype=torch.int8)
+    ks = torch.rand(npages, page, hkv, generator=cuda, device="cuda") / 50
+    vs = torch.rand(npages, page, hkv, generator=cuda, device="cuda") / 50
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([0, 137, 300, 512 - c], dtype=torch.int32,
+                        device="cuda")
+    pos = base[:, None] + torch.arange(c, dtype=torch.int32,
+                                       device="cuda")[None]
+    pos[0] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    kw = {}
+    if case == "tree":
+        parents = [-1, 0, 1, 2, 0, 4, 1, 6]
+        anc = torch.zeros(c, c, dtype=torch.bool)
+        depth = [0] * c
+        for j, par in enumerate(parents):
+            if par >= 0:
+                anc[j] = anc[par]
+                depth[j] = depth[par] + 1
+            anc[j, j] = True
+        amask = (anc[None].expand(b, c, c).to("cuda")
+                 & (pos >= 0)[:, None, :]).contiguous()
+        rpos = torch.where(pos >= 0, pos[:, :1] + torch.tensor(
+            depth, dtype=torch.int32, device="cuda")[None], pos)
+        kw = dict(rpos=rpos.to(torch.int32).contiguous(), amask=amask,
+                  window=128)
+    return q, (kp, ks, vp, vs), table, pos, kw
+
+
+@pytest.mark.parametrize("case", ["decode", "chunk", "tree"])
+def test_k2_tp_bit_equal_to_k2_over_all_heads(cuda, case):
+    """K2-TP over a 2-way mesh on one card (1 kv head a shard, each
+    stripe its own allocation): one K2 launch a shard, the shards joined
+    over heads equal to one K2 launch over both heads bit for bit, and
+    its plain version within K2's tolerance."""
+    from repro_torch.distributed import serving_mesh
+    q, (kp, ks, vp, vs), table, pos, kw = _k2_tp_case(cuda, case)
+    mesh = serving_mesh(2, devices=["cuda:0", "cuda:0"])
+    cut = [[p.contiguous() for p in torch.chunk(t, 2, dim)]
+           for t, dim in ((q, 2), (kp, -2), (ks, -1), (vp, -2), (vs, -1))]
+    before = (k2.TP_COUNTER.count, k2.COUNTER.count)
+    outs = k2.paged_attention_chunk_sharded(*cut, table, pos, mesh=mesh,
+                                            **kw)
+    whole = k2.paged_attention_chunk(q, kp, ks, vp, vs, table, pos, **kw)
+    torch.cuda.synchronize()
+    assert (k2.TP_COUNTER.count - before[0],
+            k2.COUNTER.count - before[1]) == (1, 3)
+    assert torch.equal(torch.cat(outs, dim=2), whole)
+    ref = torch.cat(k2.paged_attention_chunk_sharded_ref(
+        *cut, table, pos, mesh=mesh, **kw), dim=2)
+    assert float((whole - ref).abs().max()) <= 1e-5 * max(
+        1.0, float(ref.abs().max()))
+    assert not whole[0].any()                       # all-padding row
+
+
+def test_k2_tp_refuses_strided_stripes(cuda):
+    """A stripe must be its own contiguous pool: a view of a whole pool's
+    head is refused, not read."""
+    from repro_torch.distributed import serving_mesh
+    q, (kp, ks, vp, vs), table, pos, _ = _k2_tp_case(cuda, "decode")
+    mesh = serving_mesh(2, devices=["cuda:0", "cuda:0"])
+    views = [[t[..., i:i + 1, :] for i in range(2)] for t in (kp, vp)]
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.paged_attention_chunk_sharded(
+            [p.contiguous() for p in torch.chunk(q, 2, 2)], views[0],
+            [p.contiguous() for p in torch.chunk(ks, 2, -1)], views[1],
+            [p.contiguous() for p in torch.chunk(vs, 2, -1)], table, pos,
+            mesh=mesh)
+
+
+def test_sharded_engine_on_card(smoke_engine):
+    """The smoke model served over a 2-way mesh on one card, int8 pools:
+    a chunk step's logits within the `check` rule of the unsharded
+    step's (row-parallel sums round in another order), K2-TP once a
+    layer, each shard's pools half the bytes; a spill → restore round
+    trip bit for bit; every request finished, no page in use."""
+    from repro_torch.distributed import serving_mesh, shard_params
+    m, make = smoke_engine
+    params = make().params
+    mesh = serving_mesh(2, devices=["cuda:0", "cuda:0"])
+    toks = torch.randint(0, m.cfg.vocab_size, (4, 8), device="cuda",
+                         dtype=torch.int32)
+    pos = torch.arange(8, dtype=torch.int32, device="cuda")[None].repeat(4, 1)
+    pos[3, 5:] = -1
+    sidx = torch.tensor([7, 7, 7, 4], dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(4, 2)
+    plain, _ = m.chunk_step(params, m.init_paged_cache(9, 8, kv_quant="int8",
+                                                      device="cuda"),
+                            toks, pos, sidx, page_table=table)
+    before = k2.TP_COUNTER.count
+    got, _ = m.chunk_step(shard_params(params, mesh, m.cfg),
+                          m.init_paged_cache(9, 8, kv_quant="int8",
+                                             mesh=mesh),
+                          toks, pos, sidx, page_table=table, mesh=mesh)
+    assert k2.TP_COUNTER.count - before == m.cfg.num_layers
+    tol = 0.05 * float(plain.float().abs().max())
+    assert float((got - plain).float().abs().max()) <= tol
+
+    eng = make(kv_quant="int8", preemption=True, mesh=mesh)
+    rids = [eng.submit(np.arange(n, dtype=np.int32) * 3 % m.cfg.vocab_size,
+                       6) for n in (21, 13, 30)]
+    while not eng.step():
+        pass
+    sched = eng._scheduler
+    slot = next(s for s, st in sched.slots.items()
+                if st.request.rid == rids[-1])
+    ids = torch.as_tensor(sched.pager.peek_spill(slot), device="cuda")
+    want = {k: torch.cat([c["seg_0"][i]["kv_pool"][k][ids]
+                          for c in eng._paged_cache], dim=-2
+                         if k in ("k", "v") else -1).cpu()
+            for i in range(m.cfg.num_layers) for k in ("k", "ks")}
+    assert eng.preempt(rids[-1])
+    (parked,) = sched.preempted
+    parked.handle["event"].synchronize()
+    strips = parked.handle["strips"]["seg_0"]
+    assert all(t.is_pinned() for t in strips.values())
+    assert torch.equal(strips["k"][-1], want["k"])
+    assert torch.equal(strips["ks"][-1], want["ks"])
+    out = eng.drain()
+    st = eng.stats()
+    assert st.restores == 1 and st.pager.pages_used == 0
+    assert st.model_axis == 2
+    assert 2 * st.kv_pool_bytes_per_device == st.kv_pool_bytes
+    assert all(out[r].shape == (6,) for r in rids)

@@ -35,6 +35,7 @@ from repro.serving import kv_pager as jkv
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch.configs import qwen25_05b
+from repro_torch.distributed import serving_mesh
 from repro_torch.launch.specs import ReplicaSpec
 from repro_torch.models.model import Model
 from repro_torch.roofline import costmodel as tcost
@@ -293,12 +294,35 @@ def test_adopt_requires_wired_handoff(pair):
 
 
 def test_meshes_are_not_ported(pair):
+    """Per-side meshes are ported: a prefill mesh of 2 and a decode mesh
+    of 4 (shards sharing the CPU) serve the unified engine's streams with
+    the unsharded pair's wire bytes, `ReplicaSpec` builds such a pair from
+    its widths, and the smoke config's one kv head refuses a 2-way mesh
+    on either side with the reference's error. The whole mesh matrix:
+    `tests/test_torch_tp_serving.py`."""
     _, tm, _, tp = pair
-    for kw in (dict(prefill_mesh=object()), dict(decode_mesh=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdisagg.DisaggController(tm, tp, **kw, **_KW)
+    cfg = dataclasses.replace(tm.cfg, num_heads=8, num_kv_heads=4,
+                              head_dim=16)
+    m = Model(cfg)
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    prompt = np.arange(13, dtype=np.int32) + 5
+    ref = _unified_streams(m, p, [prompt], 6, None, kv_quant="int8")
+    wires = []
+    for pm, dm in ((None, None), (2, 4)):
+        ctrl, got = _controller_run(
+            tdisagg, m, p, [prompt], 6, None, handoff_min_tokens=1,
+            kv_quant="int8",
+            prefill_mesh=pm and serving_mesh(pm, devices=["cpu"] * pm),
+            decode_mesh=dm and serving_mesh(dm, devices=["cpu"] * dm))
+        assert got == ref and ctrl.stats().handoffs == 1
+        wires.append(ctrl.stats().wire_bytes)
+    assert wires[0] == wires[1] > 0
+    ctrl = ReplicaSpec(disagg=True, prefill_mesh_axis=2, decode_mesh_axis=4,
+                       engine_kwargs=dict(_KW, handoff_min_tokens=1)
+                       ).build(m, p)
+    assert ctrl.decode.stats().model_axis == 4
     for kw in (dict(prefill_mesh_axis=2), dict(decode_mesh_axis=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="num_kv_heads=1"):
             ReplicaSpec(disagg=True, engine_kwargs=_KW, **kw).build(tm, tp)
 
 

@@ -1,6 +1,7 @@
 """Port serving engine: greedy streams ≡ the port's own `generate()`,
-pager state ≡ the JAX package's pager, unported options raise (the
-one-shot path and parallel sampling: `test_torch_oneshot.py`).
+pager state ≡ the JAX package's pager, invalid options raise (the
+one-shot path and parallel sampling: `test_torch_oneshot.py`; meshes:
+`test_torch_tp_serving.py`).
 
 JAX engine streams are not used as an oracle (seven JAX identity tests
 are red on this tree); the port is held against itself, as the
@@ -24,6 +25,7 @@ from repro.serving import kv_pager as jkv
 from repro_torch.configs import qwen25_05b
 from repro_torch.core.pipeline import quantize_params
 from repro_torch.core.qlinear import ExecutionConfig, execution_config
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.models.model import Model
 from repro_torch.serving import engine as eng_mod
 from repro_torch.serving import kv_pager as tkv
@@ -232,7 +234,8 @@ def test_pager_replay_matches_jax():
      ValueError, "spec_tree_fanout must be"),
     (dict(spec_decode="ngram", chunked_prefill=False), ValueError,
      "spec_decode requires the chunked serving path"),
-    (dict(mesh=object()), NotImplementedError, "not ported"),
+    (dict(mesh=Mesh(["cpu", "cpu"], ("data",))), ValueError,
+     "'model' axis"),
     (dict(preemption=True, chunked_prefill=False), ValueError, "chunked"),
     (dict(admission="optimistic"), ValueError, "optimistic"),
     (dict(admission="yolo"), ValueError, "admission")],
@@ -240,11 +243,12 @@ def test_pager_replay_matches_jax():
          "spec_oneshot", "mesh", "preemption", "optimistic",
          "unknown_admission"])
 def test_unported_engine_options_raise(model_params, kwargs, exc, match):
-    """Meshes are not ported. Speculation, preemption and optimistic
-    admission are, with the reference's checks and messages: an unknown
-    drafter, a tree without a drafter, draft mode without a model, a
-    zero fanout, speculation or preemption off the chunked path (raised
-    when serving starts, at the first `submit`), optimistic admission
+    """Speculation, meshes, preemption and optimistic admission keep the
+    reference's checks and messages: an unknown drafter, a tree without a
+    drafter, draft mode without a model, a zero fanout, speculation or
+    preemption off the chunked path (raised when serving starts, at the
+    first `submit`), a mesh without a ``model`` axis (the rest of the
+    mesh checks: `tests/test_torch_tp_serving.py`), optimistic admission
     without preemption and an unknown admission policy are refused."""
     m, params = model_params
     with pytest.raises(exc, match=match):

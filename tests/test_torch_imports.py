@@ -41,7 +41,9 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.data.pipeline", "repro_torch.launch.serve",
             "repro_torch.kernels.flash_attention",
             "repro_torch.launch.specs", "repro_torch.serving.router",
-            "repro_torch.kernels.awq_matmul"} <= set(mods)
+            "repro_torch.kernels.awq_matmul",
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

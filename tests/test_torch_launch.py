@@ -118,17 +118,23 @@ def test_launch_is_deterministic_under_sampling():
 FLEET = ["--smoke", "--batch", "2", "--prompt-len", "20", "--max-new", "4"]
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2", "--mesh-axis", "2"],
-                                  ["--replicas", "2", "--disagg"],
-                                  ["--mesh-axis", "2"], ["--replicas", "2"]])
+@pytest.mark.parametrize("flag", [
+    ["--arch", "glm4-9b", "--replicas", "2", "--mesh-axis", "2"],
+    ["--replicas", "2", "--disagg"], ["--mesh-axis", "2"],
+    ["--replicas", "2"], ["--replicas", "2", "--mesh-axis", "2"]])
 def test_fleet_flags_raise(flag):
-    """--replicas with tensor-parallel (--mesh-axis > 1) replicas raises
-    (not ported); without --replicas the fleet flags are ignored and the
-    classic path runs, as the reference does; --replicas alone serves
-    the fleet, and with --disagg a fleet of prefill/decode pairs."""
+    """--replicas with tensor-parallel replicas (--mesh-axis 2: two
+    shards sharing the CPU) serves the fleet where the model's kv heads
+    divide the axis (glm4-9b's smoke config has two) and raises the
+    reference's error where they do not (qwen25-05b's has one); without
+    --replicas the fleet flags are ignored and the classic path runs, as
+    the reference does; --replicas alone serves the fleet, and with
+    --disagg a fleet of prefill/decode pairs."""
     argv = FLEET + ["--quant", "none", "--device", "cpu"] + flag
-    if "--mesh-axis" in flag and "--replicas" in flag:
-        with pytest.raises(NotImplementedError, match="not ported"):
+    if "--mesh-axis" in flag and "glm4-9b" not in flag \
+            and "--replicas" in flag:
+        with pytest.raises(ValueError, match="num_kv_heads=1 is not "
+                                             "divisible"):
             tserve.main(argv)
         return
     out = tserve.main(argv)
