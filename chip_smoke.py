@@ -6,7 +6,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together); ptxas' registers and
                spills, each K4b kernel's registers and spills by name
-               (bf16 / f16 / f32 at hd 64, 128 and 256), and each
+               (bf16 / f16 / f32 at hd 64, 80, 96, 128 and 256; the
+               tensor-core kernels must spill nothing below hd 256), and
+               each
                library's count of tensor-core (HMMA / HGMMA)
                instructions in its SASS (K1's, K3's, K4's and K4b's must
                be > 0);
@@ -45,7 +47,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                bf16) and gemma3's windowed layers (hd 256, S 1,400,
                window 1,024), from K4's own output and lse, held against
                its plain version, two calls bit-equal, timed beside the
-               plain version and SDPA's backward kernels (profiler); K4b
+               plain version and SDPA's backward kernels (profiler), and
+               at train_families' attention (hubert hd 80 bidirectional,
+               phi-3-vision hd 96, hymba G 5 global and windowed,
+               qwen2-moe hd 128 G 1), each with ptxas' spill bytes; K4b
                runs its five products on tensor cores in two launches
                (dQ with D, then dK / dV); the MoE family's shapes: K1 at
                qwen2-moe's and deepseek-v2-lite's linears outside the
@@ -300,7 +305,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                4's checkpoint, the redone steps' losses equal bit for
                bit, LATEST 8; then a synchronous save and a restore
                (timed) equal to the saved state bit for bit, and a step
-               from each giving the same loss.
+               from each giving the same loss;
+ 32. train_families — every other family trained at full width from
+               seed 0, float weights, bf16 casts, remat, AdamW lr 3e-3,
+               4 steps of the pipeline's batches (hubert: 6 at 1e-4,
+               its random codeword labels), each model's state
+               freed before the next: qwen2-moe-a2.7b (2 of 24 layers,
+               B 2 × S 1,024: 2,048 tokens, the capacity-factor region),
+               deepseek-v2-lite-16b (2 of 27: its dense layer and a MoE
+               one; MLA, no K4), mamba2-130m (24 of 24, B 8 × S 512; no
+               attention), hymba-1.5b (4 of 32: global layer 0, three
+               windowed; B 2 × S 1,536), hubert-xlarge (48 of 48, B 2 ×
+               1,024 frames; K4 / K4b bidirectional at hd 80) and
+               phi-3-vision-4.2b (8 of 32, B 2 × (256 patches + 256
+               tokens); hd 96). Gated: finite losses, the last below the
+               first, no leaf without a gradient, K4 twice and K4b once a
+               step in each attention layer, and a 2-layer cut's loss and
+               gradients on the card within 5 % of CPU copies (the MoE
+               models' CPU side on the card's routing). Reported: step ms
+               and tokens / frames a second beside the port cost model's
+               compute and memory seconds for that step, peak memory.
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -2018,7 +2042,7 @@ class RouteTie:
 
         def route(probs, cfg, cap):
             out = plain(probs, cfg, cap)
-            self.routes.append((out[0].cpu(), probs.float().cpu()))
+            self.routes.append((out[0].cpu(), probs.detach().float().cpu()))
             return out
 
         moe.route = route
@@ -2038,11 +2062,11 @@ class RouteTie:
             differ = (own.indices.sort(-1).values
                       != idx.sort(-1).values).any(-1)
             for t in differ.nonzero()[:, 0].tolist():
-                top = torch.topk(probs[t], cfg.top_k + 1).values
+                top = torch.topk(probs[t].detach(), cfg.top_k + 1).values
                 self.flips.append(dict(
                     call=self.calls - 1, token=t,
                     gap=float(top[-2] - top[-1]),
-                    probs_diff=float((probs[t].float()
+                    probs_diff=float((probs[t].detach().float()
                                       - card_probs[t]).abs().max())))
             gates = torch.gather(probs, 1, idx)
             if cfg.norm_topk_prob:
@@ -3701,22 +3725,32 @@ def profile_dense_decode(model, params, steps: int = 6) -> dict:
 
 
 # ------------------------------------------------------------ K4b, train
-# K4b at the train path's shapes: Qwen2.5-0.5B's (B 8, S 512, the train
-# phase's batch) and gemma3-4b's windowed layers (hd 256, window 1,024)
-K4B_SHAPES = [("qwen25-05b", 8, 512, 14, 2, 64, 0),
-              ("gemma3-4b", 1, 1400, 8, 4, 256, 1024)]
+# K4b at the train path's shapes (model, B, S, H, Hkv, hd, window,
+# causal): Qwen2.5-0.5B's (B 8, S 512, the train phase's batch), gemma3-4b's
+# windowed layers (hd 256, window 1,024), then train_families' attention:
+# hubert-xlarge (hd 80, bidirectional), phi-3-vision (hd 96 over 256
+# patches + 256 tokens), hymba (G 5, its windowed and global layers) and
+# qwen2-moe (hd 128, G 1)
+K4B_SHAPES = [("qwen25-05b", 8, 512, 14, 2, 64, 0, True),
+              ("gemma3-4b", 1, 1400, 8, 4, 256, 1024, True),
+              ("hubert-xlarge", 2, 1024, 16, 16, 80, 0, False),
+              ("phi-3-vision-4.2b", 2, 512, 32, 32, 96, 0, True),
+              ("hymba-1.5b", 2, 1536, 25, 5, 64, 1024, True),
+              ("hymba-1.5b", 2, 1536, 25, 5, 64, 0, True),
+              ("qwen2-moe-a2.7b", 2, 1024, 16, 16, 128, 0, True)]
 
 
-def _sdpa_bwd_ms(q, k, v, do, window: int, iters: int = 5) -> float:
-    """Device ms of the backward of `scaled_dot_product_attention` (causal,
-    GQA; a boolean mask where windowed) on the same tensors, made
+def _sdpa_bwd_ms(q, k, v, do, window: int, causal: bool = True,
+                 iters: int = 5) -> float:
+    """Device ms of the backward of `scaled_dot_product_attention` (causal
+    or not, GQA; a boolean mask where windowed) on the same tensors, made
     contiguous: the profiler's device time of every kernel the backward
     launches, over ``iters`` calls."""
     leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
     s = q.shape[2]
-    mask_kw = (dict(attn_mask=k4.visibility(s, causal=True, window=window,
+    mask_kw = (dict(attn_mask=k4.visibility(s, causal=causal, window=window,
                                             device="cuda"))
-               if window else dict(is_causal=True))
+               if window else dict(is_causal=causal))
     out = torch.nn.functional.scaled_dot_product_attention(
         *leaves, enable_gqa=True, **mask_kw)
 
@@ -3739,16 +3773,18 @@ def _sdpa_bwd_ms(q, k, v, do, window: int, iters: int = 5) -> float:
 def check_k4b(gen) -> tuple[dict, dict]:
     """K4b against its plain version from the same forward (K4's output
     and lse), at the train path's shapes; timed beside the plain version
-    and SDPA's backward."""
+    and SDPA's backward; each shape with ptxas' registers and spill bytes
+    of the two bf16 kernels at its head dim (the build's report)."""
+    regs = PHASES.get("build", {}).get("k4b_kernels", {})
     per_shape = []
-    for arch, b, s, h, hkv, hd, window in K4B_SHAPES:
+    for arch, b, s, h, hkv, hd, window, causal in K4B_SHAPES:
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
                    .to(torch.bfloat16).transpose(1, 2)
                    for n in (h, hkv, hkv))
         do = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(
             torch.bfloat16)
-        kw = dict(causal=True, window=window)
-        out, lse = k4._forward(q, k, v, hd ** -0.5, True, window, True)
+        kw = dict(causal=causal, window=window)
+        out, lse = k4._forward(q, k, v, hd ** -0.5, causal, window, True)
         args = (q, k, v, out, lse, do)
         got = k4.flash_attention_bwd(*args, **kw)
         want = k4.flash_attention_bwd_ref(*args, **kw)
@@ -3767,19 +3803,24 @@ def check_k4b(gen) -> tuple[dict, dict]:
         ms = time_ms(lambda i: k4.flash_attention_bwd(*args, **kw), 1)
         plain = time_ms(lambda i: k4.flash_attention_bwd_ref(*args, **kw), 1,
                         iters=5)
-        lib = _sdpa_bwd_ms(q, k, v, do, window)
-        pairs = int(k4.visibility(s, causal=True, window=window,
+        lib = _sdpa_bwd_ms(q, k, v, do, window, causal)
+        pairs = int(k4.visibility(s, causal=causal, window=window,
                                   device="cuda").sum())
         # per visible (query, key) pair and head: the five products (S,
         # dO V^T, dV, dK, dQ) of 2 * hd flops each on bf16 inputs
         flops = 5 * 2 * hd * h * b * pairs
         nbytes = (sum(t.nbytes for t in args) + sum(t.nbytes for t in got))
         b_ms, b_by = bound(nbytes, (flops, BF16_OPS_PER_S))
+        ptxas = {n: r for n, r in regs.items()
+                 if "mma" in n and n.endswith(f"<bf16, {hd}>")}
         per_shape.append(dict(
             model=arch, b=b, s=s, h=h, hkv=hkv, hd=hd, window=window,
-            max_abs_err=max(e for e, _ in errs.values()), errs=errs, ms=ms,
-            plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-            gflop=flops / 1e9, mbytes=nbytes / 1e6))
+            causal=causal, max_abs_err=max(e for e, _ in errs.values()),
+            errs=errs, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            ptxas=ptxas, spill_bytes=sum(
+                r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                for r in ptxas.values())))
     qwen = per_shape[0]
     entry = dict(
         name="flash_attention_bwd", route="cuda",
@@ -3790,7 +3831,10 @@ def check_k4b(gen) -> tuple[dict, dict]:
         bound_by=qwen["bound_by"], library_ms=qwen["library_ms"])
     detail = dict(
         at="the train phase's attention: B 8, S 512, H 14 / Hkv 2, hd 64, "
-           "bf16, causal; then gemma3-4b's windowed layers",
+           "bf16, causal; then gemma3-4b's windowed layers and the "
+           "train_families phase's attention (hubert hd 80 bidirectional, "
+           "phi-3-vision hd 96, hymba G 5 windowed and global, qwen2-moe "
+           "hd 128)",
         replaces_note="no TPU kernel: the reference trains through the jnp "
                       "attention at that line, which XLA differentiates; "
                       "K4b is the gradient of K4 "
@@ -3922,18 +3966,22 @@ def train() -> dict:
 def train_check(model) -> dict:
     """A 2-layer full-width cut (layers 0 and 1 of a fresh seed-0 init):
     one loss and gradient on the card (K4, K4b, remat) and on CPU copies
-    (plain versions), B 1 × S 64. The two round to bf16 at other places,
-    so each leaf's gradient is held within 5 % of its largest CPU
-    magnitude (the `check` rule), the loss too; every leaf present."""
+    (plain versions), B 1 × S 64 (and a vision model's patches). The two
+    round to bf16 at other places, so each leaf's gradient is held within
+    5 % of its largest CPU magnitude (the `check` rule), the loss too;
+    every leaf present. A MoE layer's CPU side takes the card's routing
+    (`RouteTie`; flips counted)."""
     cut = Model(dataclasses.replace(model.cfg, num_layers=2))
     params = cut.init(torch.Generator(device="cuda").manual_seed(SEED),
                       device="cuda")
     batch = make_dataset(cut.cfg, 1, 64, SEED).batch_at(0)
+    tie = RouteTie()
     out = {}
     for d, prm in (("cuda", params), ("cpu", tree_to(params, "cpu"))):
-        loss, _, grads = loss_and_grads(
-            cut, prm, {k: torch.as_tensor(v, device=d)
-                       for k, v in batch.items()})
+        with _device_side(tie, d):
+            loss, _, grads = loss_and_grads(
+                cut, prm, {k: torch.as_tensor(v, device=d)
+                           for k, v in batch.items()})
         if missing_grads(grads):
             raise AssertionError(f"train check: {d} gradient missing "
                                  f"{missing_grads(grads)}")
@@ -3952,9 +4000,11 @@ def train_check(model) -> dict:
     if not loss_err <= 0.05 * abs(out["cpu"][0]):
         raise AssertionError(f"train check: loss {out['cuda'][0]} vs "
                              f"{out['cpu'][0]}")
+    routing = tie.report()
     return dict(layers=2, leaves=len(out["cpu"][1]), loss=out["cuda"][0],
                 cpu_loss=out["cpu"][0],
-                worst_leaf=worst_path, worst_err_over_leaf_max=worst)
+                worst_leaf=worst_path, worst_err_over_leaf_max=worst,
+                **({"routing": routing} if routing["routed_calls"] else {}))
 
 
 RESUME_ARGS = ["--arch", "qwen25-05b", "--steps", "8", "--batch", "8",
@@ -4039,6 +4089,105 @@ def train_resume() -> dict:
         torch.cuda.empty_cache()
 
 
+# train_families: every family the port serves, trained at full width
+# from seed 0 (model, layers kept of its depth, B, S: text tokens or
+# frames; phi-3-vision prepends its 256 patches; AdamW's peak lr; steps);
+# depth cuts for the time limit (PERF.md §4). hubert's labels are random
+# codewords (the pipeline's): its stream has nothing to learn beyond the
+# marginal, and its 48 layers' first Adam steps raise the loss at any lr
+# (NVIDIA H100 80GB HBM3, 700.00 W: 6.70 -> 8.75 in 4 steps at lr 3e-3;
+# at 1e-3 / 3e-4 / 1e-4, 7.40 / 6.93 / 6.71 after 4 steps and 6.64 /
+# 6.45 / 6.39 after 6), so it takes 6 steps at 1e-4
+TRAIN_FAMILIES = [("qwen2-moe-a2.7b", 2, 2, 1024, 3e-3, 4),
+                  ("deepseek-v2-lite-16b", 2, 2, 1024, 3e-3, 4),
+                  ("mamba2-130m", 24, 8, 512, 3e-3, 4),
+                  ("hymba-1.5b", 4, 2, 1536, 3e-3, 4),
+                  ("hubert-xlarge", 48, 2, 1024, 1e-4, 6),
+                  ("phi-3-vision-4.2b", 8, 2, 256, 3e-3, 4)]
+
+
+def train_family(arch: str, layers: int, b: int, s: int, lr: float,
+                 steps: int) -> dict:
+    """One model of `train_families`: a fresh seed-0 train state at full
+    width and ``layers`` of its depth, ``steps`` steps of the
+    pipeline's batches (bf16 casts, remat, AdamW at train()'s settings
+    with peak ``lr``; a leaf without a gradient raises in the step).
+    Gated: every loss
+    finite, the last below the first, K4 twice and K4b once a step in
+    each attention layer (none for the MLA and SSD models). Reported:
+    losses, step ms (median of steps 1 on), tokens (frames, positions)
+    a second, peak memory, launches a step, and the port cost model's
+    seconds for the same step (`analytic_terms` of the cut config at a
+    train cell of this B and S, the card's peaks) beside the measured
+    step; then `train_check` on a 2-layer cut."""
+    with _depth(arch, layers):
+        cfg = get_config(arch)
+    if not cfg.remat:
+        raise AssertionError(f"train_families {arch}: no remat")
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    ds = make_dataset(cfg, b, s, SEED)
+    step_fn = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**dict(TRAIN_OPT, lr=lr)),
+        grad_comm_dtype="bfloat16"))
+    _reset_peak()
+    reset_counts()
+    losses, step_s = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, ds.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = read_counts(TRAIN_COUNTERS)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train_families {arch}: losses {losses}")
+    per_step = {n: c / steps for n, c in launches.items()}
+    attn = _k4_layers(cfg)
+    if per_step != {"flash_attention": 2 * attn,
+                    "flash_attention_bwd": attn}:
+        raise AssertionError(f"train_families {arch}: launches a step "
+                             f"{per_step}, want K4 {2 * attn} and K4b "
+                             f"{attn} ({attn} attention layers, remat)")
+    seq = s + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    step_med = float(np.median(step_s[1:]))
+    terms = costmodel.analytic_terms(
+        cfg, configs.ShapeCell(f"train_{seq}x{b}", seq, b, "train"), 1,
+        False)
+    bound_s = max(terms["analytic_compute_s"], terms["analytic_memory_s"])
+    return dict(
+        config=cfg.name, layers=layers, of=get_config(arch).num_layers,
+        batch=b, seq=seq, steps=steps, optimizer=dict(TRAIN_OPT, lr=lr),
+        params=cfg.n_params(), attention_layers=attn, losses=losses,
+        step_ms=[1e3 * x for x in step_s], step_ms_median=1e3 * step_med,
+        tokens_per_s=b * seq / step_med, peak_mem_bytes=peak,
+        launches=launches, launches_per_step=per_step,
+        analytic_compute_s=terms["analytic_compute_s"],
+        analytic_memory_s=terms["analytic_memory_s"],
+        analytic_flops=terms["analytic_flops_global"],
+        analytic_bytes=terms["analytic_bytes_global"],
+        step_over_bound=step_med / bound_s, check=train_check(model))
+
+
+def train_families() -> dict:
+    """Phase 32: `train_family` for each of ``TRAIN_FAMILIES``, each
+    model's state freed before the next."""
+    out = {}
+    for arch, layers, b, s, lr, steps in TRAIN_FAMILIES:
+        t = time.perf_counter()
+        out[arch] = dict(train_family(arch, layers, b, s, lr, steps),
+                         phase_s=time.perf_counter() - t)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -4087,16 +4236,20 @@ def main() -> None:
         if not mma[n] or mma[n]["HMMA"] + mma[n]["HGMMA"] <= 0:
             raise AssertionError(f"{n}: no tensor-core instruction in its "
                                  f"SASS ({mma[n]})")
-    # K4b's tensor-core kernels keep their sums in registers at hd 64 and
-    # 128 (the train path's head dims): ptxas must spill nothing there
+    # K4b's tensor-core kernels keep their sums in registers at hd 64, 80,
+    # 96 and 128 (the train path's head dims): ptxas must spill nothing
+    # there, and report all four
     k4b_regs = PHASES["build"]["k4b_kernels"]
     spilled = {n: r for n, r in k4b_regs.items()
                if "mma" in n and not n.endswith(" 256>")
                and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0}
-    if spilled or not any("mma" in n for n in k4b_regs):
-        raise AssertionError(f"flash_attention_bwd: spills at hd 64 / 128 "
-                             f"or no tensor-core kernel in ptxas' report "
-                             f"({k4b_regs})")
+    reported = {hd for hd in (64, 80, 96, 128)
+                if any(n.endswith(f"<bf16, {hd}>") for n in k4b_regs
+                       if "mma" in n)}
+    if spilled or reported != {64, 80, 96, 128}:
+        raise AssertionError(f"flash_attention_bwd: spills at hd 64 - 128 "
+                             f"or a tensor-core kernel missing from ptxas' "
+                             f"report ({k4b_regs})")
 
     if args.k4b_only is not None:
         if args.k4b_only:
@@ -4242,7 +4395,10 @@ def main() -> None:
     phase("train", **trained)
     resumed = train_resume()
     phase("train_resume", **resumed)
+    families = train_families()
+    phase("train_families", gpu=smi, **families)
     by_path = {name: trained["launches"][name] + resumed["launches"][name]
+               + sum(f["launches"][name] for f in families.values())
                for name in TRAIN_COUNTERS}
     k4_entry["launches"] += by_path["flash_attention"]
     k4_entry["launches_train"] = by_path["flash_attention"]
@@ -4324,6 +4480,12 @@ def main() -> None:
         train_resume={k: resumed[k] for k in (
             "steps", "recoveries", "npz_bytes", "save_s", "restore_s",
             "launch_s")},
+        train_families={arch: {k: f[k] for k in (
+            "layers", "batch", "seq", "losses", "step_ms_median",
+            "tokens_per_s", "peak_mem_bytes", "launches_per_step",
+            "analytic_compute_s", "analytic_memory_s", "step_over_bound",
+            "phase_s")} | {"check": f["check"]["worst_err_over_leaf_max"]}
+            for arch, f in families.items()},
         disagg={k: disagged[k] for k in (
             "handoffs", "direct", "wire_bytes", "adopt_ms_mean",
             "prefill_step_ms", "decode_step_ms", "peak_mem_bytes",

@@ -62,7 +62,7 @@ def restore(ckpt_dir: str, template: Any, step: int | None = None,
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=...) needs meshes, which the port does not "
-            "have yet (ROADMAP Queue 1, item 5)")
+            "have yet (ROADMAP Queue 1, item 4)")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

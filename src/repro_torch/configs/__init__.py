@@ -10,7 +10,9 @@ bidirectional stack, a head over 504 codewords) and its VLM
 prepended to the tokens of a phi3-mini decoder).
 
 Each config module exposes ``config()`` (the published dims) and
-``smoke_config()`` (a reduced same-family variant for CPU tests).
+``smoke_config()`` (a reduced same-family variant for CPU tests). The
+reference's shape cells and skip rules are here too: `SHAPES`,
+`cells_for` and `skipped_cells`, which `roofline.costmodel` prices.
 """
 from __future__ import annotations
 
@@ -39,6 +41,13 @@ _REGISTRY: dict[str, tuple[Callable, Callable]] = {
 }
 
 
+ASSIGNED_ARCHS = tuple(a for a in _REGISTRY if a != "qwen25-05b")
+
+
+def list_archs() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
 def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name][0]()
 
@@ -53,4 +62,37 @@ class ShapeCell:
     name: str
     seq_len: int
     global_batch: int
-    step: str  # "prefill" | "decode"
+    step: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: runs for SSM/hybrid/local-global.
+_LONG_OK = ("mamba2-130m", "hymba-1.5b", "gemma3-4b")
+
+
+def cells_for(arch: str) -> list[str]:
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder:
+        cells.append("decode_32k")
+        if arch in _LONG_OK:
+            cells.append("long_500k")
+    return cells
+
+
+def skipped_cells(arch: str) -> dict[str, str]:
+    cfg = get_config(arch)
+    skips = {}
+    if cfg.is_encoder:
+        skips["decode_32k"] = "encoder-only: no autoregressive decode step"
+        skips["long_500k"] = "encoder-only: no decode step"
+    elif arch not in _LONG_OK:
+        skips["long_500k"] = ("pure full-attention arch: 500k decode needs "
+                              "sub-quadratic attention (DESIGN.md §4)")
+    return skips

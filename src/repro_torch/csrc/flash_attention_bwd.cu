@@ -61,6 +61,14 @@
 //     layout wgmma's 128-byte swizzle reads: 64-column panels of 128-byte
 //     rows, the 16-byte chunk c of row r stored at c ^ (r % 8), so the
 //     eight rows of an ldmatrix read hit eight distinct bank groups.
+//     Head dims 80 and 96 (hubert-xlarge, phi-3-vision) take two panels,
+//     the second holding a row's chunks 8, 9 (and 10, 11) at their
+//     swizzled places and the rest of it never written or read: the
+//     tiles are sized for 128 columns (shared memory is not what limits
+//     these kernels), while every product, copy and loop runs over the
+//     HD / 16 k-chunks and HD / 8 n-tiles that exist, so no MMA works on
+//     padding. The copies walk a tile's 10 or 12 chunks a row in whole
+//     passes of the block's threads and one partial pass.
 //   - Keeping the card full. 64 keys a block would give 128 blocks at the
 //     train shape, under one wave of 132 SMs, with key tile 0 doing 8x
 //     the work of the last. So the key tiles are smaller (32 keys: 256
@@ -78,10 +86,12 @@
 //     floats a lane. At hd 128 and 256 two warps share a 16-key group,
 //     both computing its scores (the same instructions on the same data,
 //     the same bits) and each keeping half the head dims, over 32-query
-//     items. dQ keeps 16 rows x hd (hd / 2 floats a lane) over 64-key
-//     tiles at hd 64, 32-key tiles above. ptxas gives the unrolled loops
+//     items; at hd 80 and 96 one warp keeps a group's 80 or 96 dims (10
+//     or 12 n-tiles) over 32-query items, as many floats as hd 64's. dQ
+//     keeps 16 rows x hd (hd / 2 floats a lane) over 64-key tiles at hd
+//     64, 32-key tiles above. ptxas gives the unrolled loops
 //     what __launch_bounds__(NT, 1) allows (2 blocks an SM at hd 64);
-//     nothing spills at hd 64 and 128, while at hd 256 dQ's 128 floats
+//     nothing spills at hd 64, 80, 96 and 128, while at hd 256 dQ's 128 floats
 //     of sums spill a few dozen bytes. chip_smoke.py's build line shows
 //     each kernel's registers and spills.
 //   - No float atomics anywhere and every sum runs in a fixed order, so
@@ -237,22 +247,28 @@ __device__ __forceinline__ void split_a(const float (&x)[N][4], int kc,
 
 // Shared tiles: [ROWS][HD] in T as 64-column panels of 128-byte rows, the
 // 16-byte chunk c of row r at c ^ (r % 8) within its row (wgmma's 128-byte
-// swizzle). Byte offset of chunk c (8 elements) of row r:
+// swizzle); a tile takes ROWS x pad64(HD) x 2 bytes (hd 80 and 96: two
+// panels, the second partly used). Byte offset of chunk c (8 elements) of
+// row r:
+__host__ __device__ constexpr int pad64(int hd) { return (hd + 63) / 64 * 64; }
+
 template <int ROWS>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)((c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
 // copy rows [r0, r0 + ROWS) of one operand (row stride `stride`) into a
-// swizzled tile at dst; rows past S are zero-filled
+// swizzled tile at dst; rows past S are zero-filled. ROWS x HD / 8 chunks
+// in passes of NT threads, the last partial where NT does not divide them
+// (hd 80)
 template <typename T, int HD, int ROWS, int NT>
 __device__ __forceinline__ void copy_tile(uint32_t dst, const T* src,
                                           long long stride, int r0, int S) {
   constexpr int CH = HD / 8;            // 16-byte chunks a row
-  static_assert(ROWS * CH % NT == 0, "threads must tile the copy");
 #pragma unroll
-  for (int p = 0; p < ROWS * CH / NT; ++p) {
+  for (int p = 0; p < (ROWS * CH + NT - 1) / NT; ++p) {
     const int idx = p * NT + threadIdx.x;
+    if (ROWS * CH % NT != 0 && idx >= ROWS * CH) break;
     const int r = idx / CH, c = idx % CH;
     const bool ok = r0 + r < S;
     cp_async16(dst + swz<ROWS>(r, c),
@@ -294,8 +310,8 @@ template <int HD> struct DqCfg {
   static constexpr int BQ = 64;
   static constexpr int BK = HD == 64 ? 64 : 32;   // keys a tile
   static constexpr int NS = HD == 64 ? 3 : 2;      // K / V ring stages
-  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
-  static constexpr uint32_t K_BYTES = BK * HD * 2;
+  static constexpr uint32_t Q_BYTES = BQ * pad64(HD) * 2;
+  static constexpr uint32_t K_BYTES = BK * pad64(HD) * 2;
   static constexpr size_t SMEM = 2 * Q_BYTES + 2 * NS * K_BYTES;
 };
 
@@ -370,15 +386,18 @@ dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool warp_live = row0 < n_rows;
 
   // D for this warp's 16 rows: each lane takes dims 64 m + 2 lane +
-  // {0, 1} of every row (O's loads all issued while Q and dO land), then
-  // a butterfly per row: every lane holds the same sum. Written out for
+  // {0, 1} of every row (O's loads all issued while Q and dO land; at hd
+  // 80 and 96 only lanes 0-7 or 0-15 have dims in the second 64), then a
+  // butterfly per row: every lane holds the same sum. Written out for
   // (b); rows grp and grp + 8 kept.
-  typename P2::T2 ov[16][HD / 64];
+  constexpr int NM = pad64(HD) / 64;
+  auto has = [&](int m) { return HD % 64 == 0 || 64 * m + 2 * lane < HD; };
+  typename P2::T2 ov[16][NM];
 #pragma unroll
   for (int r = 0; r < 16; ++r)
 #pragma unroll
-    for (int m = 0; m < HD / 64; ++m)
-      ov[r][m] = q0 + row0 + r < S
+    for (int m = 0; m < NM; ++m)
+      ov[r][m] = q0 + row0 + r < S && has(m)
                      ? *reinterpret_cast<const typename P2::T2*>(
                            ob + (long long)(q0 + row0 + r) * os.s + 64 * m +
                            2 * lane)
@@ -390,7 +409,8 @@ dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 16; ++r) {
     float acc = 0.f;
 #pragma unroll
-    for (int m = 0; m < HD / 64; ++m) {
+    for (int m = 0; m < NM; ++m) {
+      if (!has(m)) continue;
       const int d = 64 * m + 2 * lane;
       const auto dv = *reinterpret_cast<const typename P2::T2*>(
           smem_q + C::Q_BYTES + swz<C::BQ>(row0 + r, d / 8) + (d % 8) * 2);
@@ -504,15 +524,15 @@ dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---- (b) dK and dV of one (b, kv head, 32-key tile)
 template <int HD> struct DkdvCfg {
   static constexpr int KG = 2;          // 16-key groups a block
-  static constexpr int DS = HD == 64 ? 1 : 2;      // warps sharing a group
+  static constexpr int DS = HD <= 96 ? 1 : 2;      // warps sharing a group
   static constexpr int SPLIT = 2;       // item streams a block
   static constexpr int NT = 32 * KG * DS * SPLIT;
   static constexpr int BKV = 16 * KG;   // keys a block
   static constexpr int BQ = HD == 64 ? 64 : 32;    // queries an item
   static constexpr int HDW = HD / DS;   // dK / dV head dims a warp keeps
   static constexpr int NS = 2;          // ring stages (SPLIT items each)
-  static constexpr uint32_t KV_BYTES = BKV * HD * 2;
-  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
+  static constexpr uint32_t KV_BYTES = BKV * pad64(HD) * 2;
+  static constexpr uint32_t Q_BYTES = BQ * pad64(HD) * 2;
   // K, V; then the ring's Q / dO tiles [NS][SPLIT][2]; then its lse / D
   // rows, f32 [NS][SPLIT][2][BQ]
   static constexpr uint32_t LSD_OFF = 2 * KV_BYTES + NS * SPLIT * 2 * Q_BYTES;
@@ -861,8 +881,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             int S, int causal, int window, float scale) {
   constexpr int LD = HD + PAD;
   constexpr int DC = HD / 4;            // 4-dim chunks of a row
-  constexpr int KPT = BK / (NT / DC);   // keys a thread accumulates
-  static_assert(KPT * (NT / DC) == BK, "threads must tile the key tile");
+  constexpr int NTJ = NT / DC;          // threads along the keys
+  // keys a thread accumulates (hd 80 and 96: 12 or 10 key groups of 3 or
+  // 4 keys cover the 32, the last group partly; the threads past them
+  // only stage and score)
+  constexpr int KPT = (BK + NTJ - 1) / NTJ;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                     // [BK][LD]
   float* Vs = Ks + BK * LD;             // [BK][LD]
@@ -881,6 +904,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kt * BK;
   const int tid = threadIdx.x;
   const int td = tid % DC, tj = tid / DC;
+  // this thread's keys tj KPT + c, c < n_acc (none past the tile)
+  const int n_acc = tj < NTJ ? min(KPT, BK - tj * KPT) : 0;
 
   stage<T, HD, BK>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, S);
   stage<T, HD, BK>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, S);
@@ -920,6 +945,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float4 qv = *reinterpret_cast<const float4*>(Qs + i * LD + 4 * td);
 #pragma unroll
         for (int c = 0; c < KPT; ++c) {
+          if (c >= n_acc) break;
           const float p = Ps[i * LDP + tj * KPT + c];
           const float ds = dSs[i * LDP + tj * KPT + c];
           acc_v[c][0] = fmaf(p, ov.x, acc_v[c][0]);
@@ -937,7 +963,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < KPT; ++c) {
     const int j = k0 + tj * KPT + c;
-    if (j >= S) continue;
+    if (c >= n_acc || j >= S) continue;
     T* kr = dk + b * dks.b + hk * dks.h + j * dks.s + 4 * td;
     T* vr = dv + b * dvs.b + hk * dvs.h + j * dvs.s + 4 * td;
 #pragma unroll
@@ -959,8 +985,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float scale) {
   constexpr int LD = HD + PAD;
   constexpr int DC = HD / 4;
-  constexpr int RPT = BQ / (NT / DC);   // rows a thread accumulates
-  static_assert(RPT * (NT / DC) == BQ, "threads must tile the query tile");
+  constexpr int NTI = NT / DC;          // threads along the rows
+  constexpr int RPT = (BQ + NTI - 1) / NTI;   // rows a thread accumulates
+                                              // (the last group partly)
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                     // [BK][LD]
   float* Vs = Ks + BK * LD;             // [BK][LD]
@@ -977,6 +1004,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const int tid = threadIdx.x;
   const int td = tid % DC, ti = tid / DC;
+  const int n_acc = ti < NTI ? min(RPT, BQ - ti * RPT) : 0;
 
   stage<T, HD, BQ>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
   stage<T, HD, BQ>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
@@ -1012,6 +1040,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 kv = *reinterpret_cast<const float4*>(Ks + j * LD + 4 * td);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
+        if (r >= n_acc) break;
         const float ds = dSs[(ti * RPT + r) * LDP + j];
         acc[r][0] = fmaf(ds, kv.x, acc[r][0]);
         acc[r][1] = fmaf(ds, kv.y, acc[r][1]);
@@ -1023,7 +1052,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int i = q0 + ti * RPT + r;
-    if (i >= S) continue;
+    if (r >= n_acc || i >= S) continue;
     T* qr = dq + b * dqs.b + h * dqs.h + i * dqs.s + 4 * td;
 #pragma unroll
     for (int e = 0; e < 4; ++e) qr[e] = acc[r][e];
@@ -1129,6 +1158,8 @@ LaunchFn pick_hd(int dtype) {
 
 LaunchFn pick(int dtype, int HD) {
   if (HD == 64) return pick_hd<64>(dtype);
+  if (HD == 80) return pick_hd<80>(dtype);
+  if (HD == 96) return pick_hd<96>(dtype);
   if (HD == 128) return pick_hd<128>(dtype);
   if (HD == 256) return pick_hd<256>(dtype);
   return nullptr;
@@ -1145,7 +1176,8 @@ Strides at(const long long* st, int i) {
 // (scratch, written here) are contiguous f32 [B, H, S]. strides: 24 element
 // strides, the (batch, head, sequence) strides of q, k, v, o, dout, dq, dk
 // and dv in that order; every head dim is contiguous. The caller has
-// checked shapes, dtypes, H % Hkv == 0, hd in {64, 128, 256} and S >= 1.
+// checked shapes, dtypes, H % Hkv == 0, hd in {64, 80, 96, 128, 256} and
+// S >= 1.
 // For bf16 / f16 the caller has also checked 16-byte aligned pointers and
 // strides. Two launches on the stream (three for f32); returns the first
 // non-zero cudaGetLastError(), else 0.

@@ -47,7 +47,7 @@ BWD_COUNTER = LaunchCounter()
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims K4 is built for
-BWD_HEAD_DIMS = (64, 128, 256)      # ... and K4b
+BWD_HEAD_DIMS = HEAD_DIMS           # ... and K4b
 
 
 def visibility(s: int, *, causal: bool, window: int,
@@ -206,10 +206,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     """K4b: (dq, dk, dv) of `flash_attention` at (q, k, v), given its
     output ``o``, its ``lse`` (f32 ``[B, H, S]``) and the output's gradient
     ``do``. CPU tensors take `flash_attention_bwd_ref`; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (hd 64, 128 or 256; o and do of q's
-    type and shape, every
-    operand's head dim contiguous and, for bf16 / f16, every row of all
-    eight operands 16-byte aligned) and raise on anything else: bf16 and
+    ``csrc/flash_attention_bwd.cu`` (hd 64, 80, 96, 128 or 256; o and
+    do of q's type and shape, every operand's head dim contiguous and,
+    for bf16 / f16, every row of all eight operands 16-byte aligned) and
+    raise on anything else: bf16 and
     f16 on tensor cores in two launches, f32 on the CUDA cores in three.
     The gradients take their inputs' layouts and types."""
     b, h, s, hd = q.shape

@@ -11,11 +11,15 @@
   * straggler watchdog: per-step wall-clock vs running median; slow
     steps are logged for an external scheduler to re-dispatch.
 
-Meshes are not ported: ``--data-axis`` / ``--model-axis`` above 1 raise,
-as does an ``--arch`` with MoE or MLA layers (the port serves those).
-Returns ``{"first_loss", "last_loss", "steps"}`` as the reference's
-does, plus ``recoveries`` (failures recovered), ``losses`` and ``step_s``
-(each completed step's loss and synchronized wall time, in order; a step
+``--arch`` takes every registered config, as the reference's does:
+dense decoders, MoE (qwen2-moe-a2.7b; deepseek-v2-lite-16b with MLA),
+SSM (mamba2-130m), hybrid (hymba-1.5b), the audio encoder
+(hubert-xlarge: stub frames, codeword labels) and the VLM
+(phi-3-vision-4.2b: stub patches, labels over the text). Meshes are not
+ported: ``--data-axis`` / ``--model-axis`` above 1 raise. Returns
+``{"first_loss", "last_loss", "steps"}`` as the reference's does, plus
+``recoveries`` (failures recovered), ``losses`` and ``step_s`` (each
+completed step's loss and synchronized wall time, in order; a step
 redone after a recovery appears again).
 
 Usage (the card is the default device; ``--device cpu`` runs the plain
@@ -24,6 +28,8 @@ paths):
       --steps 12 --batch 4 --seq 32 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen25-05b \\
       --steps 100 --batch 8 --seq 512 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --arch hubert-xlarge --steps 3
 """
 from __future__ import annotations
 
@@ -66,19 +72,11 @@ def main(argv=None) -> dict:
     if args.data_axis > 1 or args.model_axis > 1:
         raise NotImplementedError(
             "--data-axis / --model-axis > 1 need meshes, which the port "
-            "does not have yet (ROADMAP Queue 1, item 5)")
+            "does not have yet (ROADMAP Queue 1, item 4)")
     device = resolve_device(args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    if (cfg.num_experts or cfg.kv_lora_rank or cfg.is_encoder
-            or cfg.frontend != "none"
-            or cfg.family in ("ssm", "hybrid")):
-        raise NotImplementedError(
-            f"training {cfg.name} (MoE / MLA / SSM layers, an encoder or a "
-            f"frontend) is not ported yet: the port serves the MoE, SSM, "
-            f"hybrid, encoder and vision families (ROADMAP Queue 1, item "
-            f"3)")
     model = Model(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(
         lr=args.lr, warmup_steps=args.warmup, decay_steps=args.steps,

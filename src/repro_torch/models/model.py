@@ -36,6 +36,7 @@ from repro_torch.models import blocks, layers, stack
 from repro_torch.models.layers import (embed_lookup, embed_lookup_tp, linear,
                                        linear_tp, norm)
 from repro_torch.numerics import free_rows, matmul_f32_rows, matmul_wide_rows
+from repro_torch.utils.tree import layer_parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +180,21 @@ class Model:
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+    def unread_leaves(self, params, batch: dict) -> list[str]:
+        """Paths (the reference's) of the leaves `loss` does not read for
+        ``batch``: an audio encoder's token table (it embeds features
+        through ``frame_proj`` and has its own head), a vision model's
+        ``patch_proj`` when the batch has no ``images``. Their gradient
+        is zero, as `jax.grad` gives it."""
+        cfg = self.cfg
+        prefixes = []
+        if cfg.frontend == "audio" and not cfg.tie_embeddings:
+            prefixes.append("embed/")
+        if cfg.frontend == "vision" and "images" not in batch:
+            prefixes.append("frontend/patch_proj/")
+        return [path for path, _, _ in layer_parts(params)
+                if path.startswith(tuple(prefixes))]
 
     # ---------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int | None = None,

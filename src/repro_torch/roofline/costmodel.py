@@ -1,19 +1,20 @@
 """Analytic per-cell cost model and the disaggregated-serving split policy.
 
-The reference package's `roofline/costmodel.py` cut to the serving
-cells of the registered architectures (the port imports nothing of it):
-`cell_costs` counts the FLOPs and bytes of one prefill or decode step
-from the architecture alone (full-attention, sliding-window, MLA, Mamba-2
+The reference package's `roofline/costmodel.py` without its HLO
+analysis (the port imports nothing of it): `cell_costs` counts the
+FLOPs and bytes of one train, prefill or decode step from the
+architecture alone (full-attention, sliding-window, MLA, Mamba-2
 SSD or hymba's attention ∥ SSD mixers; GLU, plain, MoE or no MLP; an
 encoder's head over every frame of a prefill: a MoE layer
 streams every routed expert's weights once a step and computes on the
 top-k share of its tokens; an MLA layer's cache line is its latent,
 kv_lora + rope values a token; a windowed layer reads ``min(window, S)``
 positions; an SSM layer reads and writes its f32 state once a decode
-step), and `disagg_report` turns them into the prefill/decode split that
-`serving.disagg`'s ``handoff_min_tokens="auto"`` reads. Training cells,
-`analytic_terms`, the `SHAPES` registry and the HLO analysis are not
-ported. As in the reference, a prefill prices a bidirectional (encoder)
+step; a train step prices the backward and the optimizer as below),
+`analytic_terms` turns one cell into seconds at the card's peaks, and
+`disagg_report` turns them into the prefill/decode split that
+`serving.disagg`'s ``handoff_min_tokens="auto"`` reads. As in the
+reference, a prefill or train step prices a bidirectional (encoder)
 layer's score work at the causal pair count ``S · ctx / 2``, and the
 frontend projections are not counted.
 
@@ -21,6 +22,11 @@ Conventions:
   * activations bf16 (2B), scores/softmax f32 (4B),
   * weight-only quant: 0.5625 B/weight (INT4 + scales/zeros at GS=64,
     byte-exact AWQ_MACRO rate) for quantizable linears, fp16 for the rest,
+  * training weight traffic per param: bf16 fwd read + remat re-read +
+    bwd read (3×2B) + f32 grad write+read (8B) + Adam m/v read+write
+    (16B) + f32 master read+write (8B) = 38 B; attention scores, the
+    SSD's terms and the head ×3 for the backward, the logits written
+    and read twice, and every FLOP ×4/3 for remat's extra forward,
 
 The machine constants are the port's card, not the reference's TPU:
 one NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, dense bf16 tensor
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import ShapeCell
+from repro_torch.configs import SHAPES, ShapeCell
 from repro_torch.configs.base import ModelConfig
 
 # NVIDIA H100 80GB HBM3 (SXM), 700 W: dense bf16 FLOP/s and HBM bytes/s
@@ -41,6 +47,7 @@ PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 
 AWQ_BYTES_PER_W = 4.5 / 8          # byte-exact AWQ_MACRO rate at GS=64
+TRAIN_BYTES_PER_W = 38             # a trained weight's traffic a step
 ACT = 2                            # bf16 activations
 F32 = 4
 
@@ -100,28 +107,32 @@ class CellCosts:
 
 
 def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
-    """Global per-step costs for one (arch × shape) serving cell: a
+    """Global per-step costs for one (arch × shape) cell: a train,
     prefill or decode step whose layers are attention (global or
     windowed), MLA, SSD or hymba mixers with GLU, plain, MoE or no MLPs
-    (every registered architecture); an encoder's prefill runs its head
-    at every frame. Training steps raise `NotImplementedError`, and an
-    encoder's decode cells `ValueError`, with the words of the
-    reference's ``skipped_cells``."""
-    if cell.step not in ("prefill", "decode"):
-        raise NotImplementedError(f"{cell.step!r} cells of {cfg.name} are "
-                                  f"not ported")
+    (every registered architecture); an encoder's prefill and every
+    train step run the head at every position. An encoder's decode
+    cells raise `ValueError` with the words of the reference's
+    ``skipped_cells``."""
     if cfg.is_encoder and cell.step == "decode":
         raise ValueError(f"{cfg.name}: encoder-only: no autoregressive "
                          f"decode step")
     b, s = cell.global_batch, cell.seq_len
+    train = cell.step == "train"
     decode = cell.step == "decode"
     toks = b if decode else b * s
     c = CellCosts()
+    # bytes a weight a step: a quantized linear streams its int4 words
+    # (the reference's rule, in training too), the rest their bf16 copy,
+    # or the whole train traffic
+    wq_b = AWQ_BYTES_PER_W if quant else (2 if not train else
+                                          TRAIN_BYTES_PER_W)
+    wfp_b = 2 if not train else TRAIN_BYTES_PER_W
 
     def add_linear(k: int, n: int, tok: float, n_mats: float = 1.0):
         c.flops += 2.0 * k * n * tok * n_mats
         c.weight_bytes += k * n * n_mats * \
-            (AWQ_BYTES_PER_W if (quant and _quantizable(k, n)) else 2)
+            (wq_b if (quant and _quantizable(k, n)) else wfp_b)
         c.act_bytes += tok * (k + n) * ACT
 
     for kind in cfg.layer_kinds():
@@ -138,7 +149,7 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
             add_linear(k, n, toks)
 
         if kind.mixer in ("attn", "hymba", "mla"):
-            _attention_costs(c, cfg, kind, b, s, decode)
+            _attention_costs(c, cfg, kind, b, s, cell.step)
         if kind.mixer in ("mamba", "hymba"):
             nh, hd, ds = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
             if decode:
@@ -146,24 +157,47 @@ def cell_costs(cfg: ModelConfig, cell: ShapeCell, quant: bool) -> CellCosts:
                 c.flops += 2.0 * 3 * b * nh * hd * ds
             else:
                 q = min(cfg.ssm_chunk, s)
+                factor = 3.0 if train else 1.0
                 # intra-chunk quadratic + state build/apply
                 c.flops += (2.0 * b * s * q * nh * (ds + hd) / 2
-                            + 4.0 * b * s * nh * hd * ds)
-                c.act_bytes += b * s * nh * (hd + 2 * ds) * F32
+                            + 4.0 * b * s * nh * hd * ds) * factor
+                c.act_bytes += b * s * nh * (hd + 2 * ds) * F32 * factor
 
-    # --- embeddings / head (an encoder's at every frame, its untied
-    # head's table counted once, as the reference counts it) ---
+    # --- embeddings / head (at every position of an encoder or a train
+    # step; an untied head's table counted once for an encoder, as the
+    # reference counts it) / loss ---
     v, d = cfg.vocab_size, cfg.d_model
-    c.weight_bytes += v * d * 2 * (2 if not cfg.tie_embeddings
-                                   and not cfg.is_encoder else 1)
-    head_toks = toks if cfg.is_encoder else b
-    c.flops += 2.0 * v * d * head_toks
-    c.act_bytes += head_toks * v * F32  # logits
+    c.weight_bytes += v * d * wfp_b * (2 if not cfg.tie_embeddings
+                                       and not cfg.is_encoder else 1)
+    head_toks = toks if (train or cfg.is_encoder) else b
+    c.flops += 2.0 * v * d * head_toks * (3.0 if train else 1.0)
+    c.act_bytes += head_toks * v * F32 * (2.0 if train else 1.0)  # logits
+    if train:
+        c.flops *= 4.0 / 3.0       # remat: one extra forward of everything
     return c
 
 
+def analytic_terms(cfg: ModelConfig, cell: str | ShapeCell, chips: int,
+                   quant: bool) -> dict:
+    """One cell's FLOPs and bytes (`cell_costs`) and their seconds at the
+    card's peaks over ``chips`` cards: ``cell`` names a `SHAPES` cell, as
+    in the reference, or is an ad-hoc `ShapeCell` (a train step at the
+    batch a run takes)."""
+    cc = cell_costs(cfg, SHAPES[cell] if isinstance(cell, str) else cell,
+                    quant)
+    return {
+        "analytic_flops_global": cc.flops,
+        "analytic_bytes_global": cc.total_bytes,
+        "analytic_weight_bytes": cc.weight_bytes,
+        "analytic_act_bytes": cc.act_bytes,
+        "analytic_cache_bytes": cc.cache_bytes,
+        "analytic_compute_s": cc.flops / chips / PEAK_FLOPS,
+        "analytic_memory_s": cc.total_bytes / chips / HBM_BW,
+    }
+
+
 def _attention_costs(c: CellCosts, cfg: ModelConfig, kind, b: int, s: int,
-                     decode: bool) -> None:
+                     step: str) -> None:
     """One attention (or MLA) layer's score and cache traffic; a windowed
     layer sees ``ctx = min(window, S)`` positions."""
     if kind.mixer == "mla":
@@ -180,17 +214,20 @@ def _attention_costs(c: CellCosts, cfg: ModelConfig, kind, b: int, s: int,
     kv_byte = ((1.0 + F32 / cfg.head_dim)
                if (cfg.kv_quant == "int8" and kind.mixer != "mla")
                else ACT)
-    if decode:
+    if step == "decode":
         # read the whole cache line per step + scores
         c.cache_bytes += b * ctx * kv_line * kv_byte + b * kv_line * kv_byte
         c.flops += 2.0 * b * ctx * (qk_dim + v_dim)
         c.act_bytes += b * cfg.num_heads * ctx * F32  # probs
     else:
-        # causal S×ctx scores in f32 (written+read by softmax)
+        # causal S×ctx scores in f32 (written+read by softmax), ×3 for the
+        # backward (dS, recompute) when training
         pairs = min((s * ctx) if kind.window else (s * ctx / 2), s * s / 2)
-        c.flops += 2.0 * b * pairs * (qk_dim + v_dim)
-        c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32
-        c.cache_bytes += b * ctx * kv_line * ACT  # cache write
+        factor = 3.0 if step == "train" else 1.0
+        c.flops += 2.0 * b * pairs * (qk_dim + v_dim) * factor
+        c.act_bytes += 2.0 * b * cfg.num_heads * pairs * F32 * factor
+        if step == "prefill":
+            c.cache_bytes += b * ctx * kv_line * ACT  # cache write
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,11 @@ backward runs through the casts onto the f32 masters, whose gradients
 are f32 holding bf16-rounded values. Every layer's attention runs K4
 forward and K4b backward on the card (`kernels.flash_attention`), and
 with ``cfg.remat`` each block is recomputed in the backward
-(`models.stack`). A parameter that receives no gradient raises: on this
-model every parameter is used, so a missing one is a cut graph.
+(`models.stack`). The leaves a batch never reads (`Model.unread_leaves`:
+an audio encoder's token table, a vision model's ``patch_proj`` without
+images) get zero gradients, as `jax.grad` gives them, so AdamW's weight
+decay still moves them as the reference's does; any other parameter
+that receives no gradient raises: a cut graph.
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ def loss_and_grads(model, params, batch: dict,
                    comm_dtype: str = "bfloat16"):
     """(loss, metrics, grads): ``model.loss`` at ``params`` (f32 leaves of
     ndim ≥ 2 cast to ``comm_dtype`` first) and its gradient with respect
-    to the uncast params, in their structure; a leaf no gradient reached
-    is None."""
+    to the uncast params, in their structure: zeros for the leaves
+    `Model.unread_leaves` names, None for any other leaf no gradient
+    reached."""
     dt = torch_dtype(comm_dtype)
     masters = map_tree(lambda p: p.detach().requires_grad_(True), params)
 
@@ -63,7 +67,18 @@ def loss_and_grads(model, params, batch: dict,
     with torch.enable_grad():
         loss, metrics = model.loss(map_tree(cast, masters), batch)
         loss.backward()
-    grads = map_tree(lambda m: m.grad, masters)
+    unread = set(model.unread_leaves(params, batch))
+
+    def grad(node, path):
+        if isinstance(node, dict):
+            return {k: grad(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [grad(v, path) for v in node]
+        if node.grad is None and path in unread:
+            return torch.zeros_like(node)
+        return node.grad
+    grads = grad(masters, "")
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
 

@@ -27,7 +27,8 @@ from repro_torch.data.pipeline import make_dataset
 from repro_torch.models.model import Model
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step
 from repro_torch.training.optim import adamw_init
-from repro_torch.training.train_step import train_state_shapes
+from repro_torch.training.train_step import (init_train_state,
+                                             train_state_shapes)
 from repro_torch.utils.tree import flatten_with_paths
 
 
@@ -146,7 +147,7 @@ def test_train_launcher_failure_recovery(tmp_path):
 
 def test_launcher_and_restore_refuse_meshes(tmp_path, state_and_step):
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         main(["--smoke", "--device", "cpu", "--data-axis", "2"])
     model, state, _, _ = state_and_step
     save(str(tmp_path), 1, state)
@@ -220,3 +221,57 @@ def test_recovery_waits_for_the_save_in_flight(tmp_path, monkeypatch):
     assert out["steps"] == 5 + 2            # steps 0-4, then 4-5 again
     assert out["losses"][5] == out["losses"][4]
     assert latest_step(str(tmp_path / "ck")) == 6
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "mamba2-130m",
+                                  "hubert-xlarge"])
+def test_family_train_state_restores_in_the_reference(tmp_path, name):
+    """A port train state of the MoE family (stacked experts, routers),
+    the SSM (its own leaves: conv taps, ``a_log``, ``dt_bias``) and the
+    encoder (``frontend/frame_proj``, an untied ``lm_head``, a table no
+    batch reads), after one step (moments set), saved by the port: the
+    reference's `restore` reads it, leaf for leaf equal, in the
+    reference's leaf order; the port reads it back equal too."""
+    cfg = configs.get_smoke_config(name)
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator().manual_seed(0),
+                             device="cpu")
+    step = make_train_step(model, TrainConfig(optimizer=AdamWConfig(
+        lr=1e-3, warmup_steps=1, decay_steps=10, weight_decay=0.1)))
+    state, _ = step(state, make_dataset(cfg, 2, 32).batch_at(0))
+    save(str(tmp_path), 1, state)
+    jm = build_model(C.get_smoke_config(name))
+    tpl = jax.eval_shape(lambda: jinit_state(jm, jax.random.PRNGKey(0)))
+    jgot, got_step = jrestore(str(tmp_path), tpl)
+    assert got_step == 1
+    arrays = state_to_arrays(state)
+    flat = jflatten(jgot)
+    assert [p for p, _ in flat] == list(arrays)
+    for path, leaf in flat:
+        leaf = np.asarray(leaf)
+        assert leaf.dtype == arrays[path].dtype, path
+        np.testing.assert_array_equal(leaf, arrays[path], err_msg=path)
+    want = {"qwen2-moe-a2.7b": "params/segments/seg_0/moe/experts/gate/w",
+            "mamba2-130m": "params/segments/seg_0/ssm/a_log",
+            "hubert-xlarge": "params/frontend/frame_proj/w"}[name]
+    assert want in arrays
+    back, _ = restore(str(tmp_path), train_state_shapes(model),
+                      device="cpu")
+    _assert_same(state, back)
+
+
+def test_launcher_recovery_redoes_deepseek_losses_bit_for_bit(tmp_path):
+    """The launcher on deepseek's smoke config (MLA, a dense first layer,
+    MoE layers): a failure injected at step 6 reloads step 4's checkpoint,
+    and the redone steps 4 and 5 give the first run's losses bit for
+    bit."""
+    from repro_torch.launch.train import main
+    out = main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device",
+                "cpu", "--steps", "8", "--batch", "2", "--seq", "32",
+                "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "4",
+                "--simulate-failure-at", "6", "--lr", "1e-3"])
+    losses = out["losses"]
+    assert out["recoveries"] == 1 and len(losses) == 10
+    assert latest_step(str(tmp_path / "ck")) == 8
+    assert losses[6:8] == losses[4:6]
+    assert all(np.isfinite(losses))

@@ -1324,6 +1324,11 @@ K4B_CASES = [
     (2, 4, 4, 300, 64, True, 0),        # G 1 (h == hkv)
     (1, 2, 2, 200, 256, True, 0),       # G 1, hd 256
     (1, 4, 2, 333, 64, False, 64),      # bidirectional, windowed
+    # hd 80 / 96 (two shared-memory panels, the second partly used)
+    (1, 4, 4, 333, 80, False, 0),       # hubert-xlarge: bidirectional
+    (1, 4, 4, 65, 96, True, 0),         # phi-3-vision, ragged S
+    (1, 4, 4, 1000, 96, True, 0),
+    (1, 25, 5, 1400, 64, True, 1024),   # hymba: G 5, windowed
 ]
 
 
@@ -1862,12 +1867,13 @@ def test_flash_attention_kernel_hd80_hd96_deterministic(cuda, hd):
 
 
 def test_flash_attention_bwd_refuses_head_dims_it_is_not_built_for(cuda):
-    """K4b is built for hd 64, 128 and 256 only: at 80 and 96 its wrapper
-    raises rather than launching (training the two models is not
-    ported)."""
-    for hd in (80, 96):
+    """K4b is built for hd 64, 80, 96, 128 and 256 only: at 32 and 112
+    (the output and lse from the plain forward, which K4 does not take
+    either) its wrapper raises rather than launching."""
+    assert k4.BWD_HEAD_DIMS == (64, 80, 96, 128, 256)
+    for hd in (32, 112):
         q, k, v = _k4_inputs(cuda, 1, 2, 2, 64, hd, torch.bfloat16)
-        out, lse = k4._forward(q, k, v, hd ** -0.5, True, 0, True)
+        out, lse = k4.flash_attention_lse_ref(q, k, v, causal=True)
         with pytest.raises(ValueError, match="head_dim"):
             k4.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
 

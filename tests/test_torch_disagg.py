@@ -460,13 +460,16 @@ def test_cell_costs_equal_reference(size):
 
 
 def test_cell_costs_raises_outside_the_registered_kinds():
-    """Training cells are not ported and raise, as does an encoder's
-    decode cell (the reference's registry skips it: no decode step); a
-    plain MLP (hubert-xlarge's kind) prices its two linears as the
-    reference does, never as a GLU's three."""
+    """An encoder's decode cell raises (the reference's registry skips
+    it: no decode step); a train cell prices as the reference's; a plain
+    MLP (hubert-xlarge's kind) prices its two linears as the reference
+    does, never as a GLU's three."""
     cfg = tconfigs.get_smoke_config("qwen25-05b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(cfg, tcost.serving_cell("train", 64), False)
+    c = tcost.cell_costs(cfg, tcost.serving_cell("train", 64), False)
+    a = jcost.cell_costs(jconfigs.get_smoke_config("qwen25-05b"),
+                         jcost.serving_cell("train", 64), False)
+    assert dataclasses.asdict(c) == {k: getattr(a, k)
+                                     for k in dataclasses.asdict(c)}
     plain = dataclasses.replace(cfg, mlp_type="plain")
     jplain = dataclasses.replace(jconfigs.get_smoke_config("qwen25-05b"),
                                  mlp_type="plain")

@@ -323,7 +323,8 @@ def test_cell_costs_equal_reference(size):
     field: the plain MLP's two linears, the head at every frame, its
     table counted once, and the reference's causal pair count ``S · S /
     2`` for the bidirectional layers. An encoder's decode cells raise
-    (no decode step), as do training cells."""
+    (no decode step); a train cell equals the reference's (the head at
+    every frame, the backward's factors)."""
     get = {"full": (jconfigs.get_config, tconfigs.get_config),
            "smoke": (jconfigs.get_smoke_config,
                      tconfigs.get_smoke_config)}[size]
@@ -338,15 +339,17 @@ def test_cell_costs_equal_reference(size):
                 k: getattr(a, k) for k in dataclasses.asdict(c)}
     with pytest.raises(ValueError, match="no autoregressive decode step"):
         tcost.cell_costs(tcfg, tcost.serving_cell("decode", 512), False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), False)
+    for quant in (False, True):
+        a = jcost.cell_costs(jcfg, jcost.serving_cell("train", 64), quant)
+        c = tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), quant)
+        assert dataclasses.asdict(c) == {
+            k: getattr(a, k) for k in dataclasses.asdict(c)}
 
 
 def test_engine_and_train_launcher_refuse_the_encoder():
     """`GenerationEngine` on an encoder raises with the reference's words
     (``skipped_cells``: "encoder-only: no autoregressive decode step");
-    the train launcher refuses it as it refuses the MoE and SSM
-    families."""
+    the train launcher trains it (3 steps, finite losses)."""
     tm = Model(tconfigs.get_smoke_config(NAME))
     params = tm.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="encoder-only: no autoregressive "
@@ -354,9 +357,9 @@ def test_engine_and_train_launcher_refuse_the_encoder():
         GenerationEngine(tm, params, max_seq=32)
     assert jconfigs.skipped_cells(NAME)["decode_32k"] == (
         "encoder-only: no autoregressive decode step")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--arch", NAME,
-                      "--steps", "1"])
+    out = tlaunch.main(["--smoke", "--device", "cpu", "--arch", NAME,
+                        "--steps", "3"])
+    assert out["steps"] == 3 and all(np.isfinite(out["losses"]))
 
 
 def test_launcher_quantizes_then_ends_without_decode(capsys):

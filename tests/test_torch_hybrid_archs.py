@@ -367,8 +367,8 @@ def test_engine_streams_equal_generate(name):
 def test_cell_costs_equal_reference(name, size):
     """`cell_costs` of prefill and decode cells equals the reference's
     field for field: the SSM linears, state traffic and intra-chunk work,
-    hymba's windowed layers at ``min(window, S)`` positions. Training
-    cells still raise."""
+    hymba's windowed layers at ``min(window, S)`` positions; a train cell
+    too."""
     get = {"full": (jconfigs.get_config, tconfigs.get_config),
            "smoke": (jconfigs.get_smoke_config,
                      tconfigs.get_smoke_config)}[size]
@@ -381,8 +381,11 @@ def test_cell_costs_equal_reference(name, size):
             c = tcost.cell_costs(tcfg, tcost.serving_cell(step, s, b), quant)
             assert dataclasses.asdict(c) == {
                 k: getattr(a, k) for k in dataclasses.asdict(c)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), False)
+    for quant in (False, True):
+        a = jcost.cell_costs(jcfg, jcost.serving_cell("train", 64), quant)
+        c = tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), quant)
+        assert dataclasses.asdict(c) == {
+            k: getattr(a, k) for k in dataclasses.asdict(c)}
 
 
 @pytest.mark.parametrize("kw", [dict(preemption=True),
@@ -398,7 +401,8 @@ def test_engine_refuses_chunked_only_features(name, kw):
     prompt there) raise at the first submit, as the reference's engine
     raises; a chunk
     step raises; a serving cache without ``num_slots`` / ``slot_seq``
-    raises; the train launcher refuses both families."""
+    raises; the train launcher trains both families (3 steps, finite
+    losses)."""
     tm = Model(tconfigs.get_smoke_config(name))
     params = tm.init(torch.Generator().manual_seed(0), device="cpu")
     ekw = dict(max_seq=32, num_slots=2, page_size=8)
@@ -416,9 +420,9 @@ def test_engine_refuses_chunked_only_features(name, kw):
                       torch.zeros((2, 4), dtype=torch.int32),
                       torch.zeros(2, dtype=torch.int32),
                       page_table=torch.zeros((2, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--arch", name,
-                      "--steps", "1"])
+    out = tlaunch.main(["--smoke", "--device", "cpu", "--arch", name,
+                        "--steps", "3"])
+    assert out["steps"] == 3 and all(np.isfinite(out["losses"]))
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -300,8 +300,7 @@ def test_cell_costs_equal_reference(name, size):
     """`cell_costs` of prefill and decode cells equals the reference's
     field for field: the routed experts' weights streamed once a step and
     computed on the top-k share of the tokens, the shared experts and
-    router on every token, MLA's latent cache line. Training cells still
-    raise."""
+    router on every token, MLA's latent cache line; a train cell too."""
     get = {"full": (jconfigs.get_config, tconfigs.get_config),
            "smoke": (jconfigs.get_smoke_config,
                      tconfigs.get_smoke_config)}[size]
@@ -313,8 +312,11 @@ def test_cell_costs_equal_reference(name, size):
             c = tcost.cell_costs(tcfg, tcost.serving_cell(step, s, b), quant)
             assert dataclasses.asdict(c) == {
                 k: getattr(a, k) for k in dataclasses.asdict(c)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), False)
+    for quant in (False, True):
+        a = jcost.cell_costs(jcfg, jcost.serving_cell("train", 64), quant)
+        c = tcost.cell_costs(tcfg, tcost.serving_cell("train", 64), quant)
+        assert dataclasses.asdict(c) == {
+            k: getattr(a, k) for k in dataclasses.asdict(c)}
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -338,13 +340,13 @@ def test_mla_engine_refuses_chunked_only_features(kw):
     """deepseek's latents are per-slot state: preemption, speculation and
     the chunked path (so disaggregation, which forces it) raise at the
     first submit, as the reference's engine raises; and the train
-    launcher refuses the MoE family (serving only)."""
+    launcher trains the model (3 steps, finite losses)."""
     tm = Model(tconfigs.get_smoke_config("deepseek-v2-lite-16b"))
     params = tm.init(torch.Generator().manual_seed(0), device="cpu")
     eng = GenerationEngine(tm, params, max_seq=32, num_slots=2, page_size=8,
                            **kw)
     with pytest.raises(ValueError):
         eng.submit(_toks(0, 5), 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--arch",
-                      "deepseek-v2-lite-16b", "--steps", "1"])
+    out = tlaunch.main(["--smoke", "--device", "cpu", "--arch",
+                        "deepseek-v2-lite-16b", "--steps", "3"])
+    assert out["steps"] == 3 and all(np.isfinite(out["losses"]))

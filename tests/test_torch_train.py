@@ -222,10 +222,16 @@ def test_loss_descends_on_markov_stream():
     assert losses[-1] < losses[0] - 0.3
 
 
-def test_remat_gives_the_same_gradients():
+@pytest.mark.parametrize("name", [
+    "qwen25-05b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "mamba2-130m",
+    "hymba-1.5b", "hubert-xlarge", "phi-3-vision-4.2b"])
+def test_remat_gives_the_same_gradients(name):
     """Per-block checkpointing recomputes the forward in the backward: the
-    loss and every gradient equal the run without it, bit for bit."""
-    cfg = configs.get_smoke_config("qwen25-05b")
+    loss and every gradient equal the run without it, bit for bit, under
+    every block kind (attention + MoE with its aux loss, MLA + MoE, the
+    SSD, hymba's attention ∥ SSD, the encoder's plain MLP, a decoder
+    behind image patches)."""
+    cfg = configs.get_smoke_config(name)
     params = Model(cfg).init(torch.Generator().manual_seed(1), device="cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in make_dataset(cfg, 2, 16).batch_at(0).items()}

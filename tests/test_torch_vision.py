@@ -18,7 +18,7 @@ and ``lm_head`` float), words, zeros and AWQ_MACRO bytes. `cell_costs`
 of prefill and decode cells equals the reference's. Within the port, the
 engine serves the text (`submit()` takes tokens only) with streams equal
 to its own `generate()`; a `generate()` whose ``max_seq`` does not hold
-the image span raises; the train launcher refuses the model.
+the image span raises; the train launcher trains the model.
 """
 import dataclasses
 
@@ -322,15 +322,17 @@ def test_full_width_layer_quantizes_the_reference_linears():
 
 @pytest.mark.parametrize("size", ["full", "smoke"])
 def test_cell_costs_equal_reference(size):
-    """`cell_costs` of prefill and decode cells equals the reference's
-    field for field (the reference does not price the frontend)."""
+    """`cell_costs` of prefill, decode and train cells equals the
+    reference's field for field (the reference does not price the
+    frontend)."""
     get = {"full": (jconfigs.get_config, tconfigs.get_config),
            "smoke": (jconfigs.get_smoke_config,
                      tconfigs.get_smoke_config)}[size]
     jcfg, tcfg = (g(NAME) for g in get)
     for quant in (False, True):
         for step, s, b in (("prefill", 456, 2), ("prefill", 4096, 1),
-                           ("decode", 512, 4), ("decode", 32_768, 128)):
+                           ("decode", 512, 4), ("decode", 32_768, 128),
+                           ("train", 64, 1), ("train", 512, 2)):
             a = jcost.cell_costs(jcfg, jcost.serving_cell(step, s, b), quant)
             c = tcost.cell_costs(tcfg, tcost.serving_cell(step, s, b), quant)
             assert dataclasses.asdict(c) == {
@@ -341,7 +343,7 @@ def test_engine_serves_text_streams_equal_generate():
     """RTN int4 smoke model, bf16 activations: 4 greedy text requests
     through the chunked engine (`submit()` takes tokens only, as in the
     reference) equal the port's own text `generate()` at B 1; the train
-    launcher refuses the model."""
+    launcher trains the model (3 steps, finite losses)."""
     tm = Model(tconfigs.get_smoke_config(NAME))
     params, _ = tpipe.quantize_params(
         tm.init(torch.Generator().manual_seed(0), device="cpu"))
@@ -355,9 +357,9 @@ def test_engine_serves_text_streams_equal_generate():
     assert eng._scheduler._run_batch is not None      # chunked
     for rid, ref in zip(rids, refs):
         np.testing.assert_array_equal(out[rid], ref)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--arch", NAME,
-                      "--steps", "1"])
+    out = tlaunch.main(["--smoke", "--device", "cpu", "--arch", NAME,
+                        "--steps", "3"])
+    assert out["steps"] == 3 and all(np.isfinite(out["losses"]))
 
 
 def test_launcher_calibrates_on_images_and_generates_text():
