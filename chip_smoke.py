@@ -286,7 +286,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                new tokens from position 456), the chunked engine over
                the text as above, and `check` (a prefill with images and
                a decode step at position 272) and `check_prefill` with
-               images on a 2-layer cut.
+               images on a 2-layer cut. After qwen2-moe's line, tp_moe:
+               its AWQ params served tensor-parallel (the serve burst
+               through the chunked engine on a 2-way ``model`` mesh, both
+               shards on cuda:0; K3 / K1 on each shard's expert stripe:
+               F 704 and D 1,024): every shard launches K3 and K1 over
+               its experts wherever the unsharded engine launched them
+               once, K2-TP launched, per-shard expert and pool bytes half
+               the unsharded ones, first tokens equal to the unsharded
+               engine's under the `check` rule (streams counted), the
+               `check` steps sharded against the CPU (`RouteTie`), and
+               the packed `forward_logits` under a (data 2 × model 2)
+               mesh against the unsharded forward;
  30. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
                bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
                no weight decay: the reference's descent test), per-block
@@ -298,8 +309,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                idle share, top kernels); then a 2-layer full-width cut's
                loss and gradients on the card against CPU copies (5 % of
                each leaf's largest magnitude);
- 31. train_resume — `repro_torch.launch.train.main` at full size
-               (``--steps 8 --batch 8 --seq 512 --ckpt-every 4
+ 31. train_resume — `repro_torch.launch.train.main` at full width,
+               12 of Qwen's 24 layers (since PR 29, for the time limit;
+               ``--steps 8 --batch 8 --seq 512 --ckpt-every 4
                --simulate-failure-at 6``, checkpoints under the
                git-ignored build/, deleted after): one recovery from step
                4's checkpoint, the redone steps' losses equal bit for
@@ -324,7 +336,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                gradients on the card within 5 % of CPU copies (the MoE
                models' CPU side on the card's routing). Reported: step ms
                and tokens / frames a second beside the port cost model's
-               compute and memory seconds for that step, peak memory.
+               compute and memory seconds for that step, peak memory;
+ 33. train_mesh — training over a (data 2 × model 2) mesh, four shards
+               on cuda:0: Qwen2.5-0.5B at full size from train's seed
+               and settings, 6 steps (losses within 2e-2 of train's, K4
+               twice and K4b once a layer a shard a step, replicas
+               bit-equal after the last step, ZeRO-1 moments half a data
+               replica), then a step bare and one profiled (busy, idle,
+               launches); a save at (2 × 2) restored onto (1 × 2), whose
+               next step's loss matches within 2e-2; the int8
+               error-feedback arm (`make_dp_train_step`, data 2: losses
+               falling, residuals within half their scale, int8 on the
+               wire); qwen2-moe's float experts at 1 of 24 layers, B 2 ×
+               S 512 a replica, 2 steps (step 0's loss within 2e-2 of
+               the unsharded loss).
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -372,10 +397,14 @@ from repro_torch.kernels import awq_matmul as k1  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as k4  # noqa: E402
 from repro_torch.kernels import paged_attention as k2  # noqa: E402
-from repro_torch.bridge import state_to_arrays  # noqa: E402
+from repro_torch.bridge import ef_to_arrays, state_to_arrays  # noqa: E402
 from repro_torch.checkpoint import latest_step, restore, save  # noqa: E402
 from repro_torch.data.pipeline import make_dataset  # noqa: E402
-from repro_torch.distributed import serving_mesh, shard_params  # noqa: E402
+from repro_torch.distributed import (TrainSharding,  # noqa: E402
+                                     replica_meshes, serving_mesh,
+                                     shard_params)
+from repro_torch.distributed.sharding import Mesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -384,10 +413,12 @@ from repro_torch.roofline import costmodel  # noqa: E402
 from repro_torch.serving.disagg import DisaggController  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step  # noqa: E402
+from repro_torch.training.dp_compressed import (init_dp_state,  # noqa: E402
+                                                make_dp_train_step)
 from repro_torch.training.train_step import (init_train_state,  # noqa: E402
                                              loss_and_grads, missing_grads,
                                              train_state_shapes)
-from repro_torch.utils.tree import flatten_with_paths  # noqa: E402
+from repro_torch.utils.tree import flatten_with_paths, layer_parts  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -1886,10 +1917,13 @@ KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
                 "reduce": ("reduce_kernel",)}
 
 
-def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
+def _profile_steps(eng, steps: int, before=lambda: None,
+                   host_ops: bool = True) -> dict:
     """``steps`` engine steps timed bare, then as many again under
     torch.profiler for the device's busy time and its top kernels;
-    ``before()`` sets up each window."""
+    ``before()`` sets up each window. ``host_ops=False`` traces the
+    device's kernels only (a mesh train step's host ops are too many to
+    trace within the time limit)."""
     before()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1898,8 +1932,8 @@ def _profile_steps(eng, steps: int, before=lambda: None) -> dict:
     bare_ms = 1e3 * (time.perf_counter() - t0) / steps
     before()
     prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+        torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if host_ops else []))
     with prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -2020,7 +2054,8 @@ def tree_to(tree, device):
 
 class RouteTie:
     """The card's MoE routing, recorded while the card's side of a CPU
-    check runs (``record``), then imposed on the CPU's side (``force``).
+    check runs (``record``), then imposed on the CPU's side (``force``;
+    `tp_moe` also imposes the unsharded forward's on the sharded one).
 
     A MoE layer's top-k is discrete: where two experts' probabilities lie
     closer than the card's and the CPU's roundings move them, the two
@@ -2057,6 +2092,7 @@ class RouteTie:
 
         def route(probs, cfg, cap):
             idx, card_probs = self.routes[self.calls]
+            idx = idx.to(probs.device)
             self.calls += 1
             own = torch.topk(probs, cfg.top_k, dim=-1)
             differ = (own.indices.sort(-1).values
@@ -2066,7 +2102,7 @@ class RouteTie:
                 self.flips.append(dict(
                     call=self.calls - 1, token=t,
                     gap=float(top[-2] - top[-1]),
-                    probs_diff=float((probs[t].detach().float()
+                    probs_diff=float((probs[t].detach().float().cpu()
                                       - card_probs[t]).abs().max())))
             gates = torch.gather(probs, 1, idx)
             if cfg.norm_topk_prob:
@@ -3010,6 +3046,26 @@ def check_expert_kernels(gen) -> dict:
                   "library_ms: torch.bmm on the dequantized bf16 experts")
 
 
+# a shard's stripe of qwen2-moe's experts under the tp_moe phase's 2-way
+# mesh (K3: d_model 2,048 -> F 704; K1: F 1,408 -> D 1,024) at every rows
+# count, and under a 4-way one (352 / 512) at a chunk step's 64 rows
+EXPERT_SHARD_CASES = [(2, m) for m in EXPERT_ROWS] + [(4, 64)]
+
+
+def check_expert_shard_kernels(gen) -> dict:
+    """K3 and K1 over qwen2-moe's 60 experts at one shard's stripe widths
+    (`_expert_shape`: held against the plain version, timed beside it and
+    `torch.bmm`, the bound of the stripe's bytes and products)."""
+    _, e, d, f = EXPERT_SHAPES[0]
+    return dict(
+        awq_gateup_experts=[dict(_expert_shape(gen, TP_MOE_ARCH, e, d,
+                                               f // n, m, True), shards=n)
+                            for n, m in EXPERT_SHARD_CASES],
+        awq_matmul_experts=[dict(_expert_shape(gen, TP_MOE_ARCH, e, d // n,
+                                               f, m, False), shards=n)
+                            for n, m in EXPERT_SHARD_CASES])
+
+
 def check_dense_kernels(gen) -> dict:
     """K1 - K4 at the other models' shapes, each held against its plain
     version (K1 / K3 at the model's call, M 4 and 1024, the SSM family's
@@ -3227,6 +3283,10 @@ def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
+# each model's engine streams by (arch, config name), for the tp_moe phase
+SERVED: dict = {}
+
+
 def dense_serve(arch: str, model, params, spec: dict) -> dict:
     """8 greedy requests of 32 new tokens through the engine's default path
     (the chunked one over int8 pools, 4 slots, pages of 16; a model with
@@ -3271,6 +3331,7 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
                 prefilled, admitted = now, sst.admitted
             out = eng.drain()
             serve_s = time.perf_counter() - t0
+            SERVED[arch, name] = [out[r] for r in rids]
             chunked = eng._scheduler._run_batch is not None
             launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
             windowed = K2_WINDOWED["calls"]
@@ -3625,13 +3686,204 @@ def vision_generate(model, params) -> dict:
                 launches=launches, sample=toks[0][:8].tolist())
 
 
-def dense_models() -> tuple[dict, dict]:
+# ------------------------------------------------------------ phase tp_moe
+TP_MOE_ARCH = "qwen2-moe-a2.7b"
+EXPERT_SUMS = ("awq_matmul_experts", "awq_gateup_experts")
+
+
+def _expert_bytes(params) -> tuple[int, int]:
+    """(bytes of the routed experts' leaves a `model` rule splits, bytes
+    of all their leaves) in ``params``."""
+    split = whole = 0
+    for seg in params["segments"].values():
+        for lyr in seg:
+            for lin in lyr.get("moe", {}).get("experts", {}).values():
+                for f in ("qweight", "scales", "zeros", "input_scale"):
+                    t = getattr(lin, f)
+                    whole += t.nbytes
+                    split += t.nbytes if f != "input_scale" else 0
+    return split, whole
+
+
+def _join_pools(shard_pools: list, mesh) -> dict:
+    """The shards' page pools joined over KV heads (one unsharded pool
+    tree, on the CPU): the `tp` phase's rule read on each leaf."""
+    out = {}
+    for seg, layers_ in shard_pools[0].items():
+        out[seg] = []
+        for i in range(len(layers_)):
+            pool = {}
+            for leaf, t in layers_[i]["kv_pool"].items():
+                dim = -2 if leaf in ("k", "v") else -1
+                pool[leaf] = torch.cat([sp[seg][i]["kv_pool"][leaf].cpu()
+                                        for sp in shard_pools], dim=dim)
+            out[seg].append({"kv_pool": pool})
+    return out
+
+
+def _tp_moe_check(model, params) -> dict:
+    """The `check` rule on the 2-layer model: the two chunk steps of the
+    `check` phase, sharded over the 2-way mesh on the card (K3 / K1 on
+    each shard's expert stripes, K2-TP) against the unsharded step on
+    CPU copies, whose MoE layers take the card's routing (`RouteTie`);
+    step 1 reads the card's committed pages on both sides."""
+    mesh = tp_mesh()
+    shards = shard_params(params, mesh, model.cfg)
+    cpu_params = tree_to(params, "cpu")
+    pools = model.init_paged_cache(17, 16, kv_quant="int8", mesh=mesh)
+    cpu_pools = model.init_paged_cache(17, 16, kv_quant="int8",
+                                       device="cpu")
+    res = {}
+    for step, (toks, pos, sidx) in enumerate(
+            _check_inputs(model.cfg.vocab_size)):
+        if step == 1:
+            cpu_pools = _join_pools(pools, mesh)
+        tie = RouteTie()
+        with torch.no_grad():
+            with tie.record():
+                lg, pools = model.chunk_step(
+                    shards, pools, toks.cuda(), pos.cuda(), sidx.cuda(),
+                    page_table=CHECK_TABLE.cuda(), mesh=mesh)
+            with tie.force():
+                ref, cpu_pools = model.chunk_step(
+                    cpu_params, cpu_pools, toks, pos, sidx,
+                    page_table=CHECK_TABLE)
+        res[f"step{step}"] = dict(_check_rule(
+            step, lg.float().cpu(), ref.float(), "tp_moe check"),
+            routing=tie.report())
+    return res
+
+
+def _tp_moe_forward(model, params) -> dict:
+    """The packed `forward_logits` under a (data 2 × model 2) mesh, all
+    four shards on cuda:0 (each replica its batch half, its experts split
+    over ``model``), against the unsharded forward on the card, whose
+    routing it takes (`RouteTie`: a near tie would send a token to
+    another expert; flips counted): the `check` rule on every position's
+    logits; K3 / K1 over the experts launched by every shard."""
+    mesh = make_host_mesh(2, 2, devices=["cuda:0"] * 4)
+    grid = [shard_params(params, rm, model.cfg)
+            for rm in replica_meshes(mesh)]
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 64))
+                            .astype(np.int32)).cuda()
+    tie = RouteTie()
+    with torch.no_grad():
+        # the unsharded forward a replica's half at a time (the same
+        # routing calls, in the mesh's order: replica 0's layers, then
+        # replica 1's), whose routing the sharded forward takes
+        with tie.record():
+            want = torch.cat([model.forward_logits(
+                params, {"tokens": half}) for half in toks.split(2)])
+        reset_counts()
+        with tie.force():
+            got = model.forward_logits(grid, {"tokens": toks}, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = read_counts(EXPERT_SUMS)
+    n = model.cfg.num_layers * 4
+    if launches != dict.fromkeys(EXPERT_SUMS, n):
+        raise AssertionError(f"tp_moe forward: expert launches {launches}, "
+                             f"want {n} (a layer, a shard)")
+    v = model.cfg.vocab_size
+    return dict(mesh="(data 2 x model 2), four shards on cuda:0",
+                tokens=list(toks.shape), launches=launches,
+                routing=tie.report(),
+                **_check_rule(0, got.reshape(-1, v).float().cpu(),
+                              want.reshape(-1, v).float().cpu(),
+                              "tp_moe forward"))
+
+
+def tp_moe(model, params, spec: dict, served: dict) -> dict:
+    """qwen2-moe at full width and 2 of 24 layers (the AWQ params of its
+    phase) served tensor-parallel: the 8 seeded requests through the
+    chunked engine on a 2-way ``model`` mesh whose shards share cuda:0,
+    under the default threshold (the main path: counts from 0 here, read
+    after), int8 pools. Gated: every shard launches K3 and K1 over its
+    expert stripes wherever the unsharded engine launched them once (per
+    step, twice the unsharded rate), K2-TP launched, the per-shard expert
+    and pool bytes half the unsharded ones, first tokens equal to the
+    unsharded engine's where generate()'s margin is clear (the `check`
+    rule), the chunk steps of `check` within its rule against the CPU
+    (`RouteTie`), and the packed forward under (2 × 2) within it against
+    the unsharded forward. Counted: whole streams equal to the unsharded
+    engine's."""
+    mesh = tp_mesh()
+    cfg = model.cfg
+    prompts = dense_prompts(cfg.vocab_size, spec["serve_lens"])
+    kw = dict(num_slots=4, page_size=16, max_seq=spec["max_seq"],
+              prefill_chunk=spec["chunk"], kv_quant="int8")
+    names = (*COUNTERS, *EXPERT_COUNTERS, *TP_COUNTERS)
+    eng = GenerationEngine(model, params, mesh=mesh, **kw)
+    _reset_peak()
+    # the main path: counts start at 0 here and are read right after
+    reset_counts()
+    run = _serve_burst(eng, prompts, names)
+    peak = torch.cuda.max_memory_allocated()
+    check_streams("tp_moe", run["out"], run["rids"], cfg.vocab_size)
+    st = eng.stats()
+    shard_bytes = [_expert_bytes(p) for p in eng._params_run]
+    del eng
+    gc.collect()
+    base = served["default"]
+    unsharded = {n: base["launches"][n] / base["steps"] for n in EXPERT_SUMS}
+    per_step = {n: run["launches"][n] / run["steps"] for n in EXPERT_SUMS}
+    if any(per_step[n] != 2 * unsharded[n] or not per_step[n]
+           for n in EXPERT_SUMS) or not run["launches"][
+               "paged_attention_chunk_sharded"]:
+        raise AssertionError(f"tp_moe: expert launches a step {per_step}, "
+                             f"unsharded {unsharded}; K2-TP "
+                             f"{run['launches']}")
+    split_all, whole_all = _expert_bytes(params)
+    if any(2 * sb[0] != split_all for sb in shard_bytes) or \
+            2 * st.kv_pool_bytes_per_device != base["kv_pool_bytes"]:
+        raise AssertionError(f"tp_moe: expert bytes a shard {shard_bytes} "
+                             f"of {split_all}; pool bytes a shard "
+                             f"{st.kv_pool_bytes_per_device} of "
+                             f"{base['kv_pool_bytes']}")
+    refs = SERVED[TP_MOE_ARCH, "default"]
+    streams = [run["out"][r] for r in run["rids"]]
+    ties = []
+    for rid, p, got, ref in zip(run["rids"], prompts, streams, refs):
+        if got[0] != ref[0]:
+            margin, scale = _first_margin(model, params, p, spec["max_seq"])
+            if margin > 2 * 0.05 * scale:
+                raise AssertionError(f"tp_moe: request {rid}: first token "
+                                     f"{got[0]} != {ref[0]}, margin "
+                                     f"{margin} of scale {scale}")
+            ties.append(dict(request=rid, margin=margin, scale=scale))
+    diffs = _first_diffs(streams, refs)
+    checked = _tp_moe_check(model, params)
+    forward = _tp_moe_forward(model, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        mesh="2-way model axis, both shards on cuda:0", layers=cfg.num_layers,
+        requests=len(prompts), steps=run["steps"], serve_s=run["serve_s"],
+        decode_step_ms=1e3 * run["decode_s"] / max(1, run["decode_steps"]),
+        decode_tokens_per_s=run["decode_tokens"] / max(run["decode_s"],
+                                                       1e-9),
+        unsharded_decode_step_ms=base["decode_step_ms"],
+        peak_mem_bytes=peak, launches=run["launches"],
+        expert_launches_per_step=per_step,
+        unsharded_expert_launches_per_step=unsharded,
+        expert_bytes_per_shard=[sb[1] for sb in shard_bytes],
+        expert_split_bytes_per_shard=[sb[0] for sb in shard_bytes],
+        expert_bytes_unsharded=whole_all,
+        kv_pool_bytes_per_device=st.kv_pool_bytes_per_device,
+        kv_pool_bytes_unsharded=base["kv_pool_bytes"],
+        identical_streams=sum(d is None for d in diffs), first_diffs=diffs,
+        first_tokens_equal=len(prompts) - len(ties),
+        first_token_ties=ties, check=checked, forward_2x2=forward)
+
+
+def dense_models() -> tuple[dict, dict, dict]:
     """Phases 20-29: each model's launcher, serve burst and CPU check (the
     encoder: its launcher, forward and prefill check; phi-3-vision adds
-    `generate()` with images). Returns (per-model fields, per-model
-    launches of K1 - K4)."""
+    `generate()` with images), and `tp_moe` on qwen2-moe's params.
+    Returns (per-model fields, per-model launches of K1 - K4, the tp_moe
+    phase's fields)."""
     _count_windowed_k2()
-    out, launches = {}, {}
+    out, launches, tp_moe_fields = {}, {}, None
     for arch, spec in DENSE_ARCHS.items():
         t = time.perf_counter()
         launched, params, model = dense_launch(arch, spec)
@@ -3667,6 +3919,9 @@ def dense_models() -> tuple[dict, dict]:
             fields["profile_decode_step"] = prof
         phase(arch, **fields)
         out[arch] = fields
+        if arch == TP_MOE_ARCH:
+            tp_moe_fields = tp_moe(model, params, spec, served)
+            phase("tp_moe", **tp_moe_fields)
         launches[arch] = {
             n: launched["launches"][n] + served["default"]["launches"][n]
             + served["all_kernel"]["launches"][n]
@@ -3677,7 +3932,7 @@ def dense_models() -> tuple[dict, dict]:
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
-    return out, launches
+    return out, launches, tp_moe_fields
 
 
 def _model_summary(f: dict) -> dict:
@@ -3964,14 +4219,17 @@ def train() -> dict:
 
 
 def train_check(model) -> dict:
-    """A 2-layer full-width cut (layers 0 and 1 of a fresh seed-0 init):
+    """A 2-layer full-width cut (layers 0 and 1 of a fresh seed-0 init; a
+    MoE model's cut is 1 MoE layer, for the CPU side's time, PERF §4):
     one loss and gradient on the card (K4, K4b, remat) and on CPU copies
     (plain versions), B 1 × S 64 (and a vision model's patches). The two
     round to bf16 at other places, so each leaf's gradient is held within
     5 % of its largest CPU magnitude (the `check` rule), the loss too;
     every leaf present. A MoE layer's CPU side takes the card's routing
     (`RouteTie`; flips counted)."""
-    cut = Model(dataclasses.replace(model.cfg, num_layers=2))
+    cut = Model(dataclasses.replace(model.cfg, num_layers=2)
+                if not model.cfg.num_experts else dataclasses.replace(
+                    model.cfg, num_layers=1, first_dense_layers=0))
     params = cut.init(torch.Generator(device="cuda").manual_seed(SEED),
                       device="cuda")
     batch = make_dataset(cut.cfg, 1, 64, SEED).batch_at(0)
@@ -4001,7 +4259,8 @@ def train_check(model) -> dict:
         raise AssertionError(f"train check: loss {out['cuda'][0]} vs "
                              f"{out['cpu'][0]}")
     routing = tie.report()
-    return dict(layers=2, leaves=len(out["cpu"][1]), loss=out["cuda"][0],
+    return dict(layers=cut.cfg.num_layers, leaves=len(out["cpu"][1]),
+                loss=out["cuda"][0],
                 cpu_loss=out["cpu"][0],
                 worst_leaf=worst_path, worst_err_over_leaf_max=worst,
                 **({"routing": routing} if routing["routed_calls"] else {}))
@@ -4010,19 +4269,28 @@ def train_check(model) -> dict:
 RESUME_ARGS = ["--arch", "qwen25-05b", "--steps", "8", "--batch", "8",
                "--seq", "512", "--ckpt-every", "4", "--simulate-failure-at",
                "6", "--log-every", "1"]
+# train_resume's depth: 12 of Qwen's 24 layers at full width (its
+# checkpoints' disk time, for the script's time limit since PR 29)
+RESUME_LAYERS = 12
 
 
 def train_resume() -> dict:
-    """The train launcher at full size: 8 steps, async checkpoints at 4
-    and 8, a failure injected at step 6 (recovered from step 4's
-    checkpoint). Gated: one recovery, ≥ 4 steps, LATEST = 8, the redone
-    steps' losses equal the first run's bit for bit. Then one step on
+    """The train launcher at full width and `RESUME_LAYERS` of Qwen's
+    depth: 8 steps, async checkpoints at 4 and 8, a failure injected at
+    step 6 (recovered from step 4's checkpoint). Gated: one recovery, ≥ 4
+    steps, LATEST = 8, the redone steps' losses equal the first run's bit
+    for bit. Then one step on
     the restored state, a timed synchronous save and restore of the
     result, the restore equal to the saved arrays bit for bit, and one
     more step from each giving the same loss. The directory (inside the
     checkout's git-ignored build/) is deleted at the end."""
     d = ROOT / "build" / "train_resume"
     shutil.rmtree(d, ignore_errors=True)
+    with _depth("qwen25-05b", RESUME_LAYERS):
+        return _train_resume(d)
+
+
+def _train_resume(d: pathlib.Path) -> dict:
     try:
         reset_counts()
         t0 = time.perf_counter()
@@ -4075,7 +4343,8 @@ def train_resume() -> dict:
             raise AssertionError(f"train_resume: {float(m1['loss'])} vs "
                                  f"{float(m2['loss'])} after restore")
         del state, back
-        return dict(args=RESUME_ARGS, launch_s=launch_s,
+        return dict(args=RESUME_ARGS, layers=model.cfg.num_layers,
+                    launch_s=launch_s,
                     steps=out["steps"], recoveries=out["recoveries"],
                     losses=losses, step_ms=[1e3 * x for x in out["step_s"]],
                     latest=8, redone_losses_equal=redone_equal,
@@ -4188,6 +4457,252 @@ def train_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------- phase train_mesh
+TRAIN_MESH_STEPS = 6
+# qwen2-moe's float experts under the mesh: 1 of 24 layers, B 2 x S 512 a
+# data replica (PERF.md §4: the card's memory with four shards)
+TRAIN_MESH_MOE = (1, 4, 512, 2)
+
+
+def _leaves(tree) -> list:
+    return [t for _, parts, leaf in layer_parts(tree)
+            for t in (parts if parts is not None else [leaf])]
+
+
+def _replicas_bit_equal(state) -> bool:
+    """Every replica's shard m equal to replica 0's bit for bit, and a
+    leaf the ``model`` shards replicate equal to its first shard's."""
+    grid = state["params"]
+    flat = [[list(layer_parts(t)) for t in rep] for rep in grid]
+    for i, (_, sparts, sleaf) in enumerate(layer_parts(state.specs)):
+        split = (sparts[0] if sparts is not None else sleaf)[0] is not None
+        for r, m in np.ndindex(len(grid), len(grid[0])):
+            _, parts, leaf = flat[r][m][i]
+            _, parts0, leaf0 = flat[0][m if split else 0][i]
+            if not all(torch.equal(a, b) for a, b in zip(
+                    parts or [leaf], parts0 or [leaf0])):
+                return False
+    return True
+
+
+def _mesh_steps(step_fn, state, ds, steps: int, first: int = 0):
+    losses, step_s, wire = [], [], 0
+    for i in range(first, first + steps):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, ds.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        wire = met["wire_bytes"]
+    return state, losses, step_s, wire
+
+
+def _train_mesh_ckpt(model, state, step_fn, ds, at_step: int) -> dict:
+    """Save the (2 x 2) state after ``at_step`` steps (its logical
+    arrays), restore it onto a (1 x 2) mesh, and take the next step on
+    both: the losses within 2e-2 relative. The directory (under the
+    checkout's git-ignored build/) is deleted after."""
+    d = ROOT / "build" / "train_mesh"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save(str(d), at_step, state)
+        save_s = time.perf_counter() - t0
+        other = TrainSharding(make_host_mesh(1, 2, devices=["cuda:0"] * 2),
+                              model.cfg)
+        t0 = time.perf_counter()
+        back, at = restore(str(d), train_state_shapes(model),
+                           shardings=other)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        npz_bytes = (d / f"step_{at_step:08d}.npz").stat().st_size
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    batch = ds.batch_at(at_step)
+    _, here = step_fn(state, batch)
+    here = float(here["loss"])
+    del state
+    gc.collect()
+    step12 = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**TRAIN_OPT), grad_comm_dtype="bfloat16"),
+        mesh=other.mesh)
+    _, there = step12(back, batch)
+    there = float(there["loss"])
+    del back
+    if at != at_step or not (isinstance(there, float) and abs(
+            there - here) <= 2e-2 * abs(here)):
+        raise AssertionError(f"train_mesh checkpoint: step {at}, loss "
+                             f"{there} on (1 x 2) vs {here} on (2 x 2)")
+    return dict(npz_bytes=npz_bytes, save_s=save_s, restore_s=restore_s,
+                restored_onto="(data 1 x model 2)", next_loss_2x2=here,
+                next_loss_1x2=there)
+
+
+def _train_mesh_int8(model, ds) -> dict:
+    """`make_dp_train_step` (int8 codes + error feedback) over a 2-way
+    ``data`` mesh on cuda:0, 3 steps from seed 0 (each replica's own
+    loss on its batch half, no gradient casts: the reference's
+    semantics).
+    Gated: the losses fall, every residual within half its tensor's
+    scale and not all zero, one int8 code an element and one f32 scale a
+    tensor a shard on the wire."""
+    mesh = Mesh(["cuda:0"] * 2, ("data",))
+    state, ef = init_dp_state(model, torch.Generator(device="cuda")
+                              .manual_seed(SEED), mesh, device="cuda")
+    step = make_dp_train_step(model, mesh, AdamWConfig(**TRAIN_OPT),
+                              compress=True)
+    losses, step_s = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        state, ef, met = step(state, ef, ds.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    ratio = float(met["ef_over_scale"])
+    arrays = ef_to_arrays(ef)
+    n_el = sum(a[0].size for a in arrays.values())
+    want_wire = 2 * (n_el + 4 * len(arrays))
+    nonzero = any(bool(t.abs().max() > 0) for t in _leaves(ef))
+    del state, ef
+    # |g + ef - q · scale| <= scale / 2, plus the f32 rounding of values up
+    # to 127 scales (127 · 2^-24 < 1e-5 of the scale, twice)
+    if not (losses[-1] < losses[0] and 0 < ratio <= 0.5 + 2e-5 and nonzero
+            and met["wire_bytes"] == want_wire):
+        raise AssertionError(f"train_mesh int8: losses {losses}, ef/scale "
+                             f"{ratio}, wire {met['wire_bytes']} of "
+                             f"{want_wire}")
+    return dict(mesh="data 2 on cuda:0", losses=losses,
+                step_ms=[1e3 * x for x in step_s], ef_over_scale=ratio,
+                wire_bytes=met["wire_bytes"], wire_bytes_f32=8 * n_el,
+                wire_dtype="int8")
+
+
+def _train_mesh_moe() -> dict:
+    """qwen2-moe's float experts under the (2 x 2) mesh: full width, 1 of
+    24 layers, B 2 x S 512 a data replica, 2 steps (experts split over
+    ``model``, the dispatch grouped by replica, the global aux loss).
+    Gated: finite losses, step 0's loss within 2e-2 of the unsharded
+    loss on the same params and batch, K4 and K4b once a shard a
+    step (remat: K4 twice)."""
+    layers_, b, s, steps = TRAIN_MESH_MOE
+    with _depth(TP_MOE_ARCH, layers_):
+        cfg = get_config(TP_MOE_ARCH)
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    ds = make_dataset(cfg, b, s, SEED)
+    plain, _, _ = loss_and_grads(model, state["params"], {
+        k: torch.as_tensor(v, device="cuda")
+        for k, v in ds.batch_at(0).items()})
+    plain = float(plain)
+    mesh = make_host_mesh(2, 2, devices=["cuda:0"] * 4)
+    state = TrainSharding(mesh, cfg).place(state)
+    gc.collect()
+    step_fn = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**TRAIN_OPT), grad_comm_dtype="bfloat16"),
+        mesh=mesh)
+    _reset_peak()
+    reset_counts()
+    state, losses, step_s, _ = _mesh_steps(step_fn, state, ds, steps)
+    launches = read_counts(TRAIN_COUNTERS)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {n: c / steps for n, c in launches.items()}
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - plain) <= 2e-2 * abs(plain)
+            and per_step == {"flash_attention": 2 * 4 * layers_,
+                             "flash_attention_bwd": 4 * layers_}):
+        raise AssertionError(f"train_mesh qwen2-moe: losses {losses} "
+                             f"(unsharded {plain}), launches {per_step}")
+    return dict(config=cfg.name, layers=layers_, batch=b, seq=s,
+                steps=steps, losses=losses, unsharded_loss=plain,
+                step_ms=[1e3 * x for x in step_s], peak_mem_bytes=peak,
+                launches=launches, launches_per_step=per_step)
+
+
+def train_mesh(trained: dict) -> dict:
+    """Training over a (data 2 x model 2) mesh, all four shards on
+    cuda:0 (the card cannot show a speedup, only the function and the
+    bytes): Qwen2.5-0.5B at full size from the `train` phase's seed and
+    settings (B 8 x S 512 globally, bf16 casts, remat, AdamW), 6 steps
+    (the main path: counts from 0 here, read after). Gated: each loss
+    within 2e-2 relative of `train`'s at the same step; K4 twice and K4b
+    once a layer a shard a step; the replicas bit-equal after the last
+    step; each data replica's moments (ZeRO-1) half the logical ones
+    (within 0.1 %: a 1-D leaf split over ``model`` has no dim left to
+    cut over ``data``).
+    Then a save at (2 x 2) restored onto (1 x 2), the int8-EF arm and
+    qwen2-moe's float experts."""
+    cfg, model, state, ds, _ = _train_setup()
+    mesh = make_host_mesh(2, 2, devices=["cuda:0"] * 4)
+    sharding = TrainSharding(mesh, cfg)
+    logical_moments = 2 * sum(t.numel() * 4 for t in _leaves(
+        state["params"]))
+    state = sharding.place(state)
+    gc.collect()
+    step_fn = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**TRAIN_OPT), grad_comm_dtype="bfloat16"),
+        mesh=mesh)
+    _reset_peak()
+    reset_counts()
+    state, losses, step_s, wire = _mesh_steps(step_fn, state, ds,
+                                              TRAIN_MESH_STEPS)
+    launches = read_counts(TRAIN_COUNTERS)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {n: c / TRAIN_MESH_STEPS for n, c in launches.items()}
+    want = trained["losses"][:TRAIN_MESH_STEPS]
+    if not all(abs(a - b) <= 2e-2 * abs(b) for a, b in zip(losses, want)):
+        raise AssertionError(f"train_mesh: losses {losses}, unsharded "
+                             f"{want}")
+    if per_step != {"flash_attention": 2 * 4 * cfg.num_layers,
+                    "flash_attention_bwd": 4 * cfg.num_layers}:
+        raise AssertionError(f"train_mesh: launches a step {per_step}, "
+                             f"want K4 twice and K4b once a layer a shard")
+    equal = _replicas_bit_equal(state)
+    moments = [sum(t.numel() * t.element_size() for m in range(2)
+                   for key in ("m", "v")
+                   for t in _leaves(state["opt"][key][r][m]))
+               for r in range(2)]
+    # half, but for the leaves the model split leaves no dim to cut over
+    # data (the q / k / v biases: held whole by each replica, as the
+    # reference's rule holds them)
+    if not equal or any(not logical_moments <= 2 * b
+                        <= 1.001 * logical_moments for b in moments):
+        raise AssertionError(f"train_mesh: replicas bit-equal {equal}, "
+                             f"moment bytes a replica {moments} of "
+                             f"{logical_moments}")
+    # one step bare and one profiled (busy / idle, PERF §5), then the
+    # checkpoint from the state after them
+    trainer = _Trainer(step_fn, state, ds, TRAIN_MESH_STEPS)
+    del state
+    prof = _profile_steps(trainer, 1, host_ops=False)
+    state, at_step = trainer.state, trainer.i
+    del trainer
+    ckpt = _train_mesh_ckpt(model, state, step_fn, ds, at_step)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = _train_mesh_int8(model, ds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_run = _train_mesh_moe()
+    step_med = float(np.median(step_s[1:]))
+    return dict(
+        mesh="(data 2 x model 2), four shards on cuda:0", config=cfg.name,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_MESH_STEPS,
+        losses=losses, unsharded_losses=want,
+        step_ms=[1e3 * x for x in step_s], step_ms_median=1e3 * step_med,
+        unsharded_step_ms_median=trained["step_ms_median"],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_med, peak_mem_bytes=peak,
+        launches=launches, launches_per_step=per_step,
+        grad_wire_bytes_per_step=wire, replicas_bit_equal=equal,
+        moment_bytes_per_replica=moments,
+        moment_bytes_logical=logical_moments, profile_step=prof,
+        checkpoint=ckpt, int8_ef=int8, qwen2_moe=moe_run)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase line to this "
@@ -4287,7 +4802,8 @@ def main() -> None:
           paged_attention_chunk_sharded=k2tp_detail,
           flash_attention=k4_detail, flash_attention_bwd=k4b_detail,
           dense_models=check_dense_kernels(gen),
-          moe_experts=check_expert_kernels(gen))
+          moe_experts=check_expert_kernels(gen),
+          moe_experts_shard=check_expert_shard_kernels(gen))
 
     cfg = get_config("qwen25-05b")
     model = Model(cfg)
@@ -4378,7 +4894,7 @@ def main() -> None:
     # the other models: each one's phase line, and K1 - K4's launches on
     # its launcher and serving paths (K1's and K3's over a MoE layer's
     # experts also by model, as the expert axis's share)
-    dense, dense_launches = dense_models()
+    dense, dense_launches, tp_moe_run = dense_models()
     for entry in kernels:
         qwen = entry["launches"]
         entry["launches"] = qwen + sum(
@@ -4390,6 +4906,17 @@ def main() -> None:
             arch: by[f"{entry['name']}_experts"]
             for arch, by in dense_launches.items()
             if by[f"{entry['name']}_experts"]}
+    # tp_moe's serving run: K1 - K3 on each shard (the experts' stripes
+    # among them), K2 and K2-TP on each shard's kv heads
+    for entry in (k1_entry, k2_entry, k3_entry):
+        entry["launches"] += tp_moe_run["launches"][entry["name"]]
+        entry["launches_by_model"]["tp_moe"] = \
+            tp_moe_run["launches"][entry["name"]]
+    for entry in (k1_entry, k3_entry):
+        entry["expert_axis_launches_by_model"]["tp_moe"] = \
+            tp_moe_run["launches"][f"{entry['name']}_experts"]
+    k2tp_entry["launches"] += tp_moe_run["launches"][
+        "paged_attention_chunk_sharded"]
     # training: Qwen2.5-0.5B at full size (K4 forward and remat, K4b)
     trained = train()
     phase("train", **trained)
@@ -4397,8 +4924,12 @@ def main() -> None:
     phase("train_resume", **resumed)
     families = train_families()
     phase("train_families", gpu=smi, **families)
+    meshed = train_mesh(trained)
+    phase("train_mesh", gpu=smi, **meshed)
     by_path = {name: trained["launches"][name] + resumed["launches"][name]
                + sum(f["launches"][name] for f in families.values())
+               + meshed["launches"][name]
+               + meshed["qwen2_moe"]["launches"][name]
                for name in TRAIN_COUNTERS}
     k4_entry["launches"] += by_path["flash_attention"]
     k4_entry["launches_train"] = by_path["flash_attention"]
@@ -4480,6 +5011,25 @@ def main() -> None:
         train_resume={k: resumed[k] for k in (
             "steps", "recoveries", "npz_bytes", "save_s", "restore_s",
             "launch_s")},
+        tp_moe={k: tp_moe_run[k] for k in (
+            "decode_step_ms", "unsharded_decode_step_ms",
+            "expert_launches_per_step", "identical_streams",
+            "first_tokens_equal", "kv_pool_bytes_per_device",
+            "expert_bytes_per_shard", "peak_mem_bytes")},
+        train_mesh={k: meshed[k] for k in (
+            "losses", "step_ms_median", "unsharded_step_ms_median",
+            "tokens_per_s", "peak_mem_bytes", "launches_per_step",
+            "grad_wire_bytes_per_step", "moment_bytes_per_replica",
+            "moment_bytes_logical")} | {
+            "profile_step": {k: meshed["profile_step"][k] for k in (
+                "profiled_step_ms", "device_busy_ms", "device_idle_share",
+                "device_launches")},
+            "int8_ef": {k: meshed["int8_ef"][k] for k in (
+                "losses", "ef_over_scale", "wire_bytes")},
+            "checkpoint": {k: meshed["checkpoint"][k] for k in (
+                "save_s", "restore_s", "next_loss_2x2", "next_loss_1x2")},
+            "qwen2_moe": {k: meshed["qwen2_moe"][k] for k in (
+                "losses", "unsharded_loss", "step_ms", "peak_mem_bytes")}},
         train_families={arch: {k: f[k] for k in (
             "layers", "batch", "seq", "losses", "step_ms_median",
             "tokens_per_s", "peak_mem_bytes", "launches_per_step",

@@ -15,6 +15,10 @@ nothing of the reference package). A quantized linear is any object with
     strips, or float pools), unstacked the same way.
   * `tree_to_torch` — any subtree as it is (one linear, a config of
     tensors); `to_tensor` — any one array (page tables, positions).
+  * `ef_to_torch` / `ef_to_arrays` — the int8 error-feedback residuals
+    of `training.dp_compressed` (a leading data-shard dim a leaf: the
+    reference's stacked leaf is ``[n, L, ...]``, the port's layer leaf
+    ``[n, ...]``), both ways (`ef_to_torch` after `arrays_to_state`).
   * `state_to_arrays` / `arrays_to_state` — the other way and back: a
     port tree (a train state, params, quantized params) as the
     reference's ``{path: numpy array}`` with its layers stacked (the
@@ -107,6 +111,24 @@ def paged_cache_to_torch(cache: dict, device=None) -> dict:
     """Reference paged cache ``{seg_i: {"kv_pool": {k, v[, ks, vs]}}}`` with
     ``[L, N, P, Hkv, hd]`` leaves → ``{seg_i: [{"kv_pool": ...}, ...]}``."""
     return _unstack_segments(tree_to_torch(cache, device))
+
+
+def ef_to_torch(arrays: dict, template: Any, device=None) -> Any:
+    """EF residuals in the reference's layout (``{path: [n, L, ...]}`` for
+    a stacked path, as `ef_to_arrays` writes them) → ``template``'s
+    structure (the port's per-layer ``[n, ...]`` leaves) on ``device``."""
+    stacked = {p for p, parts, _ in layer_parts(template) if parts is not None}
+    return arrays_to_state({p: np.moveaxis(np.asarray(a), 1, 0)
+                            if p in stacked else a
+                            for p, a in arrays.items()}, template, device)
+
+
+def ef_to_arrays(ef: Any) -> dict[str, np.ndarray]:
+    """The port's EF residuals → ``{reference path: array}`` in the
+    reference's layout (the shard dim first, then a path's layers)."""
+    stacked = {p for p, parts, _ in layer_parts(ef) if parts is not None}
+    return {p: np.moveaxis(a, 0, 1) if p in stacked else a
+            for p, a in state_to_arrays(ef).items()}
 
 
 def host_numpy(t: torch.Tensor) -> np.ndarray:

@@ -8,10 +8,14 @@ rename, so a crash mid-save never corrupts the restore point (tmp +
 rename + pointer). A checkpoint written by either package restores in the
 other leaf for leaf (`bridge.state_to_arrays` / `arrays_to_state`).
 
-The reference's elastic restore (``shardings``: device_put onto a target
-mesh) has no counterpart until meshes are ported: `restore` raises if it
-is given. The data pipeline being a pure function of (seed, step) makes
-the resume exact end to end.
+A state on a mesh (`distributed.sharding.MeshTrainState`) is saved as its
+logical arrays (`MeshTrainState.logical`: replica 0's params, the ZeRO-1
+moment slices joined), under the same paths: the file does not depend
+on the mesh. The elastic restore (``shardings=``, a
+`distributed.sharding.TrainSharding`) splits every leaf onto the target
+mesh's shards, whatever mesh wrote the file (the reference's device_put
+onto a target NamedSharding). The data pipeline being a pure function of
+(seed, step) makes the resume exact end to end.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.bridge import arrays_to_state, state_to_arrays
+from repro_torch.distributed.sharding import MeshTrainState
 
 _LATEST = "LATEST"
 
@@ -41,9 +46,16 @@ def _write(ckpt_dir: str, step: int, leaves: dict) -> str:
     return path
 
 
+def _arrays(state: Any) -> dict:
+    if isinstance(state, MeshTrainState):
+        state = state.logical()
+    return state_to_arrays(state)
+
+
 def save(ckpt_dir: str, step: int, state: Any) -> str:
-    """Atomic synchronous save. Returns the checkpoint file path."""
-    return _write(ckpt_dir, step, state_to_arrays(state))
+    """Atomic synchronous save (a mesh state as its logical arrays).
+    Returns the checkpoint file path."""
+    return _write(ckpt_dir, step, _arrays(state))
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -58,11 +70,12 @@ def restore(ckpt_dir: str, template: Any, step: int | None = None,
             device=None, shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure and dtypes of ``template`` (``meta``
     tensors, e.g. `train_state_shapes`, are enough) on ``device`` (cuda
-    unless the caller asks for another)."""
+    unless the caller asks for another). With ``shardings`` (a
+    `TrainSharding`; ``template`` a logical train state) the state is
+    split onto its mesh (a `MeshTrainState`; ``device`` is then the
+    mesh's first)."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) needs meshes, which the port does not "
-            "have yet (ROADMAP Queue 1, item 4)")
+        device = shardings.mesh.devices.flat[0]
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -70,6 +83,8 @@ def restore(ckpt_dir: str, template: Any, step: int | None = None,
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     with np.load(path) as blob:
         state = arrays_to_state(blob, template, device)
+    if shardings is not None:
+        state = shardings.place(state)
     return state, step
 
 
@@ -110,7 +125,7 @@ class AsyncCheckpointer:
             os.remove(os.path.join(self.ckpt_dir, f))
 
     def save(self, step: int, state: Any) -> None:
-        self._q.put((int(step), state_to_arrays(state)))
+        self._q.put((int(step), _arrays(state)))
 
     def wait(self) -> None:
         self._q.join()

@@ -201,7 +201,8 @@ def qlinear_experts_apply(p: PackedLinear, x: torch.Tensor,
     cfg = cfg if cfg is not None else _EXEC
     impl = _resolve_impl(impl or cfg.impl, x)
     e, c, k = x.shape
-    if impl == "kernel" and 2.0 * e * c * k * p.n < cfg.offload_min_flops:
+    if impl == "kernel" and 2.0 * e * c * k * p.n * p.shards \
+            < cfg.offload_min_flops:
         impl = "ref"
     if impl == "kernel":
         COUNTS.kernel += 1
@@ -222,7 +223,7 @@ def qgateup_experts_apply(gate: PackedLinear, up: PackedLinear,
     cfg = cfg if cfg is not None else _EXEC
     impl = _resolve_impl(impl or cfg.impl, x)
     e, c, k = x.shape
-    if impl == "kernel" and 2.0 * e * c * k * 2 * gate.n \
+    if impl == "kernel" and 2.0 * e * c * k * 2 * gate.n * gate.shards \
             < cfg.offload_min_flops:
         impl = "ref"
     if impl == "kernel":

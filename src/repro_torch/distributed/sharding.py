@@ -1,5 +1,6 @@
-"""Tensor-parallel serving: a ``model`` mesh over torch devices, the
-sharding rules, and the explicit collectives between shards.
+"""Meshes over torch devices, the sharding rules, and the explicit
+collectives between shards: tensor-parallel serving over ``model``, and
+training over ``(data, model)``.
 
 The reference serves a tensor-parallel model from ONE controller (one
 scheduler, one host pager, page tables replicated) and lets GSPMD place
@@ -25,8 +26,15 @@ The rules are the reference's (`distributed/sharding.py`), copied leaf
 for leaf, and return the same specs: a tuple with ``"model"`` at the
 split dim and None elsewhere, right-aligned like a PartitionSpec, so a
 stacked reference leaf's spec is the port's per-layer leaf's with a
-leading None. A MoE layer's experts have no rule here: the engine
-refuses MoE under a mesh first (ROADMAP, Queue 1).
+leading None.
+
+Training adds the batch axes (`batch_axes`: ``pod``, ``data``): each data
+replica holds its own copy of the params (its ``model`` stripes,
+`replica_params`) and runs its slice of the batch (`split_batch`), and
+the optimizer's moments are cut once more over ``data`` (`zero1_pspec`,
+`TrainSharding`). Everything stays under one controller, as in the
+reference: a multi-process run (``torch.distributed``) needs more than
+one card and is not part of the port.
 """
 from __future__ import annotations
 
@@ -38,13 +46,14 @@ import torch
 
 from repro_torch.core.packing import PACK, PackedLinear
 from repro_torch.core.quantize import QuantConfig
+from repro_torch.utils.tree import map_tree, map_with_path
 
 
 class Mesh:
-    """Devices on a grid with named axes, as far as serving reads a mesh:
-    ``axis_names``, ``shape`` (axis name → size) and ``devices`` (an
-    object array of `torch.device`, one dim per axis). Several shards may
-    share a device (the card phase co-locates two on ``cuda:0``)."""
+    """Devices on a grid with named axes: ``axis_names``, ``shape`` (axis
+    name → size) and ``devices`` (an object array of `torch.device`, one
+    dim per axis). Several shards may share a device (the card phases
+    co-locate two or four on ``cuda:0``)."""
 
     def __init__(self, devices, axis_names):
         arr = np.empty(np.shape(np.asarray(devices, dtype=object)),
@@ -73,6 +82,30 @@ def model_devices(mesh: Mesh) -> list[torch.device]:
     idx = tuple(slice(None) if i == ax else 0
                 for i in range(len(mesh.axis_names)))
     return list(mesh.devices[idx])
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Mesh axes that jointly carry the batch (DP) dimension."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: Mesh) -> int:
+    """The number of data replicas: the product of the batch axes."""
+    return int(np.prod([mesh.shape[a] for a in batch_axes(mesh)]))
+
+
+def replica_meshes(mesh: Mesh) -> list[Mesh]:
+    """One ``('model',)`` mesh a data replica, replicas in the batch axes'
+    order (``pod`` major): replica r holds batch slice r."""
+    names = list(mesh.axis_names)
+    dev = mesh.devices
+    if "model" not in names:
+        dev, names = dev[..., None], names + ["model"]
+    order = [names.index(a) for a in names if a != "model"] \
+        + [names.index("model")]
+    grid = np.transpose(dev, order).reshape(-1, dev.shape[names.index(
+        "model")])
+    return [Mesh(list(row), ("model",)) for row in grid]
 
 
 def serving_mesh(model: int | None = None, devices=None) -> Mesh:
@@ -149,6 +182,24 @@ def param_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
         return _pad(shape, [None, "model" if shape[-1] % msize == 0
                             else None])
 
+    if parent == "experts" or (len(parts) >= 3 and parts[-3] == "experts"):
+        # experts/<gate|up|down>/w with shape [..., E, K, N]
+        name = parent if leafname == "w" else parts[-2]
+        if leafname in ("w", "qweight", "scales", "zeros"):
+            if name in ("gate", "up"):
+                ax = "model" if shape[-1] % msize == 0 else None
+                return _pad(shape, [None, None, ax])
+            if name == "down":
+                if leafname == "w":   # float (training): row-parallel on F
+                    ax = "model" if shape[-2] % msize == 0 else None
+                    return _pad(shape, [None, ax, None])
+                # packed (serving): an F-split would cut quant groups, so
+                # the output dim D splits instead
+                ax = "model" if shape[-1] % msize == 0 else None
+                return _pad(shape, [None, None, ax])
+        # input_scale stays whole: it scales the gathered input
+        return (None,) * len(shape)
+
     if leafname in ("w", "qweight", "scales", "zeros") and len(shape) >= 2:
         k_ax, n_ax = _linear_axes(parent, shape[-2], shape[-1], mesh, cfg)
         if leafname != "w" and k_ax is not None:
@@ -175,6 +226,21 @@ def param_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
     return (None,) * len(shape)  # norms, scalars, ...
 
 
+def zero1_pspec(pspec: tuple, shape: tuple, mesh: Mesh) -> tuple:
+    """ZeRO-1: an optimizer moment's spec, cut once more over ``data``:
+    its first dim that the param's spec leaves whole and ``|data|``
+    divides takes ``"data"`` (the reference's rule)."""
+    dsize = mesh.shape.get("data", 1)
+    if dsize == 1:
+        return tuple(pspec)
+    spec = list(pspec) + [None] * (len(shape) - len(pspec))
+    for i, (ax, dim) in enumerate(zip(spec, shape)):
+        if ax is None and dim % dsize == 0 and dim >= dsize:
+            spec[i] = "data"
+            return tuple(spec)
+    return tuple(spec)
+
+
 def paged_cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
     """Spec of a serving page-pool leaf: codes ``[N, P, Hkv, hd]`` and
     scale strips ``[N, P, Hkv]`` stripe over KV heads; page ids index the
@@ -191,9 +257,9 @@ def paged_cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
     return (None,) * len(shape)
 
 
-def split_dim(spec: tuple) -> int | None:
-    """The (negative) dim a spec splits over ``model``, or None."""
-    return (spec.index("model") - len(spec)) if "model" in spec else None
+def split_dim(spec: tuple, axis: str = "model") -> int | None:
+    """The (negative) dim a spec splits over ``axis``, or None."""
+    return (spec.index(axis) - len(spec)) if axis in spec else None
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +267,18 @@ def split_dim(spec: tuple) -> int | None:
 # ---------------------------------------------------------------------------
 
 def _shard_leaf(t: torch.Tensor, dim: int | None,
-                devices: list[torch.device]) -> list[torch.Tensor]:
+                devices: list[torch.device], copy: bool = False
+                ) -> list[torch.Tensor]:
     """One piece a shard: a fresh contiguous allocation for a split leaf
     (zeros for a ``meta`` leaf: a pool laid out without storage), the
-    leaf itself (moved) for a replicated one."""
+    leaf itself (moved; with ``copy``, a copy of its own) for a
+    replicated one."""
     n = len(devices)
     if dim is None:
         if t.device.type == "meta":
             return [torch.zeros(t.shape, dtype=t.dtype, device=d)
                     for d in devices]
-        return [t.to(d) for d in devices]
+        return [t.to(d, copy=copy) for d in devices]
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                          f"into {n}")
@@ -225,18 +293,21 @@ def _shard_leaf(t: torch.Tensor, dim: int | None,
     return out
 
 
-def shard_tree(tree: Any, mesh: Mesh, rule, cfg=None) -> list:
+def shard_tree(tree: Any, mesh: Mesh, rule, cfg=None,
+               copy: bool = False) -> list:
     """One tree a shard of the ``model`` axis: every tensor leaf placed by
     ``rule(path, leaf, mesh, cfg)`` (`param_pspec` or
     `paged_cache_pspec`); dicts, lists and `PackedLinear`s keep their
-    structure (a split `PackedLinear` records ``shards = n``)."""
+    structure (a split `PackedLinear` records ``shards = n``). With
+    ``copy`` every shard's leaf has storage of its own (training updates
+    each replica's leaves; serving shares a replicated leaf)."""
     devices = model_devices(mesh)
     n = len(devices)
 
     def walk(node, path):
         if isinstance(node, torch.Tensor):
             return _shard_leaf(node, split_dim(rule(path, node, mesh, cfg)),
-                               devices)
+                               devices, copy)
         if isinstance(node, dict):
             kids = {k: walk(v, f"{path}/{k}" if path else k)
                     for k, v in node.items()}
@@ -258,13 +329,14 @@ def shard_tree(tree: Any, mesh: Mesh, rule, cfg=None) -> list:
     return walk(tree, "")
 
 
-def shard_params(params: dict, mesh: Mesh, cfg=None) -> list[dict]:
-    """`shard_tree` of a served params tree under `param_pspec`, made
-    runnable shard by shard: where a `PackedLinear`'s words split over N
-    but the rule leaves its ``scales`` / ``zeros`` / ``bias`` whole (a
-    K/GS or bias it does not cut, as in the reference, whose GSPMD
-    slices them in place), each shard keeps its own columns of them."""
-    shards = shard_tree(params, mesh, param_pspec, cfg)
+def shard_params(params: dict, mesh: Mesh, cfg=None,
+                 copy: bool = False) -> list[dict]:
+    """`shard_tree` of a params tree under `param_pspec`, made runnable
+    shard by shard: where a `PackedLinear`'s words split over N but the
+    rule leaves its ``scales`` / ``zeros`` / ``bias`` whole (a K/GS or
+    bias it does not cut, as in the reference, whose GSPMD slices them in
+    place), each shard keeps its own columns of them."""
+    shards = shard_tree(params, mesh, param_pspec, cfg, copy)
 
     def fix(nodes):
         first = nodes[0]
@@ -283,6 +355,142 @@ def shard_params(params: dict, mesh: Mesh, cfg=None) -> list[dict]:
 
     fix(shards)
     return shards
+
+
+def replica_params(params: dict, mesh: Mesh, cfg=None) -> list[list]:
+    """A ``(data, model)`` mesh's params: one list of ``model``-shard
+    trees (`shard_params`) a data replica (`replica_meshes`), every leaf
+    of every shard its own allocation, so a replica's in-place change
+    never reaches another's."""
+    return [shard_params(params, rm, cfg, copy=True)
+            for rm in replica_meshes(mesh)]
+
+
+def split_batch(batch: dict, mesh: Mesh) -> list[dict]:
+    """A batch cut over the batch axes: replica r's rows ``[r·B/n,
+    (r+1)·B/n)`` of every leaf, on that replica's first device (the
+    reference's grouped dispatch takes the same contiguous groups). B
+    must divide."""
+    n = dp_size(mesh)
+    rms = replica_meshes(mesh)
+    out = [{} for _ in rms]
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split over {n} data replicas")
+        size = v.shape[0] // n
+        for r, rm in enumerate(rms):
+            out[r][k] = v[r * size:(r + 1) * size].to(rm.devices[0])
+    return out
+
+
+def narrow_piece(t: torch.Tensor, dim: int | None, i: int,
+                 n: int) -> torch.Tensor:
+    """Piece i of n of ``t`` along ``dim`` (a contiguous copy), or ``t``."""
+    if dim is None:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size).contiguous()
+
+
+def join_pieces(parts: list, dim: int | None, device) -> torch.Tensor:
+    """The pieces joined along ``dim`` in order on ``device`` (the first
+    piece, moved, when ``dim`` is None)."""
+    if dim is None:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+class MeshTrainState(dict):
+    """A train state on a mesh: ``params`` (`replica_params`: a list a
+    data replica of its ``model`` shards' trees), ``opt`` ``{"m", "v"}``
+    of the same layout whose leaves are ZeRO-1 slices (`zero1_pspec`:
+    replica r holds slice ``r mod |data|`` of its stripe's moments), and
+    ``step``. ``sharding`` (`TrainSharding`) and ``specs`` (each leaf's
+    ``(model dim, ZeRO-1 data dim)``, read on the logical leaves) map it
+    back to the logical state (`logical`), which is what a checkpoint
+    holds."""
+
+    def __init__(self, state: dict, sharding: "TrainSharding", specs):
+        super().__init__(state)
+        self.sharding, self.specs = sharding, specs
+
+    def logical(self) -> dict:
+        return self.sharding.gather(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSharding:
+    """Where a train state lives on a ``(data, model)`` (or ``(pod, data,
+    model)``) mesh: params split by `param_pspec` and copied to every
+    data replica, moments cut once more by `zero1_pspec`. The rules are
+    read on each layer's own leaf: where the reference's scan-stacked
+    leaf gives ``data`` to its layer dim, the port's layer leaf gives it
+    to its first free dim that divides (each replica still holds 1 /
+    |data| of every moment)."""
+    mesh: Mesh
+    cfg: Any = None
+
+    @property
+    def replicas(self) -> list[Mesh]:
+        return replica_meshes(self.mesh)
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape.get("data", 1)
+
+    def specs(self, params) -> Any:
+        """``(model dim, ZeRO-1 data dim)`` a leaf of the logical
+        ``params`` (each None or a negative dim), in their structure."""
+        def one(path, leaf):
+            spec = param_pspec(path, leaf, self.mesh, self.cfg)
+            z = zero1_pspec(spec, tuple(leaf.shape), self.mesh)
+            return (split_dim(spec), split_dim(z, "data"))
+        return map_with_path(one, params)
+
+    def place(self, state: dict) -> MeshTrainState:
+        """A logical train state (``params``, ``opt``, ``step``) on the
+        mesh."""
+        specs = self.specs(state["params"])
+        dn = self.data_size
+        opt = {}
+        for key in ("m", "v"):
+            opt[key] = []
+            for r, rm in enumerate(self.replicas):
+                stripes = shard_tree(state["opt"][key], rm, param_pspec,
+                                     self.cfg, copy=True)
+                opt[key].append([map_tree(
+                    lambda t, sp, _m=m: None if sp[0] is None and _m
+                    else narrow_piece(t, sp[1], r % dn, dn), st, specs)
+                    for m, st in enumerate(stripes)])
+        return MeshTrainState({
+            "params": replica_params(state["params"], self.mesh, self.cfg),
+            "opt": opt,
+            "step": state["step"].to(self.mesh.devices.flat[0], copy=True)},
+            self, specs)
+
+    def gather(self, state: dict) -> dict:
+        """The logical state of a `MeshTrainState` (replica 0's params; the
+        moments' slices and stripes joined), on the mesh's first
+        device."""
+        dev = self.mesh.devices.flat[0]
+        specs = state.specs
+        dn = self.data_size
+
+        def params_of(shards):
+            return map_tree(lambda sp, *ts: join_pieces(list(ts), sp[0], dev),
+                            specs, *shards)
+        opt = {}
+        for key in ("m", "v"):
+            grid = state["opt"][key]
+            stripes = [map_tree(lambda sp, *sl: None if sl[0] is None
+                                else join_pieces(list(sl), sp[1], dev),
+                                specs, *[grid[r][m] for r in range(dn)])
+                       for m in range(len(grid[0]))]
+            opt[key] = params_of(stripes)
+        return {"params": params_of(state["params"][0]), "opt": opt,
+                "step": state["step"].to(dev)}
 
 
 # ---------------------------------------------------------------------------

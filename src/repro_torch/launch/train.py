@@ -1,8 +1,11 @@
 """Training launcher: the train loop with fault tolerance (the reference's
-`launch/train.py` on one card).
+`launch/train.py`).
 
   * the train step (`training.make_train_step`: bf16 gradient casts,
     AdamW, per-block remat; attention's gradient through kernel K4b),
+    over a ``(data, model)`` mesh with ``--data-axis`` / ``--model-axis``
+    (`launch.mesh.make_host_mesh`; ZeRO-1 moments, the gradient reduced
+    over ``data`` in replica order; `distributed.sharding.TrainSharding`),
   * async atomic checkpointing in the reference's file format + exact
     resume (pure-function data pipeline),
   * node-failure recovery: any step exception waits for the saves in
@@ -15,8 +18,13 @@
 dense decoders, MoE (qwen2-moe-a2.7b; deepseek-v2-lite-16b with MLA),
 SSM (mamba2-130m), hybrid (hymba-1.5b), the audio encoder
 (hubert-xlarge: stub frames, codeword labels) and the VLM
-(phi-3-vision-4.2b: stub patches, labels over the text). Meshes are not
-ported: ``--data-axis`` / ``--model-axis`` above 1 raise. Returns
+(phi-3-vision-4.2b: stub patches, labels over the text). The data axis
+takes every family (the batch must divide); a model axis above 1 takes
+the attention decoders with dense or MoE MLPs (the others raise
+`NotImplementedError`, ROADMAP Queue 1, item 4). The mesh's shards lie on
+this machine's cards (``--device cuda``, one a shard), or all on one
+device: ``--device cpu`` or a card by index (``--device cuda:0``).
+Checkpoints hold the logical state, so a run resumes on any mesh. Returns
 ``{"first_loss", "last_loss", "steps"}`` as the reference's does, plus
 ``recoveries`` (failures recovered), ``losses`` and ``step_s`` (each
 completed step's loss and synchronized wall time, in order; a step
@@ -30,6 +38,8 @@ paths):
       --steps 100 --batch 8 --seq 512 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --arch hubert-xlarge --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --data-axis 2 --model-axis 2 --steps 4 --batch 4 --seq 32
 """
 from __future__ import annotations
 
@@ -43,6 +53,9 @@ from repro_torch import configs
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.data.pipeline import make_dataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import TrainSharding
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.blocks import tp_unsupported
 from repro_torch.models.model import Model
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step
 from repro_torch.training.train_step import (init_train_state,
@@ -69,24 +82,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch paths)")
     args = ap.parse_args(argv)
-    if args.data_axis > 1 or args.model_axis > 1:
-        raise NotImplementedError(
-            "--data-axis / --model-axis > 1 need meshes, which the port "
-            "does not have yet (ROADMAP Queue 1, item 4)")
     device = resolve_device(args.device)
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     model = Model(cfg)
+    sharding = None
+    if args.data_axis > 1 or args.model_axis > 1:
+        if args.model_axis > 1 and tp_unsupported(cfg):
+            raise NotImplementedError(tp_unsupported(cfg))
+        if args.batch % args.data_axis:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"--data-axis {args.data_axis}")
+        n = args.data_axis * args.model_axis
+        shared = device.type != "cuda" or device.index is not None
+        sharding = TrainSharding(make_host_mesh(
+            args.data_axis, args.model_axis,
+            devices=[device] * n if shared else None), cfg)
+        device = sharding.mesh.devices.flat[0]
     tcfg = TrainConfig(optimizer=AdamWConfig(
         lr=args.lr, warmup_steps=args.warmup, decay_steps=args.steps,
         weight_decay=0.0))
     ds = make_dataset(cfg, args.batch, args.seq, args.seed)
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg,
+                              mesh=sharding and sharding.mesh)
 
     def fresh_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        return init_train_state(model, gen, device=device)
+        state = init_train_state(model, gen, device=device)
+        return state if sharding is None else sharding.place(state)
 
     state = fresh_state()
     start = 0
@@ -95,7 +119,7 @@ def main(argv=None) -> dict:
         ckpt = AsyncCheckpointer(args.ckpt_dir)
         if latest_step(args.ckpt_dir) is not None:
             state, start = restore(args.ckpt_dir, train_state_shapes(model),
-                                   device=device)
+                                   device=device, shardings=sharding)
             print(f"[train] resumed from step {start}")
 
     losses, times = [], []
@@ -127,7 +151,7 @@ def main(argv=None) -> dict:
             else:
                 state = None              # free the device copy first
                 state, i = restore(args.ckpt_dir, train_state_shapes(model),
-                                   device=device)
+                                   device=device, shardings=sharding)
             continue
         dt = time.time() - t0
         times.append(dt)

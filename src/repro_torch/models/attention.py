@@ -28,7 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import model_devices
+from repro_torch.distributed.sharding import concat, model_devices
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
@@ -69,28 +69,31 @@ def _rot_dim(cfg) -> int:
     return rd - rd % 2
 
 
+def _heads(lin, norm_p, x, cfg, heads: int, positions, window, name=None):
+    """One projection's heads: ``linear`` → [..., heads, hd] → the
+    qk-norm (``norm_p``, None without) → RoPE on the rotated channels."""
+    t = linear(lin, x, name).reshape(*x.shape[:-1], heads, cfg.head_dim)
+    if norm_p is not None:
+        t = rmsnorm(norm_p, t, eps=cfg.norm_eps, plus_one=cfg.rms_plus_one)
+    rd = _rot_dim(cfg)
+    if rd:
+        cos, sin = rope_cos_sin(positions, rd, _rope_theta(cfg, window))
+        t = apply_rope(t, cos, sin, rd)
+    return t
+
+
 def _project_qkv(p, x, cfg, positions, window, name=None):
     """x [..., D] -> q [..., H, hd], k/v [..., Hkv, hd], rope'd + qk-norm'd.
     ``name`` (local → capture name, or None) labels the projections for
     calibration."""
     nm = (lambda s: None) if name is None else name
-    lead = x.shape[:-1]
-    q = linear(p["wq"], x, nm("wq")).reshape(*lead, cfg.num_heads,
-                                             cfg.head_dim)
-    k = linear(p["wk"], x, nm("wk")).reshape(*lead, cfg.num_kv_heads,
-                                             cfg.head_dim)
-    v = linear(p["wv"], x, nm("wv")).reshape(*lead, cfg.num_kv_heads,
-                                             cfg.head_dim)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, eps=cfg.norm_eps,
-                    plus_one=cfg.rms_plus_one)
-        k = rmsnorm(p["k_norm"], k, eps=cfg.norm_eps,
-                    plus_one=cfg.rms_plus_one)
-    rd = _rot_dim(cfg)
-    if rd:
-        cos, sin = rope_cos_sin(positions, rd, _rope_theta(cfg, window))
-        q = apply_rope(q, cos, sin, rd)
-        k = apply_rope(k, cos, sin, rd)
+    qn, kn = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+    q = _heads(p["wq"], qn, x, cfg, cfg.num_heads, positions, window,
+               nm("wq"))
+    k = _heads(p["wk"], kn, x, cfg, cfg.num_kv_heads, positions, window,
+               nm("wk"))
+    v = linear(p["wv"], x, nm("wv")).reshape(*x.shape[:-1],
+                                             cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -186,6 +189,63 @@ def attention(p, x, cfg, *, positions, window: int = 0,
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
     nm = (lambda s_: None) if name is None else name
     return linear(p["wo"], out, nm("wo"))
+
+
+def attention_tp(ps: list, x, cfg, *, devices: list, positions,
+                 window: int = 0, causal: bool = True) -> torch.Tensor:
+    """`attention` over a ``model`` mesh's shards (``ps``: one layer's
+    attention params a shard): shard s projects its q heads ``[s·H/n,
+    (s+1)·H/n)`` with its column of ``wq`` and runs K4 (K4b under grad)
+    over them and the kv heads they read — its own ``wk`` / ``wv``
+    column where the rule splits them, else a slice of the kv heads
+    projected once on the first shard (a replicated leaf is read on the
+    first shard only, so only that copy takes a gradient); ``wo``
+    (row-parallel) sums the shards' partials (`layers.linear_tp`). With
+    ``wq`` whole (heads that do not divide) the attention runs on the
+    first shard. x [B, S, D] replicated → y [B, S, D] replicated."""
+    n = len(devices)
+    b, s, _ = x.shape
+    p0 = ps[0]
+    scale = cfg.head_dim ** -0.5
+    qn, kn = (p0["q_norm"], p0["k_norm"]) if cfg.qk_norm else (None, None)
+
+    def k4_run(q, k, v):
+        out = k4.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), scale=scale,
+                                 causal=causal, window=window)
+        return out.transpose(1, 2).reshape(b, s, -1)
+
+    if layers._kn(p0["wq"])[1] == cfg.q_dim:
+        outs = k4_run(*_project_qkv(p0, x, cfg, positions, window))
+    else:
+        hs, g = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
+        kv_split = layers._kn(p0["wk"])[1] < cfg.kv_dim
+        if not kv_split and hs % g and g % hs:
+            raise NotImplementedError(
+                f"{cfg.name}: {hs} q heads a shard cut a group of {g} "
+                f"(ROADMAP Queue 1, item 4)")
+        if not kv_split:
+            k = _heads(p0["wk"], kn, x, cfg, cfg.num_kv_heads, positions,
+                       window)
+            v = linear(p0["wv"], x).reshape(b, s, cfg.num_kv_heads,
+                                            cfg.head_dim)
+        outs = []
+        for sh, (p, d) in enumerate(zip(ps, devices)):
+            xd = x.to(d)
+            q = _heads(p["wq"], qn, xd, cfg, hs, positions.to(d), window)
+            if kv_split:
+                hk = cfg.num_kv_heads // n
+                ks = _heads(p["wk"], kn, xd, cfg, hk, positions.to(d),
+                            window)
+                vs = linear(p["wv"], xd).reshape(b, s, hk, cfg.head_dim)
+            else:
+                lo = sh * hs // g
+                hi = ((sh + 1) * hs - 1) // g + 1
+                ks, vs = k[:, :, lo:hi].to(d), v[:, :, lo:hi].to(d)
+            outs.append(k4_run(q, ks, vs))
+    y = layers.linear_tp([p["wo"] for p in ps], outs, devices, cfg.q_dim,
+                         cfg.d_model)
+    return concat(y, -1, devices) if isinstance(y, list) else y
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ from repro_torch.models import layers
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import activation, linear, linear_tp, norm
+from repro_torch.models.layers import activation, linear, norm
 
 
 def mlp_init(gen, cfg, dtype=torch.float32, device=None):
@@ -248,54 +248,64 @@ def block_apply(p, x, cfg, kind: LayerKind, *, mode: str, positions=None,
 # Tensor parallelism (the serving engine under a ``model`` mesh)
 # ---------------------------------------------------------------------------
 
-def _mlp_apply_tp(mps: list, x, cfg, kind: LayerKind, devices: list):
-    """The dense MLP over the shards: ``gate`` / ``up`` column-parallel
-    (each shard its d_ff slice: K3 on the local N where the pair is
-    fusable), the activation per shard, ``down`` row-parallel (or flipped,
-    `layers.linear_tp`). Replicated x in and out."""
-    d, f = cfg.d_model, cfg.d_ff
-    if kind.mlp == "glu" and _fused_gateup(mps[0], cfg) \
-            and mps[0]["gate"].n < f:
-        h = [qgateup_apply(mp["gate"], mp["up"], x.to(dv))
-             for mp, dv in zip(mps, devices)]
-    elif kind.mlp == "glu" and _fused_gateup(mps[0], cfg):
-        h = qgateup_apply(mps[0]["gate"], mps[0]["up"], x)
-    else:
-        up = linear_tp([mp["up"] for mp in mps], x, devices, d, f)
-        if kind.mlp == "glu":
-            gate = linear_tp([mp["gate"] for mp in mps], x, devices, d, f)
-            h = ([activation(cfg.act, g) * u for g, u in zip(gate, up)]
-                 if isinstance(up, list) else activation(cfg.act, gate) * up)
-        else:
-            h = ([activation(cfg.act, u) for u in up]
-                 if isinstance(up, list) else activation(cfg.act, up))
-    return linear_tp([mp["down"] for mp in mps], h, devices, f, d)
+def _mlp_apply_tp(ps: list, x, cfg, kind: LayerKind, devices: list):
+    """The block's MLP over the shards → (y, the MoE router's aux loss or
+    None): a dense MLP through `layers.mlp_tp`, a MoE layer through
+    `moe.moe_apply_tp`. Replicated x in and out."""
+    if kind.mlp == "moe":
+        return moe_mod.moe_apply_tp([p["moe"] for p in ps], x, cfg, devices)
+    return layers.mlp_tp([p["mlp"] for p in ps], x, cfg.act, devices,
+                         cfg.d_model, cfg.d_ff, glu=kind.mlp == "glu"), None
+
+
+def tp_unsupported(cfg) -> str | None:
+    """Why ``cfg`` cannot run split over a ``model`` axis above 1, or None:
+    only attention layers (global or windowed) with a dense or MoE MLP
+    and no frontend are ported (ROADMAP Queue 1, item 4)."""
+    kinds = {k.mixer for k, _ in cfg.segments()}
+    if kinds != {"attn"} or cfg.frontend != "none" or cfg.is_encoder:
+        return (f"{cfg.name}: tensor parallelism over a 'model' axis above "
+                f"1 is ported for attention decoders with dense or MoE MLPs "
+                f"only; mixers {sorted(kinds)}, frontend {cfg.frontend!r} "
+                f"(ROADMAP Queue 1, item 4)")
+    return None
 
 
 def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
-                   caches: list, page_table, rpos=None, amask=None):
-    """`block_apply` in chunk mode under a ``model`` mesh: ``ps`` and
-    ``caches`` hold one block's params and pool a shard. The norms are
-    replicated (computed once); the mixer runs per shard and its ``wo``
-    partials are summed; the MLP runs per shard and its ``down`` partials
-    are summed. Returns the replicated x; the pools update in place.
-    Only a dense attention block (``attn`` mixer, ``glu`` or ``plain``
-    MLP) takes this path."""
-    if kind.mixer != "attn" or "kv_pool" not in caches[0]:
+                   mode: str = "chunk", caches: list | None = None,
+                   page_table=None, rpos=None, amask=None):
+    """`block_apply` under a ``model`` mesh: ``ps`` (and, in chunk mode,
+    ``caches``) hold one block's params (pool) a shard. The norms are
+    replicated (computed once, on the first shard's copy); the attention
+    runs per shard on its heads and its ``wo`` partials are summed; the
+    MLP runs per shard (`_mlp_apply_tp`). ``mode="chunk"``: the serving
+    step over the paged pools (updated in place); ``"train"``: the
+    full-sequence forward (train, `Model.forward_logits`), through K4
+    and, under grad, K4b on each shard's heads. Returns (the replicated
+    x, the MoE aux loss or None). Only attention blocks take this path."""
+    if mode == "chunk" and (kind.mixer != "attn"
+                            or "kv_pool" not in caches[0]):
         raise ValueError(
             f"chunked execution needs a pure paged-attention cache; "
             f"{kind.tag!r} keeps per-slot sequential state: serve it "
             f"through the one-shot prefill path")
-    if kind.mlp not in ("glu", "plain"):
-        raise NotImplementedError(
-            f"a {kind.mlp!r} MLP under a mesh is not ported (ROADMAP, "
-            f"Queue 1: MoE under a mesh)")
+    if kind.mixer != "attn":
+        raise NotImplementedError(tp_unsupported(cfg))
     devices = model_devices(mesh)
     h = norm(ps[0]["pre_norm"], x, cfg)
-    y, _ = attn_mod.attention_chunk_paged_tp(
-        [p["attn"] for p in ps], [c["kv_pool"] for c in caches], page_table,
-        h, cfg, mesh=mesh, pos=positions, rpos=rpos, amask=amask,
-        window=kind.window)
+    if mode == "chunk":
+        y, _ = attn_mod.attention_chunk_paged_tp(
+            [p["attn"] for p in ps], [c["kv_pool"] for c in caches],
+            page_table, h, cfg, mesh=mesh, pos=positions, rpos=rpos,
+            amask=amask, window=kind.window)
+    else:
+        y = attn_mod.attention_tp([p["attn"] for p in ps], h, cfg,
+                                  devices=devices, positions=positions,
+                                  window=kind.window,
+                                  causal=not cfg.is_encoder)
     x = x + y
+    if kind.mlp == "none":
+        return x, None
     h2 = norm(ps[0]["mlp_norm"], x, cfg)
-    return x + _mlp_apply_tp([p["mlp"] for p in ps], h2, cfg, kind, devices)
+    y2, aux = _mlp_apply_tp(ps, h2, cfg, kind, devices)
+    return x + y2, aux

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import calibration
 from repro_torch.core.packing import PackedLinear
-from repro_torch.core.qlinear import (qlinear_apply, qlinear_partial,
+from repro_torch.core.qlinear import (fusable_gateup, qgateup_apply,
+                                      qlinear_apply, qlinear_partial,
                                       qlinear_prescale)
 from repro_torch.distributed.sharding import all_sum, concat, split
 from repro_torch.numerics import matmul_f32_rows, matmul_wide_rows
@@ -103,14 +104,19 @@ def linear_tp(ps: list, x, devices: list, k: int, n: int):
         cut), partial products summed in shard order, rounded once to
         ``x``'s dtype, the bias added once: a replicated output;
       * a packed row-parallel linear flipped to N (a K-shard would split
-        quant groups): its input arrives split over K, so each shard
-        scales its own slice (`qlinear_prescale`), the slices are joined,
+        quant groups): its input scale stays split over K, so each shard
+        scales its own slice of the input (`qlinear_prescale`; a
+        replicated input is cut first), the slices are joined,
         every shard computes its N columns of the whole input, and the
         columns are joined: a replicated output;
       * replicated: one call on the whole input.
     """
     pk, pn = _kn(ps[0])
     split_in = isinstance(x, list)
+    flipped = isinstance(ps[0], PackedLinear) and pn < n \
+        and ps[0].input_scale is not None and ps[0].input_scale.shape[-1] < k
+    if flipped and not split_in:
+        x, split_in = split(x, -1, devices), True
     if pn < n and split_in:
         dt = x[0].dtype
         scaled = concat([qlinear_prescale(p, xi) for p, xi in zip(ps, x)],
@@ -133,6 +139,32 @@ def linear_tp(ps: list, x, devices: list, k: int, n: int):
     if split_in:
         x = concat(x, -1, devices)
     return linear(ps[0], x)
+
+
+def mlp_tp(mps: list, x, act: str, devices: list, d: int, f: int,
+           glu: bool = True):
+    """A dense MLP (a block's, or a MoE layer's shared experts) over the
+    shards: ``gate`` / ``up`` column-parallel (each shard its d_ff slice:
+    K3 on the local N where the pair is fusable), the activation per
+    shard, ``down`` row-parallel (or flipped, `linear_tp`). Replicated x
+    in and out."""
+    fused = glu and fusable_gateup(mps[0]["gate"], mps[0]["up"], act)
+    if fused and mps[0]["gate"].n < f:
+        h = [qgateup_apply(mp["gate"], mp["up"], x.to(dv))
+             for mp, dv in zip(mps, devices)]
+    elif fused:
+        h = qgateup_apply(mps[0]["gate"], mps[0]["up"], x)
+    else:
+        up = linear_tp([mp["up"] for mp in mps], x, devices, d, f)
+        if glu:
+            gate = linear_tp([mp["gate"] for mp in mps], x, devices, d, f)
+            h = ([activation(act, g) * u for g, u in zip(gate, up)]
+                 if isinstance(up, list) else activation(act, gate) * up)
+        else:
+            h = ([activation(act, u) for u in up]
+                 if isinstance(up, list) else activation(act, up))
+    y = linear_tp([mp["down"] for mp in mps], h, devices, f, d)
+    return concat(y, -1, devices) if isinstance(y, list) else y
 
 
 def embed_lookup_tp(tables: list, tokens: torch.Tensor, devices: list,

@@ -26,17 +26,29 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
+
 from repro_torch.distributed.sharding import (all_sum, concat, model_devices,
-                                              paged_cache_pspec, shard_tree,
-                                              split)
+                                              paged_cache_pspec,
+                                              replica_meshes, shard_tree,
+                                              split, split_batch)
 from repro_torch.models import blocks, layers, stack
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_lookup, embed_lookup_tp, linear,
                                        linear_tp, norm)
 from repro_torch.numerics import free_rows, matmul_f32_rows, matmul_wide_rows
 from repro_torch.utils.tree import layer_parts
+
+
+def _remat_block_tp(ps, x, cfg, kind, mesh, positions):
+    """One sharded train-mode block as the backward recomputes it (inside
+    `numerics.free_rows`, as `stack._remat_block`)."""
+    with free_rows():
+        return blocks.block_apply_tp(ps, x, cfg, kind, mesh=mesh,
+                                     positions=positions, mode="train")[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +137,8 @@ class Model:
         (tied or untied) head, logits joined in shard order. The products
         sum over d, which no shard splits, so each slice's bits are the
         unsharded head's; a table split over d instead sums the shards'
-        partial products, rounded once."""
+        partial products, rounded once. Differentiable (the train step's
+        head under a mesh)."""
         cfg = self.cfg
         if not cfg.tie_embeddings:
             y = linear_tp([p["lm_head"] for p in params], x.to(torch.float32),
@@ -143,7 +156,91 @@ class Model:
         return matmul_f32_rows(x, tables[0].t())
 
     # ----------------------------------------------------------------- loss
-    def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def _replica_forward(self, ps: list, batch: dict, rmesh):
+        """One data replica's full-sequence forward over its ``model``
+        shards ``ps`` → (x after the final norm, labels, the head: a
+        function of x's positions to their f32 logits). One shard runs
+        the unsharded stack (every family); more run `blocks.
+        block_apply_tp` layer by layer (attention decoders; remat
+        checkpoints each block as `stack_apply` does)."""
+        cfg = self.cfg
+        devices = model_devices(rmesh)
+        if len(devices) == 1:
+            x, positions, labels = self._embed(ps[0], batch)
+            x, _, _ = stack.stack_apply(ps[0]["segments"], x, cfg,
+                                        mode="train", positions=positions)
+            return (norm(ps[0]["final_norm"], x, cfg), labels,
+                    lambda xc: self._head_logits(ps[0], xc))
+        why = blocks.tp_unsupported(cfg)
+        if why:
+            raise NotImplementedError(why)
+        adt = torch_dtype(cfg.activation_dtype)
+        tokens = batch["tokens"]
+        x = embed_lookup_tp([p["embed"]["table"] for p in ps], tokens,
+                            devices, cfg.vocab_size, cfg.d_model,
+                            scale=cfg.scale_embed).to(adt)
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        remat = cfg.remat and torch.is_grad_enabled()
+        with free_rows():
+            for si, (kind, n) in enumerate(cfg.segments()):
+                seg = stack.seg_name(si)
+                for i in range(n):
+                    lps = [p["segments"][seg][i] for p in ps]
+                    if remat:
+                        x = checkpoint(_remat_block_tp, lps, x, cfg, kind,
+                                       rmesh, positions, use_reentrant=False)
+                    else:
+                        x, _ = blocks.block_apply_tp(
+                            lps, x, cfg, kind, mesh=rmesh,
+                            positions=positions, mode="train")
+        return (norm(ps[0]["final_norm"], x, cfg), batch.get("labels"),
+                lambda xc: self._head_logits_tp(ps, xc, devices))
+
+    def _loss_mesh(self, params: list, batch: dict, mesh):
+        """`loss` over a mesh: replica r runs batch slice r
+        (`split_batch`); the loss is the reference's over the whole
+        batch, Σ tot / Σ cnt (summed in replica order) plus each MoE
+        layer's aux over all replicas' tokens (`moe.global_aux`)."""
+        cfg = self.cfg
+        rms = replica_meshes(mesh)
+        dev = rms[0].devices[0]
+        tot = torch.zeros((), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((), dtype=torch.float32, device=dev)
+        with moe_mod.route_log() as routes:
+            for ps, b, rm in zip(params, split_batch(batch, mesh), rms):
+                x, labels, head = self._replica_forward(ps, b, rm)
+                t, c = self._ce_sums(head, x, labels)
+                tot, cnt = tot + t.to(dev), cnt + c.to(dev)
+        ce = tot / torch.clamp(cnt, min=1.0)
+        aux = (moe_mod.global_aux(routes, len(rms), cfg).to(dev) if routes
+               else torch.zeros((), dtype=torch.float32, device=dev))
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+    def _ce_sums(self, head, x, labels):
+        """(Σ token losses, Σ valid tokens) in f32, the logits formed
+        ``logits_chunk`` positions at a time (`numerics.free_rows`)."""
+        labels = torch.as_tensor(labels, device=x.device).long()
+        s = x.shape[1]
+        chunk = min(self.cfg.logits_chunk, s)
+        if s % chunk:
+            chunk = s
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            with free_rows():
+                logits = head(x[:, c0:c0 + chunk])
+            li = labels[:, c0:c0 + chunk]
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]
+            valid = (li >= 0).to(torch.float32)
+            tot = tot + ((logz - ll) * valid).sum()
+            cnt = cnt + valid.sum()
+        return tot, cnt
+
+    def loss(self, params, batch: dict, mesh=None
+             ) -> tuple[torch.Tensor, dict]:
         """Chunked-vocab causal-LM loss: tokens / labels ``[B, S]``
         (hubert: features and codeword labels; phi3-v: labels over the
         text, padded over the image span by `_embed`), labels < 0
@@ -152,30 +249,22 @@ class Model:
         train step calls ``backward()`` on it, and the attention of every
         layer runs K4 forward and K4b backward on the card. The head runs
         inside `numerics.free_rows` (one product a chunk): a training
-        forward's rows are never held against serving rows."""
+        forward's rows are never held against serving rows.
+
+        Under a ``mesh`` (``(data, model)``, or ``model`` alone),
+        ``params`` is one list of ``model``-shard trees a data replica
+        (`distributed.sharding.replica_params`); see `_loss_mesh`."""
         cfg = self.cfg
         if batch.get("labels") is None:
             raise ValueError("training batch needs labels")
+        if mesh is not None:
+            return self._loss_mesh(params, batch, mesh)
         x, positions, labels = self._embed(params, batch)
         x, _, aux = stack.stack_apply(params["segments"], x, cfg,
                                       mode="train", positions=positions)
         x = norm(params["final_norm"], x, cfg)
-        labels = torch.as_tensor(labels, device=x.device).long()
-        s = x.shape[1]
-        chunk = min(cfg.logits_chunk, s)
-        if s % chunk:
-            chunk = s
-        tot = torch.zeros((), dtype=torch.float32, device=x.device)
-        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c0 in range(0, s, chunk):
-            with free_rows():
-                logits = self._head_logits(params, x[:, c0:c0 + chunk])
-            li = labels[:, c0:c0 + chunk]
-            logz = torch.logsumexp(logits, dim=-1)
-            ll = torch.gather(logits, -1, li.clamp_min(0)[..., None])[..., 0]
-            valid = (li >= 0).to(torch.float32)
-            tot = tot + ((logz - ll) * valid).sum()
-            cnt = cnt + valid.sum()
+        tot, cnt = self._ce_sums(lambda xc: self._head_logits(params, xc),
+                                 x, labels)
         ce = tot / torch.clamp(cnt, min=1.0)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -303,7 +392,7 @@ class Model:
                 for si, (kind, n) in enumerate(cfg.segments()):
                     seg = stack.seg_name(si)
                     for i in range(n):
-                        x = blocks.block_apply_tp(
+                        x, _ = blocks.block_apply_tp(
                             [p["segments"][seg][i] for p in params], x, cfg,
                             kind, mesh=mesh, positions=pos,
                             caches=[c[seg][i] for c in cache],
@@ -318,11 +407,22 @@ class Model:
                   else self._head_logits_tp(params, x, model_devices(mesh)))
         return (logits[:, 0] if num_logits == 1 else logits), cache
 
-    def forward_logits(self, params, batch: dict) -> torch.Tensor:
+    def forward_logits(self, params, batch: dict, mesh=None) -> torch.Tensor:
         """Full logits [B, S, V] (small models / eval only; an encoder's
         serving output). The head is one product, as in an encoder's
-        `prefill` (`numerics.free_rows`), so the two give the same bits."""
+        `prefill` (`numerics.free_rows`), so the two give the same bits.
+        Under a ``mesh``, ``params`` as `loss` takes them: each replica's
+        logits (its batch slice; the head column-parallel over the vocab)
+        joined in replica order on the first device."""
         cfg = self.cfg
+        if mesh is not None:
+            rms = replica_meshes(mesh)
+            outs = []
+            for ps, b, rm in zip(params, split_batch(batch, mesh), rms):
+                x, _, head = self._replica_forward(ps, b, rm)
+                with free_rows():
+                    outs.append(head(x))
+            return torch.cat([o.to(rms[0].devices[0]) for o in outs])
         x, positions, _ = self._embed(params, batch)
         x, _, _ = stack.stack_apply(params["segments"], x, cfg,
                                     mode="train", positions=positions)

@@ -20,11 +20,24 @@ keeps a row's bits independent of the row count
 sum a row the same way at any M, and the combine is elementwise. So a
 serving row's output does not depend on how many rows share its step.
 
-The reference's mesh branches (the manual dispatch under ``shard_map``)
-are not ported: meshes raise where the engine's mesh argument raises.
+Under a mesh (`moe_apply_tp`, one controller, the reference's three
+regimes): the router runs once (replicated, the first shard's copy);
+packed experts run per shard as the reference's ``body_q`` — K3 on each
+shard's F stripe of ``gate`` / ``up``, ``h`` gathered over F in shard
+order, K1 on each shard's D stripe of ``down``, ``y`` gathered over D;
+float experts as its ``body`` — ``gate`` / ``up`` on F stripes, ``down``
+row-parallel on F, the partials summed in shard order and rounded once;
+the shared experts through `layers.mlp_tp`. A ``data`` axis groups
+the dispatch: each data replica routes its own tokens (the batch is cut
+into contiguous groups, `distributed.sharding.split_batch`) at
+``capacity(cfg, T / g)``, as the reference's `shard_map` body does. The
+aux loss stays the reference's global one: within `route_log`, every
+layer records its probabilities and top-1 ids, and `global_aux` forms
+the loss over all groups' tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -33,9 +46,10 @@ from repro_torch.core.packing import PackedLinear
 from repro_torch.core.qlinear import (fusable_gateup, qgateup_apply,
                                       qgateup_experts_apply,
                                       qlinear_experts_apply)
+from repro_torch.distributed.sharding import all_sum, concat
 from repro_torch.models import layers
 from repro_torch.models.layers import activation, linear
-from repro_torch.numerics import einsum_f32
+from repro_torch.numerics import einsum_f32, einsum_wide
 
 
 def moe_init(gen, cfg, dtype=torch.float32, device=None):
@@ -170,6 +184,124 @@ def combine(out_buf, idx, gates, slots, keeps) -> torch.Tensor:
     return y
 
 
+_ROUTES: list | None = None
+
+
+@contextlib.contextmanager
+def route_log():
+    """Within, every MoE layer's forward appends ``(probs [T, E], top-1
+    ids [T])`` to the yielded list, in call order (a backward's
+    recomputation records nothing: it runs after the block closes)."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def aux_loss(probs: torch.Tensor, top1: torch.Tensor, cfg) -> torch.Tensor:
+    """The Switch load-balance loss: ``w · E · Σ_e mean(probs)_e ·
+    share of top-1 choices_e`` over the tokens given."""
+    e = cfg.num_experts
+    me = probs.mean(dim=0)
+    ce = _one_hot(top1, e).to(torch.float32).mean(dim=0)
+    return cfg.router_aux_weight * e * (me * ce).sum()
+
+
+def global_aux(routes: list, groups: int, cfg) -> torch.Tensor:
+    """The aux loss of each MoE layer over all data groups' tokens (the
+    reference's, from the global probs and top-1 ids), summed over
+    layers. ``routes`` is a `route_log` of ``groups`` replicas' forwards,
+    each replica's layers in order; groups join in replica order on the
+    first group's device."""
+    per = len(routes) // groups
+    total = None
+    for layer in range(per):
+        got = [routes[g * per + layer] for g in range(groups)]
+        dev = got[0][0].device
+        aux = aux_loss(torch.cat([p.to(dev) for p, _ in got]),
+                       torch.cat([i.to(dev) for _, i in got]), cfg)
+        total = aux if total is None else total + aux
+    return total
+
+
+def _route(router, xt, cfg):
+    """The f32 router → (probs, cap, idx, gates, slots, keeps), the
+    routing recorded when a `route_log` is open."""
+    probs = torch.softmax(linear(router, xt.to(torch.float32)), dim=-1)
+    cap = capacity(cfg, xt.shape[0])
+    idx, gates, slots, keeps = route(probs, cfg, cap)
+    if _ROUTES is not None:
+        _ROUTES.append((probs, idx[:, 0]))
+    return probs, cap, idx, gates, slots, keeps
+
+
+def _glu_ffn_tp(experts: list, buf, act, f: int, devices: list):
+    """`_glu_ffn` over the shards' expert stripes (``f``: the unsplit
+    expert d_ff): packed — K3 (or the two products) on each shard's F
+    stripe, ``h`` joined over F in shard order, K1 on each shard's D
+    stripe, joined over D; float — ``gate`` / ``up`` on F stripes,
+    ``down``'s F-row partials summed in shard order and rounded once. A
+    leaf the rule leaves whole runs once, on the first shard."""
+    ex0, d = experts[0], buf.shape[-1]
+    if not isinstance(ex0["gate"], PackedLinear):
+        if ex0["gate"]["w"].shape[-1] == f:
+            return _glu_ffn(ex0, buf, act)
+        dt = buf.dtype
+        parts = []
+        for ex, dv in zip(experts, devices):
+            b = buf.to(dv)
+            h = einsum_f32("ecd,edf->ecf", b, ex["gate"]["w"].to(dt)).to(dt)
+            h = activation(act, h) * einsum_f32(
+                "ecd,edf->ecf", b, ex["up"]["w"].to(dt)).to(dt)
+            parts.append(einsum_wide("ecf,efd->ecd", h,
+                                     ex["down"]["w"].to(dt)))
+        return all_sum(parts, devices).to(torch.float32).to(dt)
+
+    def gateup(ex, b):
+        g, u = ex["gate"], ex["up"]
+        if fusable_gateup(g, u, act):
+            return qgateup_experts_apply(g, u, b)
+        return activation(act, qlinear_experts_apply(g, b)) \
+            * qlinear_experts_apply(u, b)
+    if ex0["gate"].n < f:
+        h = concat([gateup(ex, buf.to(dv))
+                    for ex, dv in zip(experts, devices)], -1, devices)
+    else:
+        h = gateup(ex0, buf)
+    if ex0["down"].n < d:
+        return concat([qlinear_experts_apply(ex["down"], h.to(dv))
+                       for ex, dv in zip(experts, devices)], -1, devices)
+    return qlinear_experts_apply(ex0["down"], h)
+
+
+def moe_apply_tp(ps: list, x: torch.Tensor, cfg, devices: list
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`moe_apply` over a ``model`` mesh's shards (``ps``: one MoE layer's
+    params a shard, ``devices`` in shard order) on one data group's
+    tokens ``x`` (replicated, on the first shard's device) → (y, aux).
+    Replicated leaves (the router, ``shared_gate``) are read on the first
+    shard only."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    e = cfg.num_experts
+    probs, cap, idx, gates, slots, keeps = _route(ps[0]["router"], xt, cfg)
+    out_buf = _glu_ffn_tp([p["experts"] for p in ps],
+                          dispatch(xt, idx, slots, keeps, e, cap), cfg.act,
+                          cfg.moe_d_ff, devices)
+    y = combine(out_buf, idx, gates, slots, keeps)
+    if "shared" in ps[0]:
+        s_out = layers.mlp_tp([p["shared"] for p in ps], xt, cfg.act, devices,
+                              cfg.d_model, cfg.shared_d_ff)
+        if "shared_gate" in ps[0]:
+            sg = torch.sigmoid(linear(ps[0]["shared_gate"],
+                                      xt.to(torch.float32)))
+            s_out = s_out * sg.to(s_out.dtype)
+        y = y + s_out
+    return y.reshape(*lead, d), aux_loss(probs, idx[:, 0], cfg)
+
+
 def moe_apply(p, x: torch.Tensor, cfg, name=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] (or [T, D]) -> (y, aux_loss). ``name`` (local path ->
@@ -179,12 +311,8 @@ def moe_apply(p, x: torch.Tensor, cfg, name=None
     nm = (lambda s: None) if name is None else name
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    t, e = xt.shape[0], cfg.num_experts
-
-    logits = linear(p["router"], xt.to(torch.float32))         # [T, E] f32
-    probs = torch.softmax(logits, dim=-1)
-    cap = capacity(cfg, t)
-    idx, gates, slots, keeps = route(probs, cfg, cap)
+    e = cfg.num_experts
+    probs, cap, idx, gates, slots, keeps = _route(p["router"], xt, cfg)
 
     out_buf = _glu_ffn(p["experts"], dispatch(xt, idx, slots, keeps, e, cap),
                        cfg.act)
@@ -205,8 +333,4 @@ def moe_apply(p, x: torch.Tensor, cfg, name=None
             s_out = s_out * sg.to(s_out.dtype)
         y = y + s_out
 
-    # Switch-style load-balance aux loss
-    me = probs.mean(dim=0)
-    ce = _one_hot(idx[:, 0], e).to(torch.float32).mean(dim=0)
-    aux = cfg.router_aux_weight * e * (me * ce).sum()
-    return y.reshape(*lead, d), aux
+    return y.reshape(*lead, d), aux_loss(probs, idx[:, 0], cfg)

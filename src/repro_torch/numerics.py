@@ -36,6 +36,12 @@ def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, _wide(a), _wide(b)).to(torch.float32)
 
 
+def einsum_wide(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`einsum_f32` before its one rounding to float32 (float64 on the
+    CPU, float32 on CUDA): partial products that shards sum first."""
+    return torch.einsum(eq, _wide(a), _wide(b))
+
+
 def einsum_f64(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(eq, a, b)`` in float64 on every device, left in
     float64. For a chain of products whose rows must not depend on the

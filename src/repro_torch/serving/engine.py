@@ -57,8 +57,8 @@
     sequential decode's; sampled rows use residual acceptance with the
     engine's seeded `torch.Generator`. ``spec_adaptive=True`` walks
     ``spec_k`` (and the tree's fanout) from the measured acceptance.
-  * tensor parallelism — ``GenerationEngine(mesh=...)`` (chunked path,
-    dense attention decoders) serves the model over a mesh's ``model``
+  * tensor parallelism — ``GenerationEngine(mesh=...)`` (chunked path:
+    attention decoders, dense or MoE) serves the model over a mesh's ``model``
     axis from this one controller, as the reference does: one scheduler
     and host pager, page tables replicated; weights split by
     `distributed.sharding.param_pspec` (column-parallel q / k / v / gate
@@ -70,8 +70,11 @@
     whole and re-stripe on the way in, so a strip adopts on any mesh.
     ``self.params`` stays unsharded: `generate()` keeps its single-device
     path. A mesh's first device must hold the params; an explicit device
-    list may repeat a device (`distributed.serving_mesh`). MoE under a
-    mesh raises `NotImplementedError` (ROADMAP, Queue 1).
+    list may repeat a device (`distributed.serving_mesh`). A MoE layer's
+    experts run per shard (`moe.moe_apply_tp`: packed, K3 on each shard's
+    F stripe and K1 on its D stripe). Per-slot-state families (MLA, SSM,
+    hybrid) keep the one-shot path and raise under a mesh, as in the
+    reference.
 """
 from __future__ import annotations
 
@@ -551,11 +554,6 @@ class GenerationEngine:
                 "preemption requires the chunked serving path: restore "
                 "re-enters the unified chunk dispatch at the commit "
                 "watermark, which one-shot prefill does not track")
-        if self._mesh is not None and any(
-                kind.mlp == "moe" for kind, _ in self.cfg.segments()):
-            raise NotImplementedError(
-                "MoE under a mesh is not ported (ROADMAP, Queue 1: the "
-                "reference shards the experts' F dim over 'model')")
         if self._mesh is None:
             self._paged_cache = self._cache_layout(pager.cfg,
                                                    device=self.device)

@@ -13,6 +13,17 @@ an audio encoder's token table, a vision model's ``patch_proj`` without
 images) get zero gradients, as `jax.grad` gives them, so AdamW's weight
 decay still moves them as the reference's does; any other parameter
 that receives no gradient raises: a cut graph.
+
+Over a ``(data, model)`` mesh (``make_train_step(..., mesh=)``, a
+`distributed.sharding.MeshTrainState`): each data replica holds its
+params (its ``model`` stripes) and runs its slice of the batch; the loss
+is the reference's over the whole batch (`Model.loss(mesh=)`), one
+backward reaches every replica's leaves; each replica's gradient is
+reduced over ``data`` in replica order (`reduce_grads`: the wire carries
+``grad_comm_dtype``, the sum runs in f32 and rounds once to it); a leaf
+the ``model`` shards replicate is read on the first shard only, so it
+has one gradient, and that one update reaches every copy; AdamW runs
+over ZeRO-1 slices (`optim.adamw_update_zero1`).
 """
 from __future__ import annotations
 
@@ -22,9 +33,11 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import MeshTrainState
 from repro_torch.training.optim import (AdamWConfig, adamw_init,
-                                        adamw_update, map_tree)
-from repro_torch.utils.tree import layer_parts
+                                        adamw_update, adamw_update_zero1,
+                                        map_tree)
+from repro_torch.utils.tree import layer_parts, map_with_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +64,14 @@ def train_state_shapes(model) -> dict:
 
 
 def loss_and_grads(model, params, batch: dict,
-                   comm_dtype: str = "bfloat16"):
+                   comm_dtype: str = "bfloat16", mesh=None):
     """(loss, metrics, grads): ``model.loss`` at ``params`` (f32 leaves of
     ndim ≥ 2 cast to ``comm_dtype`` first) and its gradient with respect
     to the uncast params, in their structure: zeros for the leaves
     `Model.unread_leaves` names, None for any other leaf no gradient
-    reached."""
+    reached. Under a ``mesh``, ``params`` is a list a data replica of
+    its ``model`` shards' trees, and so are the gradients (a replicated
+    leaf's on the first shard only)."""
     dt = torch_dtype(comm_dtype)
     masters = map_tree(lambda p: p.detach().requires_grad_(True), params)
 
@@ -65,9 +80,14 @@ def loss_and_grads(model, params, batch: dict,
             return a.to(dt)
         return a
     with torch.enable_grad():
-        loss, metrics = model.loss(map_tree(cast, masters), batch)
+        if mesh is None:
+            loss, metrics = model.loss(map_tree(cast, masters), batch)
+        else:
+            loss, metrics = model.loss(map_tree(cast, masters), batch,
+                                       mesh=mesh)
         loss.backward()
-    unread = set(model.unread_leaves(params, batch))
+    one = params if mesh is None else params[0][0]
+    unread = set(model.unread_leaves(one, batch))
 
     def grad(node, path):
         if isinstance(node, dict):
@@ -90,8 +110,74 @@ def missing_grads(grads) -> list[str]:
             if any(bool(t) for t in (parts if parts is not None else [leaf]))]
 
 
-def make_train_step(model, tcfg: TrainConfig) -> Callable[[dict, dict],
-                                                          tuple[dict, dict]]:
+def reduce_grads(grads: list, specs, comm_dtype: str, devices: list
+                 ) -> tuple[list, int]:
+    """The replicas' gradients (``grads``: a list a data replica of its
+    ``model`` shards' trees; ``devices[r][m]`` holds replica r's shard m)
+    reduced over the replicas, one tree a ``model`` shard → (trees, the
+    bytes the replicas put on the wire). Each replica sends its gradient
+    in ``comm_dtype``; the sum runs in f32 in replica order 0 … n−1 and
+    is rounded once to ``comm_dtype``. A leaf the shards replicate
+    (``specs``: model dim None) has its gradient on the first shard
+    only: that one reduced gradient stands for every shard. A leaf that
+    no gradient reached raises."""
+    dt = torch_dtype(comm_dtype)
+    paths = map_with_path(lambda path, _: path, specs)
+    n_rep, n_model = len(grads), len(grads[0])
+    wire = 0
+
+    def red(m):
+        def one(sp, path, *gs):
+            nonlocal wire
+            if sp[0] is None and m > 0:
+                return None
+            if any(g is None for g in gs):
+                raise RuntimeError(f"no gradient reached {path} on model "
+                                   f"shard {m}")
+            sent = [g.to(dt) for g in gs]
+            if n_rep > 1:
+                wire += sum(t.numel() * t.element_size() for t in sent)
+            acc = sent[0].to(torch.float32)
+            for t in sent[1:]:
+                acc = acc + t.to(devices[0][m]).to(torch.float32)
+            return acc.to(dt).to(torch.float32) if dt != torch.float32 \
+                else acc
+        return map_tree(one, specs, paths, *[grads[r][m]
+                                             for r in range(n_rep)])
+    out = [red(m) for m in range(n_model)]
+    out = [out[0]] + [map_tree(
+        lambda sp, g, g0, _d=devices[0][m]: g0.to(_d) if sp[0] is None
+        else g, specs, out[m], out[0]) for m in range(1, n_model)]
+    return out, wire
+
+
+def _mesh_train_step(model, tcfg: TrainConfig, mesh):
+    def train_step(state: MeshTrainState, batch: dict):
+        sh, specs = state.sharding, state.specs
+        loss, metrics, grads = loss_and_grads(
+            model, state["params"], batch, tcfg.grad_comm_dtype, mesh=mesh)
+        devices = [list(rm.devices) for rm in sh.replicas]
+        reduced, wire = reduce_grads(grads, specs, tcfg.grad_comm_dtype,
+                                     devices)
+        del grads
+        new_params, new_opt, opt_metrics = adamw_update_zero1(
+            state["params"], reduced, state["opt"], state["step"],
+            tcfg.optimizer, specs, sh.data_size)
+        metrics = {**metrics, **opt_metrics, "loss": loss,
+                   "wire_bytes": wire}
+        return MeshTrainState({"params": new_params, "opt": new_opt,
+                               "step": state["step"] + 1}, sh,
+                              specs), metrics
+    return train_step
+
+
+def make_train_step(model, tcfg: TrainConfig, mesh=None
+                    ) -> Callable[[dict, dict], tuple[dict, dict]]:
+    """``step(state, batch) -> (state, metrics)``; under a ``mesh`` the
+    state is a `MeshTrainState` (`TrainSharding(mesh, cfg).place`)."""
+    if mesh is not None:
+        return _mesh_train_step(model, tcfg, mesh)
+
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         device = state["step"].device

@@ -77,3 +77,39 @@ def leaf_bytes(tree: Any) -> int:
         for t in parts if parts is not None else [leaf]:
             total += t.numel() * t.element_size()
     return total
+
+
+def map_tree(fn, tree, *rest):
+    """``fn(leaf, *other_leaves)`` over trees of one structure (dicts and
+    lists of tensors), keeping it."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def map_with_path(fn, tree: Any) -> Any:
+    """``fn(path, leaf)`` over a port tree (dicts, lists of layers,
+    `PackedLinear` fields), keeping its structure; ``path`` is the
+    reference's (a list of layers adds no index, as in `layer_parts`)."""
+    def walk(node, prefix):
+        if isinstance(node, list):
+            return [walk(v, prefix) for v in node]
+        if isinstance(node, dict):
+            return {k: None if v is None
+                    else walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in node.items()}
+        if isinstance(node, PackedLinear):
+            raise TypeError("map_with_path walks float trees")
+        return fn(prefix, node)
+    return walk(tree, "")
+
+
+def from_parts(tree: Any, parts: dict) -> Any:
+    """``tree``'s structure with each leaf taken from ``parts[path]`` (a
+    path's pieces in layer order, as `layer_parts` lists them)."""
+    its = {p: iter(v) for p, v in parts.items()}
+    return map_with_path(lambda p, _: next(its[p]), tree)

@@ -146,14 +146,31 @@ def test_train_launcher_failure_recovery(tmp_path):
 
 
 def test_launcher_and_restore_refuse_meshes(tmp_path, state_and_step):
+    """What still refuses a mesh: a model axis above 1 for a family whose
+    tensor parallelism is not ported (mamba2: ROADMAP Queue 1, item 4).
+    A data axis trains, and `restore(shardings=)` splits a checkpoint
+    onto a mesh whose logical state is the file's."""
+    from repro_torch.distributed.sharding import MeshTrainState, TrainSharding
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        main(["--smoke", "--device", "cpu", "--data-axis", "2"])
+        main(["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
+              "--model-axis", "2", "--steps", "1"])
+    out = main(["--smoke", "--device", "cpu", "--data-axis", "2",
+                "--steps", "2", "--batch", "4", "--seq", "16"])
+    assert out["steps"] == 2
     model, state, _, _ = state_and_step
     save(str(tmp_path), 1, state)
-    with pytest.raises(NotImplementedError):
-        restore(str(tmp_path), train_state_shapes(model), device="cpu",
-                shardings={})
+    sharding = TrainSharding(make_host_mesh(2, 1, devices=["cpu"] * 2),
+                             model.cfg)
+    placed, _ = restore(str(tmp_path), train_state_shapes(model),
+                        device="cpu", shardings=sharding)
+    assert isinstance(placed, MeshTrainState)
+    want = state_to_arrays(state)
+    got = state_to_arrays(placed.logical())
+    assert list(got) == list(want)
+    for path, w in want.items():
+        np.testing.assert_array_equal(got[path], w, err_msg=path)
 
 
 def test_reference_checkpoint_restores_in_the_port(tmp_path, ref_state):

@@ -2166,3 +2166,109 @@ def test_sharded_engine_on_card(smoke_engine):
     assert st.model_axis == 2
     assert 2 * st.kv_pool_bytes_per_device == st.kv_pool_bytes
     assert all(out[r].shape == (6,) for r in rids)
+
+
+# ----------------------------------------------- MoE and training on a mesh
+
+# one shard's stripe of qwen2-moe's 60 experts (d_model 2,048, expert
+# d_ff 1,408): K3 2,048 -> F / n, K1 1,408 -> D / n, at model 2 and 4; E
+# cut to 8 at M 1,024 (every expert takes the same kernel)
+MOE_STRIPE_CASES = [(60, n, m) for n in (2, 4) for m in (4, 64)] \
+    + [(8, n, 1024) for n in (2, 4)]
+
+
+@pytest.mark.parametrize("e,n,m", MOE_STRIPE_CASES)
+def test_expert_axis_shard_stripes_match_plain(cuda, e, n, m):
+    """K3 and K1 over the experts at a shard's stripe widths (N 704 / 352
+    and 1,024 / 512): one launch each, within K3's / K1's tolerance of
+    the plain versions, bf16 output as the model calls them."""
+    g, u = (_experts(cuda, e, 2048, 1408 // n) for _ in range(2))
+    d = _experts(cuda, e, 1408, 2048 // n)
+    x = torch.randn(e, m, 2048, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    h_in = torch.randn(e, m, 1408, generator=cuda,
+                       device="cuda").to(torch.bfloat16)
+    kw = dict(input_scales=(g[3], u[3]), out_dtype=torch.bfloat16)
+    n1, n3 = k1.EXPERT_COUNTER.count, k1.GATEUP_EXPERT_COUNTER.count
+    h = k1.awq_gateup_experts(x, *g[:3], *u[:3], 64, **kw)
+    y = k1.awq_matmul_experts(h_in, *d[:3], 64, input_scale=d[3],
+                              out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (k1.EXPERT_COUNTER.count, k1.GATEUP_EXPERT_COUNTER.count) == (
+        n1 + 1, n3 + 1)
+    assert h.shape == (e, m, 1408 // n) and y.shape == (e, m, 2048 // n)
+    _k3_check(h, k1.awq_gateup_experts_ref(
+        x, *g[:3], *u[:3], 64, torch.bfloat16, **kw))
+    _k1_check(y, k1.awq_matmul_experts_ref(
+        h_in, *d[:3], 64, torch.bfloat16, input_scale=d[3],
+        out_dtype=torch.bfloat16))
+
+
+def test_moe_tp_packed_layer_on_card_equals_unsharded(cuda):
+    """A packed qwen2-moe smoke layer under a 2-way mesh on cuda:0 (K3 on
+    each shard's F stripe, K1 on its D stripe, every linear on its
+    kernel): within two bf16 ulps (and 1e-3 of the scale) of the
+    unsharded layer, each expert kernel launched once a shard."""
+    from repro_torch.distributed import sharding as shd
+    cfg = qwen2_moe_a27b.smoke_config()
+    p = moe.moe_init(cuda, cfg, device="cuda")
+    qp, _ = quantize_params({"moe": p})
+    x = torch.randn(4, 16, cfg.d_model, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        want, _ = moe.moe_apply(qp["moe"], x, cfg)
+        mesh = shd.serving_mesh(2, devices=["cuda:0", "cuda:0"])
+        shards = shd.shard_params(qp, mesh, cfg)
+        before = k1.EXPERT_COUNTER.count, k1.GATEUP_EXPERT_COUNTER.count
+        got, _ = moe.moe_apply_tp([s["moe"] for s in shards], x, cfg,
+                                  shd.model_devices(mesh))
+        torch.cuda.synchronize()
+    assert (k1.EXPERT_COUNTER.count - before[0],
+            k1.GATEUP_EXPERT_COUNTER.count - before[1]) == (2, 2)
+    # the shared experts' row-parallel down sums two partials, rounded
+    # once: a bf16 ulp or two from the unsharded product
+    err = (got.float() - want.float()).abs()
+    lim = 1e-3 * float(want.float().abs().max()) + 2 * _bf16_ulp(want)
+    assert bool((err <= lim).all()), float((err - lim).max())
+
+
+def test_mesh_train_step_on_card_near_unsharded(cuda):
+    """One train step of the smoke model over (data 2 x model 2) on
+    cuda:0 (K4 / K4b on each shard's heads) against the unsharded step on
+    the card: f32 activations and casts, the loss and grad_norm within
+    1e-4 relative; the replicas bit-equal after it."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      make_train_step)
+    from repro_torch.training.train_step import init_train_state
+    from repro_torch.data.pipeline import make_dataset
+    cfg = dataclasses.replace(qwen25_05b.smoke_config(),
+                              activation_dtype="float32")
+    m = Model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=0),
+                     grad_comm_dtype="float32")
+    batch = make_dataset(cfg, 4, 64).batch_at(0)
+    state = init_train_state(m, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    mesh = make_host_mesh(2, 2, devices=["cuda:0"] * 4)
+    placed = shd.TrainSharding(mesh, cfg).place(state)
+    _, want = make_train_step(m, tc)(state, batch)
+    bwd = k4.BWD_COUNTER.count
+    new, got = make_train_step(m, tc, mesh=mesh)(placed, batch)
+    torch.cuda.synchronize()
+    assert k4.BWD_COUNTER.count > bwd
+    for key in ("loss", "grad_norm"):
+        assert abs(float(got[key]) - float(want[key])) \
+            <= 1e-4 * abs(float(want[key])), key
+    for a, b in zip(new["params"][0], new["params"][1]):
+        assert all(torch.equal(x, y) for x, y in zip(
+            [t for t in _tensors(a)], [t for t in _tensors(b)]))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]

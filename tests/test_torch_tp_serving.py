@@ -282,7 +282,9 @@ def test_construction_errors(model_params, case):
     `test_sharded_serving.py:141-145`), for indivisible kv heads, a mesh
     without a ``model`` axis and the one-shot path (raised when serving
     starts), the one-shot path again for the families with per-slot
-    state (MLA, SSM, hymba's rings); MoE under a mesh is not ported."""
+    state (MLA, SSM, hymba's rings). A MoE model (qwen2-moe, attention
+    + MoE on the chunked path) no longer raises: it serves under the
+    mesh, its stream that of the unsharded engine."""
     m, params = model_params
     p = params["float"]
     if case == "indivisible":        # the stock smoke config: Hkv 1
@@ -306,10 +308,19 @@ def test_construction_errors(model_params, case):
         "mla": ("deepseek-v2-lite-16b", 2, ValueError, "chunked"),
         "ssm": ("mamba2-130m", 2, ValueError, "chunked"),
         "hymba_rings": ("hymba-1.5b", 1, ValueError, "chunked"),
-        "moe": ("qwen2-moe-a2.7b", 2, NotImplementedError, "MoE"),
+        "moe": ("qwen2-moe-a2.7b", 2, None, None),
     }[case]
     if arch is not None:
         m, p = _smoke(arch)
+    if exc is None:
+        outs = []
+        for mesh_ in (None, _mesh(mesh)):
+            eng = GenerationEngine(m, p, max_seq=64, num_slots=2,
+                                   page_size=8, mesh=mesh_)
+            rid = eng.submit(np.arange(4, dtype=np.int32), 4)
+            outs.append(eng.drain()[rid])
+        np.testing.assert_array_equal(outs[1], outs[0])
+        return
     kw = dict(chunked_prefill=False) if case == "oneshot" else {}
     eng = GenerationEngine(m, p, max_seq=64, num_slots=2, page_size=8,
                            mesh=_mesh(mesh), **kw)
