@@ -77,7 +77,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                mesh on one card) at K2's three Qwen cases, its shards
                joined bit-equal to one K2 launch over both heads, timed
                beside it, its plain version and SDPA;
-  4. serve   — full-width Qwen2.5-0.5B (24 layers, random weights from a
+  4. serve   — full-width Qwen2.5-0.5B (4 of its 24 layers, cut for the
+               time limit, as are phases 5-18; random weights from a
                seed), RTN int4 GS 64, int8 KV pages, 8 greedy requests
                through `GenerationEngine.submit` / `step` / `drain`; the
                K1, K2 and K3 launch counters must grow during this run,
@@ -88,7 +89,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                dense prefill (K4, K1, K3 at M = the prompt's length), a
                commit into the pages and the first token; then decode
                steps over all 4 slots (K2, K1, K3 at M = 4). All four
-               counters must grow, K4 once per layer per request (192);
+               counters must grow, K4 once per layer per request (32);
                8 admitted and finished, no page in use after `drain()`,
                ``prefill_tokens`` 0 (counted on the chunked path only);
                decode tokens/s, decode step ms, host ms per
@@ -116,7 +117,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                commit watermark. Gated: preemptions ≥ 1, restores equal
                to them, spilled pages equal to restored pages, nothing
                left spilled or in use, the spilled bytes equal to the
-               spilled pages × 104,448 B (an int8 page of 16), K1, K2 and
+               spilled pages × 17,408 B (an int8 page of 16), K1, K2 and
                K3 launched, and, with every quantized linear on K1 / K3,
                all 8 streams equal to the same traffic on an engine that
                never preempts; under the default threshold the streams
@@ -195,9 +196,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                report's packed size, and one of each (K, N) must parse
                back bit for bit;
  17. check_prefill — one `Model.prefill` (B 1, S 64) on the launcher's
-               AWQ-packed weights on the card (K4 + K1 + K3) against the
-               same prefill on CPU copies (plain versions);
- 18. fleet   — the launcher's fleet path at full width,
+               AWQ-packed weights (all 24 layers) on the card (K4 + K1 +
+               K3) against the same prefill on CPU copies (plain
+               versions);
+ 18. fleet   — the launcher's fleet path at full width and 4 of Qwen's
+               24 layers (the serving phases' depth),
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --replicas 2 --mesh-axis 1 --batch 4
                --prompt-len 256 --max-new 32``: AWQ calibrate + pack, two
@@ -217,15 +220,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                unified fleet's (same placements, same steps);
  20-29. gemma3-4b (d 2560, 8 q / 4 kv heads, hd 256, d_ff 10,240,
                V 262,144, a 1,024-token window; 6 of its 34 layers, one
-               of them global), smollm-360m (4 of 32 layers), gemma-2b (4
-               of 18), glm4-9b (4 of 40), then the MoE family:
+               of them global), smollm-360m (2 of 32 layers), gemma-2b (2
+               of 18), glm4-9b (2 of 40), then the MoE family:
                qwen2-moe-a2.7b (60 experts top-4 + 4 shared, 16 heads of
                128; 2 of 24 layers) and deepseek-v2-lite-16b (MLA + 64
                experts top-6 + 2 shared, its first layer dense; 2 of 27),
                then the SSM family:
-               mamba2-130m (SSD layers, no attention, no MLP; 6 of its
+               mamba2-130m (SSD layers, no attention, no MLP; 4 of its
                24) and hymba-1.5b (attention ∥ SSD, 25 q / 5 kv heads,
-               4 of its 32 layers: global layer 0, 3 windowed), each
+               2 of its 32 layers: global layer 0, one windowed), each
                at full width with
                its depth cut for the time limit (the phase line lists the
                layers), from random weights (seed 0): the launcher's AWQ
@@ -235,8 +238,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                gemma3 and hymba their rings past the window: 2 × 1,100
                prompt tokens; the MoE models' routed experts at RTN, on
                K3 and K1's expert axis; mamba2's 4 × 512 tokens two SSD
-               chunks); a serve burst (8 greedy requests of 32
-               new tokens over int8 pages of 16, 4 slots, on the engine's
+               chunks); a serve burst (8 greedy requests of 12 new
+               tokens, 32 before the tp_families phase came, over int8
+               pages of 16, 4 slots, on the engine's
                default path: chunked, or one-shot for the models with
                per-slot state: deepseek's MLA latents, the SSM states,
                hymba's rings; gemma3's and hymba's prompts include 1,100
@@ -258,7 +262,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                2-layer cut of the served model (gemma3: its first
                windowed and first global layer; hymba: its layer 0 and
                first windowed one; deepseek: its dense layer and a MoE
-               one) against CPU
+               one; qwen2-moe, all MoE: its first layer) against CPU
                copies, the CPU side taking the card's MoE routing
                (`RouteTie`: routing flips counted and reported);
                gemma3's line adds a profiled decode step of 4 slots at
@@ -295,13 +299,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                once, K2-TP launched, per-shard expert and pool bytes half
                the unsharded ones, first tokens equal to the unsharded
                engine's under the `check` rule (streams counted), the
-               `check` steps sharded against the CPU (`RouteTie`), and
+               `check` steps sharded against the CPU (`RouteTie`; the
+               first layer), and
                the packed `forward_logits` under a (data 2 × model 2)
                mesh against the unsharded forward;
- 30. train   — full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512,
+ 30. train   — Qwen2.5-0.5B training at full width and 8 of its 24
+               layers (all 24 before the tp_families phase came: cut for
+               the time limit, as is train_mesh) from seed 0: B 8 × S 512,
                bf16 gradient casts, AdamW (lr 3e-3, warmup 2, decay 200,
                no weight decay: the reference's descent test), per-block
-               remat, 20 steps. Gated: every parameter receives a finite
+               remat, 10 steps. Gated: every parameter receives a finite
                gradient at step 0, every loss finite, the last below the
                first by more than 0.3, K4 twice a layer a step (forward
                and recompute) and K4b once. Reported: losses, host ms a
@@ -310,7 +317,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                loss and gradients on the card against CPU copies (5 % of
                each leaf's largest magnitude);
  31. train_resume — `repro_torch.launch.train.main` at full width,
-               12 of Qwen's 24 layers (since PR 29, for the time limit;
+               4 of Qwen's 24 layers (cut from 24 to 12, then to 4, for
+               the time limit;
                ``--steps 8 --batch 8 --seq 512 --ckpt-every 4
                --simulate-failure-at 6``, checkpoints under the
                git-ignored build/, deleted after): one recovery from step
@@ -337,9 +345,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                models' CPU side on the card's routing). Reported: step ms
                and tokens / frames a second beside the port cost model's
                compute and memory seconds for that step, peak memory;
- 33. train_mesh — training over a (data 2 × model 2) mesh, four shards
-               on cuda:0: Qwen2.5-0.5B at full size from train's seed
-               and settings, 6 steps (losses within 2e-2 of train's, K4
+ 33. tp_families — the five families whose tensor parallelism is
+               newest (deepseek-v2-lite-16b: MLA + MoE; mamba2-130m: SSD;
+               hymba-1.5b: attention ∥ SSD; hubert-xlarge: the encoder;
+               phi-3-vision-4.2b: patches before the text) on a (data 1 ×
+               model 2) mesh, both shards on cuda:0, at train_families'
+               depth, B × S, lr and seed: 2 steps each (losses within
+               1e-3 relative of train_families' first two, K4 twice and
+               K4b once a step in each attention layer on every shard
+               whose heads split (hymba's 25 q heads stay on the first
+               shard), every split leaf exactly half its bytes a shard,
+               replicated leaves bit-equal to the first shard's), then
+               the RTN int4 model's `forward_logits` over the mesh (B 2 ×
+               S 64; phi-3-vision's 256 patches) against the unsharded
+               packed forward by the `check` rule, under the default
+               threshold and with every quantized linear on K1 / K3
+               (then no generic call, every kernel call one K1 or K3
+               launch on a shard's stripe); the stripes' K1 / K3 shapes
+               are on the kernel_shapes line (``tp_stripes``: N 8, 12, 25,
+               deepseek's flipped down, the GLU fronts' stripes);
+ 34. train_mesh — training over a (data 2 × model 2) mesh, four shards
+               on cuda:0: train's model (8 of 24 layers) from its seed
+               and settings, 4 steps (losses within 2e-2 of train's, K4
                twice and K4b once a layer a shard a step, replicas
                bit-equal after the last step, ZeRO-1 moments half a data
                replica), then a step bare and one profiled (busy, idle,
@@ -363,10 +390,13 @@ builds and profiles Qwen2.5's steps, then a gemma3-4b decode step.
 train steps; ``--k4b-only CU`` does so with another K4b source of the same
 entry point (a parent commit's, unpacked into a git-ignored directory),
 so two versions are compared in one call, in turns.
+``--tp-families-only`` builds, runs the stripes' kernel shapes, the five
+families' `train_families` runs and `tp_families`.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -425,6 +455,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor cores
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
 COLD_BYTES = 64 << 20          # rotate copies past the 50 MB L2
+TIME_ITERS = 40                # calls `time_ms` times by default
 GS = 64
 QWEN_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
 # one decode layer's K1 calls at M = num_slots = 4: q, o, down (k and v,
@@ -467,7 +498,13 @@ def phase(phase_name: str, **fields) -> None:
     print(json.dumps({"phase": phase_name, **fields}), flush=True)
 
 
-def time_ms(fn, n_inputs: int, iters: int = 40) -> float:
+def cold_copies(nbytes: int) -> int:
+    """Copies of an input of ``nbytes`` whose rotation passes the L2
+    (`COLD_BYTES`), at most `TIME_ITERS`: `time_ms` reads no more."""
+    return max(1, min(TIME_ITERS, COLD_BYTES // nbytes))
+
+
+def time_ms(fn, n_inputs: int, iters: int = TIME_ITERS) -> float:
     """Mean device ms per call of ``fn(i)``, cycling inputs i (cold L2).
 
     A launch from Python costs the host tens of µs, more than a small
@@ -572,13 +609,13 @@ def check_k1(gen) -> tuple[dict, dict]:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
         p = pack_linear(*quantize_groupwise(w, cfg), None, None, cfg)
         wbytes = p.qweight.nbytes + p.scales.nbytes + p.zeros.nbytes
-        copies = max(1, COLD_BYTES // wbytes)
+        copies = cold_copies(wbytes)
         packs = [(p.qweight.clone(), p.scales.clone(), p.zeros.clone())
                  for _ in range(copies)]
         w_bf16 = dequantize_int4(p.qweight, p.scales, p.zeros, GS,
                                  torch.bfloat16)
         lib_w = [w_bf16.clone()
-                 for _ in range(max(1, COLD_BYTES // w_bf16.nbytes))]
+                 for _ in range(cold_copies(w_bf16.nbytes))]
         iscale = torch.rand(k, generator=model_gen, device="cuda") + 0.5
         model_kw = dict(input_scale=iscale, out_dtype=torch.bfloat16)
         for m in (1, 4, 16, 64, 1024):
@@ -722,14 +759,14 @@ def check_k3(gen) -> tuple[dict, dict]:
         None, None, cfg) for _ in range(2))
     wbytes = sum(t.nbytes for p in (g, u)
                  for t in (p.qweight, p.scales, p.zeros))
-    copies = max(1, COLD_BYTES // wbytes)
+    copies = cold_copies(wbytes)
     packs = [tuple(t.clone() for p in (g, u)
                    for t in (p.qweight, p.scales, p.zeros))
              for _ in range(copies)]
     wg, wu = (dequantize_int4(p.qweight, p.scales, p.zeros, GS,
                               torch.bfloat16) for p in (g, u))
     lib_w = [(wg.clone(), wu.clone())
-             for _ in range(max(1, COLD_BYTES // (2 * wg.nbytes)))]
+             for _ in range(cold_copies(2 * wg.nbytes))]
     iscales = (torch.rand(k, generator=gen, device="cuda") + 0.5,
                torch.rand(k, generator=gen, device="cuda") + 0.5)
     shapes = []
@@ -875,7 +912,7 @@ def _k2_inputs(gen, c: int, tree: bool = False):
     for B 4 slots of 32 pages of 16 tokens."""
     b, hkv, g, hd, page, nblk = 4, 2, 7, 64, 16, 32
     npages = b * nblk + 1
-    copies = max(1, COLD_BYTES // (2 * npages * page * hkv * (hd + 4)))
+    copies = cold_copies(2 * npages * page * hkv * (hd + 4))
     pools = []
     for _ in range(copies):
         kp = torch.randint(-127, 128, (npages, page, hkv, hd), generator=gen,
@@ -1168,12 +1205,12 @@ def check_streams(label: str, out: dict, rids, vocab: int,
             raise AssertionError(f"{label}: request {rid}: bad stream {toks}")
 
 
-def _serve_burst(eng, prompts, names) -> dict:
-    """Submit ``prompts`` (32 new tokens each) and step ``eng`` until
+def _serve_burst(eng, prompts, names, new: int = 32) -> dict:
+    """Submit ``prompts`` (``new`` tokens each) and step ``eng`` until
     idle: each step's host time, and the launches of ``names`` in steps
     with decode rows only and in steps with prefill rows."""
     t0 = time.perf_counter()
-    rids = [eng.submit(p, 32) for p in prompts]
+    rids = [eng.submit(p, new) for p in prompts]
     decode_s, decode_tokens, decode_steps, steps, prefilled = 0.0, 0, 0, 0, 0
     decode_launches = dict.fromkeys(names, 0)
     prefill_launches = dict.fromkeys(names, 0)
@@ -1445,9 +1482,14 @@ def parallel(model, params) -> dict:
 # priority 0 with 64 new tokens, then, after 4 steps, the four shortest
 # (16, 33, 45, 77) at priority 1 with 16 new tokens
 SLO_LONG, SLO_SHORT = [1, 5, 7, 3], [0, 6, 2, 4]
-# one int8 page of 16 tokens over 24 layers: k, v codes (2 x 2 heads x 64)
-# and their f32 scale strips (2 x 2 heads x 4) per token
-INT8_PAGE_BYTES = 24 * 16 * 272
+# the serving phases' Qwen2.5-0.5B (and the fleet's): full width, 4 of its
+# 24 layers (all 24 before the tp_families phase came: its serving steps
+# are host-bound, ~150 launches a layer, so a step's time follows the
+# depth; cut for the time limit on a slow host)
+SERVE_LAYERS = 4
+# one int8 page of 16 tokens over those layers: k, v codes (2 x 2 heads x
+# 64) and their f32 scale strips (2 x 2 heads x 4) per token
+INT8_PAGE_BYTES = SERVE_LAYERS * 16 * 272
 # the optimistic pool: the four long requests' reserved worst case
 # (17 + 16 + 14 + 12 = 59 pages) does not fit its 47 usable pages
 OPTIMISTIC_PAGES = 48
@@ -1917,6 +1959,11 @@ KERNEL_NAMES = {"awq_matmul": ("LinearOut",),
                 "reduce": ("reduce_kernel",)}
 
 
+# steps a serving profile runs bare, then profiled (6 before the
+# tp_families phase came: cut for the script's time limit on a slow host)
+PROFILE_STEPS = 3
+
+
 def _profile_steps(eng, steps: int, before=lambda: None,
                    host_ops: bool = True) -> dict:
     """``steps`` engine steps timed bare, then as many again under
@@ -1959,7 +2006,7 @@ def _profile_steps(eng, steps: int, before=lambda: None,
                              for e in top[:10]])
 
 
-def profile(model, params, steps: int = 6) -> dict:
+def profile(model, params, steps: int = PROFILE_STEPS) -> dict:
     """Where a step's time goes. Decode: 4 slots decoding at contexts
     ~100–112 (no prefill), on the chunked path and then on the one-shot
     path (`decode_step` over the same pages, the same four prompts).
@@ -2171,7 +2218,8 @@ def _check_rule(step: int, got: torch.Tensor, ref: torch.Tensor,
                 argmax_agree=int(agree.sum()))
 
 
-def cross_check(model, params, cpu_logits: list | None = None) -> dict:
+def cross_check(model, params, cpu_logits: list | None = None,
+                cpu_params=None) -> dict:
     """One prefill chunk (C=16) and one decode step (C=1) of the unified
     chunk step on the card vs CPU copies (plain versions). bf16
     activations round differently once K2 dequantizes K/V in f32 (card)
@@ -2180,8 +2228,9 @@ def cross_check(model, params, cpu_logits: list | None = None) -> dict:
     top-2 margin clears that tolerance. A MoE model's CPU side takes the
     card's routing (`RouteTie`). The CPU's logits of each step are
     appended to ``cpu_logits`` where it is given (the `tp` phase holds
-    its sharded steps to them)."""
-    cpu_params = tree_to(params, "cpu")
+    its sharded steps to them). ``cpu_params``: the CPU copy, if made."""
+    if cpu_params is None:
+        cpu_params = tree_to(params, "cpu")
     pools = {d: model.init_paged_cache(17, 16, kv_quant="int8", device=d)
              for d in ("cuda", "cpu")}
     prm = {"cuda": params, "cpu": cpu_params}
@@ -2411,7 +2460,8 @@ def tp(model, params, served: dict, unified_refs, cpu_logits, prof,
     while eng.stats().prefill_tokens < 400:     # land every prompt
         eng.step()
     eng.step()
-    profiled = dict(slots=4, context=100, **_profile_steps(eng, 6))
+    profiled = dict(slots=4, context=100, **_profile_steps(eng,
+                                                           PROFILE_STEPS))
     del eng
     gc.collect()
     return dict(
@@ -2528,22 +2578,24 @@ def _check_batch(cfg, rng, b: int, s: int) -> dict:
     return batch
 
 
-def check_prefill(model, params) -> dict:
+def check_prefill(model, params, cpu_params=None) -> dict:
     """One full-sequence prefill (B 1, S 64; a vision model's 256 image
     patches before the 64 tokens; an encoder's 64 frames) on the
     launcher's AWQ-packed weights, on the card (K4 attention, K1
     projections) and on CPU copies (plain versions). The bf16 activations
     round differently once the sums run in another order, and the
-    differences grow over 24 layers, so the last position's logits (an
+    differences grow over the layers, so the last position's logits (an
     encoder's at every frame) are held at 5% of their largest magnitude,
     as `cross_check` holds a chunk step, and the argmax must agree where
     the top-2 margin clears that tolerance. A MoE model's CPU side takes
-    the card's routing (`RouteTie`)."""
+    the card's routing (`RouteTie`). ``cpu_params``: the CPU copy, if
+    made."""
     rng = np.random.default_rng(SEED + 3)
     cfg = model.cfg
     batch = _check_batch(cfg, rng, 1, 64)
     n_pos = 64 + (cfg.num_patches if "images" in batch else 0)
-    prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
+    prm = {"cuda": params, "cpu": tree_to(params, "cpu")
+           if cpu_params is None else cpu_params}
     before = k4.COUNTER.count
     logits, tie = {}, RouteTie()
     for d in ("cuda", "cpu"):
@@ -2592,7 +2644,8 @@ FLEET_WANT = {
 
 
 def fleet(disagg: bool = False, unified_streams=None) -> dict:
-    """The launcher's fleet path at full width: AWQ calibrate + pack, two
+    """The launcher's fleet path at full width (`SERVE_LAYERS` of Qwen's
+    depth): AWQ calibrate + pack, two
     paged replicas (bf16 pools) sharing the params behind the Router;
     with ``disagg`` each replica is a prefill/decode pair, and its
     streams must equal ``unified_streams``."""
@@ -2604,7 +2657,8 @@ def fleet(disagg: bool = False, unified_streams=None) -> dict:
     # the fleet path: counts start at 0 here and are read right after
     reset_counts()
     t0 = time.perf_counter()
-    out = launcher.main(args)
+    with _depth("qwen25-05b", SERVE_LAYERS):
+        out = launcher.main(args)
     total_s = time.perf_counter() - t0
     totals = read_counts()
     streams = out["streams"]
@@ -2656,13 +2710,15 @@ DENSE_ARCHS = {
                       serve_lens=[1100, 1400, 64, 300, 900, 17, 700, 200],
                       max_seq=2048, chunk=64),
     # ``oneshot_bf16``: ROADMAP Queue 3's check (`oneshot_bf16`) on the
-    # four models whose engine streams parted from generate() under K1/K3
-    "smollm-360m": dict(layers=4, batch=4, prompt_len=256,
+    # four models whose engine streams parted from generate() under K1/K3.
+    # smollm, gemma-2b and glm4 run 2 layers (4 before the tp_families
+    # phase came: cut for the time limit on a slow host)
+    "smollm-360m": dict(layers=2, batch=4, prompt_len=256,
                         serve_lens=SERVE_LENS, max_seq=512, chunk=16,
                         oneshot_bf16=True),
-    "gemma-2b": dict(layers=4, batch=4, prompt_len=256,
+    "gemma-2b": dict(layers=2, batch=4, prompt_len=256,
                      serve_lens=SERVE_LENS, max_seq=512, chunk=16),
-    "glm4-9b": dict(layers=4, batch=4, prompt_len=256,
+    "glm4-9b": dict(layers=2, batch=4, prompt_len=256,
                     serve_lens=SERVE_LENS, max_seq=512, chunk=16,
                     oneshot_bf16=True),
     # the MoE family: qwen2-moe (attention + MoE) on the chunked engine,
@@ -2678,34 +2734,36 @@ DENSE_ARCHS = {
                                  serve_lens=SERVE_LENS, max_seq=512,
                                  chunk=16),
     # the SSM and hybrid families, both on the one-shot engine (per-slot
-    # SSM state). mamba2-130m at full width, 6 of its 24 layers (12
-    # before the tp phase came, 24 before the encoder's and the VLM's
-    # phases): the
+    # SSM state). mamba2-130m at full width, 4 of its 24 layers (6
+    # before the tp_families phase came, 12 before the tp phase, 24
+    # before the encoder's and the VLM's phases): the
     # launcher's 512-token prompts are two SSD chunks of 256, the
     # 1,024-token serve prompt four; attention-free, its linears take one
     # path at M 1 and 4, so every stream must equal generate()'s
-    # (``streams_gated``). hymba-1.5b at full width, 4 of its 32 layers
-    # (global layer 0, then 3 windowed, as the published stack opens):
+    # (``streams_gated``). hymba-1.5b at full width, 2 of its 32 layers
+    # (global layer 0, then a windowed one, as the published stack opens;
+    # 4 before the tp_families phase came):
     # the launcher's 1,100-token prompts wrap generate()'s rings and take
     # the SSD's single-chunk fallback; the serve prompts wrap the slots'
     # rings. With the encoder's and the VLM's phases the whole script
     # took 962 s on an H100 at the depths before these cuts (gemma3 12,
     # smollm 8, gemma-2b 6, mamba2 24, hymba 8): every cut here is of
     # depth, for the time limit
-    "mamba2-130m": dict(layers=6, batch=4, prompt_len=512,
+    "mamba2-130m": dict(layers=4, batch=4, prompt_len=512,
                         serve_lens=[16, 200, 45, 120, 77, 190, 33, 1024],
                         max_seq=2048, chunk=16, streams_gated=True),
-    "hymba-1.5b": dict(layers=4, batch=2, prompt_len=1100,
+    "hymba-1.5b": dict(layers=2, batch=2, prompt_len=1100,
                        serve_lens=[1100, 1400, 64, 300, 1024, 17, 700, 200],
                        max_seq=2048, chunk=64, oneshot_bf16=True),
     # the encoder, at full size: the launcher (calibration over the
     # pipeline's features [2, 64, 512], AWQ and pack; no decode step),
     # then its serving output, the forward over B 2 x S 1,024 frames
     "hubert-xlarge": dict(layers=None, forward=(2, 1024)),
-    # the VLM at full width, 8 of its 32 layers: the launcher (calibration
+    # the VLM at full width, 4 of its 32 layers (8 before the tp_families
+    # phase came): the launcher (calibration
     # over tokens [2, 64] and patches [2, 256, 1024]; text-only
     # generate()), generate() with images, the chunked engine over text
-    "phi-3-vision-4.2b": dict(layers=8, batch=2, prompt_len=256,
+    "phi-3-vision-4.2b": dict(layers=4, batch=2, prompt_len=256,
                               serve_lens=SERVE_LENS, max_seq=512, chunk=16),
 }
 # K1 (K, N) of the new models' linears (smollm q/o, k/v, gate/up, down;
@@ -2789,11 +2847,10 @@ def _k1_shape(gen, k, n, m) -> dict:
         None, None, cfg)
     wbytes = p.qweight.nbytes + p.scales.nbytes + p.zeros.nbytes
     packs = [(p.qweight.clone(), p.scales.clone(), p.zeros.clone())
-             for _ in range(max(1, COLD_BYTES // wbytes))]
+             for _ in range(cold_copies(wbytes))]
     w_bf16 = dequantize_int4(p.qweight, p.scales, p.zeros, GS,
                              torch.bfloat16)
-    lib_w = [w_bf16.clone() for _ in range(max(1, COLD_BYTES
-                                               // w_bf16.nbytes))]
+    lib_w = [w_bf16.clone() for _ in range(cold_copies(w_bf16.nbytes))]
     kw = dict(input_scale=torch.rand(k, generator=gen, device="cuda") + 0.5,
               out_dtype=torch.bfloat16)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2830,7 +2887,7 @@ def _k3_shape(gen, k, n, m) -> dict:
                  for t in (p.qweight, p.scales, p.zeros))
     packs = [tuple(t.clone() for p in (g, u)
                    for t in (p.qweight, p.scales, p.zeros))
-             for _ in range(max(1, COLD_BYTES // wbytes))]
+             for _ in range(cold_copies(wbytes))]
     wg, wu = (dequantize_int4(p.qweight, p.scales, p.zeros, GS,
                               torch.bfloat16) for p in (g, u))
     kw = dict(input_scales=(torch.rand(k, generator=gen, device="cuda") + 0.5,
@@ -2876,7 +2933,7 @@ def _k2_shape(gen, arch, hkv, g, hd, window, c,
     row's tail, C query tokens a row."""
     b, page = 4, 16
     npages = b * nblk + 1
-    copies = max(1, COLD_BYTES // (2 * npages * page * hkv * (hd + 4)))
+    copies = cold_copies(2 * npages * page * hkv * (hd + 4))
     pools = []
     for _ in range(copies):
         kp, vp = (torch.randint(-127, 128, (npages, page, hkv, hd),
@@ -2924,7 +2981,7 @@ def _k2_shape(gen, arch, hkv, g, hd, window, c,
     qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, c, hd).to(
         torch.bfloat16)
     lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        qs, kk, vv, attn_mask=mask, enable_gqa=True), 1)
+        qs, kk, vv, attn_mask=mask, enable_gqa=True), 1, iters=10)
     return dict(model=arch, hkv=hkv, g=g, hd=hd, window=window, c=c,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -2951,7 +3008,8 @@ def _k4_shape(gen, arch, b, s, h, hkv, hd, window, causal=True,
     mask = k4.visibility(s, causal=causal, window=window, device="cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_kw = dict(attn_mask=mask) if window else dict(is_causal=causal)
-    lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1)
+    lib = time_ms(lambda i: sdpa(qc, kc, vc, enable_gqa=True, **lib_kw), 1,
+                  iters=10)
     pair_flops = 2 * hd * h * b * int(mask.sum())
     # bf16 / f16: QK^T plus PV's two halves on tensor cores; f32: both
     # products on the CUDA cores
@@ -3064,6 +3122,33 @@ def check_expert_shard_kernels(gen) -> dict:
         awq_matmul_experts=[dict(_expert_shape(gen, TP_MOE_ARCH, e, d // n,
                                                f, m, False), shards=n)
                             for n, m in EXPERT_SHARD_CASES])
+
+
+# K1 / K3 at the stripes a 2-way `model` mesh gives the packed forward of
+# the five families `tp_families` splits (K, N of one shard): hymba's wb /
+# wc (16 -> 8), mamba2's wdt (24 -> 12), N 25 (hymba's wdt stripe width:
+# its 1600 -> 50 stays float on the path, the pipeline's rule), deepseek's
+# dense down flipped to its N (K 10,944: 5,472 rows would cut a 64-row
+# group), its kv_down stripe (576 -> 288, across the latent / rope
+# boundary), hymba's wo flipped (K 1,600: 800 rows cut a group), hubert's
+# and phi-3-vision's row-parallel down; K3 at the GLU fronts' column
+# stripes (deepseek's dense 2,048 -> 5,472, hymba's 1,600 -> 2,752,
+# phi-3-vision's 3,072 -> 4,096); M 4 and 1,024
+TP_STRIPE_K1 = [(1600, 8), (768, 12), (1600, 25), (10944, 1024),
+                (2048, 288), (1600, 800), (2560, 1280), (4096, 3072)]
+TP_STRIPE_K3 = [(2048, 5472), (1600, 2752), (3072, 4096)]
+TP_STRIPE_ROWS = (4, 1024)
+
+
+def check_tp_stripe_kernels(gen) -> dict:
+    """K1 and K3 at `TP_STRIPE_K1` / `TP_STRIPE_K3` (`_k1_shape`,
+    `_k3_shape`: the model's call held against the plain version, timed
+    beside it and ``torch.matmul`` on the dequantized weight, with the
+    bound of the stripe's bytes and products)."""
+    return dict(awq_matmul=[_k1_shape(gen, k, n, m) for k, n in TP_STRIPE_K1
+                            for m in TP_STRIPE_ROWS],
+                awq_gateup=[_k3_shape(gen, k, n, m) for k, n in TP_STRIPE_K3
+                            for m in TP_STRIPE_ROWS])
 
 
 def check_dense_kernels(gen) -> dict:
@@ -3287,8 +3372,14 @@ def dense_prompts(vocab: int, lens) -> list[np.ndarray]:
 SERVED: dict = {}
 
 
+# new tokens a request of the other models' serve bursts (32 before the
+# tp_families phase came: cut for the time limit on a slow host)
+DENSE_NEW = 12
+
+
 def dense_serve(arch: str, model, params, spec: dict) -> dict:
-    """8 greedy requests of 32 new tokens through the engine's default path
+    """8 greedy requests of `DENSE_NEW` new tokens through the engine's
+    default path
     (the chunked one over int8 pools, 4 slots, pages of 16; a model with
     per-slot state the one-shot one: MLA's dense latents, SSM states,
     hymba's windowed rings, hymba's global layers over int8 pools), under
@@ -3314,7 +3405,7 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
             reset_counts()
             K2_WINDOWED["calls"] = 0
             t0 = time.perf_counter()
-            rids = [eng.submit(p, 32) for p in prompts]
+            rids = [eng.submit(p, DENSE_NEW) for p in prompts]
             steps, decode_s, decode_steps, prefilled = 0, 0.0, 0, 0
             decode_tokens, admitted = 0, 0
             while not eng.idle:
@@ -3336,9 +3427,10 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
             launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
             windowed = K2_WINDOWED["calls"]
             peak = torch.cuda.max_memory_allocated()
-            check_streams(f"{arch} serve", out, rids, cfg.vocab_size)
+            check_streams(f"{arch} serve", out, rids, cfg.vocab_size,
+                          DENSE_NEW)
             t0 = time.perf_counter()
-            refs = [eng.generate({"tokens": p[None]}, 32)[0]
+            refs = [eng.generate({"tokens": p[None]}, DENSE_NEW)[0]
                     for p in prompts]
             generate_s = time.perf_counter() - t0
             refs_by[name] = refs
@@ -3424,8 +3516,8 @@ def dense_serve(arch: str, model, params, spec: dict) -> dict:
 
 def oneshot_bf16(arch: str, model, params, spec: dict, prompts,
                  refs) -> dict:
-    """ROADMAP Queue 3's check: the serve prompts (32 new tokens each)
-    through the one-shot engine over bf16 pools (``kv_quant="none"``,
+    """ROADMAP Queue 3's check: the serve prompts (`DENSE_NEW` new tokens
+    each) through the one-shot engine over bf16 pools (``kv_quant="none"``,
     ``chunked_prefill=False``, 4 slots, pages of 16) with every quantized
     linear on K1 / K3 (no linear changes path with M), each stream
     against ``refs``, `generate()` at B 1 under the same config
@@ -3441,11 +3533,12 @@ def oneshot_bf16(arch: str, model, params, spec: dict, prompts,
                                chunked_prefill=False)
         reset_counts()
         t0 = time.perf_counter()
-        rids = [eng.submit(p, 32) for p in prompts]
+        rids = [eng.submit(p, DENSE_NEW) for p in prompts]
         out = eng.drain()
         serve_s = time.perf_counter() - t0
         launches = read_counts([*COUNTERS, *EXPERT_COUNTERS])
-    check_streams(f"{arch} oneshot_bf16", out, rids, cfg.vocab_size)
+    check_streams(f"{arch} oneshot_bf16", out, rids, cfg.vocab_size,
+                  DENSE_NEW)
     diffs = _first_diffs([out[r] for r in rids], refs)
     identical = sum(d is None for d in diffs)
     if eng._scheduler._run_batch is not None or any(
@@ -3511,7 +3604,7 @@ def _cut_two_layers(model, params):
     return cm, {**params, "segments": segs}, pick
 
 
-def cross_check_decode(model, params) -> dict:
+def cross_check_decode(model, params, cpu_params=None) -> dict:
     """The one-shot path's counterpart of `cross_check`, for a model
     whose cache is per-slot state (MLA latents, SSM states, hymba's
     rings) or whose prompts hold images (phi-3-vision: 256 patches before
@@ -3520,8 +3613,10 @@ def cross_check_decode(model, params) -> dict:
     step over the card's cache (step 1), on the card vs CPU copies
     (plain versions), held by the same rule: logits at 5% of their
     largest magnitude, argmax equal on rows whose top-2 margin clears
-    that. The CPU side takes the card's MoE routing (`RouteTie`)."""
-    prm = {"cuda": params, "cpu": tree_to(params, "cpu")}
+    that. The CPU side takes the card's MoE routing (`RouteTie`).
+    ``cpu_params``: the CPU copy, if made."""
+    prm = {"cuda": params, "cpu": tree_to(params, "cpu")
+           if cpu_params is None else cpu_params}
     cfg = model.cfg
     rng = np.random.default_rng(SEED + 1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
@@ -3575,17 +3670,24 @@ def cross_check_decode(model, params) -> dict:
 
 def dense_check(arch: str, model, params) -> dict:
     """The CPU checks at a depth the host can run: a 2-layer cut of the
-    served AWQ model, one chunk step pair (`cross_check`; the one-shot
-    prefill and decode step, `cross_check_decode`, for a model with
-    per-slot state and for phi-3-vision, whose prefill takes images) and
-    one prefill (`check_prefill`) on the card against CPU copies."""
+    served AWQ model (a model whose every layer is MoE: its first layer,
+    for the CPU side's time), one chunk step pair (`cross_check`; the
+    one-shot prefill and decode step, `cross_check_decode`, for a model
+    with per-slot state and for phi-3-vision, whose prefill takes images)
+    and one prefill (`check_prefill`) on the card against CPU copies (one
+    copy for both)."""
     cm, cp, pick = _cut_two_layers(model, params)
+    if cm.cfg.num_experts and not cm.cfg.first_dense_layers:
+        cm = Model(dataclasses.replace(cm.cfg, num_layers=1))
+        cp = {**cp, "segments": {"seg_0": cp["segments"]["seg_0"][:1]}}
+        pick = pick[:1]
     chunkable = GenerationEngine._cache_chunkable(cm.init_paged_cache(
         2, 16, device="meta", num_slots=1, slot_seq=16))
     check = (cross_check if chunkable and cm.cfg.frontend == "none"
              else cross_check_decode)
-    return dict(layers=pick, check=check(cm, cp),
-                check_prefill=check_prefill(cm, cp))
+    cpu = tree_to(cp, "cpu")
+    return dict(layers=pick, check=check(cm, cp, cpu_params=cpu),
+                check_prefill=check_prefill(cm, cp, cpu))
 
 
 @torch.no_grad()
@@ -3722,11 +3824,15 @@ def _join_pools(shard_pools: list, mesh) -> dict:
 
 
 def _tp_moe_check(model, params) -> dict:
-    """The `check` rule on the 2-layer model: the two chunk steps of the
-    `check` phase, sharded over the 2-way mesh on the card (K3 / K1 on
-    each shard's expert stripes, K2-TP) against the unsharded step on
-    CPU copies, whose MoE layers take the card's routing (`RouteTie`);
-    step 1 reads the card's committed pages on both sides."""
+    """The `check` rule on the model's first layer (both before the
+    tp_families phase came: cut for the CPU side's time): the two chunk
+    steps of the `check` phase, sharded over the 2-way mesh on the card
+    (K3 / K1 on each shard's expert stripes, K2-TP) against the unsharded
+    step on CPU copies, whose MoE layers take the card's routing
+    (`RouteTie`); step 1 reads the card's committed pages on both
+    sides."""
+    model = Model(dataclasses.replace(model.cfg, num_layers=1))
+    params = {**params, "segments": {"seg_0": params["segments"]["seg_0"][:1]}}
     mesh = tp_mesh()
     shards = shard_params(params, mesh, model.cfg)
     cpu_params = tree_to(params, "cpu")
@@ -3795,7 +3901,8 @@ def _tp_moe_forward(model, params) -> dict:
 
 def tp_moe(model, params, spec: dict, served: dict) -> dict:
     """qwen2-moe at full width and 2 of 24 layers (the AWQ params of its
-    phase) served tensor-parallel: the 8 seeded requests through the
+    phase) served tensor-parallel: the 8 seeded requests (`DENSE_NEW` new
+    tokens each, as its serve phase) through the
     chunked engine on a 2-way ``model`` mesh whose shards share cuda:0,
     under the default threshold (the main path: counts from 0 here, read
     after), int8 pools. Gated: every shard launches K3 and K1 over its
@@ -3817,9 +3924,10 @@ def tp_moe(model, params, spec: dict, served: dict) -> dict:
     _reset_peak()
     # the main path: counts start at 0 here and are read right after
     reset_counts()
-    run = _serve_burst(eng, prompts, names)
+    run = _serve_burst(eng, prompts, names, DENSE_NEW)
     peak = torch.cuda.max_memory_allocated()
-    check_streams("tp_moe", run["out"], run["rids"], cfg.vocab_size)
+    check_streams("tp_moe", run["out"], run["rids"], cfg.vocab_size,
+                  DENSE_NEW)
     st = eng.stats()
     shard_bytes = [_expert_bytes(p) for p in eng._params_run]
     del eng
@@ -3964,7 +4072,8 @@ def _model_summary(f: dict) -> dict:
     return out
 
 
-def profile_dense_decode(model, params, steps: int = 6) -> dict:
+def profile_dense_decode(model, params, steps: int = PROFILE_STEPS
+                         ) -> dict:
     """A decode step of 4 slots at contexts ~1,100 (past the window of
     gemma3's local layers), profiled as `profile` profiles Qwen2.5's."""
     eng = GenerationEngine(model, params, num_slots=4, page_size=16,
@@ -4014,7 +4123,6 @@ def _sdpa_bwd_ms(q, k, v, do, window: int, causal: bool = True,
     grad()
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     with prof:
         for _ in range(iters):
@@ -4110,7 +4218,11 @@ def check_k4b(gen) -> tuple[dict, dict]:
     return entry, detail
 
 
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+# train's and train_mesh's Qwen2.5-0.5B: full width, 8 of its 24 layers,
+# 10 steps (24 layers and 20 steps before the tp_families phase came: cut
+# for the time limit; its checkpoints' bytes follow the depth)
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
 TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, decay_steps=200, weight_decay=0.0)
 TRAIN_COUNTERS = ("flash_attention", "flash_attention_bwd")
 
@@ -4130,7 +4242,8 @@ class _Trainer:
 
 def _train_setup():
     """train()'s model, state from seed 0, dataset and step function."""
-    cfg = get_config("qwen25-05b")
+    cfg = dataclasses.replace(get_config("qwen25-05b"),
+                              num_layers=TRAIN_LAYERS)
     if not cfg.remat:
         raise AssertionError("train: the config does not remat")
     model = Model(cfg)
@@ -4158,9 +4271,10 @@ def train_profile(warm: int = 3, steps: int = 2) -> dict:
 
 
 def train() -> dict:
-    """Full-size Qwen2.5-0.5B training from seed 0: B 8 × S 512, bf16
+    """Qwen2.5-0.5B training at full width and `TRAIN_LAYERS` of its
+    depth from seed 0: B 8 × S 512, bf16
     gradient casts, AdamW (the reference's descent settings), remat on,
-    20 steps. Gated: every parameter gets a finite gradient at step 0,
+    10 steps. Gated: every parameter gets a finite gradient at step 0,
     every loss finite, the last below the first by more than 0.3, K4 and
     K4b launched on every layer. Then one profiled step, and a 2-layer
     full-width cut's gradients on the card against CPU copies."""
@@ -4169,7 +4283,7 @@ def train() -> dict:
               for k, v in ds.batch_at(0).items()}
     _, _, grads = loss_and_grads(model, state["params"], batch0)
     missing = missing_grads(grads)
-    n_leaves = len(state_to_arrays(grads))
+    n_leaves = len(list(layer_parts(grads)))
     finite = all(bool(torch.isfinite(g).all()) for _, g in
                  flatten_with_paths(grads))
     if missing or not finite:
@@ -4218,11 +4332,18 @@ def train() -> dict:
                 check=train_check(model))
 
 
+# train_check's batch: B 1 x S 64; a MoE model's S 16 (its CPU side runs
+# every expert over a dropless capacity of S rows in f64: 16 since the
+# tp_families phase came, for the script's time limit)
+TRAIN_CHECK_SEQ, TRAIN_CHECK_SEQ_MOE = 64, 16
+
+
 def train_check(model) -> dict:
     """A 2-layer full-width cut (layers 0 and 1 of a fresh seed-0 init; a
     MoE model's cut is 1 MoE layer, for the CPU side's time, PERF §4):
     one loss and gradient on the card (K4, K4b, remat) and on CPU copies
-    (plain versions), B 1 × S 64 (and a vision model's patches). The two
+    (plain versions), B 1 × `TRAIN_CHECK_SEQ` (and a vision model's
+    patches; a MoE model's S `TRAIN_CHECK_SEQ_MOE`). The two
     round to bf16 at other places, so each leaf's gradient is held within
     5 % of its largest CPU magnitude (the `check` rule), the loss too;
     every leaf present. A MoE layer's CPU side takes the card's routing
@@ -4232,7 +4353,9 @@ def train_check(model) -> dict:
                     model.cfg, num_layers=1, first_dense_layers=0))
     params = cut.init(torch.Generator(device="cuda").manual_seed(SEED),
                       device="cuda")
-    batch = make_dataset(cut.cfg, 1, 64, SEED).batch_at(0)
+    batch = make_dataset(cut.cfg, 1, TRAIN_CHECK_SEQ if not
+                         cut.cfg.num_experts else TRAIN_CHECK_SEQ_MOE,
+                         SEED).batch_at(0)
     tie = RouteTie()
     out = {}
     for d, prm in (("cuda", params), ("cpu", tree_to(params, "cpu"))):
@@ -4243,13 +4366,18 @@ def train_check(model) -> dict:
         if missing_grads(grads):
             raise AssertionError(f"train check: {d} gradient missing "
                                  f"{missing_grads(grads)}")
-        out[d] = (float(loss), state_to_arrays(grads))
+        # {reference path: the leaf, or its layers' leaves}
+        out[d] = (float(loss), {path: [leaf] if parts is None else parts
+                                for path, parts, leaf in layer_parts(grads)})
     worst, worst_path = 0.0, None
-    for path, want in out["cpu"][1].items():
-        got = out["cuda"][1][path]
-        lim = 0.05 * float(np.abs(want).max())
-        err = float(np.abs(got - want).max())
-        if not (np.isfinite(got).all() and err <= lim):
+    for path, wants in out["cpu"][1].items():
+        # compared on the card: a MoE layer's expert leaves hold ~5e8
+        # elements, which the host's reductions take seconds over
+        gots, wants = out["cuda"][1][path], [w.cuda() for w in wants]
+        lim = 0.05 * max(float(w.abs().max()) for w in wants)
+        err = max(float((g - w).abs().max()) for g, w in zip(gots, wants))
+        if not (all(bool(torch.isfinite(g).all()) for g in gots)
+                and err <= lim):
             raise AssertionError(f"train check {path}: err {err} > {lim}")
         rel = err / max(lim / 0.05, 1e-30)
         if rel >= worst:
@@ -4269,9 +4397,10 @@ def train_check(model) -> dict:
 RESUME_ARGS = ["--arch", "qwen25-05b", "--steps", "8", "--batch", "8",
                "--seq", "512", "--ckpt-every", "4", "--simulate-failure-at",
                "6", "--log-every", "1"]
-# train_resume's depth: 12 of Qwen's 24 layers at full width (its
-# checkpoints' disk time, for the script's time limit since PR 29)
-RESUME_LAYERS = 12
+# train_resume's depth: 4 of Qwen's 24 layers at full width (its
+# checkpoints' disk time, for the script's time limit: 12, then 4 since
+# the tp_families phase came)
+RESUME_LAYERS = 4
 
 
 def train_resume() -> dict:
@@ -4457,8 +4586,173 @@ def train_families() -> dict:
     return out
 
 
+# --------------------------------------------------------- phase tp_families
+# the families whose tensor parallelism came last: MLA + MoE, SSD, hybrid,
+# the audio encoder, the VLM; each trains on a (1 x 2) mesh on cuda:0 at
+# train_families' depth, B x S, lr and seed
+TP_FAMILIES = ("deepseek-v2-lite-16b", "mamba2-130m", "hymba-1.5b",
+               "hubert-xlarge", "phi-3-vision-4.2b")
+TP_FAMILY_STEPS = 2
+# the packed forward's batch (B, S; phi-3-vision's 256 patches before it)
+TP_FORWARD_BS = (2, 64)
+KERNEL_PATHS = ("awq_matmul", "awq_gateup")
+
+
+def _leaf_bytes(tree) -> dict:
+    return {path: [t.numel() * t.element_size()
+                   for t in (parts if parts is not None else [leaf])]
+            for path, parts, leaf in layer_parts(tree)}
+
+
+def _split_halves(state, logical: dict) -> tuple[int, int, bool]:
+    """Over the leaves the ``model`` rule splits: (bytes of one shard's
+    pieces, their logical bytes, every shard's piece exactly half its
+    leaf)."""
+    grid = state["params"][0]
+    mine = [_leaf_bytes(t) for t in grid]
+    shard = whole = 0
+    exact = True
+    for path, sparts, sleaf in layer_parts(state.specs):
+        if (sparts[0] if sparts is not None else sleaf)[0] is None:
+            continue
+        whole += sum(logical[path])
+        shard += sum(mine[0][path])
+        exact &= all(2 * b == w for m in mine
+                     for b, w in zip(m[path], logical[path]))
+    return shard, whole, exact
+
+
+def _tp_family_train(arch: str, layers: int, b: int, s: int, lr: float,
+                     want: list) -> dict:
+    """``TP_FAMILY_STEPS`` steps of one family on the (1 x 2) mesh from the
+    seed-0 state `train_family` starts from. Gated: each loss within 1e-3
+    (relative) of the unsharded ``want``; K4 twice and K4b once a step in
+    each attention layer on every shard whose heads split (hymba's 25 q
+    heads do not: on the first shard); every split leaf exactly half its
+    bytes a shard; replicated leaves bit-equal to the first shard's after
+    the steps."""
+    with _depth(arch, layers):
+        cfg = get_config(arch)
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    logical = _leaf_bytes(state["params"])
+    mesh = make_host_mesh(1, 2, devices=["cuda:0"] * 2)
+    state = TrainSharding(mesh, cfg).place(state)
+    gc.collect()
+    step_fn = make_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(**dict(TRAIN_OPT, lr=lr)),
+        grad_comm_dtype="bfloat16"), mesh=mesh)
+    ds = make_dataset(cfg, b, s, SEED)
+    _reset_peak()
+    reset_counts()
+    state, losses, step_s, _ = _mesh_steps(step_fn, state, ds,
+                                           TP_FAMILY_STEPS)
+    launches = read_counts(TRAIN_COUNTERS)
+    peak = torch.cuda.max_memory_allocated()
+    shard_b, whole_b, halves = _split_halves(state, logical)
+    equal = _replicas_bit_equal(state)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {n: c / TP_FAMILY_STEPS for n, c in launches.items()}
+    attn = _k4_layers(cfg) * (2 if cfg.num_heads % 2 == 0 else 1)
+    want_launches = {"flash_attention": 2 * attn,
+                     "flash_attention_bwd": attn}
+    close = [abs(a - w) <= 1e-3 * abs(w) for a, w in zip(losses, want)]
+    if not (all(close) and per_step == want_launches and halves and equal):
+        raise AssertionError(
+            f"tp_families {arch}: losses {losses} vs unsharded {want}, "
+            f"launches a step {per_step} (want {want_launches}), split "
+            f"leaves halved {halves}, replicated bit-equal {equal}")
+    return dict(losses=losses, unsharded_losses=want,
+                worst_rel_loss_diff=max(abs(a - w) / abs(w)
+                                        for a, w in zip(losses, want)),
+                step_ms=[1e3 * x for x in step_s], peak_mem_bytes=peak,
+                launches=launches, launches_per_step=per_step,
+                split_bytes_per_shard=shard_b, split_bytes_logical=whole_b,
+                split_leaves_halved=halves, replicated_bit_equal=equal)
+
+
+def _tp_family_forward(arch: str, layers: int) -> dict:
+    """The RTN int4 model at the same depth: `forward_logits(mesh=)` on the
+    (1 x 2) mesh against the unsharded packed forward on the card (the
+    `check` rule over every position; a MoE layer takes the unsharded
+    forward's routing, `RouteTie`), under the default threshold and with
+    every quantized linear on K1 / K3 (``ALL_KERNEL``). Gated besides:
+    under ``ALL_KERNEL`` no quantized linear takes the generic path and
+    every kernel call is one K1 or K3 launch on a shard's stripe."""
+    with _depth(arch, layers):
+        cfg = get_config(arch)
+    model = Model(cfg)
+    params, _ = quantize_params(model.init(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda"))
+    b, s = TP_FORWARD_BS
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in make_dataset(cfg, b, s, SEED).batch_at(0).items()
+             if k != "labels"}
+    mesh = make_host_mesh(1, 2, devices=["cuda:0"] * 2)
+    grid = [shard_params(params, rm, cfg) for rm in replica_meshes(mesh)]
+    v = cfg.vocab_size
+    out = {}
+    for name, ecfg in (("default", qlinear.ExecutionConfig()),
+                       ("all_kernel", ALL_KERNEL)):
+        tie = RouteTie()
+        with qlinear.execution_config(ecfg), torch.no_grad():
+            with tie.record():
+                want = model.forward_logits(params, batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            qlinear.COUNTS.kernel = qlinear.COUNTS.generic = 0
+            t0 = time.perf_counter()
+            with tie.force():
+                got = model.forward_logits(grid, batch, mesh=mesh)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            launches = read_counts(KERNEL_PATHS)
+            paths = {"kernel": qlinear.COUNTS.kernel,
+                     "generic": qlinear.COUNTS.generic}
+        if name == "all_kernel" and not (
+                paths["generic"] == 0 and launches["awq_matmul"] > 0
+                and paths["kernel"] == sum(launches.values())
+                and (launches["awq_gateup"] > 0) == _uses_k3(cfg)):
+            raise AssertionError(f"tp_families {arch} forward: launches "
+                                 f"{launches}, paths {paths}")
+        out[name] = dict(
+            launches=launches, qlinear_calls=paths, forward_ms=1e3 * fwd_s,
+            routing=tie.report(),
+            **_check_rule(0, got.reshape(-1, v).float().cpu(),
+                          want.reshape(-1, v).float().cpu(),
+                          f"tp_families {arch} forward"))
+    del params, grid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=[b, s], logits=[int(x) for x in got.shape], **out)
+
+
+def tp_families(families: dict) -> dict:
+    """Phase 33: `_tp_family_train` and `_tp_family_forward` for each of
+    ``TP_FAMILIES`` at its `train_families` depth, B × S and lr, its
+    losses held against that phase's first steps."""
+    cut = {arch: (layers, b, s, lr)
+           for arch, layers, b, s, lr, _ in TRAIN_FAMILIES}
+    out = {}
+    for arch in TP_FAMILIES:
+        t = time.perf_counter()
+        layers, b, s, lr = cut[arch]
+        out[arch] = dict(
+            layers=layers, batch=b, seq=s, mesh="(data 1 x model 2) on cuda:0",
+            unsharded_step_ms_median=families[arch]["step_ms_median"],
+            unsharded_peak_mem_bytes=families[arch]["peak_mem_bytes"],
+            **_tp_family_train(arch, layers, b, s, lr,
+                               families[arch]["losses"][:TP_FAMILY_STEPS]),
+            forward=_tp_family_forward(arch, layers),
+            phase_s=time.perf_counter() - t)
+    return out
+
+
 # ---------------------------------------------------------- phase train_mesh
-TRAIN_MESH_STEPS = 6
+TRAIN_MESH_STEPS = 4         # 6 before the tp_families phase came
 # qwen2-moe's float experts under the mesh: 1 of 24 layers, B 2 x S 512 a
 # data replica (PERF.md §4: the card's memory with four shards)
 TRAIN_MESH_MOE = (1, 4, 512, 2)
@@ -4625,8 +4919,9 @@ def _train_mesh_moe() -> dict:
 def train_mesh(trained: dict) -> dict:
     """Training over a (data 2 x model 2) mesh, all four shards on
     cuda:0 (the card cannot show a speedup, only the function and the
-    bytes): Qwen2.5-0.5B at full size from the `train` phase's seed and
-    settings (B 8 x S 512 globally, bf16 casts, remat, AdamW), 6 steps
+    bytes): the `train` phase's model (`TRAIN_LAYERS` of Qwen2.5-0.5B's)
+    from its seed and settings (B 8 x S 512 globally, bf16 casts, remat,
+    AdamW), `TRAIN_MESH_STEPS` steps
     (the main path: counts from 0 here, read after). Gated: each loss
     within 2e-2 relative of `train`'s at the same step; K4 twice and K4b
     once a layer a shard a step; the replicas bit-equal after the last
@@ -4719,8 +5014,16 @@ def main() -> None:
                          "csrc/flash_attention_bwd.cu) to compare two "
                          "versions on one card; prints no kernels or ok "
                          "line")
+    ap.add_argument("--tp-families-only", action="store_true",
+                    help="build, then only the tensor-parallel stripes' "
+                         "kernel shapes, train_families for the five "
+                         "families tp_families splits, and tp_families; "
+                         "prints no kernels or ok line")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    # the imported modules' objects live as long as the script: keep them
+    # out of the peak-memory windows' many gc.collect() calls
+    gc.freeze()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -4739,7 +5042,9 @@ def main() -> None:
 
     t = time.perf_counter()
     built = build.build_all()
-    mma = {n: sass_mma_count(b.path) for n, b in built.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
+        mma = dict(zip(built, pool.map(lambda b: sass_mma_count(b.path),
+                                       built.values())))
     phase("build", seconds=time.perf_counter() - t,
           per_source={n: b.seconds for n, b in built.items()},
           ptxas=[ln.strip() for b in built.values() for ln in b.log.splitlines()
@@ -4776,6 +5081,20 @@ def main() -> None:
         phase("train_profile", gpu=smi, **train_profile())
         return
 
+    if args.tp_families_only:
+        phase("kernel_shapes", tp_stripes=check_tp_stripe_kernels(
+            torch.Generator(device="cuda").manual_seed(SEED)))
+        families = {}
+        for arch, layers, b, s, lr, steps in TRAIN_FAMILIES:
+            if arch in TP_FAMILIES:
+                families[arch] = train_family(arch, layers, b, s, lr, steps)
+                gc.collect()
+                torch.cuda.empty_cache()
+        phase("train_families", gpu=smi, **families)
+        phase("tp_families", gpu=smi, **tp_families(families))
+        phase("summary", gpu=smi, script_s=time.perf_counter() - t_start)
+        return
+
     if args.profile_only:
         model = Model(get_config("qwen25-05b"))
         params, _ = quantize_params(model.init(
@@ -4803,9 +5122,11 @@ def main() -> None:
           flash_attention=k4_detail, flash_attention_bwd=k4b_detail,
           dense_models=check_dense_kernels(gen),
           moe_experts=check_expert_kernels(gen),
-          moe_experts_shard=check_expert_shard_kernels(gen))
+          moe_experts_shard=check_expert_shard_kernels(gen),
+          tp_stripes=check_tp_stripe_kernels(gen))
 
-    cfg = get_config("qwen25-05b")
+    cfg = dataclasses.replace(get_config("qwen25-05b"),
+                              num_layers=SERVE_LAYERS)
     model = Model(cfg)
     t = time.perf_counter()
     params, report = quantize_params(model.init(
@@ -4879,7 +5200,8 @@ def main() -> None:
                             + oneshot["launches"]["flash_attention"]
                             + drafted["all_kernel"]["launches"][
                                 "flash_attention"])
-    prefilled = check_prefill(model, awq_params)
+    # the launcher's params hold all 24 layers
+    prefilled = check_prefill(Model(get_config("qwen25-05b")), awq_params)
     phase("check_prefill", **prefilled)
     del awq_params
     torch.cuda.empty_cache()
@@ -4917,17 +5239,26 @@ def main() -> None:
             tp_moe_run["launches"][f"{entry['name']}_experts"]
     k2tp_entry["launches"] += tp_moe_run["launches"][
         "paged_attention_chunk_sharded"]
-    # training: Qwen2.5-0.5B at full size (K4 forward and remat, K4b)
+    # training: Qwen2.5-0.5B at full width (K4 forward and remat, K4b)
     trained = train()
     phase("train", **trained)
     resumed = train_resume()
     phase("train_resume", **resumed)
     families = train_families()
     phase("train_families", gpu=smi, **families)
+    tp_fam = tp_families(families)
+    phase("tp_families", gpu=smi, **tp_fam)
+    # the packed forwards on the mesh: K1 and K3 on each shard's stripes
+    for entry in (k1_entry, k3_entry):
+        runs = [f["forward"][c]["launches"][entry["name"]]
+                for f in tp_fam.values() for c in ("default", "all_kernel")]
+        entry["launches"] += sum(runs)
+        entry["launches_by_model"]["tp_families"] = sum(runs)
     meshed = train_mesh(trained)
     phase("train_mesh", gpu=smi, **meshed)
     by_path = {name: trained["launches"][name] + resumed["launches"][name]
                + sum(f["launches"][name] for f in families.values())
+               + sum(f["launches"][name] for f in tp_fam.values())
                + meshed["launches"][name]
                + meshed["qwen2_moe"]["launches"][name]
                for name in TRAIN_COUNTERS}
@@ -5030,6 +5361,15 @@ def main() -> None:
                 "save_s", "restore_s", "next_loss_2x2", "next_loss_1x2")},
             "qwen2_moe": {k: meshed["qwen2_moe"][k] for k in (
                 "losses", "unsharded_loss", "step_ms", "peak_mem_bytes")}},
+        tp_families={arch: {k: f[k] for k in (
+            "losses", "unsharded_losses", "worst_rel_loss_diff", "step_ms",
+            "unsharded_step_ms_median", "peak_mem_bytes",
+            "unsharded_peak_mem_bytes", "launches_per_step",
+            "split_bytes_per_shard", "split_bytes_logical", "phase_s")} | {
+            "forward": {c: {k: f["forward"][c][k] for k in (
+                "max_abs_err", "tol", "launches", "forward_ms")}
+                for c in ("default", "all_kernel")}}
+            for arch, f in tp_fam.items()},
         train_families={arch: {k: f[k] for k in (
             "layers", "batch", "seq", "losses", "step_ms_median",
             "tokens_per_s", "peak_mem_bytes", "launches_per_step",

@@ -18,12 +18,12 @@
 dense decoders, MoE (qwen2-moe-a2.7b; deepseek-v2-lite-16b with MLA),
 SSM (mamba2-130m), hybrid (hymba-1.5b), the audio encoder
 (hubert-xlarge: stub frames, codeword labels) and the VLM
-(phi-3-vision-4.2b: stub patches, labels over the text). The data axis
-takes every family (the batch must divide); a model axis above 1 takes
-the attention decoders with dense or MoE MLPs (the others raise
-`NotImplementedError`, ROADMAP Queue 1, item 4). The mesh's shards lie on
-this machine's cards (``--device cuda``, one a shard), or all on one
-device: ``--device cpu`` or a card by index (``--device cuda:0``).
+(phi-3-vision-4.2b: stub patches, labels over the text). Both axes
+take every family (the batch must divide over ``data``; each leaf splits
+over ``model`` as the reference's `param_pspec` splits it). The mesh's
+shards lie on this machine's cards (``--device cuda``, one a shard), or
+all on one device: ``--device cpu`` or a card by index (``--device
+cuda:0``).
 Checkpoints hold the logical state, so a run resumes on any mesh. Returns
 ``{"first_loss", "last_loss", "steps"}`` as the reference's does, plus
 ``recoveries`` (failures recovered), ``losses`` and ``step_s`` (each
@@ -40,6 +40,8 @@ paths):
       --arch hubert-xlarge --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --data-axis 2 --model-axis 2 --steps 4 --batch 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --arch mamba2-130m --model-axis 2 --steps 2
 """
 from __future__ import annotations
 
@@ -55,7 +57,6 @@ from repro_torch.data.pipeline import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import TrainSharding
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.blocks import tp_unsupported
 from repro_torch.models.model import Model
 from repro_torch.training import AdamWConfig, TrainConfig, make_train_step
 from repro_torch.training.train_step import (init_train_state,
@@ -89,8 +90,6 @@ def main(argv=None) -> dict:
     model = Model(cfg)
     sharding = None
     if args.data_axis > 1 or args.model_axis > 1:
-        if args.model_axis > 1 and tp_unsupported(cfg):
-            raise NotImplementedError(tp_unsupported(cfg))
         if args.batch % args.data_axis:
             raise ValueError(f"--batch {args.batch} does not split over "
                              f"--data-axis {args.data_axis}")

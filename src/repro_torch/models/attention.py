@@ -28,7 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import concat, model_devices
+from repro_torch.distributed.sharding import model_devices
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
@@ -220,10 +220,6 @@ def attention_tp(ps: list, x, cfg, *, devices: list, positions,
     else:
         hs, g = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
         kv_split = layers._kn(p0["wk"])[1] < cfg.kv_dim
-        if not kv_split and hs % g and g % hs:
-            raise NotImplementedError(
-                f"{cfg.name}: {hs} q heads a shard cut a group of {g} "
-                f"(ROADMAP Queue 1, item 4)")
         if not kv_split:
             k = _heads(p0["wk"], kn, x, cfg, cfg.num_kv_heads, positions,
                        window)
@@ -238,14 +234,19 @@ def attention_tp(ps: list, x, cfg, *, devices: list, positions,
                 ks = _heads(p["wk"], kn, xd, cfg, hk, positions.to(d),
                             window)
                 vs = linear(p["wv"], xd).reshape(b, s, hk, cfg.head_dim)
-            else:
+            elif hs % g == 0 or g % hs == 0:
                 lo = sh * hs // g
                 hi = ((sh + 1) * hs - 1) // g + 1
                 ks, vs = k[:, :, lo:hi].to(d), v[:, :, lo:hi].to(d)
+            else:
+                # the shard's q heads cut a group: each reads its own kv
+                # head (G 1)
+                idx = [(sh * hs + j) // g for j in range(hs)]
+                ks, vs = k[:, :, idx].to(d), v[:, :, idx].to(d)
             outs.append(k4_run(q, ks, vs))
-    y = layers.linear_tp([p["wo"] for p in ps], outs, devices, cfg.q_dim,
-                         cfg.d_model)
-    return concat(y, -1, devices) if isinstance(y, list) else y
+    return layers.gathered(layers.linear_tp(
+        [p["wo"] for p in ps], outs, devices, cfg.q_dim, cfg.d_model),
+        devices)
 
 
 # ---------------------------------------------------------------------------

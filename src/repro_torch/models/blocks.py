@@ -258,17 +258,24 @@ def _mlp_apply_tp(ps: list, x, cfg, kind: LayerKind, devices: list):
                          cfg.d_model, cfg.d_ff, glu=kind.mlp == "glu"), None
 
 
-def tp_unsupported(cfg) -> str | None:
-    """Why ``cfg`` cannot run split over a ``model`` axis above 1, or None:
-    only attention layers (global or windowed) with a dense or MoE MLP
-    and no frontend are ported (ROADMAP Queue 1, item 4)."""
-    kinds = {k.mixer for k, _ in cfg.segments()}
-    if kinds != {"attn"} or cfg.frontend != "none" or cfg.is_encoder:
-        return (f"{cfg.name}: tensor parallelism over a 'model' axis above "
-                f"1 is ported for attention decoders with dense or MoE MLPs "
-                f"only; mixers {sorted(kinds)}, frontend {cfg.frontend!r} "
-                f"(ROADMAP Queue 1, item 4)")
-    return None
+def _mixer_train_tp(ps: list, h, cfg, kind: LayerKind, devices: list,
+                    positions):
+    """`_mixer_train` over the shards: attention (`attention.
+    attention_tp`), MLA (`mla.mla_attention_tp`), the SSD (`ssm.
+    ssm_mixer_tp`), or hymba's two branches merged on the first shard's
+    norms. Replicated h in, replicated y out."""
+    if kind.mixer == "mla":
+        return mla_mod.mla_attention_tp([p["attn"] for p in ps], h, cfg,
+                                        devices=devices, positions=positions)
+    if kind.mixer == "mamba":
+        return ssm_mod.ssm_mixer_tp([p["ssm"] for p in ps], h, cfg, devices)
+    ya = attn_mod.attention_tp([p["attn"] for p in ps], h, cfg,
+                               devices=devices, positions=positions,
+                               window=kind.window, causal=not cfg.is_encoder)
+    if kind.mixer == "attn":
+        return ya
+    ys = ssm_mod.ssm_mixer_tp([p["ssm"] for p in ps], h, cfg, devices)
+    return _hymba_merge(ps[0], ya, ys, cfg)
 
 
 def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
@@ -276,21 +283,20 @@ def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
                    page_table=None, rpos=None, amask=None):
     """`block_apply` under a ``model`` mesh: ``ps`` (and, in chunk mode,
     ``caches``) hold one block's params (pool) a shard. The norms are
-    replicated (computed once, on the first shard's copy); the attention
-    runs per shard on its heads and its ``wo`` partials are summed; the
-    MLP runs per shard (`_mlp_apply_tp`). ``mode="chunk"``: the serving
-    step over the paged pools (updated in place); ``"train"``: the
-    full-sequence forward (train, `Model.forward_logits`), through K4
-    and, under grad, K4b on each shard's heads. Returns (the replicated
-    x, the MoE aux loss or None). Only attention blocks take this path."""
+    replicated (computed once, on the first shard's copy); the mixer runs
+    per shard on its heads (or its stripe) and its output projection's
+    partials are summed; the MLP runs per shard (`_mlp_apply_tp`).
+    ``mode="chunk"``: the serving step over the paged pools (updated in
+    place; attention blocks only); ``"train"``: the full-sequence forward
+    (train, `Model.forward_logits`) of every mixer (`_mixer_train_tp`),
+    attention through K4 and, under grad, K4b on each shard's heads.
+    Returns (the replicated x, the MoE aux loss or None)."""
     if mode == "chunk" and (kind.mixer != "attn"
                             or "kv_pool" not in caches[0]):
         raise ValueError(
             f"chunked execution needs a pure paged-attention cache; "
             f"{kind.tag!r} keeps per-slot sequential state: serve it "
             f"through the one-shot prefill path")
-    if kind.mixer != "attn":
-        raise NotImplementedError(tp_unsupported(cfg))
     devices = model_devices(mesh)
     h = norm(ps[0]["pre_norm"], x, cfg)
     if mode == "chunk":
@@ -299,10 +305,7 @@ def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
             page_table, h, cfg, mesh=mesh, pos=positions, rpos=rpos,
             amask=amask, window=kind.window)
     else:
-        y = attn_mod.attention_tp([p["attn"] for p in ps], h, cfg,
-                                  devices=devices, positions=positions,
-                                  window=kind.window,
-                                  causal=not cfg.is_encoder)
+        y = _mixer_train_tp(ps, h, cfg, kind, devices, positions)
     x = x + y
     if kind.mlp == "none":
         return x, None

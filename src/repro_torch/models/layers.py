@@ -19,7 +19,7 @@ from repro_torch.core.qlinear import (fusable_gateup, qgateup_apply,
                                       qlinear_apply, qlinear_partial,
                                       qlinear_prescale)
 from repro_torch.distributed.sharding import all_sum, concat, split
-from repro_torch.numerics import matmul_f32_rows, matmul_wide_rows
+from repro_torch.numerics import matmul_f32_rows, matmul_wide_rows, wide
 
 
 # ---------------------------------------------------------------------- init
@@ -125,8 +125,19 @@ def linear_tp(ps: list, x, devices: list, k: int, n: int):
                               scaled.to(d), out_dtype=dt)
                 for p, d in zip(ps, devices)]
         return concat(outs, -1, devices)
-    if pn < n:
+    if pn < n and isinstance(ps[0], PackedLinear):
         return [linear(p, x.to(d)) for p, d in zip(ps, devices)]
+    if pn < n:
+        # x widened once for every shard's columns: on the CPU the
+        # shards' gradients of x then add in float64 and round once, as
+        # the unsharded product's do (the forward's bits are `linear`'s)
+        xw, dt = wide(x), x.dtype
+        outs = []
+        for p, d in zip(ps, devices):
+            y = matmul_wide_rows(xw.to(d), p["w"].to(dt)).to(
+                torch.float32).to(dt)
+            outs.append(y + p["b"].to(dt) if "b" in p else y)
+        return outs
     if pk < k:
         if not split_in:
             x = split(x, -1, devices)
@@ -139,6 +150,18 @@ def linear_tp(ps: list, x, devices: list, k: int, n: int):
     if split_in:
         x = concat(x, -1, devices)
     return linear(ps[0], x)
+
+
+def gathered(y, devices: list) -> torch.Tensor:
+    """A `linear_tp` output made replicated: column pieces joined in shard
+    order on the first shard's device."""
+    return concat(y, -1, devices) if isinstance(y, list) else y
+
+
+def striped(y, devices: list) -> list:
+    """A `linear_tp` output as one piece a shard over its last dim (a
+    replicated output is cut)."""
+    return y if isinstance(y, list) else split(y, -1, devices)
 
 
 def mlp_tp(mps: list, x, act: str, devices: list, d: int, f: int,
@@ -163,8 +186,8 @@ def mlp_tp(mps: list, x, act: str, devices: list, d: int, f: int,
         else:
             h = ([activation(act, u) for u in up]
                  if isinstance(up, list) else activation(act, up))
-    y = linear_tp([mp["down"] for mp in mps], h, devices, f, d)
-    return concat(y, -1, devices) if isinstance(y, list) else y
+    return gathered(linear_tp([mp["down"] for mp in mps], h, devices, f, d),
+                    devices)
 
 
 def embed_lookup_tp(tables: list, tokens: torch.Tensor, devices: list,
@@ -229,6 +252,29 @@ def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
     if plus_one:
         g = 1.0 + g
     return (xf * g).to(dt)
+
+
+def rmsnorm_split(p, parts: list, devices: list, *, eps: float = 1e-6
+                  ) -> list:
+    """`rmsnorm` of an activation split over its last dim (``parts``: one
+    stripe a shard, in shard order): each shard's sum of squares (its
+    staged mean times its width, `_staged_mean`'s rule, so a row's bits do
+    not depend on the row count), summed in shard order on the first
+    shard, one rsqrt; each stripe scaled by it and by its slice of the
+    gain (``p``: the replicated gain, the first shard's copy, so only it
+    takes a gradient). Returns the normed stripes on their devices."""
+    d = sum(t.shape[-1] for t in parts)
+    sq = all_sum([_staged_mean(t.to(torch.float32) ** 2) * t.shape[-1]
+                  for t in parts], devices)
+    r = torch.rsqrt(sq / d + eps)
+    g = p["gamma"].to(torch.float32)
+    out, lo = [], 0
+    for t, dv in zip(parts, devices):
+        w = t.shape[-1]
+        out.append((t.to(torch.float32) * r.to(dv)
+                    * g[lo:lo + w].to(dv)).to(t.dtype))
+        lo += w
+    return out
 
 
 def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.core.packing import PackedLinear, dequantize_packed
 from repro_torch.models import layers
-from repro_torch.models.layers import apply_rope, linear, rmsnorm, rope_cos_sin
+from repro_torch.models.layers import (apply_rope, gathered, linear,
+                                      linear_tp, rmsnorm, rope_cos_sin)
 from repro_torch.numerics import einsum_f32, einsum_f64
 
 
@@ -64,18 +65,20 @@ def _project_latent(p, x, cfg, positions, name):
     return c, k_pe
 
 
-def mla_attention(p, x, cfg, *, positions, name=None) -> torch.Tensor:
-    """Train/prefill MLA (explicit form). x [B, S, D] -> [B, S, D].
-    Queries are taken ``attn_chunk`` at a time where S is a multiple of
-    it, as the reference scans them (a row's result does not depend on
-    the chunking)."""
-    b, s, _ = x.shape
-    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    h, vdim = cfg.num_heads, cfg.v_head_dim
-    nm = (lambda s_: None) if name is None else name
-    q_nope, q_rope = _project_q(p, x, cfg, positions, name)
-    c, k_pe = _project_latent(p, x, cfg, positions, name)
-    kv = linear(p["kv_up"], c, nm("kv_up")).reshape(b, s, h, nope + vdim)
+def _attend(q, kv, k_pe, positions, heads: int, cfg) -> torch.Tensor:
+    """The explicit form's attention over ``heads`` heads: q [B, S,
+    heads·(nope + rope)] (before RoPE), kv [B, S, heads·(nope + vdim)],
+    k_pe [B, S, rope] (shared by the heads) -> [B, S, heads·vdim]. Queries
+    are taken ``attn_chunk`` at a time where S is a multiple of it, as the
+    reference scans them (a row's result does not depend on the
+    chunking)."""
+    b, s = q.shape[:2]
+    nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    q = q.reshape(b, s, heads, nope + rope)
+    cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin, rope)
+    kv = kv.reshape(b, s, heads, nope + vdim)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     scale = (nope + rope) ** -0.5
 
@@ -94,7 +97,55 @@ def mla_attention(p, x, cfg, *, positions, name=None) -> torch.Tensor:
                          for i in range(0, s, chunk)], dim=1)
     else:
         out = attend(q_nope, q_rope, positions)
-    return linear(p["wo"], out.reshape(b, s, h * vdim), nm("wo"))
+    return out.reshape(b, s, heads * vdim)
+
+
+def mla_attention(p, x, cfg, *, positions, name=None) -> torch.Tensor:
+    """Train/prefill MLA (explicit form). x [B, S, D] -> [B, S, D]."""
+    nm = (lambda s_: None) if name is None else name
+    q = linear(p["q_proj"], x, nm("q_proj"))
+    c, k_pe = _project_latent(p, x, cfg, positions, name)
+    kv = linear(p["kv_up"], c, nm("kv_up"))
+    out = _attend(q, kv, k_pe, positions, cfg.num_heads, cfg)
+    return linear(p["wo"], out, nm("wo"))
+
+
+def mla_attention_tp(ps: list, x, cfg, *, devices: list, positions
+                     ) -> torch.Tensor:
+    """`mla_attention` over a ``model`` mesh's shards (``ps``: one layer's
+    MLA params a shard). ``kv_down``'s column stripes (they cross the
+    latent / rope boundary: 576 -> 288 a shard at deepseek-v2-lite's
+    width) are joined, then normed (``kv_norm``, the first shard's copy)
+    and roped once; ``q_proj`` and ``kv_up`` run column-parallel, and
+    where their stripes hold whole heads (both are head-major) each shard
+    attends over its own heads, else the stripes are joined and the
+    heads attend on the first shard; ``wo`` is row-parallel
+    (`layers.linear_tp`). The attention products stay tensor code, as
+    `mla_attention`'s. x [B, S, D] replicated -> [B, S, D] replicated."""
+    n = len(devices)
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.kv_lora_rank
+    vdim = cfg.v_head_dim
+    p0 = ps[0]
+
+    def col(key, inp, k, width):
+        return linear_tp([p[key] for p in ps], inp, devices, k, width)
+
+    ckv = gathered(col("kv_down", x, d, r + rope), devices)
+    c = rmsnorm(p0["kv_norm"], ckv[..., :r], eps=cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, rope, cfg.rope_theta)
+    k_pe = apply_rope(ckv[..., r:][..., None, :], cos, sin, rope)[..., 0, :]
+    q = col("q_proj", x, d, h * (nope + rope))
+    kv = col("kv_up", c, r, h * (nope + vdim))
+    if h % n == 0 and isinstance(q, list) and isinstance(kv, list):
+        outs = [_attend(qs, kvs, k_pe.to(dv), positions.to(dv), h // n, cfg)
+                for qs, kvs, dv in zip(q, kv, devices)]
+    else:
+        outs = _attend(gathered(q, devices), gathered(kv, devices), k_pe,
+                       positions, h, cfg)
+    return gathered(linear_tp([p["wo"] for p in ps], outs, devices,
+                              h * vdim, d), devices)
 
 
 # ---------------------------------------------------------------------------

@@ -37,8 +37,8 @@ from repro_torch.distributed.sharding import (all_sum, concat, model_devices,
                                               split, split_batch)
 from repro_torch.models import blocks, layers, stack
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (embed_lookup, embed_lookup_tp, linear,
-                                       linear_tp, norm)
+from repro_torch.models.layers import (embed_lookup, embed_lookup_tp,
+                                       gathered, linear, linear_tp, norm)
 from repro_torch.numerics import free_rows, matmul_f32_rows, matmul_wide_rows
 from repro_torch.utils.tree import layer_parts
 
@@ -85,7 +85,7 @@ class Model:
         return params
 
     # ------------------------------------------------------------ embeddings
-    def _embed(self, params, batch: dict):
+    def _embed(self, params, batch: dict, devices: list | None = None):
         """→ (x [B, S, D], positions [B, S], labels or None).
 
         audio: ``frame_proj(features)``; vision with ``images`` in the
@@ -93,21 +93,34 @@ class Model:
         labels (when given) padded with -1 over the image span; positions
         ``arange(S)`` over the whole sequence. The frontend linears run
         unnamed (no calibration capture), as one product each
-        (`numerics.free_rows`: a full-sequence input)."""
+        (`numerics.free_rows`: a full-sequence input). Under a mesh
+        (``devices``: the ``model`` shards' devices; ``params``: one tree
+        a shard) the table is looked up over its shards
+        (`layers.embed_lookup_tp`) and the frontend linear runs
+        column-parallel, its columns joined: x is replicated."""
         cfg = self.cfg
         adt = torch_dtype(cfg.activation_dtype)
         labels = batch.get("labels")
-        if cfg.frontend == "audio":
+
+        def front(name, feats):
             with free_rows():
-                x = linear(params["frontend"]["frame_proj"],
-                           batch["features"].to(adt))
+                if devices is None:
+                    return linear(params["frontend"][name], feats.to(adt))
+                return gathered(linear_tp(
+                    [p["frontend"][name] for p in params], feats.to(adt),
+                    devices, cfg.frontend_dim, cfg.d_model), devices)
+
+        if cfg.frontend == "audio":
+            x = front("frame_proj", batch["features"])
         else:
-            x = embed_lookup(params["embed"], batch["tokens"],
-                             scale=cfg.scale_embed).to(adt)
+            x = (embed_lookup(params["embed"], batch["tokens"],
+                              scale=cfg.scale_embed) if devices is None
+                 else embed_lookup_tp([p["embed"]["table"] for p in params],
+                                      batch["tokens"], devices,
+                                      cfg.vocab_size, cfg.d_model,
+                                      scale=cfg.scale_embed)).to(adt)
             if cfg.frontend == "vision" and "images" in batch:
-                with free_rows():
-                    img = linear(params["frontend"]["patch_proj"],
-                                 batch["images"].to(adt))
+                img = front("patch_proj", batch["images"])
                 x = torch.cat([img, x], dim=1)
                 if labels is not None:
                     labels = torch.as_tensor(labels, device=x.device)
@@ -141,9 +154,9 @@ class Model:
         head under a mesh)."""
         cfg = self.cfg
         if not cfg.tie_embeddings:
-            y = linear_tp([p["lm_head"] for p in params], x.to(torch.float32),
-                          devices, cfg.d_model, cfg.vocab_size)
-            return concat(y, -1, devices) if isinstance(y, list) else y
+            return gathered(linear_tp([p["lm_head"] for p in params],
+                                      x.to(torch.float32), devices,
+                                      cfg.d_model, cfg.vocab_size), devices)
         tables = [p["embed"]["table"] for p in params]
         if tables[0].shape[0] < cfg.vocab_size:
             return concat([matmul_f32_rows(x.to(d), t.t())
@@ -160,9 +173,9 @@ class Model:
         """One data replica's full-sequence forward over its ``model``
         shards ``ps`` → (x after the final norm, labels, the head: a
         function of x's positions to their f32 logits). One shard runs
-        the unsharded stack (every family); more run `blocks.
-        block_apply_tp` layer by layer (attention decoders; remat
-        checkpoints each block as `stack_apply` does)."""
+        the unsharded stack; more run `blocks.block_apply_tp` layer by
+        layer (every family; remat checkpoints each block as
+        `stack_apply` does)."""
         cfg = self.cfg
         devices = model_devices(rmesh)
         if len(devices) == 1:
@@ -171,17 +184,7 @@ class Model:
                                         mode="train", positions=positions)
             return (norm(ps[0]["final_norm"], x, cfg), labels,
                     lambda xc: self._head_logits(ps[0], xc))
-        why = blocks.tp_unsupported(cfg)
-        if why:
-            raise NotImplementedError(why)
-        adt = torch_dtype(cfg.activation_dtype)
-        tokens = batch["tokens"]
-        x = embed_lookup_tp([p["embed"]["table"] for p in ps], tokens,
-                            devices, cfg.vocab_size, cfg.d_model,
-                            scale=cfg.scale_embed).to(adt)
-        b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
+        x, positions, labels = self._embed(ps, batch, devices)
         remat = cfg.remat and torch.is_grad_enabled()
         with free_rows():
             for si, (kind, n) in enumerate(cfg.segments()):
@@ -195,7 +198,7 @@ class Model:
                         x, _ = blocks.block_apply_tp(
                             lps, x, cfg, kind, mesh=rmesh,
                             positions=positions, mode="train")
-        return (norm(ps[0]["final_norm"], x, cfg), batch.get("labels"),
+        return (norm(ps[0]["final_norm"], x, cfg), labels,
                 lambda xc: self._head_logits_tp(ps, xc, devices))
 
     def _loss_mesh(self, params: list, batch: dict, mesh):

@@ -19,6 +19,12 @@ run through `numerics`: f64 on the CPU rounded once to f32, f32 on the
 card; decode's state read ``h·C`` is f64 on every device, rounded once,
 so a slot's row does not depend on how many slots the step holds.
 Caches update in place.
+
+Under a ``model`` mesh (`ssm_mixer_tp`, the train-mode forward) the
+projections split as the reference's rules split them: ``wz`` / ``wx`` /
+``wb`` / ``wc`` / ``wdt`` by columns, ``out_proj`` by rows; the conv
+kernels, ``a_log``, ``ssm_d``, ``dt_bias`` and ``out_norm`` stay whole,
+and each shard reads its slice of the first shard's copy.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-from repro_torch.models.layers import linear
+from repro_torch.models.layers import gathered, linear, linear_tp, striped
 from repro_torch.numerics import einsum_f32, einsum_f64
 
 
@@ -163,6 +169,73 @@ def ssm_mixer(p, x_in: torch.Tensor, cfg, name=None) -> torch.Tensor:
     y = ssd_chunked(xh, bh, ch, dt, p["a_log"], cfg.ssm_chunk)
     y = _out(p, y, xh, z, x_in.dtype, cfg)
     return linear(p["out_proj"], y, nm("out_proj"))
+
+
+def _cols(t: torch.Tensor, lo: int, hi: int, device) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of a replicated leaf's last dim on ``device``
+    (a slice of the first shard's copy: its gradient lands there)."""
+    return t[..., lo:hi].to(device)
+
+
+def ssm_mixer_tp(ps: list, x_in: torch.Tensor, cfg, devices: list
+                 ) -> torch.Tensor:
+    """`ssm_mixer` over a ``model`` mesh's shards (``ps``: one layer's SSM
+    params a shard). x_in [B, S, D] replicated -> [B, S, D] replicated.
+
+    B and C are joined over their group dim (every head reads all of
+    them) and run through their convs once. Where the heads divide over
+    the shards (then ``wx``'s stripes hold whole heads and ``wdt`` splits
+    with them), each shard projects its stripe of z, x and dt, runs the
+    conv on its own channels and the chunked scan on its heads; the gated
+    RMSNorm over all of ``d_inner`` sums the shards' sums of squares
+    (`layers.rmsnorm_split`), and ``out_proj`` takes the normed stripes
+    row-parallel (or flipped, `layers.linear_tp`). Where they do not
+    (hymba's 50 heads over 4: an 800-column stripe cuts a 64-wide head,
+    ``wdt`` stays whole), the stripes of z and x are joined and the heads
+    run on the first shard."""
+    n = len(devices)
+    d, di = cfg.d_model, cfg.d_inner
+    ds, nh, hd = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    ng = cfg.ssm_ngroups
+    p0 = ps[0]
+
+    def proj(key, width):
+        return linear_tp([p[key] for p in ps], x_in, devices, d, width)
+
+    ub = gathered(proj("wb", ng * ds), devices)
+    uc = gathered(proj("wc", ng * ds), devices)
+    bh = _heads(_causal_conv(ub, p0["conv_b"]), ng, ds, nh // ng)
+    ch = _heads(_causal_conv(uc, p0["conv_c"]), ng, ds, nh // ng)
+    outs = [p["out_proj"] for p in ps]
+    if nh % n:
+        z = gathered(proj("wz", di), devices)
+        ux = gathered(proj("wx", di), devices)
+        dt = F.softplus(gathered(proj("wdt", nh), devices).to(torch.float32)
+                        + p0["dt_bias"])
+        xh = _heads(_causal_conv(ux, p0["conv_x"]), nh, hd)
+        y = ssd_chunked(xh, bh, ch, dt, p0["a_log"], cfg.ssm_chunk)
+        y = _out(p0, y, xh, z, x_in.dtype, cfg)
+        return gathered(linear_tp(outs, y, devices, di, d), devices)
+    hs = nh // n
+    w = hs * hd
+    zs, uxs = striped(proj("wz", di), devices), striped(proj("wx", di), devices)
+    dts = striped(proj("wdt", nh), devices)
+    gated = []
+    for s, dv in enumerate(devices):
+        heads, chans = (s * hs, (s + 1) * hs), (s * w, (s + 1) * w)
+        kx = {k: _cols(p0["conv_x"][k], *chans, dv) for k in ("k", "b")}
+        xh = _heads(_causal_conv(uxs[s], kx), hs, hd)
+        dt = F.softplus(dts[s].to(torch.float32)
+                        + _cols(p0["dt_bias"], *heads, dv))
+        y = ssd_chunked(xh, bh[:, :, heads[0]:heads[1]].to(dv),
+                        ch[:, :, heads[0]:heads[1]].to(dv), dt,
+                        _cols(p0["a_log"], *heads, dv), cfg.ssm_chunk)
+        y = y + xh * _cols(p0["ssm_d"], *heads, dv)[:, None]
+        y = y.reshape(*y.shape[:-2], w).to(x_in.dtype)
+        gated.append(y * F.silu(zs[s]))
+    normed = layers.rmsnorm_split(p0["out_norm"], gated, devices,
+                                  eps=cfg.norm_eps)
+    return gathered(linear_tp(outs, normed, devices, di, d), devices)
 
 
 def final_state(p, ux, ub, dt, cfg) -> torch.Tensor:

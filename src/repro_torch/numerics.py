@@ -22,24 +22,26 @@ import contextlib
 import torch
 
 
-def _wide(t: torch.Tensor) -> torch.Tensor:
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type these products sum in: float64 on the CPU,
+    float32 on CUDA."""
     return t.to(torch.float64 if t.device.type == "cpu" else torch.float32)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in float32 (see the module docstring)."""
-    return torch.matmul(_wide(a), _wide(b)).to(torch.float32)
+    return torch.matmul(wide(a), wide(b)).to(torch.float32)
 
 
 def einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(eq, a, b)`` in float32 (see the module docstring)."""
-    return torch.einsum(eq, _wide(a), _wide(b)).to(torch.float32)
+    return torch.einsum(eq, wide(a), wide(b)).to(torch.float32)
 
 
 def einsum_wide(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`einsum_f32` before its one rounding to float32 (float64 on the
     CPU, float32 on CUDA): partial products that shards sum first."""
-    return torch.einsum(eq, _wide(a), _wide(b))
+    return torch.einsum(eq, wide(a), wide(b))
 
 
 def einsum_f64(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,13 +85,13 @@ def matmul_wide_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the CPU, float32 on CUDA. A row-parallel linear's shards sum these
     partial products and round once, as the unsharded product does."""
     if a.device.type != "cuda" or _FREE_ROWS:
-        return torch.matmul(_wide(a), _wide(b))
+        return torch.matmul(wide(a), wide(b))
     lead, k = a.shape[:-1], a.shape[-1]
     a2 = a.reshape(-1, k).to(torch.float32)
     m = a2.shape[0]
     a2 = torch.cat([a2, a2.new_zeros(-m % ROW_BLOCK, k)])
-    wide = b.to(torch.float32)
-    outs = [torch.matmul(a2[i:i + ROW_BLOCK], wide)
+    bw = b.to(torch.float32)
+    outs = [torch.matmul(a2[i:i + ROW_BLOCK], bw)
             for i in range(0, a2.shape[0], ROW_BLOCK)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:m].reshape(*lead, b.shape[-1])

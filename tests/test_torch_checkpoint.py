@@ -146,16 +146,17 @@ def test_train_launcher_failure_recovery(tmp_path):
 
 
 def test_launcher_and_restore_refuse_meshes(tmp_path, state_and_step):
-    """What still refuses a mesh: a model axis above 1 for a family whose
-    tensor parallelism is not ported (mamba2: ROADMAP Queue 1, item 4).
-    A data axis trains, and `restore(shardings=)` splits a checkpoint
-    onto a mesh whose logical state is the file's."""
+    """The launcher over a mesh: a model axis above 1 for mamba2 (its
+    SSD split over ``model``) and a data axis train, and
+    `restore(shardings=)` splits a checkpoint onto a mesh whose logical
+    state is the file's."""
     from repro_torch.distributed.sharding import MeshTrainState, TrainSharding
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        main(["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
-              "--model-axis", "2", "--steps", "1"])
+    ssm = main(["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
+                "--model-axis", "2", "--steps", "1", "--batch", "4",
+                "--seq", "16"])
+    assert ssm["steps"] == 1 and np.isfinite(ssm["first_loss"])
     out = main(["--smoke", "--device", "cpu", "--data-axis", "2",
                 "--steps", "2", "--batch", "4", "--seq", "16"])
     assert out["steps"] == 2

@@ -2272,3 +2272,168 @@ def _tensors(tree):
     if isinstance(tree, list):
         return [t for v in tree for t in _tensors(v)]
     return [tree]
+
+
+# Tensor parallelism of the MLA, SSM, hybrid, encoder and VLM families:
+# the kernels at the widths a 2-way `model` mesh gives a shard. K1 at N 8
+# (hymba's wb / wc stripe, 16 -> 8), N 12 (mamba2's wdt, 24 -> 12) and N 25
+# (hymba's wdt stripe width): output rows of 32, 48 and 100 bytes.
+TP_NARROW_K1 = [(1600, 8), (768, 12), (1600, 25)]
+
+
+@pytest.mark.parametrize("offload", [2.0 ** 20, 0.0],
+                         ids=["default", "all_kernel"])
+@pytest.mark.parametrize("m", [1, 4, 64, 128])
+@pytest.mark.parametrize("k,n", TP_NARROW_K1)
+def test_tp_narrow_stripes_k1_matches_plain(cuda, k, n, m, offload):
+    """A packed linear at a stripe's N through `qlinear_apply` (input
+    scale, bf16 output: the model's call), under the default threshold and
+    with every product on K1, against the generic path: K1 where the
+    threshold sends it (one launch a call), within `_k1_check`'s bounds."""
+    from repro_torch.core.qlinear import qlinear_apply
+    cfg = QuantConfig(group_size=64)
+    w = torch.randn(k, n, generator=cuda, device="cuda") / k ** 0.5
+    p = pack_linear(*quantize_groupwise(w, cfg),
+                    torch.rand(k, generator=cuda, device="cuda") + 0.5,
+                    None, cfg)
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    ecfg = ExecutionConfig(offload_min_flops=offload)
+    before = k1.COUNTER.count
+    with execution_config(ecfg):
+        out = qlinear_apply(p, x)
+        ref = qlinear_apply(p, x, impl="ref")
+    torch.cuda.synchronize()
+    kernel = 2.0 * m * k * n >= offload
+    assert k1.COUNTER.count == before + kernel
+    _k1_check(out, ref)
+    if kernel:
+        assert torch.equal(out, k1.awq_matmul(
+            x, p.qweight, p.scales, p.zeros, 64, input_scale=p.input_scale,
+            out_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_tp_flipped_down_on_card_matches_unsharded(cuda, m):
+    """deepseek-v2-lite's dense down (K 10,944 -> 2,048), RTN-packed with an
+    AWQ-like input scale, on a 2-way mesh on cuda:0: 5,472 rows a shard
+    would cut a 64-row group, so the rule flips it to its N (1,024 a
+    shard); each shard scales its K slice of the input, the slices are
+    joined and K1 runs once a shard on the whole input. Held against the
+    unsharded linear within a bf16 ulp and 1e-4 of the scale."""
+    from repro_torch.core.qlinear import qlinear_apply
+    from repro_torch.distributed import sharding as shd
+    cfg = deepseek_v2_lite.config()
+    k, n = cfg.d_ff, cfg.d_model
+    qc = QuantConfig(group_size=64)
+    p = pack_linear(*quantize_groupwise(
+        torch.randn(k, n, generator=cuda, device="cuda") / k ** 0.5, qc),
+        torch.rand(k, generator=cuda, device="cuda") + 0.5, None, qc)
+    mesh = shd.serving_mesh(2, devices=["cuda:0", "cuda:0"])
+    spec = shd.param_pspec("mlp/down/qweight", p.qweight, mesh, cfg)
+    assert spec == (None, "model")
+    shards = shd.shard_params({"mlp": {"down": p}}, mesh, cfg)
+    assert [s["mlp"]["down"].n for s in shards] == [n // 2] * 2
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    with execution_config(ExecutionConfig(offload_min_flops=0)):
+        want = qlinear_apply(p, x)
+        before = k1.COUNTER.count
+        got = layers.linear_tp([s["mlp"]["down"] for s in shards], x,
+                               shd.model_devices(mesh), k, n)
+    torch.cuda.synchronize()
+    assert k1.COUNTER.count == before + 2
+    _k1_check(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 128, 1024])
+@pytest.mark.parametrize("k,n", [(2048, 5472), (1600, 2752), (3072, 4096)])
+def test_tp_gateup_stripes_match_plain(cuda, k, n, m):
+    """K3 at the GLU fronts' column stripes of a 2-way mesh (deepseek's
+    dense layer, hymba's, phi-3-vision's), both outputs, input scales."""
+    args, scales = _k3_pair(cuda, k, n, 64, True)
+    x = torch.randn(m, k, generator=cuda, device="cuda").to(torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(input_scales=scales, out_dtype=out_dtype)
+        _k3_check(k1.awq_gateup(x, *args, **kw),
+                  k1.awq_gateup_ref(x, *args, torch.bfloat16, **kw))
+
+
+# one shard's heads: hubert-xlarge's 8 of 80 (bidirectional), phi-3-
+# vision's 16 of 96 (causal, 256 patches + 256 tokens)
+TP_K4_SHARD = [(2, 8, 8, 1024, 80, False, 0), (2, 16, 16, 512, 96, True, 0)]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,hd,causal,window", TP_K4_SHARD)
+def test_tp_shard_heads_k4_and_k4b_match_plain(cuda, b, h, hkv, s, hd,
+                                               causal, window):
+    """K4 (forward) and K4b (its gradient, two calls bit-equal) at one
+    shard's heads, bf16, against their plain versions (`_k4_check`;
+    K4b's bf16 bound, 2e-2 of each gradient's largest magnitude)."""
+    q, k, v = _k4_inputs(cuda, b, h, hkv, s, hd, torch.bfloat16)
+    out = k4.flash_attention(q, k, v, causal=causal, window=window)
+    _k4_check(out, k4.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window), torch.bfloat16)
+    args, kw = _k4b_run(cuda, b, h, hkv, s, hd, causal, window,
+                        torch.bfloat16)
+    got = k4.flash_attention_bwd(*args, **kw)
+    again = k4.flash_attention_bwd(*args, **kw)
+    want = k4.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 2e-2 * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-130m",
+                                  "hymba-1.5b", "hubert-xlarge",
+                                  "phi-3-vision-4.2b"])
+def test_tp_families_packed_forward_on_card_near_unsharded(cuda, arch):
+    """A smoke model, RTN-packed, every linear on K1 / K3: its
+    `forward_logits` on a (1 x 2) mesh on cuda:0 (the MLA / SSD / hybrid
+    mixers split, the frontends column-parallel) against the unsharded
+    forward on the card, within 2 % of the largest logit (the shards'
+    bf16 partial sums round at other places)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_dataset
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = configs.get_smoke_config(arch)
+    m = Model(cfg)
+    params, _ = quantize_params(m.init(torch.Generator(device="cuda")
+                                       .manual_seed(0), device="cuda"))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in make_dataset(cfg, 2, 64).batch_at(0).items()
+             if k != "labels"}
+    mesh = make_host_mesh(1, 2, devices=["cuda:0"] * 2)
+    grid = [shd.shard_params(params, rm, cfg)
+            for rm in shd.replica_meshes(mesh)]
+    # a MoE layer routes the sharded forward's tokens to the unsharded
+    # forward's experts (a near tie would otherwise send one elsewhere)
+    plain, routes = moe.route, []
+
+    def record(probs, cfg_, cap):
+        out = plain(probs, cfg_, cap)
+        routes.append(out[0])
+        return out
+
+    def force(probs, cfg_, cap):
+        idx = routes.pop(0)
+        gates = torch.gather(probs, 1, idx)
+        if cfg_.norm_topk_prob:
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return (idx, gates, *moe.assign_slots(idx, cfg_.num_experts, cap))
+    try:
+        with execution_config(ExecutionConfig(offload_min_flops=0)), \
+                torch.no_grad():
+            moe.route = record
+            want = m.forward_logits(params, batch)
+            moe.route = force
+            got = m.forward_logits(grid, batch, mesh=mesh)
+    finally:
+        moe.route = plain
+    torch.cuda.synchronize()
+    assert not routes
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 2e-2 * float(want.abs().max()), err

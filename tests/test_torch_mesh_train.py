@@ -16,8 +16,8 @@ rtol 1e-5. bf16 activations and casts — the loss within 2e-2.
   * checkpoints: a mesh state saves the reference's paths and shapes;
     `restore(shardings=)` puts it on another mesh, whose next step's
     loss is the first mesh's;
-  * the launcher over ``--data-axis 2 --model-axis 2``, and its refusal
-    of a model axis for mamba2;
+  * the launcher over ``--data-axis 2 --model-axis 2``, and mamba2 over
+    ``--model-axis 2`` (its losses the unsharded launcher's);
   * `make_production_mesh` over 256 and 512 devices.
 """
 import dataclasses
@@ -294,9 +294,13 @@ def test_launcher_over_a_mesh_and_its_refusal():
     meshed = main(args + ["--data-axis", "2", "--model-axis", "2"])
     assert meshed["steps"] == 3 and all(np.isfinite(meshed["losses"]))
     np.testing.assert_allclose(meshed["losses"], plain["losses"], rtol=2e-2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        main(["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
-              "--model-axis", "2", "--steps", "1"])
+    ssm = ["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
+           "--steps", "2", "--batch", "4", "--seq", "16", "--log-every",
+           "100"]
+    split = main(ssm + ["--model-axis", "2"])
+    assert split["steps"] == 2 and all(np.isfinite(split["losses"]))
+    np.testing.assert_allclose(split["losses"], main(ssm)["losses"],
+                               rtol=2e-2)
     with pytest.raises(ValueError, match="does not split"):
         main(args + ["--data-axis", "3"])
 

@@ -8,8 +8,9 @@
     stacks the layers: its spec is the port's with a leading None); a
     packed shard's expert words, scales and zeros are contiguous,
     16-byte aligned allocations of its own (what K1 / K3 take);
-  * the packed forward — `Model.forward_logits(mesh=)` under (2 × 2)
-    and (2 × 4) (qwen2-moe; deepseek, MLA, under (2 × 1)) against the
+  * the packed forward — `Model.forward_logits(mesh=)` under (2 × 2),
+    (2 × 4) and (2 × 1) (qwen2-moe; deepseek: MLA, a dense first layer)
+    against the
     reference's meshless forward: the reference's own check
     (`tests/test_moe_sharded.py`), f32 activations and compute, 1e-4;
   * the grouped dispatch — with T / g = 1,100 tokens a group (capacity
@@ -168,11 +169,6 @@ def test_packed_forward_under_mesh_matches_meshless_reference(trees, shape):
     toks = np.random.default_rng(3).integers(
         0, tm.cfg.vocab_size, (8, 24)).astype(np.int32)
     mesh = _mesh(*shape)
-    if tm.cfg.kv_lora_rank and shape[1] > 1:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            tm.forward_logits(_grid(tq, mesh, tm.cfg),
-                              {"tokens": torch.from_numpy(toks)}, mesh=mesh)
-        return
     want = np.asarray(jm.forward_logits(jq, {"tokens": jnp.asarray(toks)}))
     with torch.no_grad():
         got = tm.forward_logits(_grid(tq, mesh, tm.cfg),
