@@ -6,7 +6,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
   2. build   — compile every kernel of ``src/repro_torch/csrc`` (one nvcc
                per source, all started together); ptxas' registers and
                spills, each K4b kernel's registers and spills by name
-               (bf16 / f16 / f32 at hd 64, 80, 96, 128 and 256; the
+               (bf16 / f16 / f32 at hd 32, 64, 80, 96, 128 and 256; the
                tensor-core kernels must spill nothing below hd 256), and
                each
                library's count of tensor-core (HMMA / HGMMA)
@@ -185,6 +185,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                are counted, not gated (row-parallel sums change the bf16
                function, as in the reference). A decode step of 4 slots
                is profiled beside the `profile` phase's unsharded one;
+ 15c. sp_decode — SP-decode: the one-shot decode cache (B 8, 512
+               prefilled tokens, 528 positions) striped along the
+               sequence over a (1 × 2) mesh whose shards share cuda:0,
+               then 4 greedy decode steps, each stripe's partials
+               combined in f64 in shard order, against the unsharded
+               one-shot decode by the `check` rule and within 1e-5 of
+               the largest magnitude; step times and the collective
+               counter's bytes;
  16. launch  — the launcher's AWQ path at full width,
                `repro_torch.launch.serve.main` with ``--arch qwen25-05b
                --quant awq --batch 4 --prompt-len 256 --max-new 32``:
@@ -377,6 +385,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
                wire); qwen2-moe's float experts at 1 of 24 layers, B 2 ×
                S 512 a replica, 2 steps (step 0's loss within 2e-2 of
                the unsharded loss).
+ 35. glm4_smoke — glm4-9b's smoke config (head dim 32) through the
+               launchers on the card: `launch.train --smoke` 8 steps (K4,
+               K4b at hd 32; a finite, falling loss, no recovery),
+               `launch.serve --smoke --quant awq` (K4 in calibration and
+               generate()), the engine's greedy burst over int8 pages (K2
+               at hd 32) and the `check` rule against the CPU (run after
+               tp_moe); the hd-32 instances' kernel checks are on the
+               `kernel_shapes` line (glm4 smoke's shapes and B 4 × S 512)
+               and the `kernels` line's ``hd32`` fields;
+ 36. dryrun  — the dry run's bytes a device of Qwen2.5-0.5B's AWQ params
+               on a (1 × 2) serving mesh against the allocator's growth
+               when `shard_params` puts both shards on cuda:0 (within 512
+               B an allocation), then one dry-run cell (Qwen's decode_32k
+               on the 16 × 16 production mesh of ``meta`` devices) with no
+               kernel launched.
 
 Each phase prints one JSON line. The end-to-end numbers are repeated on
 a short ``summary`` line, followed by the ``kernels`` line (what each
@@ -433,10 +456,14 @@ from repro_torch.data.pipeline import make_dataset  # noqa: E402
 from repro_torch.distributed import (TrainSharding,  # noqa: E402
                                      replica_meshes, serving_mesh,
                                      shard_params)
-from repro_torch.distributed.sharding import Mesh  # noqa: E402
+from repro_torch.distributed.sharding import Mesh, shard_cache  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as dryrun_specs  # noqa: E402
+from repro_torch.roofline.analysis import (collective_costs,  # noqa: E402
+                                           count_collectives)
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.roofline import costmodel  # noqa: E402
@@ -2808,6 +2835,16 @@ DENSE_K4 = [("gemma3-4b", 1, 1400, 8, 4, 256, 0),
             ("hymba-1.5b", 1, 1400, 25, 5, 64, 0),
             ("hymba-1.5b", 1, 1400, 25, 5, 64, 1024),
             ("hymba-1.5b", 2, 1100, 25, 5, 64, 1024)]
+# hd 32 (glm4-9b's smoke config: 4 q heads over 2 kv heads of 32, G 2,
+# max_seq 128, chunk 16, no window), at its shapes and at one larger shape
+# of the same head dim (B 4, S 512). K2: model, Hkv, G, hd, window, the
+# slots' last query tokens, pages of 16 a slot; K4 / K4b: model, B, S, H,
+# Hkv, hd, window (causal, bf16)
+HD32_K2 = [("glm4-9b-smoke", 2, 2, 32, 0, (17, 64, 100, 128), 8),
+           ("glm4-9b-hd32", 2, 2, 32, 0, (17, 200, 300, 512), 32)]
+HD32_K4 = [("glm4-9b-smoke", 4, 128, 4, 2, 32, 0),
+           ("glm4-9b-hd32", 4, 512, 4, 2, 32, 0)]
+HD32_K4B = [(*case, True) for case in HD32_K4]
 # the encoder and the vision frontend: K1 (K, N) of hubert-xlarge (q / k /
 # v / o, up, down, frame_proj) and phi-3-vision (q / k / v / o, down) at a
 # decode step's M 1 and 4, a chunk's 64 and hubert's forward of 2 x 1,024
@@ -3170,9 +3207,12 @@ def check_dense_kernels(gen) -> dict:
         paged_attention_chunk=[_k2_shape(gen, *case, c) for case in DENSE_K2
                                for c in (1, 16)]
         + [_k2_shape(gen, *case, c, ends=FRONTEND_K2_ENDS, nblk=32)
-           for case in FRONTEND_K2 for c in (1, 16)],
+           for case in FRONTEND_K2 for c in (1, 16)]
+        + [_k2_shape(gen, *case, c, ends=ends, nblk=nblk)
+           for *case, ends, nblk in HD32_K2 for c in (1, 16)],
         flash_attention=[_k4_shape(gen, *case) for case in DENSE_K4]
-        + [_k4_shape(gen, *case) for case in FRONTEND_K4],
+        + [_k4_shape(gen, *case) for case in FRONTEND_K4]
+        + [_k4_shape(gen, *case) for case in HD32_K4],
         tolerance="K1 / K2 / K4 as on Qwen2.5's shapes (kernel_shapes' "
                   "tolerance fields); K1 also holds its M rows equal to the "
                   "same rows of a 2M launch; K3 gated on its f32 output, "
@@ -3690,6 +3730,228 @@ def dense_check(arch: str, model, params) -> dict:
                 check_prefill=check_prefill(cm, cp, cpu))
 
 
+# -------------------------------------------------------- phase sp_decode
+SP_BATCH, SP_PROMPT, SP_STEPS = 8, 512, 4
+SP_MAX_SEQ = SP_PROMPT + 16            # 2 stripes of 264 positions
+# both sides run on one card in one precision, and their f64 reads round
+# once to f32: beside the `check` rule, the logits are held within this
+# share of the largest magnitude
+SP_TIGHT = 1e-5
+
+
+def _sp_run(model, params, cache, toks, steps: int, sync) -> tuple:
+    """Prefill ``toks`` into ``cache``, then ``steps`` greedy decode steps
+    fed the prefill's argmax chain → (logits a step, decode ms a step)."""
+    with torch.no_grad():
+        cache, lg, nxt = model.prefill(params, {"tokens": toks}, cache)
+        out, ms = [lg.float().cpu()], []
+        tok, pos = lg.argmax(-1).to(torch.int32), nxt.to(torch.int32)
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, tok, pos)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            out.append(lg.float().cpu())
+            tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+    return out, ms
+
+
+def sp_decode(model, params) -> dict:
+    """SP-decode on the card: the one-shot decode cache of Qwen2.5-0.5B at
+    full width (its serving phases' layers and RTN int4 weights) striped
+    along the sequence over a (1 × 2) mesh whose two shards share cuda:0
+    (`shard_cache`: stripes of 264 of 528 positions), B 8 prefilled with
+    512 tokens (K4), then greedy decode steps; each stripe reads its keys
+    and the partials combine in f64 in shard order. Held against the
+    unsharded one-shot decode by the `check` rule (logits within 5 % of
+    the largest magnitude, argmax equal on rows whose margin clears
+    twice that) and within `SP_TIGHT` of the largest magnitude, prefill
+    and every step; the collective counter's bytes of the SP prefill and
+    steps beside the step times; K4's launches of both prefills."""
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (
+        SP_BATCH, SP_PROMPT)).astype(np.int32)).to("cuda")
+    mesh = make_host_mesh(1, 2, devices=["cuda:0"] * 2)
+    k4_before = k4.COUNTER.count
+    ref, ref_ms = _sp_run(model, params, model.init_cache(
+        SP_BATCH, SP_MAX_SEQ, device="cuda"), toks, SP_STEPS,
+        torch.cuda.synchronize)
+    cache = shard_cache(model.init_cache(SP_BATCH, SP_MAX_SEQ,
+                                         device="cuda"), mesh)
+    kv = cache["seg_0"][0]["kv"]["k"]
+    if not (isinstance(kv, list) and len(kv) == 2
+            and kv[0].shape[1] == SP_MAX_SEQ // 2):
+        raise AssertionError(f"sp_decode: cache not striped ({type(kv)})")
+    with count_collectives() as counted:
+        got, ms = _sp_run(model, params, cache, toks, SP_STEPS,
+                          torch.cuda.synchronize)
+    checks = {}
+    for i, (g, r) in enumerate(zip(got, ref)):
+        checks[f"step{i}"] = _check_rule(i, g, r, "sp_decode")
+        tight = SP_TIGHT * float(r.abs().max())
+        if not checks[f"step{i}"]["max_abs_err"] <= tight:
+            raise AssertionError(
+                f"sp_decode step {i}: err {checks[f'step{i}']['max_abs_err']}"
+                f" > {tight} ({SP_TIGHT} of the largest magnitude)")
+        checks[f"step{i}"]["tight_tol"] = tight
+    return dict(mesh=[1, 2], batch=SP_BATCH, prompt=SP_PROMPT,
+                max_seq=SP_MAX_SEQ, layers=model.cfg.num_layers,
+                stripes=[list(t.shape) for t in kv], check=checks,
+                decode_step_ms=ms, unsharded_decode_step_ms=ref_ms,
+                k4_launches=k4.COUNTER.count - k4_before,
+                collectives=collective_costs(counted),
+                collective_calls=dict(counted.calls))
+
+
+# ----------------------------------------------------------- phase dryrun
+def dryrun_check() -> dict:
+    """The dry run's bytes a device against the card. Qwen2.5-0.5B at full
+    size (24 layers, AWQ-packed shapes at GS 64: RTN here, the same
+    shapes) on a (1 × 2) serving mesh: `launch.specs.param_specs`' bytes
+    a device against what `shard_params` allocates when it puts both
+    shards on cuda:0 (two devices' worth). Each shard's storages must hold
+    the rules' bytes exactly (a packed linear's bias, which the rule
+    replicates, is a shard's view of its own whole copy), the bytes the
+    allocator was asked for (its ``requested_bytes``) must be twice that,
+    and `torch.cuda.memory_allocated`'s growth may exceed them only by the
+    caching allocator's rounding: 512 B an allocation, and under 1 MiB for
+    one of 1 MiB or more (such a block is not split when its remainder is
+    at most 1 MiB). Then one dry-run cell (Qwen's decode_32k on the
+    16 × 16 production mesh of ``meta`` devices): every kernel wrapper
+    takes its plain path there, so no launch is counted."""
+    cfg = get_config("qwen25-05b")
+    mesh = serving_mesh(2, devices=["cuda:0"] * 2)
+    dry = dryrun_specs.shard_bytes(dryrun_specs.param_specs(
+        cfg, mesh, True))
+    model = Model(cfg)
+    params, _ = quantize_params(model.init(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda"))
+    params = tree_to(params, "cpu")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    req_key = "requested_bytes.all.current"
+    before = torch.cuda.memory_allocated()
+    req_before = torch.cuda.memory_stats().get(req_key)
+    shards = shard_params(params, mesh, cfg)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    req_after = torch.cuda.memory_stats().get(req_key)
+    requested = (None if req_before is None or req_after is None
+                 else req_after - req_before)
+    stored, slack = [], 0
+    for shard in shards:
+        storages = {}
+        for _, parts, leaf in layer_parts(shard):
+            for t in parts if parts is not None else [leaf]:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        stored.append(sum(storages.values()))
+        slack += sum((1 << 20) if b >= (1 << 20) else 512
+                     for b in storages.values())
+    want = 2 * dry
+    if stored != [dry, dry] or (requested is not None and requested != want):
+        raise AssertionError(f"dryrun: shards store {stored} B, "
+                             f"{requested} B requested; the rules give "
+                             f"{dry} a device")
+    if not 0 <= grown - want <= slack:
+        raise AssertionError(f"dryrun: {grown} B allocated for two shards, "
+                             f"the rules give {want} (+ at most {slack} of "
+                             f"the allocator's rounding)")
+    del shards, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("qwen25-05b", "decode_32k", "single", True, None)
+    cell_s = time.perf_counter() - t0
+    launched = read_counts(ALL_COUNTERS)
+    if any(launched.values()):
+        raise AssertionError(f"dryrun on meta launched kernels {launched}")
+    return dict(param_bytes_per_device=dry, stored_per_shard=stored,
+                allocated_two_shards=grown, requested_two_shards=requested,
+                rounding_bytes=grown - want, rounding_bound=slack,
+                decode_32k={k: rec[k] for k in (
+                    "chips", "memory_analysis", "collectives",
+                    "compute_s", "memory_s", "collective_s", "dominant")},
+                decode_32k_s=cell_s, launches=launched)
+
+
+# ------------------------------------------------------- phase glm4_smoke
+# glm4-9b's smoke config (2 layers, d 128, 4 q / 2 kv heads of 32, max_seq
+# 128): the one config whose head dim is 32
+GLM4_SMOKE_TRAIN = ["--arch", "glm4-9b", "--smoke", "--steps", "8",
+                    "--batch", "4", "--seq", "128", "--lr", "3e-3",
+                    "--warmup", "2", "--log-every", "100"]
+GLM4_SMOKE_SERVE = ["--arch", "glm4-9b", "--smoke", "--quant", "awq",
+                    "--batch", "4", "--prompt-len", "64", "--max-new", "16"]
+GLM4_SMOKE_SPEC = dict(serve_lens=[16, 45, 33, 60, 20, 50, 9, 40],
+                       max_seq=128, chunk=16)
+
+
+def glm4_smoke() -> dict:
+    """glm4-9b's smoke config through the launchers on the card: the
+    train launcher's steps (K4 forward and remat, K4b backward, all at hd
+    32) with a finite, falling loss and no recovery; the serve launcher's
+    AWQ path (calibration and generate()'s prefill on K4); the engine's
+    greedy burst over int8 pages (K2 at hd 32, `dense_serve`'s gates:
+    first tokens equal to generate()'s where the `check` rule's margin is
+    clear); and the `check` rule between card and CPU (`dense_check`: a
+    chunk step pair over int8 pools and a prefill). Counts start at 0
+    before each path and are read after it."""
+    cfg = configs.get_smoke_config("glm4-9b")
+    if cfg.head_dim != 32:
+        raise AssertionError(f"glm4-9b smoke head dim {cfg.head_dim}")
+    names = [*COUNTERS, "flash_attention_bwd"]
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train_launcher.main(GLM4_SMOKE_TRAIN)
+    train_s = time.perf_counter() - t0
+    train_l = read_counts(names)
+    losses = tr["losses"]
+    steps = int(GLM4_SMOKE_TRAIN[GLM4_SMOKE_TRAIN.index("--steps") + 1])
+    if not (tr["recoveries"] == 0 and tr["steps"] == steps
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]
+            and train_l["flash_attention"] > 0
+            and train_l["flash_attention_bwd"] > 0):
+        raise AssertionError(f"glm4_smoke train: {tr['recoveries']} "
+                             f"recoveries, losses {losses}, launches "
+                             f"{train_l}")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = launcher.main(GLM4_SMOKE_SERVE)
+    launch_s = time.perf_counter() - t0
+    launch_l = read_counts(names)
+    by_step = out["launches"]
+    toks = out["tokens"]
+    if not (by_step["calibrate"]["flash_attention"] >= cfg.num_layers
+            and by_step["generate"]["flash_attention"] >= cfg.num_layers
+            and out["shape"] == [4, 16]
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"glm4_smoke launch: {by_step}, shape "
+                             f"{out['shape']}")
+    model, params = Model(cfg), out["params"]
+    served = dense_serve("glm4-9b", model, params, GLM4_SMOKE_SPEC)
+    serve_l = {n: sum(served[c]["launches"].get(n, 0)
+                      for c in ("default", "all_kernel")) for n in names}
+    if not serve_l["paged_attention_chunk"] > 0:
+        raise AssertionError(f"glm4_smoke serve: launches {serve_l}")
+    checked = dense_check("glm4-9b", model, params)
+    launches = {n: train_l[n] + launch_l[n] + serve_l[n] for n in names}
+    return dict(config=cfg.name, head_dim=cfg.head_dim,
+                heads=[cfg.num_heads, cfg.num_kv_heads],
+                train_args=" ".join(GLM4_SMOKE_TRAIN), losses=losses,
+                train_s=train_s, recoveries=tr["recoveries"],
+                serve_args=" ".join(GLM4_SMOKE_SERVE), launch_s=launch_s,
+                tokens_per_s=out["tokens_per_s"], sample=toks[0].tolist(),
+                serve=served, check=checked,
+                launches_by_path=dict(train=train_l, launch=launch_l,
+                                      serve=serve_l),
+                launches=launches)
+
+
 @torch.no_grad()
 def encoder_forward(model, params, spec: dict) -> dict:
     """hubert-xlarge's serving output on the card: `forward_logits`, then
@@ -4095,13 +4357,18 @@ def profile_dense_decode(model, params, steps: int = PROFILE_STEPS
 # hubert-xlarge (hd 80, bidirectional), phi-3-vision (hd 96 over 256
 # patches + 256 tokens), hymba (G 5, its windowed and global layers) and
 # qwen2-moe (hd 128, G 1)
+# K4b's head dims whose tensor-core kernels must spill nothing
+K4B_NO_SPILL = (32, 64, 80, 96, 128)
 K4B_SHAPES = [("qwen25-05b", 8, 512, 14, 2, 64, 0, True),
               ("gemma3-4b", 1, 1400, 8, 4, 256, 1024, True),
               ("hubert-xlarge", 2, 1024, 16, 16, 80, 0, False),
               ("phi-3-vision-4.2b", 2, 512, 32, 32, 96, 0, True),
               ("hymba-1.5b", 2, 1536, 25, 5, 64, 1024, True),
               ("hymba-1.5b", 2, 1536, 25, 5, 64, 0, True),
-              ("qwen2-moe-a2.7b", 2, 1024, 16, 16, 128, 0, True)]
+              ("qwen2-moe-a2.7b", 2, 1024, 16, 16, 128, 0, True),
+              # hd 32: glm4-9b's smoke config (4 q / 2 kv heads, S 128,
+              # the glm4_smoke phase's train batch) and one larger shape
+              *HD32_K4B]
 
 
 def _sdpa_bwd_ms(q, k, v, do, window: int, causal: bool = True,
@@ -5056,18 +5323,18 @@ def main() -> None:
         if not mma[n] or mma[n]["HMMA"] + mma[n]["HGMMA"] <= 0:
             raise AssertionError(f"{n}: no tensor-core instruction in its "
                                  f"SASS ({mma[n]})")
-    # K4b's tensor-core kernels keep their sums in registers at hd 64, 80,
-    # 96 and 128 (the train path's head dims): ptxas must spill nothing
-    # there, and report all four
+    # K4b's tensor-core kernels keep their sums in registers at hd 32, 64,
+    # 80, 96 and 128 (the train path's head dims): ptxas must spill
+    # nothing there, and report all five
     k4b_regs = PHASES["build"]["k4b_kernels"]
     spilled = {n: r for n, r in k4b_regs.items()
                if "mma" in n and not n.endswith(" 256>")
                and r.get("spill_stores", 0) + r.get("spill_loads", 0) > 0}
-    reported = {hd for hd in (64, 80, 96, 128)
+    reported = {hd for hd in K4B_NO_SPILL
                 if any(n.endswith(f"<bf16, {hd}>") for n in k4b_regs
                        if "mma" in n)}
-    if spilled or reported != {64, 80, 96, 128}:
-        raise AssertionError(f"flash_attention_bwd: spills at hd 64 - 128 "
+    if spilled or reported != set(K4B_NO_SPILL):
+        raise AssertionError(f"flash_attention_bwd: spills at hd 32 - 128 "
                              f"or a tensor-core kernel missing from ptxas' "
                              f"report ({k4b_regs})")
 
@@ -5124,6 +5391,16 @@ def main() -> None:
           moe_experts=check_expert_kernels(gen),
           moe_experts_shard=check_expert_shard_kernels(gen),
           tp_stripes=check_tp_stripe_kernels(gen))
+    # the hd-32 instances (glm4-9b's smoke shapes and one larger shape)
+    # on the kernels line beside each kernel's main-path numbers
+    dense_k = PHASES["kernel_shapes"]["dense_models"]
+    for entry, rows in ((k2_entry, dense_k["paged_attention_chunk"]),
+                        (k4_entry, dense_k["flash_attention"]),
+                        (k4b_entry, k4b_detail["shapes"])):
+        entry["hd32"] = [{k: r[k] for k in (
+            "model", "c", "b", "s", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms") if k in r}
+            for r in rows if r["hd"] == 32]
 
     cfg = dataclasses.replace(get_config("qwen25-05b"),
                               num_layers=SERVE_LAYERS)
@@ -5168,6 +5445,8 @@ def main() -> None:
     tensor_parallel = tp(model, params, served, unified_refs, cpu_logits,
                          prof, disagged["wire_bytes"])
     phase("tp", **tensor_parallel)
+    sp = sp_decode(model, params)
+    phase("sp_decode", gpu=smi, **sp)
     del params
     torch.cuda.empty_cache()
 
@@ -5175,8 +5454,8 @@ def main() -> None:
     phase("launch", **launched)
     # each kernel's launches on the paths that carry it: K1, K2 and K3
     # while the engine serves (chunked, one-shot, speculating), K4 in the
-    # one-shot engine's prefills, the draft model's prefills and the
-    # launcher's calibration and generate()
+    # one-shot engine's prefills, sp_decode's, the draft model's prefills
+    # and the launcher's calibration and generate()
     for entry in (k1_entry, k2_entry, k3_entry):
         kernel = entry["name"]
         entry["launches"] = (served["launches"][kernel]
@@ -5198,6 +5477,7 @@ def main() -> None:
             "paged_attention_chunk_sharded"])
     k4_entry["launches"] = (launched["launches"]["flash_attention"]
                             + oneshot["launches"]["flash_attention"]
+                            + sp["k4_launches"]
                             + drafted["all_kernel"]["launches"][
                                 "flash_attention"])
     # the launcher's params hold all 24 layers
@@ -5239,6 +5519,17 @@ def main() -> None:
             tp_moe_run["launches"][f"{entry['name']}_experts"]
     k2tp_entry["launches"] += tp_moe_run["launches"][
         "paged_attention_chunk_sharded"]
+    # glm4-9b's smoke config (hd 32): the launchers and the engine
+    glm4 = glm4_smoke()
+    phase("glm4_smoke", gpu=smi, **glm4)
+    for entry in kernels:
+        entry["launches"] += glm4["launches"][entry["name"]]
+        entry["launches_by_model"]["glm4-9b-smoke"] = \
+            glm4["launches"][entry["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_check()
+    phase("dryrun", gpu=smi, **dry)
     # training: Qwen2.5-0.5B at full width (K4 forward and remat, K4b)
     trained = train()
     phase("train", **trained)
@@ -5264,7 +5555,8 @@ def main() -> None:
                for name in TRAIN_COUNTERS}
     k4_entry["launches"] += by_path["flash_attention"]
     k4_entry["launches_train"] = by_path["flash_attention"]
-    k4b_entry["launches"] = by_path["flash_attention_bwd"]
+    k4b_entry["launches"] = (by_path["flash_attention_bwd"]
+                             + glm4["launches"]["flash_attention_bwd"])
     kernels += [k4b_entry, k2tp_entry]
 
     phase("summary", gpu=smi, script_s=time.perf_counter() - t_start,
@@ -5342,6 +5634,19 @@ def main() -> None:
         train_resume={k: resumed[k] for k in (
             "steps", "recoveries", "npz_bytes", "save_s", "restore_s",
             "launch_s")},
+        sp_decode={k: sp[k] for k in ("decode_step_ms",
+                                      "unsharded_decode_step_ms")} | {
+            "check": {s: [v["max_abs_err"], v["tol"]]
+                      for s, v in sp["check"].items()}},
+        dryrun={k: dry[k] for k in ("param_bytes_per_device",
+                                    "allocated_two_shards",
+                                    "requested_two_shards",
+                                    "rounding_bytes", "decode_32k_s")},
+        glm4_smoke={k: glm4[k] for k in (
+            "losses", "train_s", "launch_s", "tokens_per_s",
+            "launches")} | {"check": {s: [v["max_abs_err"], v["tol"]]
+                                      for s, v in glm4["check"]["check"]
+                                      .items()}},
         tp_moe={k: tp_moe_run[k] for k in (
             "decode_step_ms", "unsharded_decode_step_ms",
             "expert_launches_per_step", "identical_streams",

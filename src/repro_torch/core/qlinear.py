@@ -61,6 +61,20 @@ _EXEC = ExecutionConfig()
 COUNTS = PathCounts()
 
 
+def set_execution_config(**kw) -> ExecutionConfig:
+    """Replace the ambient execution config's fields (``impl``,
+    ``compute_dtype``, ``offload_min_flops``) for every later call that
+    passes no ``cfg=``; returns the new config."""
+    global _EXEC
+    _EXEC = dataclasses.replace(_EXEC, **kw)
+    return _EXEC
+
+
+def get_execution_config() -> ExecutionConfig:
+    """The ambient execution config."""
+    return _EXEC
+
+
 @contextlib.contextmanager
 def execution_config(cfg: ExecutionConfig):
     """Pin the ambient execution config for the duration of the block."""

@@ -77,3 +77,15 @@ def dequantize_groupwise(q: torch.Tensor, scales: torch.Tensor,
 def fake_quantize(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     """Quantize-dequantize roundtrip (the operator AWQ's search minimizes)."""
     return dequantize_groupwise(*quantize_groupwise(w, cfg), cfg).to(w.dtype)
+
+
+def quantization_mse(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Mean squared quantization error of plain round-to-nearest (a 0-d
+    f32 tensor for an f32 ``w``)."""
+    return torch.mean((fake_quantize(w, cfg) - w) ** 2)
+
+
+def fake_quantize_fast(w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """The reference's jitted fake-quant for AWQ's grid search; eager
+    PyTorch has no jit to take, so it is `fake_quantize`."""
+    return fake_quantize(w, cfg)

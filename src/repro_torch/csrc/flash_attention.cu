@@ -55,13 +55,18 @@
 //     the second wave pairs heavy tiles with light ones.
 //   - Any S works: rows and keys past S are zero-filled by the copy and
 //     masked in-kernel.
-//   - Head dims 64, 80, 96, 128 and 256 are built (hubert-xlarge's 80,
-//     phi-3-vision's 96): a k-chunk is 16 dims and an output tile 8, so
-//     80 and 96 take 5 and 6 k-chunks and 10 and 12 output tiles; a row's
-//     10 or 12 16-byte chunks do not divide the block's 128 threads, so
-//     the copy numbers a tile's chunks row by row and walks them in whole
-//     passes of the block (MK x CH is a multiple of 128 at every built
-//     dim).
+//   - Head dims 32, 64, 80, 96, 128 and 256 are built (glm4-9b's smoke
+//     config's 32, hubert-xlarge's 80, phi-3-vision's 96): a k-chunk is 16
+//     dims and an output tile 8, so 32 takes 2 k-chunks and 4 output tiles,
+//     80 and 96 5 and 6 k-chunks and 10 and 12 output tiles; a row's 10 or
+//     12 16-byte chunks do not divide the block's 128 threads, so the copy
+//     numbers a tile's chunks row by row and walks them in whole passes of
+//     the block (MK x CH is a multiple of 128 at every built dim). At hd 32
+//     a padded row is 80 bytes: the eight rows of an ldmatrix read start at
+//     banks 0, 20, 8, 28, 16, 4, 24, 12 (20 r mod 32), four banks each, so
+//     they hit no bank twice; a copy's quarter warp (8 chunks, two rows)
+//     puts its first and last chunk on banks 0-3, a 2-way conflict on the
+//     stores only.
 // Inputs are read and the output written through their strides (head dim
 // contiguous, 16-byte aligned rows; the wrapper checks), so the caller's
 // [B, S, H, hd] projections need no transpose copy.
@@ -196,12 +201,12 @@ __device__ __forceinline__ void mma<__half>(float (&d)[4],
 // accumulator holds rows grp (c0, c1) and grp + 8 (c2, c3) at columns
 // 2 * tig + {0, 1}; an A operand holds the same rows at columns
 // 2 * tig + {0, 1} (a0 / a1) and 2 * tig + 8 + {0, 1} (a2 / a3).
-// copy stages of the K / V ring: three at hd 64 (64 KB of shared memory),
-// two at hd 80 and 96 (55 and 65 KB: four and three blocks an SM; a third
+// copy stages of the K / V ring: three at hd 64 (64 KB of shared memory)
+// and at hd 32 (35 KB), two at hd 80 and 96 (55 and 65 KB: four and three blocks an SM; a third
 // stage would leave two), at hd 128 (the tests' width; 122 KB would leave
 // one block an SM) and at hd 256 (165 KB: one block of 8 warps an SM)
 template <int HD> __host__ __device__ constexpr int stages() {
-  return HD == 64 ? 3 : 2;
+  return HD <= 64 ? 3 : 2;
 }
 template <typename T, int HD> constexpr size_t mma_smem() {
   return sizeof(T) * (size_t)(MQ + 2 * stages<HD>() * MK) * (HD + 8);
@@ -717,6 +722,7 @@ LaunchFn pick_hd(int dtype) {
 }
 
 LaunchFn pick(int dtype, int HD) {
+  if (HD == 32) return pick_hd<32>(dtype);
   if (HD == 64) return pick_hd<64>(dtype);
   if (HD == 80) return pick_hd<80>(dtype);
   if (HD == 96) return pick_hd<96>(dtype);
@@ -730,7 +736,7 @@ LaunchFn pick(int dtype, int HD) {
 // Plain C entry point (loaded with ctypes). dtype: 0 f32, 1 bf16, 2 f16 (q,
 // k, v and o alike). lse: null, or a contiguous f32 [B, H, S] array. Strides are in elements for the batch, head and
 // sequence dims; the head dim is contiguous. The caller has checked shapes,
-// dtypes, H % Hkv == 0, hd in {64, 80, 96, 128, 256}, S >= 1 and, for bf16 / f16,
+// dtypes, H % Hkv == 0, hd in {32, 64, 80, 96, 128, 256}, S >= 1 and, for bf16 / f16,
 // 16-byte aligned pointers and strides. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,

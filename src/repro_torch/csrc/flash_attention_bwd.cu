@@ -89,9 +89,18 @@
 //     items; at hd 80 and 96 one warp keeps a group's 80 or 96 dims (10
 //     or 12 n-tiles) over 32-query items, as many floats as hd 64's. dQ
 //     keeps 16 rows x hd (hd / 2 floats a lane) over 64-key tiles at hd
-//     64, 32-key tiles above. ptxas gives the unrolled loops
+//     64, 32-key tiles above. Head dim 32 (glm4-9b's smoke config) takes
+//     hd 64's tiles (64-key dQ tiles in a ring of 3, 64-query dK / dV
+//     items): its sums are half of hd 64's (16 floats of dQ, 16 + 16 of
+//     dK / dV a lane), so the tiles that spill nothing at hd 64 fit with
+//     room, and 32-wide ones would only double the walks' steps. Its rows
+//     fill half of each 128-byte panel row (4 of the 8 swizzled chunks);
+//     the other half is never written or read, and every loop runs the
+//     2 k-chunks and 4 n-tiles that exist, so no MMA works on padding.
+//     Shared memory is hd 64's (64 KB for dQ), which is not what limits
+//     the blocks an SM. ptxas gives the unrolled loops
 //     what __launch_bounds__(NT, 1) allows (2 blocks an SM at hd 64);
-//     nothing spills at hd 64, 80, 96 and 128, while at hd 256 dQ's 128 floats
+//     nothing spills at hd 32, 64, 80, 96 and 128, while at hd 256 dQ's 128 floats
 //     of sums spill a few dozen bytes. chip_smoke.py's build line shows
 //     each kernel's registers and spills.
 //   - No float atomics anywhere and every sum runs in a fixed order, so
@@ -308,8 +317,8 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t tile, Lane l, int r0,
 template <int HD> struct DqCfg {
   static constexpr int NT = 128;        // 4 warps, 16 query rows each
   static constexpr int BQ = 64;
-  static constexpr int BK = HD == 64 ? 64 : 32;   // keys a tile
-  static constexpr int NS = HD == 64 ? 3 : 2;      // K / V ring stages
+  static constexpr int BK = HD <= 64 ? 64 : 32;   // keys a tile
+  static constexpr int NS = HD <= 64 ? 3 : 2;      // K / V ring stages
   static constexpr uint32_t Q_BYTES = BQ * pad64(HD) * 2;
   static constexpr uint32_t K_BYTES = BK * pad64(HD) * 2;
   static constexpr size_t SMEM = 2 * Q_BYTES + 2 * NS * K_BYTES;
@@ -528,7 +537,7 @@ template <int HD> struct DkdvCfg {
   static constexpr int SPLIT = 2;       // item streams a block
   static constexpr int NT = 32 * KG * DS * SPLIT;
   static constexpr int BKV = 16 * KG;   // keys a block
-  static constexpr int BQ = HD == 64 ? 64 : 32;    // queries an item
+  static constexpr int BQ = HD <= 64 ? 64 : 32;    // queries an item
   static constexpr int HDW = HD / DS;   // dK / dV head dims a warp keeps
   static constexpr int NS = 2;          // ring stages (SPLIT items each)
   static constexpr uint32_t KV_BYTES = BKV * pad64(HD) * 2;
@@ -1157,6 +1166,7 @@ LaunchFn pick_hd(int dtype) {
 }
 
 LaunchFn pick(int dtype, int HD) {
+  if (HD == 32) return pick_hd<32>(dtype);
   if (HD == 64) return pick_hd<64>(dtype);
   if (HD == 80) return pick_hd<80>(dtype);
   if (HD == 96) return pick_hd<96>(dtype);
@@ -1176,7 +1186,7 @@ Strides at(const long long* st, int i) {
 // (scratch, written here) are contiguous f32 [B, H, S]. strides: 24 element
 // strides, the (batch, head, sequence) strides of q, k, v, o, dout, dq, dk
 // and dv in that order; every head dim is contiguous. The caller has
-// checked shapes, dtypes, H % Hkv == 0, hd in {64, 80, 96, 128, 256} and
+// checked shapes, dtypes, H % Hkv == 0, hd in {32, 64, 80, 96, 128, 256} and
 // S >= 1.
 // For bf16 / f16 the caller has also checked 16-byte aligned pointers and
 // strides. Two launches on the stream (three for f32); returns the first

@@ -52,8 +52,9 @@
 // treated as masked. The TPU version's row padding to 8 and its 128-lane
 // replicated m / l scratch are not carried over: C·G = 7·C rows work as
 // they are. Tensor cores (for a bf16 pool) are left for later work.
-// Head dims 64, 96, 128 and 256 are built (96: phi-3-vision's; each lane
-// keeps 3 of a row's output dims). At 256 a block holds 8 x 8 f32
+// Head dims 32, 64, 96, 128 and 256 are built (32: glm4-9b's smoke config,
+// one output dim a lane; 96: phi-3-vision's, each lane keeps 3 of a row's
+// output dims). At 256 a block holds 8 x 8 f32
 // accumulators a lane and needs about 109 KB of shared memory (two blocks
 // an SM); the query rows of any group size (G 3 to 16 in the registered
 // models) tile the same way, 8 of the C·G rows a block.
@@ -116,7 +117,11 @@ __device__ __forceinline__ int slot_keys(const int32_t* pos, int b, int C,
 // stored at chunk chunk_at(c, t) of the row, a permutation of the row's chunks
 // chosen so that the 8 lanes of a quarter warp, each reading chunk c of its
 // own key, hit 8 different 16-byte bank groups (of the 8 in 128 bytes). At
-// hd 64 (4 chunks a key) two keys share 128 bytes, so it is c ^ (t / 2) % 4;
+// hd 32 (2 chunks a key) four keys share 128 bytes: keys t .. t + 3 start
+// in groups 2 t mod 8 (0, 2, 4, 6 for t % 8 < 4), keys t + 4 .. t + 7 in
+// the same four, so c ^ (t / 4) % 2 moves the second four to the odd
+// groups (1, 3, 5, 7) for either c. At hd 64 (4 chunks a key) two keys
+// share 128 bytes, so it is c ^ (t / 2) % 4;
 // at hd 128 and 256 (8 and 16 chunks) a key's row spans whole bank rows, so
 // chunk c of every key falls in bank group c % 8 and it is c ^ t % 8. At hd
 // 96 (6 chunks, not a power of two) an XOR would leave the row (5 ^ 2 = 7):
@@ -429,7 +434,7 @@ int launch(const void* q, const void* k_pool, const void* ks,
 
 // Plain C entry point (loaded with ctypes): the partial pass, then the
 // merge pass, on one stream. amask may be null (the default in-span rule). The caller has checked shapes, dtypes and
-// contiguity, hd in {64, 96, 128, 256} and the grid's limits, and passes f32
+// contiguity, hd in {32, 64, 96, 128, 256} and the grid's limits, and passes f32
 // scratch of ceil(n_blocks * P / 128) * B * Hkv * C * G rows: part_ml
 // (m, l: 2 floats a row) and part_acc (hd floats a row). Returns
 // cudaGetLastError().
@@ -441,6 +446,10 @@ extern "C" int paged_attention_chunk_f32(
     float scale, int device, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (HD == 32)
+    return launch<32>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
+                      part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,
+                      window, scale, s);
   if (HD == 64)
     return launch<64>(q, k_pool, ks, v_pool, vs, table, pos, rpos, amask, out,
                       part_ml, part_acc, B, C, Hkv, G, P, n_blocks, num_pages,

@@ -9,7 +9,9 @@ heads by `paged_cache_pspec`, spill and handoff strips leaving the mesh
 whole. The port keeps that architecture and spells the placement out:
 
   * a `Mesh` is a grid of torch devices with named axes; serving reads
-    only its ``model`` axis (`model_devices`);
+    only the ``model`` axis of its first data replica (`model_devices`):
+    the reference replicates over ``data`` / ``pod``, so the other
+    replicas would compute the same bytes;
   * `shard_tree` turns an unsharded params or pool tree into one tree a
     shard, each on its shard's device: a leaf whose rule names
     ``"model"`` at dim d is cut into n equal pieces along d, each its own
@@ -38,6 +40,7 @@ one card and is not part of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -70,18 +73,13 @@ class Mesh:
 
 
 def model_devices(mesh: Mesh) -> list[torch.device]:
-    """The devices along the ``model`` axis, in shard order. Serving runs
-    one replica of the model axis: every other axis must have size 1."""
-    others = {a: s for a, s in mesh.shape.items() if a != "model" and s > 1}
-    if others:
-        raise NotImplementedError(
-            f"serving over mesh axes {others} besides 'model' is not "
-            f"ported (data-parallel replicas are a Router of engines; "
-            f"ROADMAP, Queue 1)")
-    ax = mesh.axis_names.index("model")
-    idx = tuple(slice(None) if i == ax else 0
-                for i in range(len(mesh.axis_names)))
-    return list(mesh.devices[idx])
+    """The devices along the ``model`` axis of the first data replica
+    (`replica_meshes`), in shard order. Serving runs on that one stripe:
+    the reference's rules (`param_pspec`, `paged_cache_pspec`) name no
+    ``data`` or ``pod`` axis, so GSPMD replicates every operand over them
+    and its other replicas compute the same bytes; the port computes them
+    once."""
+    return list(replica_meshes(mesh)[0].devices)
 
 
 def batch_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -257,9 +255,165 @@ def paged_cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
     return (None,) * len(shape)
 
 
+# ---------------------------------------------------------------------------
+# Logical axes and the one-shot decode cache's rule (SP-decode)
+# ---------------------------------------------------------------------------
+
+# Logical activation axes → mesh axes, the reference's. Several logical
+# names map to the same mesh axis ("model"); `_resolve` allocates greedily
+# in dimension order and never assigns one mesh axis twice.
+LOGICAL_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "q_groups": ("model",),
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "cache_seq": ("model",),
+    "seq": ("model",),       # sequence parallelism (long-context prefill)
+    "model": ("model",),
+    "expert_cap": ("pod", "data"),
+    "ssm_inner": ("model",),
+}
+
+
+def _axis_size(mesh: Mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    return int(np.prod([mesh.shape[a] for a in axes]))
+
+
+def _resolve(mesh: Mesh, logical: tuple, shape: tuple) -> tuple:
+    """Logical axes → a spec tuple (an entry: None, a mesh axis, or a
+    tuple of mesh axes). Drops axes that are absent from the mesh, do not
+    divide the dimension, or were assigned to an earlier dimension (first
+    match wins), as the reference's."""
+    out = []
+    used: set[str] = set()
+    for dim, name in zip(shape, logical):
+        if name is None:
+            out.append(None)
+            continue
+        axes = tuple(a for a in LOGICAL_RULES.get(name, (name,))
+                     if a in mesh.axis_names and a not in used)
+        if axes and dim % _axis_size(mesh, axes) == 0:
+            used.update(axes)
+            out.append(axes if len(axes) > 1 else axes[0])
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
+    """Spec of a one-shot decode cache leaf (the reference's rule): the
+    batch over ``(pod, data)``; k / v ``[B, S, Hkv, hd]`` over ``model``
+    along S (SP-decode) when ``S % |model| == 0`` and ``S >= 8 |model|``,
+    else over the kv heads; their int8 scale strips ``ks`` / ``vs``
+    ``[B, S, Hkv]`` and MLA's latents ``ckv`` / ``kpe`` ``[B, S, R]``
+    along S under the same test; conv caches ``[B, d_conv, C]`` over
+    channels; SSM states ``[B, nh, hd, ds]`` over heads (each only where
+    the mesh axis divides)."""
+    shape = tuple(leaf.shape)
+    leafname = path.split("/")[-1]
+    msize = mesh.shape.get("model", 1)
+
+    def full(tail: list) -> tuple:
+        lead = [None] * (len(shape) - len(tail))
+        return _resolve(mesh, tuple(lead + tail), shape)
+
+    if leafname in ("k", "v"):
+        s_dim, h_dim = shape[-3], shape[-2]
+        if s_dim % msize == 0 and s_dim >= 8 * msize:
+            return full(["batch", "model", None, None])
+        if h_dim % msize == 0:
+            return full(["batch", None, "model", None])
+        return full(["batch", None, None, None])
+    if leafname in ("ks", "vs", "ckv", "kpe"):
+        s_dim = shape[-2]
+        if s_dim % msize == 0 and s_dim >= 8 * msize:
+            return full(["batch", "model", None])
+        return full(["batch", None, None])
+    if leafname.startswith("conv"):
+        return full(["batch", None, "model"])
+    if leafname == "state":
+        return full(["batch", "model", None, None])
+    return full(["batch", None])
+
+
+def shard_cache(cache: Any, mesh: Mesh) -> Any:
+    """A one-shot decode cache (`Model.init_cache`) for SP-decode: every
+    attention leaf that `cache_pspec` stripes along S becomes a list of
+    ``|model|`` sequence stripes (contiguous, one a shard, on its
+    device, in shard order); every other leaf, and everything off the
+    ``model`` axis (the reference replicates over ``data``), stays whole
+    on the first shard's device. `Model.decode_step` / `prefill` read and
+    write such a cache."""
+    devices = model_devices(mesh)
+
+    def one(path, leaf):
+        name = path.split("/")[-1]
+        dim = split_dim(cache_pspec(path, leaf, mesh))
+        if name in ("k", "v", "ks", "vs") and dim == (
+                -3 if name in ("k", "v") else -2):     # the sequence dim
+            return _shard_leaf(leaf, leaf.dim() + dim, devices)
+        return leaf.to(devices[0])
+    return map_with_path(one, cache)
+
+
 def split_dim(spec: tuple, axis: str = "model") -> int | None:
     """The (negative) dim a spec splits over ``axis``, or None."""
     return (spec.index(axis) - len(spec)) if axis in spec else None
+
+
+# ---------------------------------------------------------------------------
+# Tree helpers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``): where each dim
+    of a leaf splits. `shard_shape` gives one device's piece."""
+    mesh: Mesh
+    spec: tuple
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one device's piece of a leaf of ``shape``."""
+        shape = tuple(shape)
+        spec = (None,) * (len(shape) - len(self.spec)) + tuple(self.spec)
+        return tuple(d // _axis_size(self.mesh, ax)
+                     for d, ax in zip(shape, spec))
+
+
+def _walk_specs(tree: Any, fn, path: str = "") -> Any:
+    """``fn(path, leaf)`` over a tree of dicts, lists of layers (no index
+    in the path, as `utils.tree.map_with_path`) and `PackedLinear`s (a
+    field's path ``.../<linear>/<field>``; the node becomes a dict of its
+    fields' results), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: None if v is None
+                else _walk_specs(v, fn, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_walk_specs(v, fn, path) for v in tree]
+    if isinstance(tree, PackedLinear):
+        return {f: fn(f"{path}/{f}", getattr(tree, f))
+                for f in ("qweight", "scales", "zeros", "input_scale",
+                          "bias") if getattr(tree, f) is not None}
+    return fn(path, tree)
+
+
+def pspec_tree(tree: Any, mesh: Mesh, rule, cfg=None) -> Any:
+    """``rule(path, leaf, mesh, cfg)`` over a tree: its spec tuples in the
+    tree's structure (a `PackedLinear` becomes a dict of its fields')."""
+    return _walk_specs(tree, lambda p, x: rule(p, x, mesh, cfg))
+
+
+def make_sharding(tree: Any, mesh: Mesh, rule, cfg=None) -> Any:
+    """`pspec_tree` with each spec as a `NamedSharding` on ``mesh``."""
+    return _walk_specs(tree, lambda p, x: NamedSharding(
+        mesh, rule(p, x, mesh, cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -497,9 +651,98 @@ class TrainSharding:
 # Collectives: explicit, in shard order
 # ---------------------------------------------------------------------------
 
+# The HLO collective kind each explicit collective stands for, as the
+# reference's roofline counts its compiled program: a row-parallel sum is
+# an all-reduce, a join of the shards' pieces an all-gather; handing each
+# shard its piece of a tensor held on one device (`split`, a strip
+# entering the mesh) has no SPMD counterpart (there the operand is already
+# resident) and counts as ``scatter``.
+COLLECTIVE_KINDS = {"all_sum": "all-reduce", "concat": "all-gather",
+                    "split": "scatter", "grad_reduce": "all-reduce",
+                    "zero1_gather": "all-gather",
+                    "int8_reduce": "all-reduce"}
+
+
+@dataclasses.dataclass
+class CollectiveCounter:
+    """What the explicit collectives moved while a `count_collectives`
+    block ran: calls and operand bytes a device, by collective
+    (``by_op``, the keys of `COLLECTIVE_KINDS`) and by HLO kind
+    (`by_kind`). A device's operand is its own piece: a partial for
+    `all_sum`, its piece for `concat` / `split`, its gradient (in the
+    wire type) for the data axis's reduction, its slice for ZeRO-1's
+    gather. The first device's: where the data replicas run the same
+    work (`replica_share`), each replica's call counts its share. What
+    autograd moves between shards in a backward (copies, not these
+    functions) is not counted."""
+    calls: dict = dataclasses.field(default_factory=dict)
+    by_op: dict = dataclasses.field(default_factory=dict)
+    share: float = 1.0
+
+    def add(self, op: str, nbytes: float) -> None:
+        self.calls[op] = self.calls.get(op, 0) + self.share
+        self.by_op[op] = self.by_op.get(op, 0) + nbytes * self.share
+
+    @property
+    def by_kind(self) -> dict:
+        out = {k: 0 for k in ("all-reduce", "all-gather", "reduce-scatter",
+                              "all-to-all", "collective-permute",
+                              "scatter")}
+        for op, b in self.by_op.items():
+            out[COLLECTIVE_KINDS[op]] += b
+        return out
+
+    @property
+    def total(self) -> float:
+        return sum(self.by_op.values())
+
+
+_COUNTER: CollectiveCounter | None = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the explicit collectives' operand bytes a device inside the
+    block (a `CollectiveCounter`); outside one nothing is counted, so
+    serving and training pay one global read a collective."""
+    global _COUNTER
+    prev, _COUNTER = _COUNTER, CollectiveCounter()
+    try:
+        yield _COUNTER
+    finally:
+        _COUNTER = prev
+
+
+@contextlib.contextmanager
+def replica_share(replicas: int):
+    """A block that runs ``replicas`` data replicas' identical work (a
+    mesh train step's forward and backward, remat's recomputation
+    included): a device takes part only in its own replica's collectives,
+    so each counts ``1 / replicas`` of a call."""
+    if _COUNTER is None:
+        yield
+        return
+    prev = _COUNTER.share
+    _COUNTER.share = prev / replicas
+    try:
+        yield
+    finally:
+        _COUNTER.share = prev
+
+
+def record_collective(op: str, t: torch.Tensor | float) -> None:
+    """Count one collective (a key of `COLLECTIVE_KINDS`) whose operand on
+    each device is ``t`` (a tensor, or its bytes) when counting is on."""
+    if _COUNTER is not None:
+        _COUNTER.add(op, t if isinstance(t, (int, float))
+                     else t.numel() * t.element_size())
+
+
 def all_sum(parts: list[torch.Tensor], devices: list[torch.device]
             ) -> torch.Tensor:
     """Σ parts in shard order 0 … n−1, on the first shard's device."""
+    if len(parts) > 1:
+        record_collective("all_sum", parts[0])
     acc = parts[0].to(devices[0])
     for p in parts[1:]:
         acc = acc + p.to(devices[0])
@@ -512,6 +755,7 @@ def concat(parts: list[torch.Tensor], dim: int,
     first shard's device."""
     if len(parts) == 1:
         return parts[0].to(devices[0])
+    record_collective("concat", parts[0])
     return torch.cat([p.to(devices[0]) for p in parts], dim=dim)
 
 
@@ -521,8 +765,11 @@ def split(t: torch.Tensor, dim: int, devices: list[torch.device]
     its shard's device (the inverse of `concat`)."""
     n = len(devices)
     size = t.shape[dim] // n
-    return [t.narrow(dim, s * size, size).to(d).contiguous()
-            for s, d in enumerate(devices)]
+    out = [t.narrow(dim, s * size, size).to(d).contiguous()
+           for s, d in enumerate(devices)]
+    if n > 1:
+        record_collective("split", out[0])
+    return out
 
 
 def strip_gather(parts: list[torch.Tensor], dim: int | None,

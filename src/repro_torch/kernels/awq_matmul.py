@@ -7,7 +7,8 @@ Ports of the reference's Pallas kernels `awq_matmul_pallas` and
 `awq_gateup_pallas` and their oracles `ref.awq_matmul_ref` and
 `ref.awq_gateup_ref`. `awq_matmul` and `awq_gateup` launch the
 hand-written CUDA kernels for CUDA tensors and take the plain versions
-(`awq_matmul_ref`, `awq_gateup_ref`) only for CPU tensors. There is no
+(`awq_matmul_ref`, `awq_gateup_ref`) only for CPU tensors (and ``meta``
+tensors, whose shapes the dry run reads). There is no
 row padding: any M works. `awq_matmul_experts` and `awq_gateup_experts`
 run the same kernels over a MoE layer's stacked experts, one launch for
 all of them (the expert axis), beside their plain versions
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packing import PACK, dequantize_int4
-from repro_torch.kernels.build import LaunchCounter, check, load
+from repro_torch.kernels.build import LaunchCounter, check, load, plain
 from repro_torch.numerics import matmul_f32
 
 COUNTER = LaunchCounter()
@@ -185,7 +186,7 @@ def awq_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     the spans are split over blocks (a split call is two launches,
     counted as one).
     """
-    if x.device.type == "cpu":
+    if plain(x):
         return awq_matmul_ref(x, qweight, scales, zeros, group_size,
                               compute_dtype, input_scale=input_scale,
                               out_dtype=out_dtype)
@@ -227,7 +228,7 @@ def awq_matmul_experts(x: torch.Tensor, qweight: torch.Tensor,
     `EXPERT_COUNTER` counts these launches besides `COUNTER` (a call
     with no rows launches nothing and counts nothing).
     """
-    if x.device.type == "cpu":
+    if plain(x):
         return awq_matmul_experts_ref(x, qweight, scales, zeros, group_size,
                                       compute_dtype, input_scale=input_scale,
                                       out_dtype=out_dtype)
@@ -314,7 +315,7 @@ def awq_gateup(x: torch.Tensor, qw_gate: torch.Tensor, s_gate: torch.Tensor,
     or 128 rows and scales their x once, in shared memory (operations
     bound it). `csrc/awq_common.cuh` states the rule in full.
     """
-    if x.device.type == "cpu":
+    if plain(x):
         return awq_gateup_ref(x, qw_gate, s_gate, z_gate, qw_up, s_up, z_up,
                               group_size, compute_dtype,
                               input_scales=input_scales, out_dtype=out_dtype)
@@ -361,7 +362,7 @@ def awq_gateup_experts(x: torch.Tensor, qw_gate: torch.Tensor,
     on expert e alone. `GATEUP_EXPERT_COUNTER` counts these launches
     besides `GATEUP_COUNTER` (a call with no rows counts nothing).
     """
-    if x.device.type == "cpu":
+    if plain(x):
         return awq_gateup_experts_ref(x, qw_gate, s_gate, z_gate, qw_up,
                                       s_up, z_up, group_size, compute_dtype,
                                       input_scales=input_scales,

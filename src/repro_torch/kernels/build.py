@@ -151,6 +151,13 @@ def load_source(name: str, source: str | os.PathLike) -> ctypes.CDLL:
     return _open(name, out)
 
 
+def plain(t) -> bool:
+    """Whether a wrapper takes its kernel's plain version for this tensor:
+    it lies on the CPU, or on ``meta`` (shapes only: the dry run). A CUDA
+    tensor launches the kernel or raises."""
+    return t.device.type in ("cpu", "meta")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by an entry point."""
     if err != 0:

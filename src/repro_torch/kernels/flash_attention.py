@@ -5,7 +5,8 @@ Port of the reference's Pallas kernel `flash_attention` and its oracle
 h reads kv head h // G), a causal and/or sliding-window mask, f32 math
 whatever the input type, and the output in q's type. `flash_attention`
 launches the hand-written CUDA kernel for CUDA tensors and takes the
-plain version, `flash_attention_ref`, only for CPU tensors. Any S works
+plain version, `flash_attention_ref`, only for CPU tensors (and ``meta``
+tensors, whose shapes the dry run reads). Any S works
 (the TPU kernel needs S to be a multiple of its blocks; this one masks
 the ragged tail itself), and inputs are read through their strides, so
 a ``[B, S, H, hd]`` projection can be passed as its ``transpose(1, 2)``
@@ -37,7 +38,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import LaunchCounter, check, load
+from repro_torch.kernels.build import LaunchCounter, check, load, plain
 from repro_torch.numerics import einsum_f32
 
 COUNTER = LaunchCounter()
@@ -46,7 +47,7 @@ COUNTER = LaunchCounter()
 BWD_COUNTER = LaunchCounter()
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims K4 is built for
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)  # head dims K4 is built for
 BWD_HEAD_DIMS = HEAD_DIMS           # ... and K4b
 
 
@@ -206,7 +207,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     """K4b: (dq, dk, dv) of `flash_attention` at (q, k, v), given its
     output ``o``, its ``lse`` (f32 ``[B, H, S]``) and the output's gradient
     ``do``. CPU tensors take `flash_attention_bwd_ref`; CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (hd 64, 80, 96, 128 or 256; o and
+    ``csrc/flash_attention_bwd.cu`` (hd 32, 64, 80, 96, 128 or 256; o and
     do of q's type and shape, every operand's head dim contiguous and,
     for bf16 / f16, every row of all eight operands 16-byte aligned) and
     raise on anything else: bf16 and
@@ -214,7 +215,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float | None = None,
     The gradients take their inputs' layouts and types."""
     b, h, s, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
                                        causal=causal, window=window)
     _check_qkv(q, k, v, BWD_HEAD_DIMS)
@@ -250,7 +251,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool, window: int):
-        if q.device.type == "cpu":
+        if plain(q):
             out, lse = flash_attention_lse_ref(q, k, v, scale=scale,
                                                causal=causal, window=window)
         else:
@@ -275,7 +276,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B, H, S, hd]``, k/v ``[B, Hkv, S, hd]`` → ``[B, H, S, hd]``.
 
     CPU tensors take `flash_attention_ref`; CUDA tensors launch the
-    kernel (q, k and v of one type among f32 / bf16 / f16, hd 64, 80, 96,
+    kernel (q, k and v of one type among f32 / bf16 / f16, hd 32, 64, 80, 96,
     128 or 256, the head dim contiguous) and raise on anything else. bf16 and f16
     run on tensor cores, whose 16-byte copies want every row 16-byte
     aligned (pointer and strides); f32 runs on the CUDA cores. With grad
@@ -286,7 +287,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else hd ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, scale, causal, window)
-    if q.device.type == "cpu":
+    if plain(q):
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window)
     return _forward(q, k, v, scale, causal, window, False)[0]

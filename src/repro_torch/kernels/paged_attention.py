@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import model_devices
-from repro_torch.kernels.build import LaunchCounter, check, load
+from repro_torch.kernels.build import LaunchCounter, check, load, plain
 from repro_torch.numerics import einsum_f32
 
 NEG_INF = -1e30
@@ -44,7 +44,7 @@ SPAN = 128               # keys per block of the partial pass
 _KW = 32                 # keys per warp (4 warps a block)
 _RW = 8                  # query rows per block
 _GRID_YZ = 65535         # CUDA's limit on gridDim.y and gridDim.z
-HEAD_DIMS = (64, 96, 128, 256)  # head dims the kernel is built for
+HEAD_DIMS = (32, 64, 96, 128, 256)  # head dims the kernel is built for
 
 
 def default_amask(pos: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -199,13 +199,13 @@ def paged_attention_chunk(q, k_pool, ks, v_pool, vs, page_table, pos, *,
                           window: int = 0) -> torch.Tensor:
     """Fused dequant + multi-query masked attention over int8 KV pages.
 
-    CPU tensors take `paged_attention_chunk_ref`; CUDA tensors launch the
-    kernel (f32 q, int8 pools, f32 strips, int32 tables / positions, hd 64,
-    96, 128 or 256) and raise on anything else.
+    CPU (and ``meta``) tensors take `paged_attention_chunk_ref`; CUDA
+    tensors launch the kernel (f32 q, int8 pools, f32 strips, int32 tables
+    / positions, hd 32, 64, 96, 128 or 256) and raise on anything else.
     """
     b, c, hkv, g, hd = q.shape
     scale = scale if scale is not None else hd ** -0.5
-    if q.device.type == "cpu":
+    if plain(q):
         return paged_attention_chunk_ref(q, k_pool, ks, v_pool, vs,
                                          page_table, pos, scale=scale,
                                          rpos=rpos, amask=amask,
@@ -322,7 +322,7 @@ def paged_attention_chunk_sharded(q, k_pool, ks, v_pool, vs, page_table,
         _check(len(t) == len(devices),
                f"K2-TP: {name} holds {len(t)} shards, the mesh "
                f"{len(devices)}")
-    if q[0].device.type == "cpu":
+    if plain(q[0]):
         return paged_attention_chunk_sharded_ref(
             q, k_pool, ks, v_pool, vs, page_table, pos, mesh=mesh,
             scale=scale, rpos=rpos, amask=amask, window=window)

@@ -28,7 +28,8 @@ import dataclasses
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import model_devices
+from repro_torch.distributed.sharding import (concat, model_devices,
+                                              record_collective)
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
@@ -113,6 +114,19 @@ def _cache_probs_dtype(v_dtype: torch.dtype, adt: torch.dtype) -> torch.dtype:
     return v_dtype if v_dtype.itemsize < adt.itemsize else torch.float32
 
 
+def _position_mask(q_pos, k_pos, causal: bool, window: int
+                   ) -> torch.Tensor:
+    """Which keys each query sees by position → ``[B, 1, 1, C, S]`` (a
+    slot with ``k_pos < 0`` is invalid; causal and window bounds on
+    request)."""
+    mask = k_pos[:, None, :] >= 0
+    if causal:
+        mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    return mask[:, None, None, :, :]
+
+
 def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
           scale: float, vis: torch.Tensor | None = None,
           probs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -152,15 +166,55 @@ def _sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         probs = torch.where(vism.any(dim=-1, keepdim=True), probs,
                             torch.zeros_like(probs))
     else:
-        mask = k_pos[:, None, :] >= 0
-        if causal:
-            mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
-        if window:
-            mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
-        scores = torch.where(mask[:, None, None, :, :], scores, neg)
-        probs = torch.softmax(scores, dim=-1)
+        mask = _position_mask(q_pos, k_pos, causal, window)
+        probs = torch.softmax(torch.where(mask, scores, neg), dim=-1)
     out = ein("bkgqs,bskd->bqkgd", probs.to(probs_dtype), v)
     return out.to(torch.float32).to(v.dtype)
+
+
+def _sdpa_striped(q, ks: list, vs: list, q_pos, k_pos, *, causal: bool,
+                  window: int, scale: float,
+                  probs_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`_sdpa` over keys striped along S (SP-decode): ``ks`` / ``vs`` one
+    ``[B, S/n, Hkv, hd]`` stripe a ``model`` shard, each on its device,
+    ``k_pos [B, S]`` the whole cache's positions. Stripe i scores its own
+    keys on its device and keeps its partial max m_i, sum l_i and
+    unnormalized output o_i (f64 on the card, as `_sdpa` reads the decode
+    cache; the CPU's f32 arithmetic there); the partials are joined on
+    the first stripe's device (`concat`) and combined in shard order:
+    ``M = max m_i``, ``out = Σ o_i e^(m_i − M) / Σ l_i e^(m_i − M)``. A
+    stripe that shows a row no key adds nothing (l_i = 0, o_i = 0).
+    Returns ``[B, C, Hkv, G, hd]`` in v's dtype."""
+    cuda = q.device.type == "cuda"
+    ein = einsum_f64 if cuda else einsum_f32
+    wdt = torch.float64 if cuda else torch.float32
+    devices = [k.device for k in ks]
+    n_s = ks[0].shape[1]
+    ms, ls, os_ = [], [], []
+    for i, (k, v) in enumerate(zip(ks, vs)):
+        d = k.device
+        qd, qp = q.to(d), q_pos.to(d)
+        kp = k_pos[:, i * n_s:(i + 1) * n_s].to(d)
+        scores = ein("bqkgd,bskd->bkgqs", qd, k).to(wdt) * scale
+        mask = _position_mask(qp, kp, causal, window)
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        m = scores.amax(dim=-1, keepdim=True)
+        pr = torch.where(mask, torch.exp(scores - m),
+                         torch.zeros_like(scores))
+        ms.append(m[None])
+        ls.append(pr.sum(dim=-1, keepdim=True)[None])
+        os_.append(ein("bkgqs,bskd->bkgqd", pr.to(probs_dtype), v)
+                   .to(wdt)[None])
+    m_all, l_all, o_all = (concat(t, 0, devices) for t in (ms, ls, os_))
+    top = m_all.amax(dim=0)
+    den = torch.zeros_like(l_all[0])
+    acc = torch.zeros_like(o_all[0])
+    for i in range(len(ks)):                        # shard order
+        w = torch.exp(m_all[i] - top)
+        den = den + l_all[i] * w
+        acc = acc + o_all[i] * w
+    out = (acc / den).permute(0, 3, 1, 2, 4)        # -> [B, C, Hkv, G, hd]
+    return out.to(torch.float32).to(vs[0].dtype)
 
 
 def attention(p, x, cfg, *, positions, window: int = 0,
@@ -301,29 +355,78 @@ def _ring_positions(pos: torch.Tensor, w: int) -> torch.Tensor:
     return p - ((p - slots) % w)
 
 
+def _striped(cache) -> bool:
+    """A decode cache whose leaves are lists of sequence stripes
+    (SP-decode, `distributed.sharding.shard_cache`)."""
+    return isinstance(cache["k"], list)
+
+
+def _fill_stripes(cache, rows: dict, positions, window: int) -> None:
+    """`fill_cache_from_prefill` into a cache striped along S: ``rows``
+    the prefill's k / v (and int8 scales) ``[B, S, ...]`` on its device.
+    They are put in slot order (a ring's kept tokens by ``position %
+    W``), and each stripe receives only the slots it owns, written on
+    its own device; the pieces handed out are counted as `split`'s."""
+    s = rows["k"].shape[1]
+    if window and s > window:
+        order = torch.argsort(positions[:, -window:].long() % window, dim=1)
+        rows = {n: torch.gather(r[:, -window:], 1, order.reshape(
+            *order.shape, *[1] * (r.dim() - 2)).expand_as(r[:, -window:]))
+            for n, r in rows.items()}
+        s = window
+    n_s = cache["k"][0].shape[1]
+    for name, row in rows.items():
+        parts = cache[name]
+        for i, t in enumerate(parts):
+            piece = row[:, i * n_s:min((i + 1) * n_s, s)]
+            if piece.shape[1]:
+                t[:, :piece.shape[1]] = piece.to(t.device).to(t.dtype)
+        if len(parts) > 1:      # a device's piece: one stripe's slots
+            record_collective("split", parts[0].numel()
+                              * parts[0].element_size())
+
+
 def fill_cache_from_prefill(cache, k, v, positions, window: int):
     """Write prefill keys/values [B, S, ...] into a fresh decode cache. A
     windowed layer whose prompt is longer than its ring keeps the last W
-    tokens, each at slot ``position % W``."""
+    tokens, each at slot ``position % W``. A cache striped along S
+    (SP-decode) gets the same bytes, each stripe its own slots."""
     b, s = k.shape[0], k.shape[1]
     quant = "ks" in cache
+    rows = {"k": k, "v": v}
     if quant:
-        k, ks = _kv_quantize(k)
-        v, vs = _kv_quantize(v)
+        rows["k"], rows["ks"] = _kv_quantize(k)
+        rows["v"], rows["vs"] = _kv_quantize(v)
+    if _striped(cache):
+        _fill_stripes(cache, rows, positions, window)
+        return cache
     if not window or s <= window:
         idx = (slice(None), slice(0, s))
     else:
-        k, v = k[:, -window:], v[:, -window:]
-        if quant:
-            ks, vs = ks[:, -window:], vs[:, -window:]
+        rows = {n: r[:, -window:] for n, r in rows.items()}
         idx = (torch.arange(b, device=k.device)[:, None],
                positions[:, -window:].long() % window)
-    if quant:
-        cache["ks"][idx] = ks
-        cache["vs"][idx] = vs
-    cache["k"][idx] = k.to(cache["k"].dtype)
-    cache["v"][idx] = v.to(cache["v"].dtype)
+    for name, row in rows.items():
+        cache[name][idx] = row.to(cache[name].dtype)
     return cache
+
+
+def _write_row(parts: list, row: torch.Tensor, slot: torch.Tensor) -> None:
+    """A decode step's new row ``[B, ...]`` into a leaf striped along S,
+    at slot ``slot [B]`` of the whole sequence: every stripe writes the
+    row where it owns the slot and its own bytes back elsewhere (a
+    `where`; no row index leaves a device)."""
+    n_s = parts[0].shape[1]
+    b = row.shape[0]
+    for i, t in enumerate(parts):
+        d = t.device
+        local = (slot - i * n_s).to(d)
+        owned = ((local >= 0) & (local < n_s)).reshape(
+            b, *[1] * (row.dim() - 1))
+        local = local.clamp(0, n_s - 1)
+        bidx = torch.arange(b, device=d)
+        t[bidx, local] = torch.where(owned, row.to(d).to(t.dtype),
+                                     t[bidx, local])
 
 
 def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
@@ -335,24 +438,31 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     ``k <= pos``. Through `_sdpa`, a slot's row depends neither on the
     step's slot count nor on the cache's length, so `generate()`'s rows
     equal a one-shot engine's (a hymba engine keeps one ring row a slot;
-    its global layers and every other model's read bf16 pages)."""
+    its global layers and every other model's read bf16 pages). A cache
+    striped along S (SP-decode) takes the new row in the stripe that
+    owns its slot (`_write_row`) and is read stripe by stripe
+    (`_sdpa_striped`)."""
     b = x.shape[0]
     q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
-    bidx = torch.arange(b, device=x.device)
+    striped = _striped(cache)
     slot = (pos.long() % window) if window else pos.long()
+    new = {"k": k1, "v": v1}
     if "ks" in cache:
-        k1, ks1 = _kv_quantize(k1)
-        v1, vs1 = _kv_quantize(v1)
-        cache["ks"][bidx, slot] = ks1
-        cache["vs"][bidx, slot] = vs1
-    cache["k"][bidx, slot] = k1.to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v1.to(cache["v"].dtype)
-    ck, cv = cache["k"], cache["v"]
+        new["k"], new["ks"] = _kv_quantize(k1)
+        new["v"], new["vs"] = _kv_quantize(v1)
+    bidx = torch.arange(b, device=x.device)
+    for name, row in new.items():
+        if striped:
+            _write_row(cache[name], row, slot)
+        else:
+            cache[name][bidx, slot] = row.to(cache[name].dtype)
     adt = torch_dtype(cfg.activation_dtype)
+    parts = {n: t if striped else [t] for n, t in cache.items()}
+    ck, cv = parts["k"], parts["v"]
     if "ks" in cache:
-        ck = _kv_dequant(ck, cache["ks"], adt)
-        cv = _kv_dequant(cv, cache["vs"], adt)
-    s_max = ck.shape[1]
+        ck = [_kv_dequant(c, sc, adt) for c, sc in zip(ck, parts["ks"])]
+        cv = [_kv_dequant(c, sc, adt) for c, sc in zip(cv, parts["vs"])]
+    s_max = sum(c.shape[1] for c in ck)
     if window:
         k_pos = _ring_positions(pos, s_max)
     else:
@@ -360,10 +470,11 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
         k_pos = torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
-    out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=bool(window),
-                window=window, scale=cfg.head_dim ** -0.5,
-                probs_dtype=_cache_probs_dtype(cv.dtype, adt))
-    return linear(p["wo"], out.reshape(b, cfg.q_dim)), cache
+    kw = dict(causal=bool(window), window=window, scale=cfg.head_dim ** -0.5,
+              probs_dtype=_cache_probs_dtype(cv[0].dtype, adt))
+    out = (_sdpa_striped(qg, ck, cv, pos[:, None], k_pos, **kw) if striped
+           else _sdpa(qg, ck[0], cv[0], pos[:, None], k_pos, **kw))
+    return linear(p["wo"], out.to(x.device).reshape(b, cfg.q_dim)), cache
 
 
 # ---------------------------------------------------------------------------

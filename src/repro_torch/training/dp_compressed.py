@@ -28,8 +28,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import int8_psum_mean
-from repro_torch.distributed.sharding import (dp_size, replica_meshes,
-                                              split_batch)
+from repro_torch.distributed.sharding import (dp_size, record_collective,
+                                              replica_meshes, split_batch)
 from repro_torch.training.optim import (AdamWConfig, adamw_init,
                                         adamw_update, map_tree)
 from repro_torch.training.train_step import loss_and_grads
@@ -88,6 +88,7 @@ def make_dp_train_step(model, mesh, opt_cfg: AdamWConfig,
                     [[e[i].to(d) for e in es]
                      for i, d in enumerate(devices)], devices)
                 wire += sent
+                record_collective("int8_reduce", sent / n)
                 red[path] = means
                 new_ef[path] = [torch.stack([efs[i][k].to(e.device)
                                              for i in range(n)])
@@ -101,6 +102,7 @@ def make_dp_train_step(model, mesh, opt_cfg: AdamWConfig,
             def mean(*gs):
                 nonlocal wire
                 wire += sum(g.numel() * 4 for g in gs)
+                record_collective("grad_reduce", gs[0].numel() * 4)
                 acc = gs[0].to(torch.float32)
                 for g in gs[1:]:
                     acc = acc + g.to(devices[0]).to(torch.float32)

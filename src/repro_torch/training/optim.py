@@ -24,7 +24,8 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import join_pieces, narrow_piece
+from repro_torch.distributed.sharding import (join_pieces, narrow_piece,
+                                              record_collective)
 from repro_torch.utils.tree import layer_parts, map_tree  # noqa: F401
 
 
@@ -178,6 +179,8 @@ def adamw_update_zero1(params: list, grads: list, opt: dict, step,
             def leaf(sp, old, *sl, _mi=mi, _r=r - base):
                 src = sl[dn:] if sp[0] is None else sl[:dn]
                 if sp[1] is not None:
+                    if dn > 1 and r == 0 and _mi == 0:   # the first
+                        record_collective("zero1_gather", src[0])  # device's
                     return join_pieces(list(src), sp[1], old.device)
                 # a replicated leaf's one update, made on the first shard:
                 # every other shard takes a copy of its own

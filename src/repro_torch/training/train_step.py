@@ -33,7 +33,9 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import MeshTrainState
+from repro_torch.distributed.sharding import (MeshTrainState,
+                                              record_collective,
+                                              replica_share)
 from repro_torch.training.optim import (AdamWConfig, adamw_init,
                                         adamw_update, adamw_update_zero1,
                                         map_tree)
@@ -137,6 +139,8 @@ def reduce_grads(grads: list, specs, comm_dtype: str, devices: list
             sent = [g.to(dt) for g in gs]
             if n_rep > 1:
                 wire += sum(t.numel() * t.element_size() for t in sent)
+                if m == 0:            # the first device's operand
+                    record_collective("grad_reduce", sent[0])
             acc = sent[0].to(torch.float32)
             for t in sent[1:]:
                 acc = acc + t.to(devices[0][m]).to(torch.float32)
@@ -154,8 +158,10 @@ def reduce_grads(grads: list, specs, comm_dtype: str, devices: list
 def _mesh_train_step(model, tcfg: TrainConfig, mesh):
     def train_step(state: MeshTrainState, batch: dict):
         sh, specs = state.sharding, state.specs
-        loss, metrics, grads = loss_and_grads(
-            model, state["params"], batch, tcfg.grad_comm_dtype, mesh=mesh)
+        with replica_share(len(sh.replicas)):
+            loss, metrics, grads = loss_and_grads(
+                model, state["params"], batch, tcfg.grad_comm_dtype,
+                mesh=mesh)
         devices = [list(rm.devices) for rm in sh.replicas]
         reduced, wire = reduce_grads(grads, specs, tcfg.grad_comm_dtype,
                                      devices)

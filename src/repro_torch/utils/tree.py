@@ -79,6 +79,13 @@ def leaf_bytes(tree: Any) -> int:
     return total
 
 
+def leaf_count(tree: Any) -> int:
+    """Total number of scalar elements across all leaves (meta tensors
+    too)."""
+    return sum(t.numel() for _, parts, leaf in layer_parts(tree)
+               for t in (parts if parts is not None else [leaf]))
+
+
 def map_tree(fn, tree, *rest):
     """``fn(leaf, *other_leaves)`` over trees of one structure (dicts and
     lists of tensors), keeping it."""

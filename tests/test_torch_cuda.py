@@ -593,7 +593,7 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k4.flash_attention(q, k.float(), v)                  # mixed types
     with pytest.raises(ValueError):
-        k4.flash_attention(q[..., :32], k[..., :32], v[..., :32])  # hd 32
+        k4.flash_attention(q[..., :48], k[..., :48], v[..., :48])  # hd 48
     with pytest.raises(ValueError):
         k4.flash_attention(q[:, :3], k, v)                   # H % Hkv
 
@@ -1211,13 +1211,11 @@ def test_dense_smoke_chunk_step_on_card_near_cpu(cuda, arch):
     """Each model's smoke config, RTN int4, through two chunk steps over
     int8 pools on the card (K1 / K3, K2) and on the CPU (plain versions):
     logits within 5% of their largest magnitude (bf16 activations round
-    differently once K2 dequantizes in f32). glm4-9b's smoke head dim
-    (32) is not one K2 is built for, so its smoke model runs at hd 64
-    (the published model's is 128)."""
+    differently once K2 dequantizes in f32). glm4-9b's smoke config runs
+    at its own head dim, 32."""
     from repro_torch.configs import get_smoke_config
     cfg = get_smoke_config(arch)
-    if cfg.head_dim not in k2.HEAD_DIMS:
-        cfg = dataclasses.replace(cfg, head_dim=64)
+    assert cfg.head_dim in k2.HEAD_DIMS
     m = Model(cfg)
     params, _ = quantize_params(m.init(cuda, device="cuda"))
     cpu_params = _tree_to(params, "cpu")
@@ -1867,11 +1865,11 @@ def test_flash_attention_kernel_hd80_hd96_deterministic(cuda, hd):
 
 
 def test_flash_attention_bwd_refuses_head_dims_it_is_not_built_for(cuda):
-    """K4b is built for hd 64, 80, 96, 128 and 256 only: at 32 and 112
+    """K4b is built for hd 32, 64, 80, 96, 128 and 256 only: at 48 and 112
     (the output and lse from the plain forward, which K4 does not take
     either) its wrapper raises rather than launching."""
-    assert k4.BWD_HEAD_DIMS == (64, 80, 96, 128, 256)
-    for hd in (32, 112):
+    assert k4.BWD_HEAD_DIMS == (32, 64, 80, 96, 128, 256)
+    for hd in (48, 112):
         q, k, v = _k4_inputs(cuda, 1, 2, 2, 64, hd, torch.bfloat16)
         out, lse = k4.flash_attention_lse_ref(q, k, v, causal=True)
         with pytest.raises(ValueError, match="head_dim"):
@@ -2437,3 +2435,105 @@ def test_tp_families_packed_forward_on_card_near_unsharded(cuda, arch):
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     err = float((got - want).abs().max())
     assert err <= 2e-2 * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------- hd 32
+# glm4-9b's smoke config: 4 q heads over 2 kv heads of 32 (G 2), S up to
+# 128, chunk 16, no window; and one larger shape of the same head dim
+HD32_K4 = [(2, 4, 2, 128, True, 0), (4, 4, 2, 512, True, 0),
+           (1, 4, 2, 200, True, 48), (2, 4, 2, 77, False, 0),
+           (1, 8, 1, 1, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,causal,window", HD32_K4)
+def test_flash_attention_kernel_hd32(cuda, b, h, hkv, s, causal, window,
+                                     dtype):
+    """K4 at hd 32 (2 k-chunks, 4 output tiles a warp; 80-byte padded
+    rows), on [B, S, H, hd] views as `attention()` passes them."""
+    q, k, v = (torch.randn(b, s, n, 32, generator=cuda, device="cuda")
+               .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+    before = k4.COUNTER.count
+    out = k4.flash_attention(q, k, v, causal=causal, window=window)
+    ref = k4.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k4.COUNTER.count == before + 1
+    assert out.stride() == q.stride()
+    _k4_check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,h,hkv,s,causal,window", HD32_K4)
+def test_flash_attention_bwd_kernel_hd32(cuda, b, h, hkv, s, causal, window,
+                                         dtype):
+    """K4b at hd 32 (hd 64's tiles, half of each swizzled panel unused)
+    against its plain version, at `test_flash_attention_bwd_kernel_
+    matches_plain`'s bounds; two calls give the same bits."""
+    args, kw = _k4b_run(cuda, b, h, hkv, s, 32, causal, window, dtype)
+    before = k4.BWD_COUNTER.count
+    got = k4.flash_attention_bwd(*args, **kw)
+    again = k4.flash_attention_bwd(*args, **kw)
+    want = k4.flash_attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert k4.BWD_COUNTER.count == before + 2
+    bound = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3,
+             torch.float32: 1e-4}[dtype]
+    dv_scale = float(want[2].float().abs().max())
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), name
+        scale = float(w.float().abs().max()) if s > 1 else dv_scale
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= bound * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("nblk,ends", [(8, (17, 64, 100, 128)),
+                                       (32, (17, 200, 300, 512))])
+def test_paged_attention_kernel_hd32(cuda, nblk, ends, c):
+    """K2 at glm4-9b's smoke heads (2 kv heads of 32, G 2) over slots of
+    8 pages of 16 (its max_seq 128) and of 32 (512): the 2 chunks of a
+    key row swizzled by c ^ (t / 4) % 2."""
+    b, hkv, g, hd, page = 4, 2, 2, 32, 16
+    npages = b * nblk + 1
+    pools = _k2_pools(cuda, npages, page, hkv, hd)
+    table = (torch.randperm(npages - 1, generator=cuda, device="cuda")
+             + 1).to(torch.int32).reshape(b, nblk)
+    base = torch.tensor([*ends[:3], ends[3] - c], dtype=torch.int32,
+                        device="cuda")
+    pos = (base[:, None] + torch.arange(c, dtype=torch.int32,
+                                        device="cuda")[None]).contiguous()
+    pos[0, c // 2 + 1:] = -1
+    q = torch.randn(b, c, hkv, g, hd, generator=cuda, device="cuda")
+    before = k2.COUNTER.count
+    out = _k2_run(q, pools, table, pos)
+    assert k2.COUNTER.count == before + 1
+    assert out[3].abs().sum() > 0
+
+
+def test_glm4_smoke_trains_and_serves_on_card(cuda):
+    """glm4-9b's smoke config (hd 32) on the card: the train launcher's
+    steps give finite losses with no recovery (K4 and K4b launched), and
+    the engine serves greedy requests over int8 pages (K2 launched) whose
+    streams are valid token ids."""
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.configs import get_smoke_config
+    before = (k4.COUNTER.count, k4.BWD_COUNTER.count, k2.COUNTER.count)
+    out = train_launcher.main(["--arch", "glm4-9b", "--smoke", "--steps", "3",
+                               "--batch", "2", "--seq", "64",
+                               "--log-every", "100"])
+    assert out["recoveries"] == 0 and out["steps"] == 3
+    assert all(np.isfinite(out["losses"]))
+    assert k4.COUNTER.count > before[0] and k4.BWD_COUNTER.count > before[1]
+    m = Model(get_smoke_config("glm4-9b"))
+    params, _ = quantize_params(m.init(cuda, device="cuda"))
+    eng = GenerationEngine(m, params, num_slots=2, page_size=16, max_seq=128,
+                           prefill_chunk=16, kv_quant="int8")
+    rng = np.random.default_rng(0)
+    rids = [eng.submit(rng.integers(0, 512, n).astype(np.int32), 8)
+            for n in (20, 45, 9)]
+    res = eng.drain()
+    assert k2.COUNTER.count > before[2]
+    for r in rids:
+        assert len(res[r]) == 8 and ((res[r] >= 0) & (res[r] < 512)).all()

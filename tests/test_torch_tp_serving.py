@@ -22,8 +22,8 @@ caveats"); the model's sharded logits are held against the reference in
     unsharded pair's);
   * construction errors carry the reference's words: indivisible kv
     heads, no ``model`` axis, the one-shot path and the families that
-    keep per-slot state, ``serving_mesh`` with too few cards; MoE under a
-    mesh raises `NotImplementedError`.
+    keep per-slot state, ``serving_mesh`` with too few cards; a
+    ``(data, model)`` mesh with ``data`` 2 serves as its ``model`` stripe.
 """
 import dataclasses
 
@@ -262,11 +262,15 @@ def test_host_mesh_with_a_unit_data_axis_serves(model_params, prompts,
     assert mesh.shape == {"data": 1, "model": 2}
     _, got = _serve(m, params["float"], prompts, mesh, **FULL)
     assert got == unsharded["full"][1]
-    with pytest.raises(NotImplementedError, match="besides 'model'"):
-        eng = GenerationEngine(m, params["float"],
-                               mesh=make_host_mesh(2, 2, devices=["cpu"] * 4),
-                               **KW)
-        eng.submit(prompts[0], 2)
+    # a data axis above 1 serves too, as the reference's engine does: on
+    # the first replica's model stripe, the streams and stats of the
+    # (model,) mesh of the same width
+    eng, got = _serve(m, params["float"], prompts,
+                      make_host_mesh(2, 2, devices=["cpu"] * 4), **FULL)
+    ref_eng, ref = _serve(m, params["float"], prompts, _mesh(2), **FULL)
+    assert got == ref
+    assert dataclasses.asdict(eng.stats()) == dataclasses.asdict(
+        ref_eng.stats())
 
 
 def _smoke(arch: str):
