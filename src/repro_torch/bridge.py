@@ -107,10 +107,17 @@ def params_to_torch(params: dict, device=None) -> dict:
     return out
 
 
+def cache_to_torch(cache: dict, device=None) -> dict:
+    """Reference one-shot decode cache (``init_cache``: ``{seg_i: {"kv" |
+    "mla" | "ssm": {...}}}`` with ``[L, B, ...]`` leaves) → the port's
+    ``{seg_i: [layer cache, ...]}``."""
+    return _unstack_segments(tree_to_torch(cache, device))
+
+
 def paged_cache_to_torch(cache: dict, device=None) -> dict:
     """Reference paged cache ``{seg_i: {"kv_pool": {k, v[, ks, vs]}}}`` with
     ``[L, N, P, Hkv, hd]`` leaves → ``{seg_i: [{"kv_pool": ...}, ...]}``."""
-    return _unstack_segments(tree_to_torch(cache, device))
+    return cache_to_torch(cache, device)
 
 
 def ef_to_torch(arrays: dict, template: Any, device=None) -> Any:

@@ -17,6 +17,9 @@ whole. The port keeps that architecture and spells the placement out:
     ``"model"`` at dim d is cut into n equal pieces along d, each its own
     contiguous allocation (kernel K2 takes only contiguous, 16-byte
     aligned pools); any other leaf is replicated;
+  * `place_cache` places a one-shot decode cache as `cache_pspec` says
+    (a split leaf a list of pieces, one a shard; `shard_cache` its
+    sequence-only case), `join_cache` joins it back;
   * every layer runs its shard-local function on each shard, and the
     reductions and gathers between shards are explicit, in shard order
     0 … n−1: `all_sum` (row-parallel partials) and `concat` (heads,
@@ -342,24 +345,88 @@ def cache_pspec(path: str, leaf: Any, mesh: Mesh, cfg=None) -> tuple:
     return full(["batch", None])
 
 
-def shard_cache(cache: Any, mesh: Mesh) -> Any:
-    """A one-shot decode cache (`Model.init_cache`) for SP-decode: every
-    attention leaf that `cache_pspec` stripes along S becomes a list of
-    ``|model|`` sequence stripes (contiguous, one a shard, on its
-    device, in shard order); every other leaf, and everything off the
-    ``model`` axis (the reference replicates over ``data``), stays whole
-    on the first shard's device. `Model.decode_step` / `prefill` read and
-    write such a cache."""
+def _place_leaves(cache: Any, mesh: Mesh, keep) -> Any:
+    """Every leaf of a decode cache that `cache_pspec` splits over
+    ``model`` and ``keep(name, dim)`` admits becomes a list of ``|model|``
+    pieces (contiguous, one a shard, on its device, in shard order);
+    every other leaf stays whole on the first shard's device."""
     devices = model_devices(mesh)
 
     def one(path, leaf):
-        name = path.split("/")[-1]
         dim = split_dim(cache_pspec(path, leaf, mesh))
-        if name in ("k", "v", "ks", "vs") and dim == (
-                -3 if name in ("k", "v") else -2):     # the sequence dim
+        if dim is not None and keep(path.split("/")[-1], dim):
             return _shard_leaf(leaf, leaf.dim() + dim, devices)
         return leaf.to(devices[0])
     return map_with_path(one, cache)
+
+
+def shard_cache(cache: Any, mesh: Mesh) -> Any:
+    """A one-shot decode cache (`Model.init_cache`) for SP-decode under
+    whole parameters: every attention leaf that `cache_pspec` stripes
+    along S becomes a list of ``|model|`` sequence stripes; every other
+    leaf, and everything off the ``model`` axis (the reference replicates
+    over ``data``), stays whole on the first shard's device. The S-only
+    case of `place_cache`: `Model.decode_step` / `prefill` without a
+    mesh read and write such a cache."""
+    return _place_leaves(cache, mesh, lambda name, dim: name in (
+        "k", "v", "ks", "vs") and dim == (-3 if name in ("k", "v") else -2))
+
+
+def place_cache(cache: Any, mesh: Mesh) -> Any:
+    """A one-shot decode cache placed leaf by leaf as `cache_pspec` says,
+    for `Model.prefill` / `decode_step` under ``mesh``: k / v along S
+    (SP-decode) or over kv heads, ``ks`` / ``vs`` and MLA's ``ckv`` /
+    ``kpe`` along S, conv caches over channels, SSM states over heads;
+    a split leaf is a list of ``|model|`` pieces, one a shard on its
+    device, and a leaf the rule leaves whole stays on the first shard's
+    device. A mesh of several data replicas gives one such cache a
+    replica (`replica_meshes` order), replica r holding rows ``[r·B/n,
+    (r+1)·B/n)``, the rows `split_batch` hands it (B must divide)."""
+    reps = replica_meshes(mesh)
+    if len(reps) == 1:
+        return _place_leaves(cache, mesh, lambda name, dim: True)
+    n = len(reps)
+    b = _first_leaf(cache).shape[0]
+    if b % n:
+        raise ValueError(f"a cache of {b} rows does not split over {n} "
+                         f"data replicas")
+    return [_place_leaves(map_tree(lambda t, _r=r: t.narrow(
+        0, _r * (b // n), b // n).clone(), cache), rm,
+        lambda name, dim: True) for r, rm in enumerate(reps)]
+
+
+def _first_leaf(tree: Any) -> torch.Tensor:
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
+def join_cache(placed: Any, mesh: Mesh, like: Any) -> Any:
+    """The logical cache of a `place_cache` (or `shard_cache`) cache:
+    each split leaf's pieces joined along the dim `cache_pspec` splits on
+    ``like`` (the logical cache, or its ``meta`` layout), a data
+    replica's rows after the one before, on the mesh's first device."""
+    reps = replica_meshes(mesh)
+    dev = model_devices(mesh)[0]
+    if len(reps) > 1:
+        rows = _first_leaf(like).shape[0] // len(reps)
+        part = map_tree(lambda t: t.narrow(0, 0, rows), like)
+        joined = [join_cache(c, rm, part) for c, rm in zip(placed, reps)]
+        return map_tree(lambda *ts: torch.cat([t.to(dev) for t in ts]),
+                        *joined)
+
+    def walk(node, ref, path):
+        if isinstance(node, dict):
+            return {k: walk(v, ref[k], f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(ref, list):
+            return [walk(v, r, path) for v, r in zip(node, ref)]
+        if isinstance(node, list):
+            dim = split_dim(cache_pspec(path, ref, mesh))
+            return torch.cat([t.to(dev) for t in node], dim=dim)
+        return node.to(dev)
+    return walk(placed, like, "")
 
 
 def split_dim(spec: tuple, axis: str = "model") -> int | None:

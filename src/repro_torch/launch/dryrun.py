@@ -14,20 +14,23 @@ or ``(pod, data, model)`` 2 × 16 × 16):
     (`make_train_step(mesh=)`: the batch over the data replicas, each
     replica's forward and backward over its ``model`` shards, the
     gradient reduced over ``data``, AdamW on the ZeRO-1 slices);
-  * prefill cells: `Model.prefill` of the first data replica's rows into
-    a decode cache striped along the sequence over its ``model`` shards
-    (`distributed.sharding.shard_cache`, SP-decode);
-  * decode cells: `Model.decode_step` over that cache (each stripe's
-    partial softmax on its shard, combined in shard order).
+  * prefill cells: the placed `Model.prefill(mesh=)` of the first data
+    replica's rows: its parameters placed over its ``model`` shards by
+    `param_pspec` (`shard_params`) and its decode cache by `cache_pspec`
+    (`place_cache`: k / v along S, or over kv heads where S cannot
+    stripe; MLA's latents along S; conv caches over channels, SSM states
+    over heads), each block's column- and row-parallel linears, the
+    vocabulary-parallel head;
+  * decode cells: the placed `Model.decode_step(mesh=)` over that cache
+    (each S stripe's partial softmax on its shard, combined in shard
+    order); with ``--variant fused-sample`` the step returns each row's
+    greedy token instead of its logits (each shard's argmax of its vocab
+    slice, the ``[B]`` maxima and indices gathered), as the reference's
+    fused-sample step does. ``kvint8`` variants store k / v as int8.
 
-The one-shot prefill and decode step have no tensor-parallel path: they
-run whole parameters on the first shard, where the reference's compiled
-step holds them split by `param_pspec` and runs the row-parallel sums and
-the vocabulary's gather. Their collectives are therefore not those of
-the placed step, and a prefill or decode record writes ``collectives``,
-``collective_calls`` and what rests on them (`UNPLACED_NULL_KEYS`) as
-``null``; its step still runs over ``meta``, and its bytes are the
-rules'.
+The reference runs every data replica's rows (GSPMD replicates the
+weights over ``data``); the port runs the first replica's, whose
+collectives a device takes part in are those of every replica.
 
 The kernel wrappers take their plain versions on ``meta`` (no CUDA
 launch); the quantized linears the generic path. Each cell writes one
@@ -38,12 +41,13 @@ JSON record with the reference's keys:
     `train_state_specs`, `cache_specs`, `batch_specs`,
     `decode_token_specs`); ``output_bytes``: the outputs' (a train
     step's new state by the same rules; a prefill's or decode step's
-    cache by its rule, plus the logits and positions the port returns
-    whole on the first device);
-  * ``collectives`` / ``collective_bytes_per_chip``: a train cell's
-    operand bytes a device of the step's explicit collectives, counted
-    while it runs (`roofline.analysis.count_collectives`); ``null`` for
-    a prefill or decode cell (above);
+    cache by its rule, plus what the placed step returns whole on the
+    first device: the logits and next positions, or a fused-sample
+    step's int32 tokens);
+  * ``collectives`` / ``collective_bytes_per_chip``: the operand bytes a
+    device of the step's explicit collectives, counted while it runs
+    (`roofline.analysis.count_collectives`), and ``collective_calls``
+    their calls by collective;
   * the analytic terms (`roofline.costmodel.analytic_terms`) and
     `model_flops_estimate`, the reference's; the roofline terms
     (`roofline.analysis.RooflineTerms` at the H100's constants) take the
@@ -76,7 +80,8 @@ from repro_torch import configs
 from repro_torch.configs import SHAPES, cells_for
 from repro_torch.core import qlinear
 from repro_torch.distributed.sharding import (TrainSharding, param_pspec,
-                                              shard_cache)
+                                              place_cache, replica_meshes,
+                                              shard_params)
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model import Model
@@ -87,13 +92,6 @@ from repro_torch.training import TrainConfig, make_train_step
 from repro_torch.training.train_step import train_state_shapes
 
 META = torch.device("meta")
-
-
-# A prefill or decode cell's record keys that rest on the collective term:
-# the port's one-shot step runs unplaced parameters (below), so these are
-# not measured for such a cell.
-UNPLACED_NULL_KEYS = ("collective_bytes_per_chip", "collective_s",
-                      "dominant", "step_time_s", "roofline_fraction")
 
 
 def model_flops_estimate(cfg, cell) -> float:
@@ -128,8 +126,7 @@ def run_step(arch: str, cell_name: str, mesh, quant: bool,
              variant: str = "baseline") -> dict:
     """Build one cell's inputs and run its step once over ``meta``
     tensors → the record's measured part (input / output bytes a device,
-    times, and a train step's collective counter; ``None`` for a prefill
-    or decode step, whose parameters are not placed)."""
+    times, and the step's collective counter)."""
     cfg = configs.get_config(arch)
     if "kvint8" in variant:
         cfg = dataclasses.replace(cfg, kv_quant="int8")
@@ -148,37 +145,40 @@ def run_step(arch: str, cell_name: str, mesh, quant: bool,
             t0 = time.time()
             with count_collectives() as counter:
                 step(state, _inputs(batch))
+            return dict(cfg=cfg, cell=cell, lower_s=t_lower,
+                        run_s=time.time() - t0,
+                        argument_bytes=S.shard_bytes(*args),
+                        output_bytes=out_bytes, counter=counter)
+        params = S._param_tree(cfg, quant)
+        p_specs = S.leaf_specs(params, mesh, param_pspec, cfg)
+        c_specs = S.cache_specs(cfg, mesh, cell.global_batch, cell.seq_len)
+        if cell.step == "prefill":
+            batch = S.batch_specs(cfg, cell, mesh)
+            args = (p_specs, batch, c_specs)
         else:
-            params = S._param_tree(cfg, quant)
-            p_specs = S.leaf_specs(params, mesh, param_pspec, cfg)
-            c_specs = S.cache_specs(cfg, mesh, cell.global_batch,
-                                    cell.seq_len)
+            tok, pos = S.decode_token_specs(mesh, cell.global_batch)
+            batch = {"token": tok, "pos": pos}
+            args = (p_specs, c_specs, batch)
+        # the first data replica's rows (the whole batch where the rule
+        # replicates it), its params and cache placed over its shards
+        first = replica_meshes(mesh)[0]
+        rows = next(iter(batch.values())).shard_shape()[0]
+        local = {k: v.meta[:rows] for k, v in batch.items()}
+        shards = shard_params(params, first, cfg)
+        cache = place_cache(model.init_cache(rows, cell.seq_len,
+                                             device=META), first)
+        t_lower = time.time() - t0
+        t0 = time.time()
+        with torch.no_grad(), count_collectives() as counter:
             if cell.step == "prefill":
-                batch = S.batch_specs(cfg, cell, mesh)
-                args = (p_specs, batch, c_specs)
+                _, logits, nxt = model.prefill(shards, local, cache,
+                                               mesh=first)
+                returned = (logits, nxt)
             else:
-                tok, pos = S.decode_token_specs(mesh, cell.global_batch)
-                batch = {"token": tok, "pos": pos}
-                args = (p_specs, c_specs, batch)
-            # the first data replica's rows (the whole batch where the
-            # rule replicates it), its cache striped over its shards
-            rows = next(iter(batch.values())).shard_shape()[0]
-            local = {k: v.meta[:rows] for k, v in batch.items()}
-            cache = shard_cache(model.init_cache(rows, cell.seq_len,
-                                                 device=META), mesh)
-            t_lower = time.time() - t0
-            t0 = time.time()
-            counter = None
-            with torch.no_grad():
-                if cell.step == "prefill":
-                    _, logits, nxt = model.prefill(params, local, cache)
-                    extra = (logits, nxt)
-                else:
-                    logits, _ = model.decode_step(params, cache,
-                                                  local["token"],
-                                                  local["pos"])
-                    extra = (logits,)
-            out_bytes = S.shard_bytes(c_specs) + _whole_bytes(*extra)
+                returned = (model.decode_step(
+                    shards, cache, local["token"], local["pos"], mesh=first,
+                    greedy=variant == "fused-sample")[0],)
+        out_bytes = S.shard_bytes(c_specs) + _whole_bytes(*returned)
     return dict(cfg=cfg, cell=cell, lower_s=t_lower,
                 run_s=time.time() - t0, argument_bytes=S.shard_bytes(*args),
                 output_bytes=out_bytes, counter=counter)
@@ -194,16 +194,14 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, quant: bool,
     got = run_step(arch, cell_name, mesh, quant, variant)
     cfg, cell = got["cfg"], got["cell"]
     counter = got["counter"]
-    costs = collective_costs(counter) if counter is not None else None
+    costs = collective_costs(counter)
     analytic = analytic_terms(cfg, cell_name, chips, quant)
     terms = RooflineTerms(
         flops=analytic["analytic_flops_global"] / chips,
         bytes_accessed=analytic["analytic_bytes_global"] / chips,
-        collective_bytes=costs["total"] if costs else 0.0, chips=chips,
+        collective_bytes=costs["total"], chips=chips,
         model_flops=model_flops_estimate(cfg, cell))
     roofline = terms.to_dict()
-    if costs is None:       # unknown collective term: what it decides too
-        roofline.update({k: None for k in UNPLACED_NULL_KEYS})
     rec = {
         "arch": arch, "cell": cell_name, "mesh": mesh_kind,
         "variant": variant,
@@ -218,8 +216,7 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, quant: bool,
             "code_bytes": None,
         },
         "collectives": costs,
-        "collective_calls": (dict(counter.calls) if counter is not None
-                             else None),
+        "collective_calls": dict(counter.calls),
         "hlo_flops": None,
         "hlo_bytes_upper_bound": None,
         "raw_cost_analysis": None,
@@ -229,16 +226,13 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, quant: bool,
     print(f"[dryrun] {arch} {cell_name} mesh={mesh_kind} "
           f"quant={rec['quant']}")
     print(f"  memory_analysis: {rec['memory_analysis']}")
-    def fmt(v, spec, unit=""):
-        return "null" if v is None else format(v, spec) + unit
     print(f"  cost: flops/chip={terms.flops:.3e} bytes/chip="
           f"{terms.bytes_accessed:.3e} coll_bytes/chip="
-          f"{fmt(rec['collective_bytes_per_chip'], '.3e')}")
+          f"{terms.collective_bytes:.3e}")
     print(f"  terms: compute={terms.compute_s:.3e}s memory="
-          f"{terms.memory_s:.3e}s collective="
-          f"{fmt(rec['collective_s'], '.3e', 's')} dominant="
-          f"{fmt(rec['dominant'], '')} roofline_frac="
-          f"{fmt(rec['roofline_fraction'], '.3f')}")
+          f"{terms.memory_s:.3e}s collective={terms.collective_s:.3e}s "
+          f"dominant={terms.dominant} roofline_frac="
+          f"{terms.roofline_fraction:.3f}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         fn = f"{arch}__{cell_name}__{mesh_kind}__{rec['quant']}"

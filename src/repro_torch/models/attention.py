@@ -10,6 +10,9 @@ Execution regimes (as in the reference):
   * decode (dense cache) — single-token attention against a
     ``[B, S_max, Hkv, hd]`` cache (`GenerationEngine.generate`); a
     sliding-window layer keeps a ring of ``min(window, S_max)`` slots.
+    The cache may be striped along S (SP-decode, whole parameters) or,
+    under a ``model`` mesh, placed by `cache_pspec` beside placed
+    parameters (`fill_cache_from_prefill_tp`, `attention_decode_tp`).
   * paged chunk (serving) — `attention_chunk_paged`: the engine's unified
     prefill/decode step over the page pools (scatter the block's K/V,
     then attend per token under the three-part visibility rule);
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch.device import torch_dtype
 from repro_torch.distributed.sharding import (concat, model_devices,
-                                              record_collective)
+                                              record_collective, split)
 from repro_torch.kernels import flash_attention as k4
 from repro_torch.kernels import paged_attention as k2
 from repro_torch.models import layers
@@ -367,16 +370,16 @@ def _fill_stripes(cache, rows: dict, positions, window: int) -> None:
     They are put in slot order (a ring's kept tokens by ``position %
     W``), and each stripe receives only the slots it owns, written on
     its own device; the pieces handed out are counted as `split`'s."""
-    s = rows["k"].shape[1]
+    s = next(iter(rows.values())).shape[1]
     if window and s > window:
         order = torch.argsort(positions[:, -window:].long() % window, dim=1)
         rows = {n: torch.gather(r[:, -window:], 1, order.reshape(
             *order.shape, *[1] * (r.dim() - 2)).expand_as(r[:, -window:]))
             for n, r in rows.items()}
         s = window
-    n_s = cache["k"][0].shape[1]
     for name, row in rows.items():
         parts = cache[name]
+        n_s = parts[0].shape[1]
         for i, t in enumerate(parts):
             piece = row[:, i * n_s:min((i + 1) * n_s, s)]
             if piece.shape[1]:
@@ -386,29 +389,79 @@ def _fill_stripes(cache, rows: dict, positions, window: int) -> None:
                               * parts[0].element_size())
 
 
+def _fill_dense(leaves: dict, rows: dict, positions, window: int) -> None:
+    """Prefill rows ``[B, S, ...]`` into dense leaves of the same names
+    (on their device): slots 0 … S−1, or a ring's last W tokens each at
+    slot ``position % W``."""
+    b, s = next(iter(rows.values())).shape[:2]
+    dev = next(iter(leaves.values())).device
+    if not window or s <= window:
+        idx = (slice(None), slice(0, s))
+    else:
+        rows = {n: r[:, -window:] for n, r in rows.items()}
+        idx = (torch.arange(b, device=dev)[:, None],
+               positions[:, -window:].to(dev).long() % window)
+    for name, row in rows.items():
+        leaves[name][idx] = row.to(dev).to(leaves[name].dtype)
+
+
 def fill_cache_from_prefill(cache, k, v, positions, window: int):
     """Write prefill keys/values [B, S, ...] into a fresh decode cache. A
     windowed layer whose prompt is longer than its ring keeps the last W
     tokens, each at slot ``position % W``. A cache striped along S
     (SP-decode) gets the same bytes, each stripe its own slots."""
-    b, s = k.shape[0], k.shape[1]
-    quant = "ks" in cache
     rows = {"k": k, "v": v}
-    if quant:
+    if "ks" in cache:
         rows["k"], rows["ks"] = _kv_quantize(k)
         rows["v"], rows["vs"] = _kv_quantize(v)
     if _striped(cache):
         _fill_stripes(cache, rows, positions, window)
-        return cache
-    if not window or s <= window:
-        idx = (slice(None), slice(0, s))
     else:
-        rows = {n: r[:, -window:] for n, r in rows.items()}
-        idx = (torch.arange(b, device=k.device)[:, None],
-               positions[:, -window:].long() % window)
-    for name, row in rows.items():
-        cache[name][idx] = row.to(cache[name].dtype)
+        _fill_dense(cache, rows, positions, window)
     return cache
+
+
+def _head_stripes(cache, cfg) -> bool:
+    """A placed cache whose k / v pieces hold the shards' kv heads
+    (`distributed.sharding.place_cache` where S does not stripe)."""
+    return _striped(cache) and cache["k"][0].shape[-2] < cfg.num_kv_heads
+
+
+def _fill_heads(cache, k: list, v: list, positions, window: int,
+                devices: list) -> None:
+    """`fill_cache_from_prefill` into a cache split over kv heads: each
+    shard writes its own heads' rows into its pieces; int8 scale strips,
+    which the rule leaves whole, take the shards' scales joined."""
+    scales: dict = {"ks": [], "vs": []}
+    for s in range(len(devices)):
+        rows = {"k": k[s], "v": v[s]}
+        if "ks" in cache:
+            rows["k"], ks = _kv_quantize(k[s])
+            rows["v"], vs = _kv_quantize(v[s])
+            scales["ks"].append(ks)
+            scales["vs"].append(vs)
+        _fill_dense({n: cache[n][s] for n in rows}, rows, positions, window)
+    if "ks" in cache:
+        _fill_dense({n: cache[n] for n in scales},
+                    {n: concat(parts, -1, devices)
+                     for n, parts in scales.items()}, positions, window)
+
+
+def fill_cache_from_prefill_tp(cache, k, v, positions, window: int, cfg,
+                               devices: list):
+    """`fill_cache_from_prefill` under a ``model`` mesh: ``k`` / ``v`` the
+    prefill's rows, lists of kv-head stripes (``wk`` / ``wv`` split) or
+    whole on the first shard. A cache split over kv heads is written
+    shard by shard; a cache striped along S, or whole, takes the whole
+    rows (the head stripes joined), each S stripe its own slots."""
+    if _head_stripes(cache, cfg):
+        if not isinstance(k, list):
+            k, v = split(k, -2, devices), split(v, -2, devices)
+        _fill_heads(cache, k, v, positions, window, devices)
+        return cache
+    if isinstance(k, list):
+        k, v = concat(k, -2, devices), concat(v, -2, devices)
+    return fill_cache_from_prefill(cache, k, v, positions, window)
 
 
 def _write_row(parts: list, row: torch.Tensor, slot: torch.Tensor) -> None:
@@ -429,6 +482,52 @@ def _write_row(parts: list, row: torch.Tensor, slot: torch.Tensor) -> None:
                                      t[bidx, local])
 
 
+def _decode_rw(cache, q, k1, v1, cfg, pos, window: int) -> torch.Tensor:
+    """A decode step's cache write and read, whole heads: the new rows
+    ``k1`` / ``v1`` ``[B, Hkv, hd]`` written at the step's slot (in the
+    stripe that owns it, for a cache striped along S), then ``q [B, H,
+    hd]`` read against every held position → ``[B, q_dim]`` on q's
+    device."""
+    b = q.shape[0]
+    striped = _striped(cache)
+    slot = (pos.long() % window) if window else pos.long()
+    new = {"k": k1, "v": v1}
+    if "ks" in cache:
+        new["k"], new["ks"] = _kv_quantize(k1)
+        new["v"], new["vs"] = _kv_quantize(v1)
+    bidx = torch.arange(b, device=q.device)
+    for name, row in new.items():
+        if striped:
+            _write_row(cache[name], row, slot)
+        else:
+            cache[name][bidx, slot] = row.to(cache[name].dtype)
+    if not striped:
+        return _read(cache, q, cfg, pos, window)
+    adt = torch_dtype(cfg.activation_dtype)
+    ck, cv = cache["k"], cache["v"]
+    if "ks" in cache:
+        ck = [_kv_dequant(c, sc, adt) for c, sc in zip(ck, cache["ks"])]
+        cv = [_kv_dequant(c, sc, adt) for c, sc in zip(cv, cache["vs"])]
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
+    out = _sdpa_striped(qg, ck, cv, pos[:, None],
+                        _key_positions(pos, sum(c.shape[1] for c in ck),
+                                       window),
+                        causal=bool(window), window=window,
+                        scale=cfg.head_dim ** -0.5,
+                        probs_dtype=_cache_probs_dtype(cv[0].dtype, adt))
+    return out.to(q.device).reshape(b, cfg.q_dim)
+
+
+def _key_positions(pos, s_max: int, window: int) -> torch.Tensor:
+    """The position each of a decode cache's ``s_max`` slots holds at
+    step ``pos [B]`` (< 0: not yet written) → ``[B, s_max]``."""
+    if window:
+        return _ring_positions(pos, s_max)
+    ar = torch.arange(s_max, device=pos.device)[None, :]
+    return torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
+
+
 def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     """Single-token decode. x [B, D], pos [B] -> (y [B, D], cache).
 
@@ -442,39 +541,127 @@ def attention_decode(p, cache, x, cfg, *, pos, window: int = 0):
     striped along S (SP-decode) takes the new row in the stripe that
     owns its slot (`_write_row`) and is read stripe by stripe
     (`_sdpa_striped`)."""
-    b = x.shape[0]
     q, k1, v1 = _project_qkv(p, x, cfg, pos, window)    # [B, H(kv), hd]
-    striped = _striped(cache)
+    out = _decode_rw(cache, q, k1, v1, cfg, pos, window)
+    return linear(p["wo"], out), cache
+
+
+def _project_q_tp(ps: list, x, cfg, positions, window: int, devices: list):
+    """The q heads under a ``model`` mesh: one stripe of ``H / n`` heads a
+    shard where ``wq`` splits, else all heads on the first shard."""
+    qn = [p["q_norm"] if cfg.qk_norm else None for p in ps]
+    if layers._kn(ps[0]["wq"])[1] == cfg.q_dim:
+        return _heads(ps[0]["wq"], qn[0], x, cfg, cfg.num_heads, positions,
+                      window)
+    hs = cfg.num_heads // len(devices)
+    return [_heads(p["wq"], nq, x.to(d), cfg, hs, positions.to(d), window)
+            for p, nq, d in zip(ps, qn, devices)]
+
+
+def _project_kv_tp(ps: list, x, cfg, positions, window: int, devices: list):
+    """k / v ``[..., Hkv, hd]`` under a ``model`` mesh: one stripe of kv
+    heads a shard where ``wk`` / ``wv`` split (lists), else projected once
+    on the first shard."""
+    kn = [p["k_norm"] if cfg.qk_norm else None for p in ps]
+    lead, hd = x.shape[:-1], cfg.head_dim
+    if layers._kn(ps[0]["wk"])[1] == cfg.kv_dim:
+        return (_heads(ps[0]["wk"], kn[0], x, cfg, cfg.num_kv_heads,
+                       positions, window),
+                linear(ps[0]["wv"], x).reshape(*lead, cfg.num_kv_heads, hd))
+    hk = cfg.num_kv_heads // len(devices)
+    ks, vs = [], []
+    for p, nk, d in zip(ps, kn, devices):
+        xd = x.to(d)
+        ks.append(_heads(p["wk"], nk, xd, cfg, hk, positions.to(d), window))
+        vs.append(linear(p["wv"], xd).reshape(*lead, hk, hd))
+    return ks, vs
+
+
+def attention_decode_tp(ps: list, cache, x, cfg, *, devices: list, pos,
+                        window: int = 0) -> torch.Tensor:
+    """`attention_decode` under a ``model`` mesh (``ps``: one layer's
+    attention params a shard; ``cache``: its `place_cache` piece). x [B,
+    D] replicated → y [B, D] replicated; the cache is updated in place.
+
+    A cache split over kv heads (S too short to stripe) is all local:
+    each shard projects its q and kv heads, writes its heads' rows into
+    its pieces and reads them (`_sdpa`); int8 scale strips, which the rule
+    leaves whole, take the shards' new scales joined and hand each shard
+    its heads' strips. A cache striped along S, or whole, needs every
+    head at every stripe: the shards' kv rows are joined and written by
+    the stripe that owns the slot (`_write_row`), the q heads are joined
+    (an all-gather of ``[B, H, hd]``, or all of them projected on the
+    first shard where ``wq`` stays whole) and every stripe returns its
+    partial max, sum and output, combined in shard order
+    (`_sdpa_striped`). The output's heads feed the row-parallel ``wo``
+    (`layers.linear_tp`: cut from the whole output where it was
+    combined on the first shard)."""
+    b = x.shape[0]
+    q = _project_q_tp(ps, x, cfg, pos, window, devices)
+    k1, v1 = _project_kv_tp(ps, x, cfg, pos, window, devices)
+    wo = [p["wo"] for p in ps]
+    if not _head_stripes(cache, cfg):
+        if isinstance(k1, list):
+            k1, v1 = concat(k1, -2, devices), concat(v1, -2, devices)
+        if isinstance(q, list):
+            q = concat(q, -2, devices)
+        out = _decode_rw(cache, q, k1, v1, cfg, pos, window)
+        return layers.gathered(layers.linear_tp(wo, out, devices, cfg.q_dim,
+                                                cfg.d_model), devices)
+    if not isinstance(k1, list):
+        k1, v1 = split(k1, -2, devices), split(v1, -2, devices)
+    if not isinstance(q, list):
+        q = split(q, -2, devices)
+    n = len(devices)
+    hk, hs = cfg.num_kv_heads // n, cfg.num_heads // n
+    lcfg = dataclasses.replace(cfg, num_heads=hs, num_kv_heads=hk)
+    quant = "ks" in cache
     slot = (pos.long() % window) if window else pos.long()
-    new = {"k": k1, "v": v1}
-    if "ks" in cache:
-        new["k"], new["ks"] = _kv_quantize(k1)
-        new["v"], new["vs"] = _kv_quantize(v1)
-    bidx = torch.arange(b, device=x.device)
-    for name, row in new.items():
-        if striped:
-            _write_row(cache[name], row, slot)
-        else:
-            cache[name][bidx, slot] = row.to(cache[name].dtype)
+    scales: dict = {"ks": [], "vs": []}
+    for s, d in enumerate(devices):
+        new = {"k": k1[s], "v": v1[s]}
+        if quant:
+            new["k"], ks = _kv_quantize(k1[s])
+            new["v"], vs = _kv_quantize(v1[s])
+            scales["ks"].append(ks)
+            scales["vs"].append(vs)
+        bidx = torch.arange(b, device=d)
+        for name, row in new.items():
+            cache[name][s][bidx, slot.to(d)] = row.to(cache[name][s].dtype)
+    strips = {}
+    if quant:
+        bidx = torch.arange(b, device=devices[0])
+        for name, parts in scales.items():
+            cache[name][bidx, slot.to(devices[0])] = concat(parts, -1,
+                                                            devices)
+            strips[name] = split(cache[name], -1, devices)
+    outs = []
+    for s, d in enumerate(devices):
+        # the shard's pieces read as a whole cache of its heads
+        piece = {"k": cache["k"][s], "v": cache["v"][s]}
+        if quant:
+            piece.update(ks=strips["ks"][s], vs=strips["vs"][s])
+        outs.append(_read(piece, q[s], lcfg, pos.to(d), window))
+    return layers.gathered(layers.linear_tp(wo, outs, devices, cfg.q_dim,
+                                            cfg.d_model), devices)
+
+
+def _read(cache, q, cfg, pos, window: int) -> torch.Tensor:
+    """A whole (unstriped) cache's read by ``q [B, H, hd]`` at ``pos``
+    (its rows already written) → ``[B, q_dim]``."""
+    b = q.shape[0]
     adt = torch_dtype(cfg.activation_dtype)
-    parts = {n: t if striped else [t] for n, t in cache.items()}
-    ck, cv = parts["k"], parts["v"]
+    ck, cv = cache["k"], cache["v"]
     if "ks" in cache:
-        ck = [_kv_dequant(c, sc, adt) for c, sc in zip(ck, parts["ks"])]
-        cv = [_kv_dequant(c, sc, adt) for c, sc in zip(cv, parts["vs"])]
-    s_max = sum(c.shape[1] for c in ck)
-    if window:
-        k_pos = _ring_positions(pos, s_max)
-    else:
-        ar = torch.arange(s_max, device=x.device)[None, :]
-        k_pos = torch.where(ar <= pos[:, None], ar, torch.full_like(ar, -1))
+        ck = _kv_dequant(ck, cache["ks"], adt)
+        cv = _kv_dequant(cv, cache["vs"], adt)
+    k_pos = _key_positions(pos, ck.shape[1], window)
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, 1, cfg.num_kv_heads, g, cfg.head_dim)
-    kw = dict(causal=bool(window), window=window, scale=cfg.head_dim ** -0.5,
-              probs_dtype=_cache_probs_dtype(cv[0].dtype, adt))
-    out = (_sdpa_striped(qg, ck, cv, pos[:, None], k_pos, **kw) if striped
-           else _sdpa(qg, ck[0], cv[0], pos[:, None], k_pos, **kw))
-    return linear(p["wo"], out.to(x.device).reshape(b, cfg.q_dim)), cache
+    out = _sdpa(qg, ck, cv, pos[:, None], k_pos, causal=bool(window),
+                window=window, scale=cfg.head_dim ** -0.5,
+                probs_dtype=_cache_probs_dtype(cv.dtype, adt))
+    return out.reshape(b, cfg.q_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -278,9 +278,56 @@ def _mixer_train_tp(ps: list, h, cfg, kind: LayerKind, devices: list,
     return _hymba_merge(ps[0], ya, ys, cfg)
 
 
+def _prefill_cache_tp(ps: list, h, cfg, kind: LayerKind, positions, cache,
+                      devices: list):
+    """`_prefill_cache` under a ``model`` mesh, into a `place_cache`
+    block cache (in place): the latents joined once and striped along S
+    (MLA), k / v projected on each shard's kv heads or once (attention,
+    written head stripe by head stripe or each S stripe its slots), the
+    SSM's conv inputs and final state by their stripes."""
+    if kind.mixer == "mla":
+        c, k_pe = mla_mod.project_latent_tp([p["attn"] for p in ps], h, cfg,
+                                            positions, devices)
+        mla_mod.fill_mla_cache_from_prefill_tp(cache["mla"], c, k_pe,
+                                               positions)
+    if kind.mixer in ("attn", "hymba"):
+        aps = [p["attn"] for p in ps]
+        k, v = attn_mod._project_kv_tp(aps, h, cfg, positions, kind.window,
+                                       devices)
+        attn_mod.fill_cache_from_prefill_tp(cache["kv"], k, v, positions,
+                                            kind.window, cfg, devices)
+    if kind.mixer in ("mamba", "hymba"):
+        ssm_mod.fill_ssm_cache_from_prefill_tp(
+            cache["ssm"], [p["ssm"] for p in ps], h, cfg, devices)
+    return cache
+
+
+def _mixer_decode_tp(ps: list, cache, h, cfg, kind: LayerKind, pos,
+                     devices: list):
+    """`_mixer_decode` under a ``model`` mesh over a `place_cache` block
+    cache (updated in place): attention (`attention.attention_decode_tp`,
+    a windowed layer's ring too), MLA (`mla.mla_decode_tp`), the SSD
+    (`ssm.ssm_decode_tp`), or hymba's two branches merged on the first
+    shard's norms. Replicated h in, replicated y out."""
+    if kind.mixer == "mla":
+        return mla_mod.mla_decode_tp([p["attn"] for p in ps], cache["mla"],
+                                     h, cfg, devices=devices, pos=pos)
+    if kind.mixer == "mamba":
+        return ssm_mod.ssm_decode_tp([p["ssm"] for p in ps], cache["ssm"], h,
+                                     cfg, devices)
+    ya = attn_mod.attention_decode_tp([p["attn"] for p in ps], cache["kv"],
+                                      h, cfg, devices=devices, pos=pos,
+                                      window=kind.window)
+    if kind.mixer == "attn":
+        return ya
+    ys = ssm_mod.ssm_decode_tp([p["ssm"] for p in ps], cache["ssm"], h, cfg,
+                               devices)
+    return _hymba_merge(ps[0], ya, ys, cfg)
+
+
 def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
                    mode: str = "chunk", caches: list | None = None,
-                   page_table=None, rpos=None, amask=None):
+                   cache=None, page_table=None, rpos=None, amask=None):
     """`block_apply` under a ``model`` mesh: ``ps`` (and, in chunk mode,
     ``caches``) hold one block's params (pool) a shard. The norms are
     replicated (computed once, on the first shard's copy); the mixer runs
@@ -289,7 +336,10 @@ def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
     ``mode="chunk"``: the serving step over the paged pools (updated in
     place; attention blocks only); ``"train"``: the full-sequence forward
     (train, `Model.forward_logits`) of every mixer (`_mixer_train_tp`),
-    attention through K4 and, under grad, K4b on each shard's heads.
+    attention through K4 and, under grad, K4b on each shard's heads;
+    ``"prefill"``: that forward, then the block's `place_cache` piece
+    ``cache`` filled (`_prefill_cache_tp`); ``"decode"``: one token
+    ``[B, D]`` against ``cache`` (`_mixer_decode_tp`), every mixer.
     Returns (the replicated x, the MoE aux loss or None)."""
     if mode == "chunk" and (kind.mixer != "attn"
                             or "kv_pool" not in caches[0]):
@@ -304,8 +354,12 @@ def block_apply_tp(ps: list, x, cfg, kind: LayerKind, *, mesh, positions,
             [p["attn"] for p in ps], [c["kv_pool"] for c in caches],
             page_table, h, cfg, mesh=mesh, pos=positions, rpos=rpos,
             amask=amask, window=kind.window)
+    elif mode == "decode":
+        y = _mixer_decode_tp(ps, cache, h, cfg, kind, positions, devices)
     else:
         y = _mixer_train_tp(ps, h, cfg, kind, devices, positions)
+        if mode == "prefill":
+            _prefill_cache_tp(ps, h, cfg, kind, positions, cache, devices)
     x = x + y
     if kind.mlp == "none":
         return x, None

@@ -108,23 +108,26 @@ def linear_tp(ps: list, x, devices: list, k: int, n: int):
         scales its own slice of the input (`qlinear_prescale`; a
         replicated input is cut first), the slices are joined,
         every shard computes its N columns of the whole input, and the
-        columns are joined: a replicated output;
+        columns are joined: a replicated output; where the rule cuts
+        neither K nor N of its words but still its input scale (K
+        divides, K / 8 does not), the scaled slices are joined and the
+        first shard runs the whole product;
       * replicated: one call on the whole input.
     """
     pk, pn = _kn(ps[0])
     split_in = isinstance(x, list)
-    flipped = isinstance(ps[0], PackedLinear) and pn < n \
+    flipped = isinstance(ps[0], PackedLinear) and pk == k \
         and ps[0].input_scale is not None and ps[0].input_scale.shape[-1] < k
     if flipped and not split_in:
         x, split_in = split(x, -1, devices), True
-    if pn < n and split_in:
+    if flipped or (pn < n and split_in):
         dt = x[0].dtype
         scaled = concat([qlinear_prescale(p, xi) for p, xi in zip(ps, x)],
                         -1, devices)
         outs = [qlinear_apply(dataclasses.replace(p, input_scale=None),
                               scaled.to(d), out_dtype=dt)
                 for p, d in zip(ps, devices)]
-        return concat(outs, -1, devices)
+        return concat(outs, -1, devices) if pn < n else outs[0]
     if pn < n and isinstance(ps[0], PackedLinear):
         return [linear(p, x.to(d)) for p, d in zip(ps, devices)]
     if pn < n:

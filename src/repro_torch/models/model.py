@@ -12,8 +12,10 @@ One class serves every config, as in the reference:
                        prefilled, at positions after the image span.
 
 Entry points mirror the reference's `Model`: `prefill` + `decode_step`
-over the dense cache (`GenerationEngine.generate`) or, with a page table,
-over the page pools (the one-shot serving path), `chunk_step` over the
+over the dense cache (`GenerationEngine.generate`; under a ``mesh`` the
+placed step, parameters by `param_pspec` and the cache by `cache_pspec`)
+or, with a page table, over the page pools (the one-shot serving path),
+`chunk_step` over the
 paged pools (the chunked serving path), `forward_logits`, and `loss`, the
 chunked-vocab causal-LM (or masked-unit) loss plus the MoE layers' router
 aux losses (AWQ's calibration forward and the train step's objective,
@@ -321,12 +323,20 @@ class Model:
                                             num_slots=num_slots,
                                             slot_seq=slot_seq)
 
-    def prefill(self, params, batch: dict, cache: Any):
+    def prefill(self, params, batch: dict, cache: Any, mesh=None):
         """Full-sequence prefill → (cache, logits, next pos [B]): the last
         position's logits ``[B, V]``, or an encoder's at every frame
         ``[B, S, V]``. The cache must hold the whole sequence (a vision
         batch's image span included); an encoder's is written too, as in
-        the reference, so size it at the batch's S."""
+        the reference, so size it at the batch's S.
+
+        Under a ``mesh`` the step is placed: ``params`` one tree a
+        ``model`` shard (`distributed.sharding.shard_params`; a list of
+        such lists a data replica, `replica_params`, under several) and
+        ``cache`` placed by `distributed.sharding.place_cache`; see
+        `_step_mesh`."""
+        if mesh is not None:
+            return self._step_mesh(params, cache, batch, mesh, "prefill")
         cfg = self.cfg
         x, positions, _ = self._embed(params, batch)
         x, cache, _ = stack.stack_apply(params["segments"], x, cfg,
@@ -341,12 +351,22 @@ class Model:
 
     def decode_step(self, params, cache: Any, token: torch.Tensor,
                     pos: torch.Tensor,
-                    page_table: torch.Tensor | None = None):
-        """One token: token [B], pos [B] → (logits [B, V], cache).
+                    page_table: torch.Tensor | None = None, mesh=None,
+                    greedy: bool = False):
+        """One token: token [B], pos [B] → (logits [B, V], cache); with
+        ``greedy``, (each row's greedy token [B] int32, cache): `argmax`
+        of the logits, the first maximum on a tie.
 
         ``page_table`` [B, pages] routes the reads and writes when
-        ``cache`` came from `init_paged_cache`.
+        ``cache`` came from `init_paged_cache`. Under a ``mesh``, params
+        and cache as `prefill` takes them (`_step_mesh`); with
+        ``greedy`` the head stays vocab-parallel and only each shard's
+        ``[B]`` maxima and indices cross (`_greedy_tp`).
         """
+        if mesh is not None:
+            return self._step_mesh(params, cache, {"token": token,
+                                                   "pos": pos}, mesh,
+                                   "decode", greedy)
         cfg = self.cfg
         x = embed_lookup(params["embed"], token, scale=cfg.scale_embed).to(
             torch_dtype(cfg.activation_dtype))
@@ -354,7 +374,92 @@ class Model:
                                         mode="decode", positions=pos,
                                         cache=cache, page_table=page_table)
         x = norm(params["final_norm"], x, cfg)
-        return self._head_logits(params, x), cache
+        logits = self._head_logits(params, x)
+        if greedy:
+            return logits.argmax(-1).to(torch.int32), cache
+        return logits, cache
+
+    def _step_mesh(self, params, cache, batch: dict, mesh, mode: str,
+                   greedy: bool = False):
+        """The placed one-shot step (`prefill` / `decode_step` under a
+        ``mesh``), the reference's step over arguments placed by
+        `param_pspec` and `cache_pspec`: each data replica runs its rows
+        (`split_batch`) over its ``model`` shards, as `chunk_step`'s mesh
+        branch does: the table looked up over its shards (a frontend
+        column-parallel, `_embed`), every block through
+        `blocks.block_apply_tp` (its cache piece filled or read and
+        written in place), the first shard's final norm, the head over the
+        vocabulary's shards (`_head_logits_tp`, or `_greedy_tp`). The
+        replicas' outputs are joined in replica order on the first
+        device. prefill → (cache, logits, next pos); decode → (logits or
+        tokens, cache)."""
+        cfg = self.cfg
+        rms = replica_meshes(mesh)
+        grid = params if isinstance(params[0], list) else [params]
+        caches = cache if len(rms) > 1 else [cache]
+        if len(grid) != len(rms) or len(caches) != len(rms):
+            raise ValueError(f"{len(grid)} params and {len(caches)} caches "
+                             f"for {len(rms)} data replicas")
+        outs, nxts = [], []
+        for ps, c, b, rm in zip(grid, caches, split_batch(batch, mesh), rms):
+            devices = model_devices(rm)
+            if mode == "prefill":
+                x, positions, _ = self._embed(ps, b, devices)
+            else:
+                positions = b["pos"]
+                x = embed_lookup_tp([p["embed"]["table"] for p in ps],
+                                    b["token"], devices, cfg.vocab_size,
+                                    cfg.d_model, scale=cfg.scale_embed).to(
+                    torch_dtype(cfg.activation_dtype))
+            with free_rows(mode == "prefill"):
+                for si, (kind, n) in enumerate(cfg.segments()):
+                    seg = stack.seg_name(si)
+                    for i in range(n):
+                        x, _ = blocks.block_apply_tp(
+                            [p["segments"][seg][i] for p in ps], x, cfg,
+                            kind, mesh=rm, positions=positions, mode=mode,
+                            cache=c[seg][i])
+            x = norm(ps[0]["final_norm"], x, cfg)
+            if mode == "decode":
+                outs.append(self._greedy_tp(ps, x, devices) if greedy
+                            else self._head_logits_tp(ps, x, devices))
+                continue
+            nxts.append(positions[:, -1] + 1)
+            if cfg.is_encoder:
+                with free_rows():
+                    outs.append(self._head_logits_tp(ps, x, devices))
+            else:
+                outs.append(self._head_logits_tp(ps, x[:, -1], devices))
+        dev = rms[0].devices[0]
+        out = torch.cat([o.to(dev) for o in outs])
+        if mode == "decode":
+            return out, cache
+        return cache, out, torch.cat([t.to(dev) for t in nxts])
+
+    def _greedy_tp(self, params: list, x: torch.Tensor, devices: list
+                   ) -> torch.Tensor:
+        """Greedy tokens ``[B]`` int32 over a vocabulary-parallel head (the
+        reference's fused-sample decode): each shard takes the argmax of
+        its own vocab slice of the logits; the shards' ``[B]`` maxima and
+        indices are joined (`concat`) and the first maximum in shard
+        order wins, `argmax`'s tie rule. A head that is not split over
+        the vocabulary forms its logits whole (`_head_logits_tp`) and
+        takes their argmax."""
+        cfg = self.cfg
+        w, vdim = ((params[0]["embed"]["table"], 0) if cfg.tie_embeddings
+                   else (params[0]["lm_head"]["w"], -1))
+        if w.shape[vdim] == cfg.vocab_size:
+            return self._head_logits_tp(params, x, devices).argmax(-1).to(
+                torch.int32)
+        vals, idxs = [], []
+        for s, (p, d) in enumerate(zip(params, devices)):
+            lg = self._head_logits(p, x.to(d))
+            i = lg.argmax(dim=-1, keepdim=True)
+            vals.append(torch.gather(lg, -1, i)[:, 0][None])
+            idxs.append((i[:, 0] + s * lg.shape[-1]).to(torch.int32)[None])
+        vals, idxs = concat(vals, 0, devices), concat(idxs, 0, devices)
+        best = vals.argmax(dim=0, keepdim=True)     # the first in shard order
+        return torch.gather(idxs, 0, best)[0]
 
     def chunk_step(self, params, cache: Any, tokens: torch.Tensor,
                    pos: torch.Tensor, sample_idx: torch.Tensor,

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import concat
 from repro_torch.models import layers
 from repro_torch.models.layers import gathered, linear, linear_tp, striped
 from repro_torch.numerics import einsum_f32, einsum_f64
@@ -82,9 +83,16 @@ def _conv_step(u1: torch.Tensor, conv_cache: torch.Tensor, kern: dict):
     pre-conv inputs, f32). Returns (silu output [B, C], the window's
     last dc-1 inputs). The taps are summed one after another, so a row's
     bits do not depend on the batch."""
+    pre, window = _conv_sum(u1, conv_cache, kern)
+    return F.silu(pre), window
+
+
+def _conv_sum(u1: torch.Tensor, conv_cache: torch.Tensor, kern: dict):
+    """`_conv_step` before its silu: (the taps' sum plus the bias, the
+    window's last dc-1 inputs)."""
     window = torch.cat([conv_cache, u1[:, None].to(conv_cache.dtype)], dim=1)
     out = sum(window[:, i] * kern["k"][i] for i in range(window.shape[1]))
-    return F.silu(out + kern["b"]), window[:, 1:]
+    return out + kern["b"], window[:, 1:]
 
 
 def _project(p, x_in, nm, keys=("wz", "wx", "wb", "wc")):
@@ -247,10 +255,92 @@ def final_state(p, ux, ub, dt, cfg) -> torch.Tensor:
     ng = cfg.ssm_ngroups
     xh = _heads(_causal_conv(ux, p["conv_x"]), nh, hd)
     bh = _heads(_causal_conv(ub, p["conv_b"]), ng, ds, nh // ng)
-    seg = torch.cumsum(dt * -torch.exp(p["a_log"]), dim=1)     # [B, S, nh]
-    decay_to_end = torch.exp(seg[:, -1:] - seg)
-    return einsum_f32("bjhs,bjhd->bhds", bh * (dt * decay_to_end)[..., None],
-                      xh)
+    return _final_state(xh, bh, dt, p["a_log"])
+
+
+def _final_state(xh, bh, dt, a_log) -> torch.Tensor:
+    """`final_state` of the heads given: xh [B, S, h, hd], bh [B, S, h,
+    ds], dt [B, S, h] (f32) and their ``a_log`` [h]."""
+    return _state_from(xh, bh, _input_weights(dt, a_log))
+
+
+def _input_weights(dt, a_log) -> torch.Tensor:
+    """Each token's weight in the final state, ``dt · decay to the end``
+    [B, S, h] f32."""
+    seg = torch.cumsum(dt * -torch.exp(a_log), dim=1)          # [B, S, h]
+    return dt * torch.exp(seg[:, -1:] - seg)
+
+
+def _state_from(xh, bh, wts) -> torch.Tensor:
+    """The state ``Σ_j w_j · B_j ⊗ x_j`` -> [B, h, hd, ds] f32."""
+    return einsum_f32("bjhs,bjhd->bhds", bh * wts[..., None], xh)
+
+
+def _conv_tail(u: torch.Tensor, dc: int) -> torch.Tensor | None:
+    """A prefill's last dc−1 pre-conv inputs, or None for a prompt shorter
+    than that (the conv cache keeps its zeros, as the reference's)."""
+    return u[:, u.shape[1] - (dc - 1):] if u.shape[1] >= dc - 1 else None
+
+
+def fill_ssm_cache_from_prefill_tp(cache, ps: list, h, cfg, devices: list):
+    """`fill_ssm_cache_from_prefill` into a placed SSM cache (``ps``: one
+    layer's SSM params a shard; h [B, S, D] replicated). The front
+    linears run column-parallel as `ssm_mixer_tp`'s; a conv cache split
+    over channels takes each shard's stripe of its pre-conv input (cut
+    from the joined input where the linear stays whole), a whole one the
+    joined input. A state split over heads (``ssm_nheads % n == 0``) is
+    each shard's own heads' final state (B's conv run once on the joined
+    B, as `ssm_mixer_tp` runs it); else the heads run on the first
+    shard."""
+    n = len(devices)
+    d, di = cfg.d_model, cfg.d_inner
+    ds, nh, hd, ng = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim, \
+        cfg.ssm_ngroups
+    p0 = ps[0]
+
+    def proj(key, width):
+        return linear_tp([p[key] for p in ps], h, devices, d, width)
+
+    ux, ub, uc = proj("wx", di), proj("wb", ng * ds), proj("wc", ng * ds)
+    dtr = proj("wdt", nh)
+    for key, u in (("conv_x", ux), ("conv_b", ub), ("conv_c", uc)):
+        if isinstance(cache[key], list):
+            for t, us in zip(cache[key], striped(u, devices)):
+                tail = _conv_tail(us, cfg.ssm_conv)
+                if tail is not None:
+                    t.copy_(tail)
+        else:
+            tail = _conv_tail(gathered(u, devices), cfg.ssm_conv)
+            if tail is not None:
+                cache[key].copy_(tail)
+    bh = _heads(_causal_conv(gathered(ub, devices), p0["conv_b"]), ng, ds,
+                nh // ng)
+    wts = _input_weights(_dt(p0, dtr, devices), p0["a_log"])  # [B, S, nh]
+    if not isinstance(cache["state"], list):
+        xh = _heads(_causal_conv(gathered(ux, devices), p0["conv_x"]), nh,
+                    hd)
+        cache["state"].copy_(_state_from(xh, bh, wts))
+        return cache
+    hs = nh // n
+    for s, (ux_s, dv) in enumerate(zip(striped(ux, devices), devices)):
+        lo, hi = s * hs, (s + 1) * hs
+        kx = {k: _cols(p0["conv_x"][k], lo * hd, hi * hd, dv)
+              for k in ("k", "b")}
+        cache["state"][s].copy_(_state_from(
+            _heads(_causal_conv(ux_s, kx), hs, hd),
+            bh[:, :, lo:hi].to(dv), wts[:, :, lo:hi].to(dv)))
+    return cache
+
+
+def _dt(p0, dtr, devices: list) -> torch.Tensor:
+    """The step sizes ``softplus(x·wdt + dt_bias)`` [..., nh] f32 on the
+    first shard, from ``wdt``'s column stripes joined (``nh`` columns:
+    a few bytes a row). Formed on all heads at once, as the unsplit
+    mixer forms them: PyTorch's CPU kernels for ``softplus`` and ``exp``
+    take another code path for a stripe of one or two heads, which
+    rounds some elements differently."""
+    return F.softplus(gathered(dtr, devices).to(torch.float32)
+                      + p0["dt_bias"])
 
 
 # ---------------------------------------------------------------------------
@@ -300,12 +390,107 @@ def ssm_decode(p, cache, x_in: torch.Tensor, cfg, name=None):
     bh = _heads(bb, ng, ds, nh // ng)                        # [B, nh, ds]
     ch = _heads(cc, ng, ds, nh // ng)
     da = torch.exp(dt * -torch.exp(p["a_log"]))              # [B, nh]
-    h = (cache["state"] * da[:, :, None, None]
-         + (dt[:, :, None, None] * bh[:, :, None, :]) * xh[..., None])
-    y = einsum_f64("bhds,bhs->bhd", h, ch).to(torch.float32)
+    y, h = _recur(cache["state"], xh, bh, ch, dt, da)
     y = _out(p, y, xh, z, x_in.dtype, cfg)
     out = linear(p["out_proj"], y, nm("out_proj"))
     for key, new in (("conv_x", cx), ("conv_b", cb), ("conv_c", ccs),
                      ("state", h)):
         cache[key].copy_(new)
     return out, cache
+
+
+def _conv_step_tp(u, conv_cache, kern: dict, devices: list, join: bool):
+    """`_conv_step` under a ``model`` mesh: a conv cache split over
+    channels (a list of stripes) steps stripe by stripe on its own
+    device (the conv is depthwise), with the stripes of the replicated
+    kernel and of ``u`` (cut where its linear stays whole). With
+    ``join`` the stripes' sums are joined and the silu runs once on all
+    channels (on the CPU, PyTorch's silu takes another code path for a
+    stripe a few channels wide, which rounds some elements otherwise);
+    else each stripe's output stays on its shard. A whole cache steps on
+    the first shard. The caches take their new windows in place."""
+    if not isinstance(conv_cache, list):
+        out, win = _conv_step(gathered(u, devices), conv_cache, kern)
+        conv_cache.copy_(win)
+        return out
+    outs, lo = [], 0
+    for t, us, dv in zip(conv_cache, striped(u, devices), devices):
+        w = t.shape[-1]
+        pre, win = _conv_sum(us, t, {k: _cols(kern[k], lo, lo + w, dv)
+                                     for k in ("k", "b")})
+        t.copy_(win)
+        outs.append(pre)
+        lo += w
+    if join:
+        return F.silu(concat(outs, -1, devices))
+    return [F.silu(o) for o in outs]
+
+
+def ssm_decode_tp(ps: list, cache, x_in: torch.Tensor, cfg, devices: list
+                  ) -> torch.Tensor:
+    """`ssm_decode` under a ``model`` mesh (``ps``: one layer's SSM params
+    a shard; ``cache``: its `place_cache` piece). x_in [B, D] replicated
+    -> y [B, D] replicated; the cache is updated in place.
+
+    The front linears run column-parallel. B's and C's conv steps run on
+    their caches' channel stripes and are joined (every head reads every
+    group). Where the heads divide over the shards (the state is then
+    split over heads, the conv_x cache and ``wx`` over their channels),
+    each shard steps its own heads: its x conv, the recurrence, the state
+    read ``h·C`` in f64 (rounded once), the D skip and the gate; the gated
+    RMSNorm over all of ``d_inner`` sums the shards' sums of squares
+    (`layers.rmsnorm_split`) and ``out_proj`` runs row-parallel (or
+    flipped). Else z, x and dt are joined and the heads step on the first
+    shard, as `ssm_decode`."""
+    n = len(devices)
+    b, d, di = x_in.shape[0], cfg.d_model, cfg.d_inner
+    ds, nh, hd, ng = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim, \
+        cfg.ssm_ngroups
+    p0 = ps[0]
+
+    def proj(key, width):
+        return linear_tp([p[key] for p in ps], x_in, devices, d, width)
+
+    z, ux = proj("wz", di), proj("wx", di)
+    dt = _dt(p0, proj("wdt", nh), devices)                   # [B, nh]
+    da = torch.exp(dt * -torch.exp(p0["a_log"]))
+    bb = _conv_step_tp(proj("wb", ng * ds), cache["conv_b"], p0["conv_b"],
+                       devices, True)
+    cc = _conv_step_tp(proj("wc", ng * ds), cache["conv_c"], p0["conv_c"],
+                       devices, True)
+    bh = _heads(bb, ng, ds, nh // ng)                        # [B, nh, ds]
+    ch = _heads(cc, ng, ds, nh // ng)
+    outs = [p["out_proj"] for p in ps]
+    if not isinstance(cache["state"], list):
+        x = _conv_step_tp(ux, cache["conv_x"], p0["conv_x"], devices, True)
+        y, h = _recur(cache["state"], _heads(x, nh, hd), bh, ch, dt, da)
+        cache["state"].copy_(h)
+        y = _out(p0, y, _heads(x, nh, hd), gathered(z, devices),
+                 x_in.dtype, cfg)
+        return gathered(linear_tp(outs, y, devices, di, d), devices)
+    hs = nh // n
+    xs = _conv_step_tp(ux, cache["conv_x"], p0["conv_x"], devices, False)
+    zs = striped(z, devices)
+    gated = []
+    for s, dv in enumerate(devices):
+        lo, hi = s * hs, (s + 1) * hs
+        xh = _heads(xs[s], hs, hd)
+        y, h = _recur(cache["state"][s], xh, bh[:, lo:hi].to(dv),
+                      ch[:, lo:hi].to(dv), _cols(dt, lo, hi, dv),
+                      _cols(da, lo, hi, dv))
+        cache["state"][s].copy_(h)
+        y = y + xh * _cols(p0["ssm_d"], lo, hi, dv)[:, None]
+        y = y.reshape(b, hs * hd).to(x_in.dtype)
+        gated.append(y * F.silu(zs[s]))
+    normed = layers.rmsnorm_split(p0["out_norm"], gated, devices,
+                                  eps=cfg.norm_eps)
+    return gathered(linear_tp(outs, normed, devices, di, d), devices)
+
+
+def _recur(state, xh, bh, ch, dt, da):
+    """One step of the recurrence over the heads given (dt and the decay
+    ``da = exp(dt·A)`` [B, h]) -> (y [B, h, hd] f32: the state read
+    ``h·C`` in f64, rounded once; the new state)."""
+    h = (state * da[:, :, None, None]
+         + (dt[:, :, None, None] * bh[:, :, None, :]) * xh[..., None])
+    return einsum_f64("bhds,bhs->bhd", h, ch).to(torch.float32), h

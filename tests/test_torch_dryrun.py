@@ -7,8 +7,10 @@ counter.
     XLA's own as ``null``, ``argument_bytes`` from the rules
     (`launch.specs`), the analytic terms and `model_flops_estimate` as the
     reference computes them; a prefill or decode cell's collective term
-    ``null`` (the one-shot step runs unplaced params), its bytes by hand
-    on (2 × 2); a failing cell exits 1.
+    that of the placed one-shot step (parameters by `param_pspec`, the
+    cache by `cache_pspec`), its bytes and collectives by hand on
+    (2 × 2), every family's prefill and decode on (1 × 4), the
+    fused-sample variant's tokens; a failing cell exits 1.
   * `RooflineTerms` is the reference's at the H100's constants (the
     reference's with its TPU constants swapped for the port's gives the
     same record).
@@ -93,15 +95,14 @@ def test_record_keys_bytes_and_terms(arch, cell, tmp_path):
         # a data axis: the gradient's reduction and ZeRO-1's gather
         assert rec["collectives"]["all-reduce"] > 0
         assert rec["collective_calls"]["zero1_gather"] > 0
-        assert rec["collective_bytes_per_chip"] == \
-            rec["collectives"]["total"]
-        assert rec["collective_s"] == rec["collectives"]["total"] / 450e9
     else:
-        # the one-shot step runs unplaced params: no collective term
-        assert rec["collectives"] is None
-        assert rec["collective_calls"] is None
-        assert all(rec[k] is None for k in dryrun.UNPLACED_NULL_KEYS)
+        # the placed step: row-parallel sums and the vocabulary's slices
+        # joined (a (2 × 2) mesh splits both models' matrices)
+        assert rec["collective_calls"]["all_sum"] > 0
+        assert rec["collective_calls"]["concat"] > 0
         assert rec["compute_s"] == rec["flops_per_chip"] / 989e12
+        assert rec["dominant"] in ("compute", "memory", "collective")
+        assert 0 < rec["step_time_s"] and 0 < rec["roofline_fraction"]
         args = [S.param_specs(cfg, mesh, quant),
                 S.cache_specs(cfg, mesh, c.global_batch, c.seq_len)]
         args.append(S.batch_specs(cfg, c, mesh) if step == "prefill"
@@ -109,6 +110,10 @@ def test_record_keys_bytes_and_terms(arch, cell, tmp_path):
                         mesh, c.global_batch))))
         want = S.shard_bytes(*args)
     assert mem["argument_bytes"] == want
+    assert rec["collective_bytes_per_chip"] == rec["collectives"]["total"]
+    assert rec["collective_s"] == rec["collectives"]["total"] / 450e9
+    assert rec["collectives"]["total"] == sum(
+        v for k, v in rec["collectives"].items() if k != "total")
     # the analytic terms and MODEL_FLOPS are the reference's
     n = rconfigs.get_config(arch).n_active_params()
     assert cfg.n_active_params() == n
@@ -126,8 +131,17 @@ def test_decode_cell_bytes_hand_count_on_a_2x2_mesh():
     (2 × 2) mesh, counted by hand: a device holds half of every matrix,
     bias and the vocabulary (the norms whole), half the batch's rows of
     a cache striped along S over ``model`` (bf16 k / v, 24 layers), and
-    its rows' token and position; the step runs the first replica's 64
-    rows, so its logits are [64, V] f32; no collective term."""
+    its rows' token and position; the placed step runs the first
+    replica's 64 rows, so its logits are [64, V] f32 (the fused-sample
+    variant's, [64] int32 tokens). Its collectives a device: the
+    embedding's vocab-parallel pieces summed (f32 [64, D]); per layer the
+    q heads' stripes joined (bf16 [64, 7, 64]: 7 of 14 heads a shard) and
+    k's and v's (bf16 [64, 1, 64]: 1 of 2 kv heads), each S stripe's
+    partial max, sum and output joined (f32: ``meta`` reads as the CPU's
+    f32), the combined output cut for the row-parallel ``wo`` (bf16
+    [64, D / 2]), ``wo``'s and ``down``'s partials summed (f32 [64, D]);
+    the head's vocabulary slices joined (f32 [64, V / 2]), or each
+    shard's [64] maximum and index."""
     d, kvd, f, v, n_l = 896, 128, 4864, 151936, 24
     rows, s_stripe = 128 // 2, 32768 // 2
     params = 4 * ((v * d + n_l * (2 * kvd + 2 * d * kvd + 2 * d * d + d
@@ -138,21 +152,55 @@ def test_decode_cell_bytes_hand_count_on_a_2x2_mesh():
     mem = rec["memory_analysis"]
     assert mem["argument_bytes"] == params + cache + 2 * rows * 4
     assert mem["output_bytes"] == cache + rows * v * 4
-    assert rec["collectives"] is None and rec["collective_s"] is None
+    layer = {"concat": rows * 7 * 64 * 2 + 2 * rows * 64 * 2
+             + 2 * rows * 14 * 4 + rows * 14 * 64 * 4,
+             "split": rows * d // 2 * 2, "all_sum": 2 * rows * d * 4}
+    want = {"all_sum": rows * d * 4 + n_l * layer["all_sum"],
+            "concat": n_l * layer["concat"] + rows * v // 2 * 4,
+            "split": n_l * layer["split"]}
+    assert rec["collective_calls"] == {"all_sum": 1 + 2 * n_l,
+                                       "concat": 6 * n_l + 1,
+                                       "split": n_l}
+    assert rec["collectives"]["all-reduce"] == want["all_sum"]
+    assert rec["collectives"]["all-gather"] == want["concat"]
+    assert rec["collectives"]["scatter"] == want["split"]
+    assert rec["collectives"]["total"] == sum(want.values())
+    fused = dryrun.run_cell("qwen25-05b", "decode_32k", "single", False,
+                            None, variant="fused-sample", mesh=_mesh(2, 2))
+    assert fused["memory_analysis"]["output_bytes"] == cache + rows * 4
+    assert fused["memory_analysis"]["argument_bytes"] == \
+        mem["argument_bytes"]
+    assert fused["collectives"]["all-gather"] == \
+        n_l * layer["concat"] + 2 * rows * 4
 
 
-def test_every_family_runs_on_meta():
-    """One cell of each family not above on a (1 × 4) mesh: MoE + MLA
-    train, hymba's prefill, the encoder's prefill, the VLM's decode."""
+@pytest.mark.parametrize("arch,cell,quant", [
+    ("deepseek-v2-lite-16b", "train_4k", False),
+    ("deepseek-v2-lite-16b", "prefill_32k", False),
+    ("deepseek-v2-lite-16b", "decode_32k", False),
+    ("qwen2-moe-a2.7b", "decode_32k", False),
+    ("mamba2-130m", "prefill_32k", True),
+    ("mamba2-130m", "long_500k", True),
+    ("hymba-1.5b", "prefill_32k", True),
+    ("hymba-1.5b", "decode_32k", True),
+    ("hubert-xlarge", "prefill_32k", True),
+    ("phi-3-vision-4.2b", "prefill_32k", True),
+    ("phi-3-vision-4.2b", "decode_32k", True),
+    ("gemma3-4b", "long_500k", True),
+    ("glm4-9b", "decode_32k", True)])
+def test_every_family_runs_on_meta(arch, cell, quant):
+    """Every family's cells on a (1 × 4) mesh: MoE + MLA train, and each
+    family's placed prefill and decode (the MoE models with float experts:
+    the packed experts' plain path loops over 64 experts, a minute on
+    ``meta``); each counts its collectives, the row-parallel sums among
+    them."""
     mesh = _mesh(1, 4)
-    for arch, cell in (("deepseek-v2-lite-16b", "train_4k"),
-                       ("hymba-1.5b", "prefill_32k"),
-                       ("hubert-xlarge", "prefill_32k"),
-                       ("phi-3-vision-4.2b", "decode_32k")):
-        quant = configs.SHAPES[cell].step != "train"
-        rec = dryrun.run_cell(arch, cell, "single", quant, None, mesh=mesh)
-        assert rec["chips"] == 4 and rec["memory_analysis"][
-            "argument_bytes"] > 0, arch
+    rec = dryrun.run_cell(arch, cell, "single", quant, None, mesh=mesh)
+    assert rec["chips"] == 4 and rec["memory_analysis"][
+        "argument_bytes"] > 0, arch
+    assert rec["collectives"]["total"] > 0
+    assert rec["collective_calls"]["all_sum"] >= 1
+    assert rec["step_time_s"] > 0
 
 
 def test_main_exits_1_on_a_failing_cell(monkeypatch, tmp_path, capsys):
